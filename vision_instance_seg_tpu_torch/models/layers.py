@@ -1,0 +1,106 @@
+"""Shared building blocks: fp32 norms, Mlp, DropPath, sine positions, resize.
+
+PyTorch counterparts of ``vision_instance_seg_tpu/models/layers.py``. The
+dtype policy is the JAX package's: parameters stay fp32, matmuls run in the
+compute dtype (``torch.autocast`` here, ``TPU.COMPUTE_DTYPE``), and every
+normalization computes its statistics in fp32 and hands back the input's
+dtype.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with torch's eps 1e-5, computed in fp32."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__(dim, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                         self.bias, self.eps)
+        return y.to(x.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm(32) over NCHW with eps 1e-5, computed in fp32."""
+
+    def __init__(self, channels: int, groups: int = 32, eps: float = 1e-5):
+        super().__init__(groups, channels, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+                         self.eps)
+        return y.to(x.dtype)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth per sample (timm's DropPath); identity at eval."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = torch.empty(shape, device=x.device, dtype=x.dtype)
+        return x * mask.bernoulli_(keep) / keep
+
+
+class Mlp(nn.Module):
+    """Transformer MLP: Linear -> exact GELU -> Linear (keys fc1, fc2)."""
+
+    def __init__(self, dim: int, hidden_dim: int, out_dim: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+def position_embedding_sine(h: int, w: int, dim: int,
+                            device: torch.device,
+                            temperature: float = 10000.0) -> torch.Tensor:
+    """Normalized sine-cosine 2D position embedding, (H*W, dim) fp32.
+
+    DETR/Mask2Former's PositionEmbeddingSine, as the JAX package computes
+    it: the first half of the channels encodes y, the second half x.
+    """
+    half = dim // 2
+    y = torch.arange(1, h + 1, dtype=torch.float32, device=device)[:, None]
+    x = torch.arange(1, w + 1, dtype=torch.float32, device=device)[None, :]
+    y = (y / (h + 1e-6) * (2 * math.pi)).expand(h, w)
+    x = (x / (w + 1e-6) * (2 * math.pi)).expand(h, w)
+    dim_t = torch.arange(half, dtype=torch.float32, device=device)
+    dim_t = temperature ** (2 * torch.div(dim_t, 2, rounding_mode="floor")
+                            / half)
+    px = x[:, :, None] / dim_t
+    py = y[:, :, None] / dim_t
+    px = torch.stack([px[:, :, 0::2].sin(), px[:, :, 1::2].cos()],
+                     dim=3).reshape(h, w, half)
+    py = torch.stack([py[:, :, 0::2].sin(), py[:, :, 1::2].cos()],
+                     dim=3).reshape(h, w, half)
+    return torch.cat([py, px], dim=-1).reshape(h * w, dim)
+
+
+def resize_bilinear_2tap(x: torch.Tensor, h_out: int,
+                         w_out: int) -> torch.Tensor:
+    """Bilinear resize of a 4-d tensor's two trailing axes, half-pixel
+    centers, two taps per output, no antialiasing on downscale: the JAX
+    package's ``resize_bilinear_2tap`` and the upstream Mask2Former resize.
+    A channels-last view (an NHWC map permuted to NCHW) stays channels-last.
+    """
+    if tuple(x.shape[-2:]) == (h_out, w_out):
+        return x
+    return F.interpolate(x, size=(h_out, w_out), mode="bilinear",
+                         align_corners=False, antialias=False)

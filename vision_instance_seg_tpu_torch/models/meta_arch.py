@@ -1,0 +1,237 @@
+"""MaskFormer meta-architecture, model build and the serving entry point.
+
+PyTorch counterpart of ``vision_instance_seg_tpu/models/meta_arch.py`` for
+Mask2Former: backbone -> pixel decoder -> masked decoder, then Mask2Former
+instance inference. ``build_model`` returns an eval-mode module on the
+device (CUDA unless the caller passes ``device="cpu"``), with the upstream
+detectron2 state-dict layout (``backbone.*``, ``sem_seg_head.pixel_decoder.*``,
+``sem_seg_head.predictor.*``). ``make_inference_fn`` returns the serving
+callable ``infer(images) -> dict`` with the JAX package's output contract.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from vision_instance_seg_tpu_torch.config.validate import validate_cfg
+from vision_instance_seg_tpu_torch.kernels.msdeform_attn import DEFAULT_HALO
+from vision_instance_seg_tpu_torch.models.deform_attn import DeformCoreFn
+from vision_instance_seg_tpu_torch.models.pixel_decoder import (
+    build_pixel_decoder)
+from vision_instance_seg_tpu_torch.models.swin import build_swin
+from vision_instance_seg_tpu_torch.models.transformer_decoder import (
+    build_transformer_decoder)
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class MaskFormer(nn.Module):
+    """Instance segmentation model. Input NHWC normalized float images;
+    output (cls_layers, mask_layers)."""
+
+    def __init__(self, backbone: nn.Module, pixel_decoder: nn.Module,
+                 predictor: nn.Module,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.backbone = backbone
+        self.sem_seg_head = nn.Module()
+        self.sem_seg_head.pixel_decoder = pixel_decoder
+        self.sem_seg_head.predictor = predictor
+        self.compute_dtype = compute_dtype
+
+    def forward(self, images: torch.Tensor, aux_masks: bool = True):
+        with torch.autocast(images.device.type, dtype=self.compute_dtype,
+                            enabled=self.compute_dtype != torch.float32):
+            feats = self.backbone(images)
+            head = self.sem_seg_head
+            mask_features, multi_scale = head.pixel_decoder(feats)
+            return head.predictor(multi_scale, mask_features,
+                                  aux_masks=aux_masks)
+
+
+def resolve_device(device=None) -> torch.device:
+    """CUDA unless the caller names a device; never a silent CPU run."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' explicitly to "
+                           "run the port on the CPU")
+    return torch.device("cuda")
+
+
+def build_model(cfg, device=None,
+                deform_core_fn: Optional[DeformCoreFn] = None,
+                seed: int = 0) -> MaskFormer:
+    """Build the eval-mode model on ``device``, weights drawn from ``seed``.
+
+    ``deform_core_fn`` replaces the sampling core (default: the CUDA kernel
+    for CUDA tensors, its plain version for CPU tensors).
+    """
+    validate_cfg(cfg)
+    if is_maskdino(cfg):
+        raise NotImplementedError("MaskDINO is not ported yet")
+    if cfg.MODEL.BACKBONE.NAME != "swin":
+        raise NotImplementedError(
+            f"backbone {cfg.MODEL.BACKBONE.NAME!r}: only Swin is ported")
+    device = resolve_device(device)
+    backbone = build_swin(cfg)
+    channels = {f"res{i + 2}": cfg.MODEL.SWIN.EMBED_DIM * 2 ** i
+                for i in range(4)}
+    clamp = float(DEFAULT_HALO) if cfg.TPU.USE_PALLAS_DEFORM_ATTN else None
+    pixel_decoder = build_pixel_decoder(cfg, channels, core_fn=deform_core_fn,
+                                        offset_clamp=clamp)
+    predictor = build_transformer_decoder(cfg,
+                                          cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM)
+    model = MaskFormer(backbone, pixel_decoder, predictor,
+                       _DTYPES[cfg.TPU.COMPUTE_DTYPE])
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(device).eval()
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw every parameter from ``generator`` (the JAX package's init
+    families): trunc-normal(0.02) matrices, zero biases, unit norm scales,
+    N(0, 1) embeddings; the deformable layers keep their deterministic
+    Deformable-DETR offset / attention-weight init."""
+    for name, p in model.named_parameters():
+        if ".sampling_offsets." in name or ".attention_weights." in name:
+            continue
+        if name.endswith("bias"):
+            p.zero_()
+        elif "level_embed" in name or name.endswith(
+                ("query_feat.weight", "query_embed.weight")):
+            nn.init.normal_(p, 0.0, 1.0, generator=generator)
+        elif p.dim() == 1:
+            p.fill_(1.0)
+        else:
+            nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04,
+                                  generator=generator)
+
+
+def is_maskdino(cfg) -> bool:
+    return (cfg.MODEL.META_ARCHITECTURE == "MaskDINO"
+            or cfg.MODEL.MASK_DINO.ENABLED)
+
+
+def normalize_image(images: torch.Tensor, cfg) -> torch.Tensor:
+    """(B, H, W, 3) RGB 0-255 -> normalized (PIXEL_MEAN/STD); INPUT.FORMAT
+    "BGR" flips the channels first."""
+    images = images.float()
+    if cfg.INPUT.FORMAT == "BGR":
+        images = images.flip(-1)
+    mean = torch.tensor(cfg.MODEL.PIXEL_MEAN, dtype=torch.float32,
+                        device=images.device)
+    std = torch.tensor(cfg.MODEL.PIXEL_STD, dtype=torch.float32,
+                       device=images.device)
+    return (images - mean) / std
+
+
+def instance_inference(cls_logits: torch.Tensor, mask_logits: torch.Tensor,
+                       num_classes: int, topk: int = 100
+                       ) -> Dict[str, torch.Tensor]:
+    """Mask2Former instance inference, batched over images (final layer).
+
+    cls_logits (B, Q, C+1); mask_logits (B, Q, Hm, Wm). Returns scores
+    (B, K), labels (B, K), mask_probs (B, K, Hm, Wm) fp32.
+    """
+    scores = cls_logits.float().softmax(-1)[..., :-1]
+    flat = scores.flatten(1)                                 # (B, Q*C)
+    k = min(topk, flat.shape[1])
+    top_scores, top_idx = flat.topk(k, dim=1)
+    query_idx = top_idx // num_classes
+    labels = (top_idx % num_classes).to(torch.int32)
+    masks = torch.gather(
+        mask_logits, 1,
+        query_idx[:, :, None, None].expand(-1, -1, *mask_logits.shape[2:]))
+    probs = masks.float().sigmoid()
+    binm = (probs > 0.5).float()
+    # mask-probability calibration (Mask2Former: score *= mean prob in mask)
+    mask_score = (probs * binm).sum((2, 3)) / (binm.sum((2, 3)) + 1e-6)
+    return {"scores": top_scores * mask_score, "labels": labels,
+            "mask_probs": probs}
+
+
+def _mask_support_boxes(mask_probs: torch.Tensor) -> torch.Tensor:
+    """(..., K, Hm, Wm) probs -> (..., K, 4) int32 (x0, y0, x1, y1),
+    exclusive upper bounds, +1 margin, clipped; (0, 0, 0, 0) when empty."""
+    h, w = mask_probs.shape[-2:]
+    binm = mask_probs > 0.5
+    rows, cols = binm.any(-1), binm.any(-2)
+    yi = torch.arange(h, device=mask_probs.device)
+    xi = torch.arange(w, device=mask_probs.device)
+    y0 = torch.where(rows, yi, h).amin(-1) - 1
+    y1 = torch.where(rows, yi, -1).amax(-1) + 2
+    x0 = torch.where(cols, xi, w).amin(-1) - 1
+    x1 = torch.where(cols, xi, -1).amax(-1) + 2
+    box = torch.stack([x0.clamp(0, w), y0.clamp(0, h),
+                       x1.clamp(0, w), y1.clamp(0, h)], -1)
+    return torch.where(rows.any(-1)[..., None], box, 0).to(torch.int32)
+
+
+def _extract_mask_patches(mask_probs: torch.Tensor, mask_boxes: torch.Tensor,
+                          p: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Crop each instance's support-box region into a fixed (p, p) patch.
+
+    mask_probs (B, K, Hm, Wm) uint8; mask_boxes (B, K, 4) int32. Returns
+    origins (B, K, 2) int32 (x0p, y0p) and patches (B, K, p, p) uint8 with
+    ``patch[i, j] == mask_probs[y0p + i, x0p + j]`` (0 past the map edge);
+    origins center the box and clip to the map. A plain index gather.
+    """
+    b, k, hm, wm = mask_probs.shape
+    x0, y0, x1, y1 = mask_boxes.long().unbind(-1)
+    x0p = (x0 - torch.div(p - (x1 - x0), 2, rounding_mode="floor")).clamp(
+        0, max(wm - p, 0))
+    y0p = (y0 - torch.div(p - (y1 - y0), 2, rounding_mode="floor")).clamp(
+        0, max(hm - p, 0))
+    padded = torch.nn.functional.pad(mask_probs, (0, p, 0, p))
+    ar = torch.arange(p, device=mask_probs.device)
+    rows = (y0p[..., None] + ar)[..., :, None]                # (B, K, p, 1)
+    cols = (x0p[..., None] + ar)[..., None, :]                # (B, K, 1, p)
+    bi = torch.arange(b, device=mask_probs.device)[:, None, None, None]
+    ki = torch.arange(k, device=mask_probs.device)[None, :, None, None]
+    patches = padded[bi, ki, rows, cols]
+    return torch.stack([x0p, y0p], -1).to(torch.int32), patches
+
+
+def make_inference_fn(model: MaskFormer, cfg):
+    """Serving entry: ``infer(images)`` with images (B, H, W, 3) RGB 0-255
+    (uint8 or float, tensor or numpy) -> dict of per-image top-K instances:
+    scores (B, K) sorted descending, labels (B, K), mask_probs (B, K, Hm, Wm)
+    uint8 (x255, round half to even), mask_boxes (B, K, 4) int32 and, when
+    TEST.PATCH_POSTPROCESS, patch_origin (B, K, 2) / mask_patches
+    (B, K, P, P) uint8."""
+    num_classes = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+    topk = cfg.TEST.DETECTIONS_PER_IMAGE
+    patch_size = (int(cfg.TEST.PATCH_SIZE)
+                  if cfg.TEST.PATCH_POSTPROCESS and cfg.TEST.FAST_POSTPROCESS
+                  else 0)
+    device = next(model.parameters()).device
+
+    @torch.inference_mode()
+    def infer(images) -> Dict[str, torch.Tensor]:
+        if isinstance(images, np.ndarray):
+            images = torch.from_numpy(images)
+        images = normalize_image(images.to(device), cfg)
+        cls_layers, mask_layers = model(images, aux_masks=False)
+        res = instance_inference(cls_layers[-1], mask_layers[-1],
+                                 num_classes, topk)
+        # calibrated scores lose the top-k order: re-sort, stable descending
+        scores, order = res["scores"].sort(dim=-1, descending=True,
+                                           stable=True)
+        res["scores"] = scores
+        res["labels"] = torch.gather(res["labels"], 1, order)
+        probs = torch.gather(res["mask_probs"], 1, order[:, :, None, None]
+                             .expand(-1, -1, *res["mask_probs"].shape[2:]))
+        res["mask_boxes"] = _mask_support_boxes(probs)
+        res["mask_probs"] = torch.round(probs * 255.0).to(torch.uint8)
+        if patch_size:
+            res["patch_origin"], res["mask_patches"] = _extract_mask_patches(
+                res["mask_probs"], res["mask_boxes"], patch_size)
+        return res
+
+    return infer

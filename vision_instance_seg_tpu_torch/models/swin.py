@@ -1,0 +1,242 @@
+"""Swin Transformer backbone (T/S/B/L), NHWC, upstream state-dict layout.
+
+PyTorch counterpart of ``vision_instance_seg_tpu/models/swin.py``. Parameter
+names are the microsoft/timm detection fork's (``patch_embed.proj``,
+``layers.{s}.blocks.{b}.*``, ``layers.{s}.downsample.*``, per-stage out norms
+``norm{s}``), so an upstream checkpoint loads as it is. Semantics follow the
+JAX module, which follows the fork:
+
+- window padding happens after ``norm1``, so pad tokens enter attention as
+  exact zeros;
+- shifted windows roll by ``ws // 2`` and mask cross-region pairs with -100;
+- relative position bias from a ``(2ws-1)^2 x nH`` table;
+- ``PatchMerging`` concatenates (0::2,0::2), (1::2,0::2), (0::2,1::2),
+  (1::2,1::2) before its LayerNorm.
+
+Window attention is plain matmul + softmax (the JAX package keeps its
+Pallas window kernels switched off on this path).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vision_instance_seg_tpu_torch.models.layers import (
+    DropPath, LayerNorm, Mlp)
+
+
+def _relative_position_index(ws: int) -> torch.Tensor:
+    """Static (ws^2, ws^2) index into the (2ws-1)^2 bias table."""
+    coords = np.stack(np.meshgrid(np.arange(ws), np.arange(ws), indexing="ij"))
+    coords = coords.reshape(2, -1)
+    rel = coords[:, :, None] - coords[:, None, :]
+    rel = rel.transpose(1, 2, 0) + (ws - 1)
+    return torch.from_numpy(rel[..., 0] * (2 * ws - 1) + rel[..., 1]).long()
+
+
+def _shift_attn_mask(hp: int, wp: int, ws: int, shift: int,
+                     device: torch.device) -> torch.Tensor:
+    """Additive (nW, ws^2, ws^2) mask for shifted windows: tokens from
+    different pre-shift regions must not attend to each other."""
+    ys = torch.arange(hp, device=device)
+    xs = torch.arange(wp, device=device)
+    ry = (ys >= hp - ws).int() + (ys >= hp - shift).int()
+    rx = (xs >= wp - ws).int() + (xs >= wp - shift).int()
+    region = ry[:, None] * 3 + rx[None, :]
+    win = window_partition(region[None, :, :, None], ws)[..., 0]   # nW, N
+    diff = win[:, :, None] != win[:, None, :]
+    return torch.where(diff, -100.0, 0.0)
+
+
+def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
+    """(B, H, W, C) -> (B*nWh*nWw, ws*ws, C). H, W multiples of ws."""
+    b, h, w, c = x.shape
+    x = x.view(b, h // ws, ws, w // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, ws * ws, c)
+
+
+def window_unpartition(x: torch.Tensor, ws: int, h: int,
+                       w: int) -> torch.Tensor:
+    """Inverse of window_partition."""
+    c = x.shape[-1]
+    b = x.shape[0] // ((h // ws) * (w // ws))
+    x = x.view(b, h // ws, w // ws, ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h, w, c)
+
+
+class WindowAttention(nn.Module):
+    """W-MSA / SW-MSA with relative position bias (keys qkv, proj,
+    relative_position_bias_table)."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: int,
+                 qkv_bias: bool = True, qk_scale: float = 0.0):
+        super().__init__()
+        self.num_heads = num_heads
+        self.window_size = window_size
+        self.scale = qk_scale or (dim // num_heads) ** -0.5
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * window_size - 1) ** 2, num_heads))
+        self.register_buffer("relative_position_index",
+                             _relative_position_index(window_size),
+                             persistent=False)
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, mask) -> torch.Tensor:
+        """x: (nW_total, N, C) windows; mask: (nW, N, N) additive or None."""
+        nwt, n, c = x.shape
+        nh = self.num_heads
+        q, k, v = self.qkv(x).view(nwt, n, 3, nh, c // nh).permute(
+            2, 0, 3, 1, 4)                               # (nWt, nH, N, hd)
+        attn = (q * self.scale) @ k.transpose(-2, -1)
+        bias = self.relative_position_bias_table[
+            self.relative_position_index.reshape(-1)].view(n, n, nh)
+        attn = attn + bias.permute(2, 0, 1)
+        if mask is not None:
+            nw = mask.shape[0]
+            attn = (attn.view(nwt // nw, nw, nh, n, n)
+                    + mask[None, :, None]).view(nwt, nh, n, n)
+        attn = attn.softmax(dim=-1)
+        out = (attn.to(v.dtype) @ v).transpose(1, 2).reshape(nwt, n, c)
+        return self.proj(out)
+
+
+class SwinBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, window_size: int,
+                 shift_size: int, mlp_ratio: float, qkv_bias: bool,
+                 qk_scale: float, drop_path: float):
+        super().__init__()
+        self.window_size = window_size
+        self.shift_size = shift_size
+        self.norm1 = LayerNorm(dim)
+        self.attn = WindowAttention(dim, num_heads, window_size, qkv_bias,
+                                    qk_scale)
+        self.drop_path = DropPath(drop_path)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, H, W, C) unpadded."""
+        b, h, w, c = x.shape
+        ws, shift = self.window_size, self.shift_size
+        shortcut = x
+        x = self.norm1(x)
+        ph, pw = (ws - h % ws) % ws, (ws - w % ws) % ws
+        if ph or pw:
+            x = F.pad(x, (0, 0, 0, pw, 0, ph))
+        hp, wp = h + ph, w + pw
+        mask = None
+        if shift > 0:
+            x = torch.roll(x, (-shift, -shift), dims=(1, 2))
+            mask = _shift_attn_mask(hp, wp, ws, shift, x.device)
+        x = window_unpartition(self.attn(window_partition(x, ws), mask),
+                               ws, hp, wp)
+        if shift > 0:
+            x = torch.roll(x, (shift, shift), dims=(1, 2))
+        x = shortcut + self.drop_path(x[:, :h, :w])
+        return x + self.drop_path(self.mlp(self.norm2(x)))
+
+
+class PatchMerging(nn.Module):
+    """Downsample 2x: concat 2x2 neighborhood -> LN -> Linear(4C, 2C)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = LayerNorm(4 * dim)
+        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        if h % 2 or w % 2:
+            x = F.pad(x, (0, 0, 0, w % 2, 0, h % 2))
+        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
+                       x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
+        return self.reduction(self.norm(x))
+
+
+class _PatchEmbed(nn.Module):
+    def __init__(self, patch_size: int, embed_dim: int, patch_norm: bool):
+        super().__init__()
+        self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
+        self.norm = LayerNorm(embed_dim) if patch_norm else None
+
+
+class _Stage(nn.Module):
+    def __init__(self, blocks, downsample):
+        super().__init__()
+        self.blocks = nn.ModuleList(blocks)
+        self.downsample = downsample
+
+
+class SwinTransformer(nn.Module):
+    """Swin backbone producing NHWC features res2..res5 (strides 4..32)."""
+
+    def __init__(self, embed_dim: int = 96,
+                 depths: Sequence[int] = (2, 2, 6, 2),
+                 num_heads: Sequence[int] = (3, 6, 12, 24),
+                 window_size: int = 7, patch_size: int = 4,
+                 mlp_ratio: float = 4.0, qkv_bias: bool = True,
+                 qk_scale: float = 0.0, drop_path_rate: float = 0.3,
+                 patch_norm: bool = True,
+                 out_features: Sequence[str] = ("res2", "res3", "res4",
+                                                "res5")):
+        super().__init__()
+        self.patch_size = patch_size
+        self.out_features = tuple(out_features)
+        self.patch_embed = _PatchEmbed(patch_size, embed_dim, patch_norm)
+        dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
+        stages, blk_i = [], 0
+        for s, depth in enumerate(depths):
+            dim = embed_dim * 2 ** s
+            blocks = [SwinBlock(dim, num_heads[s], window_size,
+                                0 if d % 2 == 0 else window_size // 2,
+                                mlp_ratio, qkv_bias, qk_scale, dpr[blk_i + d])
+                      for d in range(depth)]
+            blk_i += depth
+            down = PatchMerging(dim) if s < len(depths) - 1 else None
+            stages.append(_Stage(blocks, down))
+            if f"res{s + 2}" in self.out_features:
+                self.add_module(f"norm{s}", LayerNorm(dim))
+        self.layers = nn.ModuleList(stages)
+
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """x: (B, H, W, 3) normalized image -> dict of NHWC feature maps."""
+        ps = self.patch_size
+        b, h0, w0, _ = x.shape
+        ph, pw = (ps - h0 % ps) % ps, (ps - w0 % ps) % ps
+        if ph or pw:
+            x = F.pad(x, (0, 0, 0, pw, 0, ph))
+        # an NHWC tensor permuted to NCHW is a channels-last view: the conv
+        # runs channels-last and permuting back yields contiguous NHWC
+        x = self.patch_embed.proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        if self.patch_embed.norm is not None:
+            x = self.patch_embed.norm(x)
+        outs = {}
+        for s, stage in enumerate(self.layers):
+            for blk in stage.blocks:
+                x = blk(x)
+            name = f"res{s + 2}"
+            if name in self.out_features:
+                outs[name] = getattr(self, f"norm{s}")(x)
+            if stage.downsample is not None:
+                x = stage.downsample(x)
+        return outs
+
+
+def build_swin(cfg) -> SwinTransformer:
+    s = cfg.MODEL.SWIN
+    if s.APE:
+        raise NotImplementedError(
+            "MODEL.SWIN.APE: the absolute position embedding is not ported "
+            "yet (no published Swin detection config uses it)")
+    return SwinTransformer(
+        embed_dim=s.EMBED_DIM, depths=tuple(s.DEPTHS),
+        num_heads=tuple(s.NUM_HEADS), window_size=s.WINDOW_SIZE,
+        patch_size=s.PATCH_SIZE, mlp_ratio=s.MLP_RATIO, qkv_bias=s.QKV_BIAS,
+        qk_scale=s.QK_SCALE, drop_path_rate=s.DROP_PATH_RATE,
+        patch_norm=s.PATCH_NORM, out_features=tuple(s.OUT_FEATURES))
