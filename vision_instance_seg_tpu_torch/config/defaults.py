@@ -11,13 +11,15 @@ Key naming follows the Detectron2/MaskDINO convention (``MODEL.SWIN.*``,
 (e.g. ``SOLVER.BASE_LR 5e-5``) keep working verbatim.
 
 The tree is key-for-key the JAX package's, so one opts list configures both.
-The PyTorch port reads two of the ``TPU.*`` keys: ``COMPUTE_DTYPE`` picks the
-autocast dtype of the forward, and ``USE_PALLAS_DEFORM_ATTN`` switches on the
+The PyTorch port reads four of the ``TPU.*`` keys: ``COMPUTE_DTYPE`` picks
+the autocast dtype of the forward; ``USE_PALLAS_DEFORM_ATTN`` switches on the
 +-6 px clamp of grid-query sampling offsets (the JAX kernel's halo contract,
 kept so both packages compute the same function). It does not choose an
-implementation there: CUDA tensors always take the CUDA sampling kernel and
-CPU tensors its plain version. The other ``TPU.*`` keys are accepted and
-have no effect in the port.
+implementation there: CUDA tensors always take the CUDA sampling kernels and
+CPU tensors their plain versions. ``REMAT_BACKBONE`` (like
+``MODEL.SWIN.USE_CHECKPOINT``) and ``REMAT_ENCODER`` recompute Swin blocks and
+encoder layers in the backward with ``torch.utils.checkpoint``. The other
+``TPU.*`` keys are accepted and have no effect in the port.
 """
 
 from vision_instance_seg_tpu_torch.config.core import CfgNode as CN

@@ -55,6 +55,12 @@ def validate_cfg(cfg) -> None:
     _reject(bool(m.PRE_NORM),
             "MASK_FORMER.PRE_NORM: only the post-norm decoder layer order "
             "(the reference configs' setting) is implemented")
+    if m.MATCHER not in ("hungarian", "hungarian_dfs", "greedy"):
+        raise ValueError(f"MASK_FORMER.MATCHER {m.MATCHER!r} (hungarian, "
+                         "hungarian_dfs or greedy)")
+    if m.POINT_MODE not in ("random", "grid"):
+        raise ValueError(f"MASK_FORMER.POINT_MODE {m.POINT_MODE!r} (random "
+                         "or grid)")
     if m.TRANSFORMER_DECODER_NAME not in (
             "MultiScaleMaskedTransformerDecoder", "MaskDINODecoder"):
         raise ValueError(

@@ -35,18 +35,7 @@
 // are reused through L1/L2 by neighbouring queries, whose samples cluster
 // around the same pixels.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define MSDA_MAX_LEVELS 8
-#define MSDA_MAX_SMEM 49152
-
-struct Levels {
-  int h[MSDA_MAX_LEVELS];
-  int w[MSDA_MAX_LEVELS];
-  int start[MSDA_MAX_LEVELS];
-};
+#include "msdeform_attn_common.cuh"
 
 // one sampling point: four corner token indices (-1 = off the map) and the
 // four matching weights (bilinear weight times attention weight)
@@ -55,34 +44,11 @@ struct __align__(16) Corners {
   float4 w;
 };
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
 __device__ __forceinline__ Corners make_corners(float lx_, float ly_, float a,
                                                 const Levels& lv, int l) {
-  const int H = lv.h[l];
-  const int W = lv.w[l];
-  // no FMA contraction: round like the plain version (mul, then sub)
-  const float x = __fsub_rn(__fmul_rn(lx_, (float)W), 0.5f);
-  const float y = __fsub_rn(__fmul_rn(ly_, (float)H), 0.5f);
-  const float xf = fminf(fmaxf(floorf(x), -2.f), (float)W);
-  const float yf = fminf(fmaxf(floorf(y), -2.f), (float)H);
-  const float lx = x - xf;
-  const float ly = y - yf;
-  const int x0 = (int)xf;
-  const int y0 = (int)yf;
-  const bool vx0 = x0 >= 0 && x0 < W;
-  const bool vx1 = x0 + 1 >= 0 && x0 + 1 < W;
-  const bool vy0 = y0 >= 0 && y0 < H;
-  const bool vy1 = y0 + 1 >= 0 && y0 + 1 < H;
-  const int base = lv.start[l] + y0 * W + x0;
+  float lx, ly;
   Corners c;
-  c.idx.x = vy0 && vx0 ? base : -1;
-  c.idx.y = vy0 && vx1 ? base + 1 : -1;
-  c.idx.z = vy1 && vx0 ? base + W : -1;
-  c.idx.w = vy1 && vx1 ? base + W + 1 : -1;
+  c.idx = corner_geometry(lx_, ly_, lv, l, &lx, &ly);
   c.w.x = (1.f - ly) * (1.f - lx) * a;
   c.w.y = (1.f - ly) * lx * a;
   c.w.z = ly * (1.f - lx) * a;
@@ -147,14 +113,7 @@ int msdeform_attn_fwd(const void* value, int value_is_bf16, const void* loc,
       nH * hd < 1 || point_bytes > MSDA_MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   Levels lv;
-  int start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv.h[l] = hw[2 * l];
-    lv.w[l] = hw[2 * l + 1];
-    lv.start[l] = start;
-    start += lv.h[l] * lv.w[l];
-  }
-  if (start != S) return (int)cudaErrorInvalidValue;
+  if (fill_levels(&lv, hw, L) != S) return (int)cudaErrorInvalidValue;
   // the corner table stays under the default 48 KB of shared memory
   int qpb = queries_per_block < 1 ? 1 : queries_per_block;
   if (qpb * point_bytes > MSDA_MAX_SMEM) qpb = MSDA_MAX_SMEM / point_bytes;

@@ -1,10 +1,14 @@
-"""Multi-scale deformable-attention sampling: CUDA kernel and plain version.
+"""Multi-scale deformable-attention sampling: CUDA kernels and plain versions.
 
-Port of ``vision_instance_seg_tpu/kernels/msdeform_attn.py``: the CUDA
-kernel in ``csrc/msdeform_attn_fwd.cu`` replaces the TPU kernel
+Port of ``vision_instance_seg_tpu/kernels/msdeform_attn.py``. The CUDA
+kernel in ``csrc/msdeform_attn_fwd.cu`` replaces the TPU forward kernel
 ``_encoder_level_pallas`` (entry ``ms_deform_attn_encoder_pallas``, dispatch
-``fused_ms_deform_attn``). It gathers, where the TPU kernel built one-hot
-selection matmuls over halo windows, so it serves any queries.
+``fused_ms_deform_attn``); the one in ``csrc/msdeform_attn_bwd.cu`` replaces
+the three TPU backward kernels behind ``_encoder_pallas_diff``
+(``_encoder_level_bwd_lw_pallas``, ``_encoder_bwd_v_dense_pallas``,
+``_encoder_level_bwd_v_pallas``). Both gather (and the backward scatters
+with atomics) where the TPU kernels built one-hot selection matmuls over
+halo windows, so they serve any queries.
 
 Contract of both functions below (the JAX ``ms_deform_attn_core_jnp``'s):
 value (B, sum HW, nH, hd) with the levels concatenated along axis 1;
@@ -13,7 +17,12 @@ normalized to [0, 1] (align_corners=False); weights (B, Q, nH, L, P).
 Returns (B, Q, nH * hd) fp32. Corners outside the map contribute zero.
 
 ``ms_deform_attn`` is the wrapper the model calls: a CPU tensor goes to the
-plain version, a CUDA tensor to the kernel, and nothing falls back.
+plain version (and gets autograd through it), a CUDA tensor to the kernel,
+through ``MSDeformAttnFunction`` when a gradient is wanted (backward = the
+backward kernel), and nothing falls back. ``ms_deform_attn_bwd`` is the
+backward's own wrapper. Gradients follow the JAX contract: d(value) in the
+value's dtype, d(locations) and d(weights) fp32; ``floor`` and the corner
+clip carry no gradient; corners off the map contribute nothing.
 """
 
 from __future__ import annotations
@@ -72,6 +81,69 @@ def ms_deform_attn_core_torch(value: torch.Tensor,
     return out.reshape(b, q, nh * hd)
 
 
+def ms_deform_attn_bwd_torch(value: torch.Tensor,
+                             spatial_shapes: Sequence[Tuple[int, int]],
+                             locations: torch.Tensor, weights: torch.Tensor,
+                             grad_out: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Plain backward of ``ms_deform_attn_core_torch``, written out (not
+    autograd): the CPU path and the backward kernel's golden.
+
+    grad_out (B, Q, nH * hd). Returns (d_value in the value's dtype,
+    d_locations fp32, d_weights fp32). Per sample and corner, with
+    gv = grad . value_corner over the head's channels: d_weights sums
+    w_corner * gv; d_locations is the level's W (H) times the attention
+    weight times the bilinear weights' x (y) derivative against gv;
+    d_value scatters weight * w_corner * grad onto the corner.
+    """
+    b, s, nh, hd = value.shape
+    q, p = locations.shape[1], locations.shape[4]
+    g = grad_out.float().reshape(b, q, nh, 1, hd)
+    d_value = torch.zeros((b, s, nh, hd), dtype=torch.float32,
+                          device=value.device)
+    d_loc = torch.zeros(locations.shape, dtype=torch.float32,
+                        device=value.device)
+    d_aw = torch.zeros(weights.shape, dtype=torch.float32,
+                       device=value.device)
+    start = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        v = value[:, start:start + h * w].float()            # (B, HW, nH, hd)
+        dv = d_value[:, start:start + h * w]
+        start += h * w
+        loc = locations[:, :, :, lvl].float()                # (B, Q, nH, P, 2)
+        aw = weights[:, :, :, lvl].float()                   # (B, Q, nH, P)
+        x = loc[..., 0] * w - 0.5
+        y = loc[..., 1] * h - 0.5
+        xf = torch.floor(x).clamp(-2, w)
+        yf = torch.floor(y).clamp(-2, h)
+        lx, ly = x - xf, y - yf
+        x0, y0 = xf.long(), yf.long()
+        gv, wc = {}, {}
+        for dy, wy in ((0, 1.0 - ly), (1, ly)):
+            for dx, wx in ((0, 1.0 - lx), (1, lx)):
+                yi, xi = y0 + dy, x0 + dx
+                valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+                idx = yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)
+                idx = idx.permute(0, 1, 3, 2).reshape(b, q * p, nh, 1)
+                idx = idx.expand(-1, -1, -1, hd)
+                vc = torch.gather(v, 1, idx).view(b, q, p, nh, hd)
+                vc = vc.permute(0, 1, 3, 2, 4)               # (B, Q, nH, P, hd)
+                gv[dy, dx] = torch.where(valid, (vc * g).sum(-1), 0.0)
+                wc[dy, dx] = torch.where(valid, wy * wx, 0.0)
+                contrib = (aw * wc[dy, dx])[..., None] * g   # (B, Q, nH, P, hd)
+                dv.scatter_add_(1, idx, contrib.permute(0, 1, 3, 2, 4)
+                                .reshape(b, q * p, nh, hd))
+        d_aw[:, :, :, lvl] = sum(wc[k] * gv[k] for k in gv)
+        d_lx = ((1.0 - ly) * (gv[0, 1] - gv[0, 0])
+                + ly * (gv[1, 1] - gv[1, 0]))
+        d_ly = ((1.0 - lx) * (gv[1, 0] - gv[0, 0])
+                + lx * (gv[1, 1] - gv[0, 1]))
+        d_loc[:, :, :, lvl, :, 0] = w * aw * d_lx
+        d_loc[:, :, :, lvl, :, 1] = h * aw * d_ly
+    return d_value.to(value.dtype), d_loc, d_aw
+
+
 def _check_inputs(value, spatial_shapes, locations, weights):
     b, s, nh, hd = value.shape
     nl = len(spatial_shapes)
@@ -118,12 +190,30 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    from vision_instance_seg_tpu_torch.kernels.build import load_library
+
+    lib = load_library("msdeform_attn_bwd")
+    lib.msdeform_attn_bwd.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
+        + [ctypes.c_int] * 7
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
+    lib.msdeform_attn_bwd.restype = ctypes.c_int
+    lib.msdeform_attn_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.msdeform_attn_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _level_array(spatial_shapes):
+    return (ctypes.c_int * (2 * len(spatial_shapes)))(
+        *[int(d) for hw in spatial_shapes for d in hw])
+
+
 def _launch_cuda(value, spatial_shapes, locations, weights):
     lib = _library()
     b, s, nh, hd = value.shape
     q, nl, p = locations.shape[1], len(spatial_shapes), locations.shape[4]
-    hw = (ctypes.c_int * (2 * nl))(*[int(d) for hw_ in spatial_shapes
-                                     for d in hw_])
     out = torch.empty((b, q, nh * hd), dtype=torch.float32,
                       device=value.device)
     with torch.cuda.device(value.device):
@@ -131,12 +221,75 @@ def _launch_cuda(value, spatial_shapes, locations, weights):
         err = lib.msdeform_attn_fwd(
             value.data_ptr(), int(value.dtype == torch.bfloat16),
             locations.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            b, s, q, nh, hd, nl, p, hw, QUERIES_PER_BLOCK, stream)
+            b, s, q, nh, hd, nl, p, _level_array(spatial_shapes),
+            QUERIES_PER_BLOCK, stream)
     if err:
         msg = lib.msdeform_attn_error_string(err).decode()
         raise RuntimeError(f"msdeform_attn_fwd launch failed: {msg} ({err})")
     ms_deform_attn.launches += 1
     return out
+
+
+def _check_grad(value, locations, grad_out):
+    b, _, nh, hd = value.shape
+    if tuple(grad_out.shape) != (b, locations.shape[1], nh * hd):
+        raise ValueError(f"grad_out {tuple(grad_out.shape)}, want "
+                         f"{(b, locations.shape[1], nh * hd)}")
+    if grad_out.dtype != torch.float32 or not grad_out.is_contiguous():
+        raise ValueError("grad_out must be contiguous float32")
+    if grad_out.device != value.device:
+        raise ValueError(f"grad_out on {grad_out.device}, value on "
+                         f"{value.device}")
+    if hd > 32 or hd & (hd - 1):
+        raise ValueError(f"head_dim {hd}: the backward kernel takes a power "
+                         "of two up to 32 (a head's lanes share one warp)")
+
+
+def _launch_cuda_bwd(value, spatial_shapes, locations, weights, grad_out):
+    _check_grad(value, locations, grad_out)
+    lib = _bwd_library()
+    b, s, nh, hd = value.shape
+    q, nl, p = locations.shape[1], len(spatial_shapes), locations.shape[4]
+    acc = torch.empty((b, s, nh, hd), dtype=torch.float32,
+                      device=value.device)
+    d_value = acc if value.dtype == torch.float32 else torch.empty_like(value)
+    d_loc = torch.empty_like(locations)
+    d_aw = torch.empty_like(weights)
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream(value.device).cuda_stream
+        err = lib.msdeform_attn_bwd(
+            value.data_ptr(), int(value.dtype == torch.bfloat16),
+            locations.data_ptr(), weights.data_ptr(), grad_out.data_ptr(),
+            acc.data_ptr(), d_value.data_ptr(), d_loc.data_ptr(),
+            d_aw.data_ptr(), b, s, q, nh, hd, nl, p,
+            _level_array(spatial_shapes), QUERIES_PER_BLOCK, stream)
+    if err:
+        msg = lib.msdeform_attn_bwd_error_string(err).decode()
+        raise RuntimeError(f"msdeform_attn_bwd launch failed: {msg} ({err})")
+    ms_deform_attn_bwd.launches += 1
+    return d_value, d_loc, d_aw
+
+
+class MSDeformAttnFunction(torch.autograd.Function):
+    """K1 forward, backward kernel backward. The model calls the core inside
+    autocast (bf16 value, fp32 locations and weights); ``custom_fwd`` /
+    ``custom_bwd`` run the backward under the forward's autocast state."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, value, spatial_shapes, locations, weights):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, locations, weights)
+        return _launch_cuda(value, spatial_shapes, locations, weights)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, grad_out):
+        value, locations, weights = ctx.saved_tensors
+        d_value, d_loc, d_aw = _launch_cuda_bwd(
+            value, ctx.spatial_shapes, locations, weights,
+            grad_out.contiguous())
+        return d_value, None, d_loc, d_aw
 
 
 def ms_deform_attn(value: torch.Tensor,
@@ -145,8 +298,9 @@ def ms_deform_attn(value: torch.Tensor,
                    weights: torch.Tensor) -> torch.Tensor:
     """Sampling core the model calls (``MSDeformAttn.core_fn``).
 
-    CUDA tensors launch the hand-written kernel (and count the launch in
-    ``ms_deform_attn.launches``); CPU tensors take the plain version.
+    CUDA tensors launch the hand-written kernel (counted in
+    ``ms_deform_attn.launches``), through ``MSDeformAttnFunction`` when
+    autograd records; CPU tensors take the plain version.
     """
     if value.device.type == "cpu":
         return ms_deform_attn_core_torch(value, spatial_shapes, locations,
@@ -154,7 +308,31 @@ def ms_deform_attn(value: torch.Tensor,
     if value.device.type != "cuda":
         raise RuntimeError(f"no sampling kernel for device {value.device}")
     _check_inputs(value, spatial_shapes, locations, weights)
-    return _launch_cuda(value, spatial_shapes, locations, weights)
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    if torch.is_grad_enabled() and (value.requires_grad
+                                    or locations.requires_grad
+                                    or weights.requires_grad):
+        return MSDeformAttnFunction.apply(value, shapes, locations, weights)
+    return _launch_cuda(value, shapes, locations, weights)
+
+
+def ms_deform_attn_bwd(value: torch.Tensor,
+                       spatial_shapes: Sequence[Tuple[int, int]],
+                       locations: torch.Tensor, weights: torch.Tensor,
+                       grad_out: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Backward of the sampling core for a given cotangent: the backward
+    kernel for CUDA tensors (counted in ``ms_deform_attn_bwd.launches``),
+    the plain version for CPU tensors."""
+    if value.device.type == "cpu":
+        return ms_deform_attn_bwd_torch(value, spatial_shapes, locations,
+                                        weights, grad_out)
+    if value.device.type != "cuda":
+        raise RuntimeError(f"no sampling kernel for device {value.device}")
+    _check_inputs(value, spatial_shapes, locations, weights)
+    return _launch_cuda_bwd(value, spatial_shapes, locations, weights,
+                            grad_out)
 
 
 ms_deform_attn.launches = 0
+ms_deform_attn_bwd.launches = 0

@@ -10,6 +10,7 @@ dtype.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -41,19 +42,35 @@ class GroupNorm(nn.GroupNorm):
 
 
 class DropPath(nn.Module):
-    """Stochastic depth per sample (timm's DropPath); identity at eval."""
+    """Stochastic depth per sample (timm's DropPath); identity at eval.
+
+    ``draw`` takes the keep mask from an explicit generator (the train
+    step's, never the global one); ``forward`` applies it. Drawing apart
+    from applying lets a checkpointed block recompute with the same mask.
+    """
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def draw(self, x: torch.Tensor, generator: Optional[torch.Generator]
+             ) -> Optional[torch.Tensor]:
+        """(B, 1, ..., 1) bool keep mask for ``x``, or None (no drop)."""
         if not self.training or self.rate == 0.0:
-            return x
-        keep = 1.0 - self.rate
+            return None
+        if generator is None:
+            raise ValueError("DropPath in training needs the train step's "
+                             "torch.Generator")
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        mask = torch.empty(shape, device=x.device, dtype=x.dtype)
-        return x * mask.bernoulli_(keep) / keep
+        keep = torch.empty(shape, device=x.device, dtype=torch.float32)
+        return keep.bernoulli_(1.0 - self.rate, generator=generator).bool()
+
+    def forward(self, x: torch.Tensor,
+                keep: Optional[torch.Tensor]) -> torch.Tensor:
+        if keep is None:
+            return x
+        return torch.where(keep, x / (1.0 - self.rate),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Mlp(nn.Module):

@@ -3,7 +3,8 @@
 PyTorch counterpart of ``vision_instance_seg_tpu/models/meta_arch.py`` for
 Mask2Former: backbone -> pixel decoder -> masked decoder, then Mask2Former
 instance inference. ``build_model`` returns an eval-mode module on the
-device (CUDA unless the caller passes ``device="cpu"``), with the upstream
+device (CUDA unless the caller passes ``device="cpu"``; training calls
+``model.train()`` on it, see ``engine/trainer.py``), with the upstream
 detectron2 state-dict layout (``backbone.*``, ``sem_seg_head.pixel_decoder.*``,
 ``sem_seg_head.predictor.*``). ``make_inference_fn`` returns the serving
 callable ``infer(images) -> dict`` with the JAX package's output contract.
@@ -43,10 +44,14 @@ class MaskFormer(nn.Module):
         self.sem_seg_head.predictor = predictor
         self.compute_dtype = compute_dtype
 
-    def forward(self, images: torch.Tensor, aux_masks: bool = True):
+    def forward(self, images: torch.Tensor, aux_masks: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """``aux_masks`` (training): every layer's masks, stacked
+        (L+1, B, Q, Hm, Wm). ``generator`` draws the backbone's drop-path
+        masks in train mode."""
         with torch.autocast(images.device.type, dtype=self.compute_dtype,
                             enabled=self.compute_dtype != torch.float32):
-            feats = self.backbone(images)
+            feats = self.backbone(images, generator)
             head = self.sem_seg_head
             mask_features, multi_scale = head.pixel_decoder(feats)
             return head.predictor(multi_scale, mask_features,

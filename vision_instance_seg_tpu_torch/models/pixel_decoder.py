@@ -9,7 +9,9 @@ module per layer, where the JAX package scans stacked parameters),
 attribute) and ``mask_features``.
 
 Feature maps are NHWC at the module boundary, as in the JAX package; the
-3x3 convolutions run on channels-last NCHW views.
+3x3 convolutions run on channels-last NCHW views. ``remat``
+(``TPU.REMAT_ENCODER``) recomputes each encoder layer in the backward
+(``torch.utils.checkpoint``), as the JAX package's ``nn.remat`` does.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vision_instance_seg_tpu_torch.models.deform_attn import (
     DeformCoreFn, MSDeformAttn)
@@ -107,9 +110,11 @@ class MSDeformAttnPixelDecoder(nn.Module):
                  num_points: int = 4, ffn_dim: int = 1024,
                  fpn_fusion: str = "last",
                  core_fn: Optional[DeformCoreFn] = None,
-                 offset_clamp: Optional[float] = None):
+                 offset_clamp: Optional[float] = None,
+                 remat: bool = False):
         super().__init__()
         self.conv_dim = conv_dim
+        self.remat = remat
         self.transformer_in_features = tuple(transformer_in_features)
         self.fpn_fusion = fpn_fusion
         # level 0 = lowest resolution, as the upstream input_proj list
@@ -151,8 +156,13 @@ class MSDeformAttnPixelDecoder(nn.Module):
         pos = torch.cat(poss, 0)[None]
         ref = encoder_reference_points(shapes, src.device)[None].expand(
             b, -1, -1, -1)
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.transformer.encoder.layers:
-            src = layer(src, pos, ref, shapes)
+            if remat:
+                src = checkpoint(layer, src, pos, ref, shapes,
+                                 use_reentrant=False)
+            else:
+                src = layer(src, pos, ref, shapes)
 
         outs, offset = [], 0
         for (h, w) in shapes:
@@ -203,4 +213,4 @@ def build_pixel_decoder(cfg, in_channels: Dict[str, int],
         num_encoder_layers=s.TRANSFORMER_ENC_LAYERS,
         num_heads=s.DEFORM_NUM_HEADS, num_points=s.DEFORM_NUM_POINTS,
         fpn_fusion=str(s.FPN_FUSION), core_fn=core_fn,
-        offset_clamp=offset_clamp)
+        offset_clamp=offset_clamp, remat=bool(cfg.TPU.REMAT_ENCODER))

@@ -14,17 +14,22 @@ JAX module, which follows the fork:
   (1::2,1::2) before its LayerNorm.
 
 Window attention is plain matmul + softmax (the JAX package keeps its
-Pallas window kernels switched off on this path).
+Pallas window kernels switched off on this path). ``use_checkpoint``
+(``MODEL.SWIN.USE_CHECKPOINT`` or ``TPU.REMAT_BACKBONE``) recomputes each
+block in the backward (``torch.utils.checkpoint``), as ``jax.checkpoint``
+does in the JAX package; drop-path masks are drawn before the checkpointed
+region from the train step's generator, so the recompute sees the same ones.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from vision_instance_seg_tpu_torch.models.layers import (
     DropPath, LayerNorm, Mlp)
@@ -120,8 +125,18 @@ class SwinBlock(nn.Module):
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, H, W, C) unpadded."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None,
+                use_checkpoint: bool = False) -> torch.Tensor:
+        """x: (B, H, W, C) unpadded; ``generator`` feeds drop path."""
+        keep_attn = self.drop_path.draw(x, generator)
+        keep_mlp = self.drop_path.draw(x, generator)
+        if use_checkpoint and torch.is_grad_enabled():
+            return checkpoint(self._forward, x, keep_attn, keep_mlp,
+                              use_reentrant=False)
+        return self._forward(x, keep_attn, keep_mlp)
+
+    def _forward(self, x, keep_attn, keep_mlp):
         b, h, w, c = x.shape
         ws, shift = self.window_size, self.shift_size
         shortcut = x
@@ -138,8 +153,8 @@ class SwinBlock(nn.Module):
                                ws, hp, wp)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
-        x = shortcut + self.drop_path(x[:, :h, :w])
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+        x = shortcut + self.drop_path(x[:, :h, :w], keep_attn)
+        return x + self.drop_path(self.mlp(self.norm2(x)), keep_mlp)
 
 
 class PatchMerging(nn.Module):
@@ -184,9 +199,11 @@ class SwinTransformer(nn.Module):
                  qk_scale: float = 0.0, drop_path_rate: float = 0.3,
                  patch_norm: bool = True,
                  out_features: Sequence[str] = ("res2", "res3", "res4",
-                                                "res5")):
+                                                "res5"),
+                 use_checkpoint: bool = False):
         super().__init__()
         self.patch_size = patch_size
+        self.use_checkpoint = use_checkpoint
         self.out_features = tuple(out_features)
         self.patch_embed = _PatchEmbed(patch_size, embed_dim, patch_norm)
         dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
@@ -204,8 +221,11 @@ class SwinTransformer(nn.Module):
                 self.add_module(f"norm{s}", LayerNorm(dim))
         self.layers = nn.ModuleList(stages)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """x: (B, H, W, 3) normalized image -> dict of NHWC feature maps."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """x: (B, H, W, 3) normalized image -> dict of NHWC feature maps.
+        ``generator`` draws the drop-path masks in training."""
         ps = self.patch_size
         b, h0, w0, _ = x.shape
         ph, pw = (ps - h0 % ps) % ps, (ps - w0 % ps) % ps
@@ -219,7 +239,7 @@ class SwinTransformer(nn.Module):
         outs = {}
         for s, stage in enumerate(self.layers):
             for blk in stage.blocks:
-                x = blk(x)
+                x = blk(x, generator, self.use_checkpoint)
             name = f"res{s + 2}"
             if name in self.out_features:
                 outs[name] = getattr(self, f"norm{s}")(x)
@@ -239,4 +259,5 @@ def build_swin(cfg) -> SwinTransformer:
         num_heads=tuple(s.NUM_HEADS), window_size=s.WINDOW_SIZE,
         patch_size=s.PATCH_SIZE, mlp_ratio=s.MLP_RATIO, qkv_bias=s.QKV_BIAS,
         qk_scale=s.QK_SCALE, drop_path_rate=s.DROP_PATH_RATE,
-        patch_norm=s.PATCH_NORM, out_features=tuple(s.OUT_FEATURES))
+        patch_norm=s.PATCH_NORM, out_features=tuple(s.OUT_FEATURES),
+        use_checkpoint=bool(s.USE_CHECKPOINT or cfg.TPU.REMAT_BACKBONE))
