@@ -2,26 +2,37 @@
 
     python3 chip_smoke.py
 
-Builds every CUDA kernel of the port from the sources in this checkout and
-holds each against its plain PyTorch version at the shapes its path gives
-it: K1 (sampling forward) at the serving shapes, the backward kernel (the
-TPU's K2, K3a and K3b) at the training shapes. Then it drives the port's two
-main paths with the default ``get_cfg()`` model (Swin-T backbone, 6-layer
-deformable pixel decoder over 3 levels, 9-layer Mask2Former decoder, 100
-queries), weights drawn from a fixed seed:
+Builds every CUDA kernel of the port from the sources in this checkout (one
+``nvcc`` per source, all started together) and holds each against its plain
+PyTorch version at the shapes its path gives it: K1 (sampling forward) at
+the serving shapes, the sampling backward (the TPU's K2, K3a and K3b) at the
+training shapes, and the window kernels: K5 fused at Swin stage 1 and K5
+split at the window encoder's 100x100 level in serving, K4b at stage 1 with
+windows of 8 and of 7, K4a at the 100x100 level, K6 fused and split at the
+training shapes. Then it drives the port's main paths with weights drawn
+from a fixed seed, through ``build_model`` -> ``make_inference_fn`` and
+``create_train_state`` -> ``make_train_step``:
 
-- serving: request batches of 8 at 800x800 through ``build_model`` ->
-  ``make_inference_fn``, checking the output contract; one fp32 forward
-  through K1 against the same forward on the plain sampling core;
-- training: one fp32 pixel-decoder gradient through the kernels against
-  the plain core; train steps (``create_train_state`` ->
-  ``make_train_step``) at the JAX defaults (batch 2, 640 px, 100 GT slots,
-  bf16, hungarian matcher, random points) on batches made from a seed, then
-  a few steps with the training CLIs' settings; 40 steps on one batch that
-  must lower the loss.
+- the default ``get_cfg()`` model (Swin-T window 7, 6-layer deformable
+  pixel decoder over 3 levels, 9-layer Mask2Former decoder, 100 queries):
+  serving batches of 8 at 800x800 (and one batch with
+  ``TPU.USE_PALLAS_WINDOW_ATTN``: K4b at 49 tokens beside K1); train steps
+  at the JAX defaults (batch 2, 640 px, 100 GT slots, bf16, hungarian
+  matcher, random points) and with the training CLIs' settings;
+- the window-attention flagship (the same model with Swin window 8 and the
+  6-layer window encoder): serving batches of 8 at 800x800 under
+  ``TPU.WINDOW_ATTN_NHWC`` (12 fused + 18 split K5 per forward) and under
+  ``TPU.USE_PALLAS_WINDOW_ATTN`` (12 K4b + 18 K4a); train steps at batch 2,
+  640 px under both flags (30 K5 and 30 K6 per step under NHWC);
+- checks: fp32 forwards through the kernels against the same forwards on
+  the plain versions (TF32 off), an fp32 pixel-decoder gradient through the
+  sampling kernels and an fp32 backbone + window-encoder gradient through
+  K5 / K6 against the plain versions, and 40 steps on one batch of each
+  model that must lower the loss.
 
-Each path runs with the launch counts set to 0 just before it and read just
-after, and fails if a kernel of the path was not launched.
+Each main path runs with the launch counts set to 0 just before it and read
+just after, and fails unless every kernel of the path was launched as many
+times as its layers say.
 
 Prints the card's name and power limit, the build time, each phase's
 numbers, a ``{"kernels": [...]}`` line, and as its last line
@@ -45,9 +56,11 @@ import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and fp32 (non-tensor)
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, fp32 (non-tensor) and
+# bf16 products with fp32 accumulation on the tensor cores (dense)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 
 # the serving path's sampling shapes: 800 px canvas, levels /32, /16, /8
 BATCH, CANVAS = 8, 800
@@ -258,6 +271,278 @@ def bwd_kernel_phase(K, smi: str) -> dict:
     return dict(result["bfloat16"], max_abs_err=max_err)
 
 
+# ------------------------------------------- window kernels K4a, K4b, K5, K6
+def _bound(nbytes: float, flops: float, dtype: torch.dtype) -> tuple:
+    """Least time on this card: bytes over HBM bandwidth, products over the
+    peak of their type (bf16 on the tensor cores, fp32 on the fp32 cores)."""
+    rate = PEAK_BF16_FLOP_PER_S if dtype == torch.bfloat16 \
+        else PEAK_FP32_FLOP_PER_S
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _sdpa_bias(WA, rel, nwt, hp, wp, ws, shift, pad_hw, dtype, mask=None):
+    """(nWt, nH, N, N) float mask for F.scaled_dot_product_attention: rel
+    plus the additive mask (K4a), or rel where the labels agree and -1e9
+    where they do not."""
+    if mask is not None:
+        bias = rel[None] + mask[:, None]
+    else:
+        keep = WA.window_keep(hp, wp, ws, shift, pad_hw, rel.device)
+        bias = torch.where(keep[:, None], rel[None], WA.NEG_INF)
+    nw = bias.shape[0]
+    return bias.repeat(nwt // nw, 1, 1, 1).to(dtype).contiguous()
+
+
+def _windows(WA, x, ws, nh):
+    """(B, Hp, Wp, C) -> contiguous (B * nW, nH, N, hd) in x's dtype."""
+    return WA._nhwc_windows(x, ws, nh).to(x.dtype).contiguous()
+
+
+def _wa_forward_specs(WA, gen):
+    """The window forwards at the serving path's shapes (batch 8, 800 px):
+    name -> (operands in fp32, a function of the operands cast to a dtype
+    returning (kernel, plain, library) callables, rel, mask or None)."""
+    dev = "cuda"
+    specs = {}
+
+    def rnd(*shape):
+        return torch.randn(shape, device=dev, generator=gen)
+
+    def nhwc(name, b, hp, wp, nh, hd, ws, shift, pad_hw, split):
+        c = nh * hd
+        ops = [rnd(b, hp, wp, c) for _ in range(3)] if split \
+            else [rnd(b, hp, wp, 3 * c)]
+        rel = rnd(nh, ws * ws, ws * ws)
+        geo = (hp, wp, ws, shift)
+
+        def calls(cast):
+            if split:
+                kern = lambda: WA.window_attention_nhwc_split(   # noqa: E731
+                    *cast, rel, hd ** -0.5, geo, pad_hw=pad_hw)
+                plain = lambda: WA.window_attention_nhwc_split_torch(  # noqa
+                    *cast, rel, hd ** -0.5, geo, pad_hw=pad_hw)
+                parts = cast
+            else:
+                kern = lambda: WA.window_attention_nhwc(  # noqa: E731
+                    cast[0], rel, hd ** -0.5, geo)
+                plain = lambda: WA.window_attention_nhwc_torch(  # noqa: E731
+                    cast[0], rel, hd ** -0.5, geo)
+                parts = cast[0].split(c, -1)
+            q, k, v = (_windows(WA, t, ws, nh) for t in parts)
+            bias = _sdpa_bias(WA, rel, q.shape[0], hp, wp, ws, shift,
+                              pad_hw, q.dtype)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=bias, scale=hd ** -0.5)
+            out_bytes = b * hp * wp * c * cast[0].element_size()
+            return kern, plain, lib, out_bytes
+        flops = 4 * b * (hp // ws) * (wp // ws) * nh * (ws * ws) ** 2 * hd
+        specs[name] = (ops, calls, rel, None, flops,
+                       "k5_split" if split else "k5_fused")
+
+    def tokens(name, b, hp, wp, nh, hd, ws, shift, with_mask):
+        nw, n = (hp // ws) * (wp // ws), ws * ws
+        ops = [rnd(b * nw, nh, n, hd) for _ in range(3)]
+        rel = rnd(nh, n, n)
+        geo = None if with_mask else (hp, wp, ws, shift)
+        pad_hw = (hp - ws // 2, wp - ws // 2) if with_mask else None
+        mask = (WA.window_mask(hp, wp, ws, shift, pad_hw, dev)
+                if with_mask else None)
+
+        def calls(cast):
+            kern = lambda: WA.window_attention(  # noqa: E731
+                *cast, rel, mask, hd ** -0.5, nw, geometry=geo)
+            plain = lambda: WA.window_attention_torch(  # noqa: E731
+                *cast, rel, mask, hd ** -0.5, nw, geo)
+            bias = _sdpa_bias(WA, rel, b * nw, hp, wp, ws, shift, None,
+                              cast[0].dtype, mask)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                *cast, attn_mask=bias, scale=hd ** -0.5)
+            return kern, plain, lib, _nbytes(cast[0])
+        flops = 4 * b * nw * nh * n * n * hd
+        specs[name] = (ops, calls, rel, mask, flops,
+                       "k4a" if with_mask else "k4b")
+
+    # Swin stage 1 (800 / 4 = 200, 3 heads x 32) in a shifted block
+    nhwc("window_attn_k5_fused", BATCH, 200, 200, 3, 32, 8, 4, None, False)
+    # the window encoder's finest level: 100 -> 104, 8 heads x 32, shifted
+    nhwc("window_attn_k5_split", BATCH, 104, 104, 8, 32, 8, 4, (100, 100),
+         True)
+    tokens("window_attn_k4b", BATCH, 200, 200, 3, 32, 8, 4, False)
+    tokens("window_attn_k4b_ws7", BATCH, 203, 203, 3, 32, 7, 3, False)
+    # K4a takes the encoder's pad + shift mask of the 100 -> 104 level
+    tokens("window_attn_k4a", BATCH, 104, 104, 8, 32, 8, 4, True)
+    return specs
+
+
+def _wa_fwd_tol(ref: torch.Tensor, dtype: torch.dtype) -> float:
+    """fp32 logits, softmax and sums in another order in both versions:
+    2e-5 of max|v| (the output is a convex combination of v's rows); in
+    bf16 each version rounds p and the output once and may land one bf16
+    step (2^-8 relative) away: 2^-7 * max|v| more."""
+    m = ref.float().abs().max().item()
+    return 2e-5 * m + (2.0 ** -7 * m if dtype == torch.bfloat16 else 0.0)
+
+
+def window_kernel_phase(WA, smi: str) -> dict:
+    """K4a, K4b (ws 8 and 7) and K5 (fused, split) at the serving shapes,
+    fp32 and bf16, against their plain versions; kernel, plain, library
+    (F.scaled_dot_product_attention with the float mask on
+    window-partitioned tensors, timed here only) and bound times in bf16,
+    the main path's type."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    results = {}
+    for name, (ops, calls, rel, mask, flops, kind) in \
+            _wa_forward_specs(WA, gen).items():
+        max_err, row = 0.0, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            cast = [t.to(dtype) for t in ops]
+            kern, plain, lib, out_bytes = calls(cast)
+            before = WA.LAUNCHES[kind]
+            got = kern()
+            torch.cuda.synchronize()
+            if WA.LAUNCHES[kind] != before + 1:
+                raise AssertionError(f"{name} did not launch {kind}")
+            want = plain()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = _wa_fwd_tol(cast[-1], dtype)
+            dn = str(dtype).replace("torch.", "")
+            why = "2e-5 * max|v|" + (" + 2^-7 * max|v| for bf16 rounding"
+                                     if dtype == torch.bfloat16 else "")
+            print(f"{name} {dn}: max |kernel - plain| = {err:.3e} "
+                  f"(tolerance {tol:.3e}: {why})", flush=True)
+            if not (got.dtype == want.dtype == dtype and err <= tol):
+                raise AssertionError(f"{name} ({dn}) disagrees with its "
+                                     f"plain version: {err} > {tol}")
+            max_err = max(max_err, err)
+            if dtype != torch.bfloat16:
+                continue
+            ms = cuda_time_ms(kern, reps=20)
+            plain_ms = cuda_time_ms(plain, reps=5, warmup=1)
+            lib_ms = cuda_time_ms(lib, reps=10)
+            extra = _nbytes(rel) + (_nbytes(mask) if mask is not None else 0)
+            bound, bound_by = _bound(_nbytes(*cast) + extra + out_bytes,
+                                     flops, dtype)
+            print(f"{name} bf16 {tuple(cast[0].shape)}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({bound_by}) on {smi}", flush=True)
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound, bound_by=bound_by)
+        results[name] = dict(row, max_abs_err=max_err)
+        del ops, calls
+    return results
+
+
+def _wa_bwd_tol_ok(got, want, dtype) -> tuple:
+    """K6 against the plain backward: fp32 sums in another order (d(rel)
+    over every window), 1e-4 of each output's largest magnitude; a bf16
+    d(operand) may round one bf16 step apart (2^-7 relative at most)."""
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"K6 output {i}: {a.dtype} "
+                                 f"{tuple(a.shape)}, plain {b.dtype} "
+                                 f"{tuple(b.shape)}")
+        a, b = a.float(), b.float()
+        rtol = 2.0 ** -7 if (dtype == torch.bfloat16
+                             and i < len(got) - 1) else 0.0
+        err = (a - b).abs()
+        if not bool((err <= 1e-4 * b.abs().max().item()
+                     + rtol * b.abs()).all()):
+            return False, err.max().item()
+        worst = max(worst, err.max().item())
+    return True, worst
+
+
+def window_bwd_kernel_phase(WA, smi: str) -> dict:
+    """K6 fused (Swin stage 1) and split (the encoder's 80x80 level, and the
+    20x20 level that pads to 24 and shifts) at the training shapes (batch
+    2, 640 px), fp32 and bf16, against the plain backward; kernel, plain,
+    library (autograd of F.scaled_dot_product_attention for d(q, k, v) on
+    window-partitioned tensors) and bound times in bf16. d(rel) must repeat
+    bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    b = TRAIN_BATCH
+    cases = {   # name -> (hp, wp, nH, hd, ws, shift, pad_hw, split, timed)
+        "window_attn_k6_fused": (160, 160, 3, 32, 8, 4, None, False, True),
+        "window_attn_k6_split": (80, 80, 8, 32, 8, 4, None, True, True),
+        "k6 split 20->24": (24, 24, 8, 32, 8, 4, (20, 20), True, False),
+    }
+    results = {}
+    for name, (hp, wp, nh, hd, ws, shift, pad_hw, split, timed) in \
+            cases.items():
+        c = nh * hd
+        ops = [torch.randn(b, hp, wp, c, device="cuda", generator=gen)
+               for _ in range(3)] if split else [
+            torch.randn(b, hp, wp, 3 * c, device="cuda", generator=gen)]
+        rel = torch.randn(nh, ws * ws, ws * ws, device="cuda", generator=gen)
+        g32 = torch.randn(b, hp, wp, c, device="cuda", generator=gen)
+        geo = (hp, wp, ws, shift)
+        kind = "k6_split" if split else "k6_fused"
+        max_err, row = 0.0, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            cast, g = [t.to(dtype) for t in ops], g32.to(dtype)
+            kern = lambda: WA.window_attention_nhwc_bwd(  # noqa: E731
+                cast, rel, g, hd ** -0.5, geo, pad_hw)
+            before = WA.LAUNCHES[kind]
+            got, again = kern(), kern()
+            torch.cuda.synchronize()
+            if WA.LAUNCHES[kind] != before + 2:
+                raise AssertionError(f"{name} did not launch {kind}")
+            want = WA.window_attention_nhwc_bwd_torch(cast, rel, g,
+                                                      hd ** -0.5, geo, pad_hw)
+            ok, err = _wa_bwd_tol_ok(got, want, dtype)
+            dn = str(dtype).replace("torch.", "")
+            why = "1e-4 * max|plain| per output" + (
+                " + 2^-7 * |plain| for bf16 d(operands)"
+                if dtype == torch.bfloat16 else "")
+            print(f"{name} {dn}: max |kernel - plain| over d(operands), "
+                  f"d(rel) = {err:.3e} (tolerance {why}); d(rel) repeats bit "
+                  f"for bit: {bool(torch.equal(got[-1], again[-1]))}",
+                  flush=True)
+            if not ok or not torch.equal(got[-1], again[-1]):
+                raise AssertionError(f"{name} ({dn}) disagrees with its "
+                                     f"plain version or does not repeat")
+            max_err = max(max_err, err)
+            if not (timed and dtype == torch.bfloat16):
+                continue
+            ms = cuda_time_ms(kern, reps=20)
+            plain_ms = cuda_time_ms(
+                lambda: WA.window_attention_nhwc_bwd_torch(
+                    cast, rel, g, hd ** -0.5, geo, pad_hw), reps=5, warmup=1)
+            parts = cast if split else cast[0].split(c, -1)
+            leaves = [_windows(WA, t, ws, nh).requires_grad_()
+                      for t in parts]
+            bias = _sdpa_bias(WA, rel, leaves[0].shape[0], hp, wp, ws, shift,
+                              pad_hw, dtype)
+            lib_out = F.scaled_dot_product_attention(
+                *leaves, attn_mask=bias, scale=hd ** -0.5)
+            gw = _windows(WA, g, ws, nh)
+            lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+                lib_out, leaves, gw, retain_graph=True), reps=10)
+            nbytes = 2 * _nbytes(*cast) + _nbytes(g) + 2 * _nbytes(rel)
+            flops = 10 * b * (hp // ws) * (wp // ws) * nh * (ws * ws) ** 2 \
+                * hd
+            bound, bound_by = _bound(nbytes, flops, dtype)
+            print(f"{name} bf16 at B={b}, {hp}x{wp}: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, SDPA autograd {lib_ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({bound_by}) on {smi}", flush=True)
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound, bound_by=bound_by)
+            del lib_out, leaves
+        if timed:
+            results[name] = dict(row, max_abs_err=max_err)
+        else:
+            results["window_attn_k6_split"]["max_abs_err"] = max(
+                results["window_attn_k6_split"]["max_abs_err"], max_err)
+    return results
+
+
 # -------------------------------------------------------------- model phase
 def check_contract(res: dict, cfg) -> None:
     b, k = BATCH, min(cfg.TEST.DETECTIONS_PER_IMAGE,
@@ -290,13 +575,60 @@ def check_contract(res: dict, cfg) -> None:
         raise AssertionError("mask boxes out of the map")
 
 
-def serve_phase(cfg, K, build_model, make_inference_fn) -> dict:
+def flagship_cfg(cfg, flag: str):
+    """The window-attention flagship (bench.py / __graft_entry__.py): Swin
+    window 8 and the 6-layer window encoder, with ``flag`` "nhwc"
+    (TPU.WINDOW_ATTN_NHWC) or "pallas" (TPU.USE_PALLAS_WINDOW_ATTN)."""
+    cfg = cfg.clone()
+    cfg.MODEL.SEM_SEG_HEAD.ENCODER_ATTENTION = "window"
+    cfg.MODEL.SWIN.WINDOW_SIZE = 8
+    cfg.TPU.WINDOW_ATTN_NHWC = flag == "nhwc"
+    cfg.TPU.USE_PALLAS_WINDOW_ATTN = flag == "pallas"
+    return cfg
+
+
+class Counts:
+    """Every kernel's launch count, by the kernels line's names."""
+
+    NAMES = {"msdeform_attn_fwd": None, "msdeform_attn_bwd": None,
+             "window_attn_k4a": "k4a", "window_attn_k4b": "k4b",
+             "window_attn_k5_fused": "k5_fused",
+             "window_attn_k5_split": "k5_split",
+             "window_attn_k6_fused": "k6_fused",
+             "window_attn_k6_split": "k6_split"}
+
+    def __init__(self, K, WA):
+        self.K, self.WA = K, WA
+
+    def reset(self) -> None:
+        self.K.ms_deform_attn.launches = 0
+        self.K.ms_deform_attn_bwd.launches = 0
+        self.WA.LAUNCHES.clear()
+
+    def read(self) -> dict:
+        out = {name: self.WA.LAUNCHES[kind] for name, kind in
+               self.NAMES.items() if kind}
+        out["msdeform_attn_fwd"] = self.K.ms_deform_attn.launches
+        out["msdeform_attn_bwd"] = self.K.ms_deform_attn_bwd.launches
+        return out
+
+    @staticmethod
+    def check(got: dict, want: dict, what: str) -> None:
+        """Every kernel launched exactly as ``want`` says (0 if absent)."""
+        bad = {k: (v, want.get(k, 0)) for k, v in got.items()
+               if v != want.get(k, 0)}
+        if bad:
+            raise AssertionError(f"{what}: launches (got, want) {bad}")
+
+
+def serve_phase(cfg, counts: Counts, build_model, make_inference_fn,
+                per_forward: dict, n_batches: int, label: str) -> dict:
     model = build_model(cfg, seed=SEED)
     infer = make_inference_fn(model, cfg)
     rng = np.random.default_rng(SEED)
     batches = [rng.integers(0, 256, (BATCH, CANVAS, CANVAS, 3),
-                            dtype=np.uint8) for _ in range(4)]
-    K.ms_deform_attn.launches = 0          # main path starts here
+                            dtype=np.uint8) for _ in range(n_batches)]
+    counts.reset()                          # the main path starts here
     times = []
     for images in batches:
         t0 = time.perf_counter()
@@ -304,16 +636,17 @@ def serve_phase(cfg, K, build_model, make_inference_fn) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         check_contract(res, cfg)
-    launches = K.ms_deform_attn.launches   # ... and ends here
-    enc = cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS
-    print(f"model phase: served {len(batches)} batches of {BATCH} at "
-          f"{CANVAS}x{CANVAS}; batch seconds {['%.4f' % t for t in times]}; "
-          f"K1 launches {launches} ({enc} per forward expected)", flush=True)
-    if launches != enc * len(batches):
-        raise AssertionError(f"K1 launched {launches} times, want "
-                             f"{enc * len(batches)}")
-    steady = times[1:]                      # the first batch warms up
+    launches = counts.read()                # ... and ends here
+    print(f"serve {label}: {n_batches} batches of {BATCH} at {CANVAS}x"
+          f"{CANVAS}; batch seconds {['%.4f' % t for t in times]}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } (per forward "
+          f"{per_forward})", flush=True)
+    counts.check(launches, {k: v * n_batches for k, v in per_forward.items()},
+                 f"serve {label}")
+    steady = times[1:] or times             # the first batch warms up
     ips = BATCH * len(steady) / sum(steady)
+    print(f"serve {label}: {ips:.2f} images/s ({cfg.TPU.COMPUTE_DTYPE}, "
+          f"batch {BATCH}, {CANVAS}x{CANVAS})", flush=True)
     del model, infer
     return dict(launches=launches, images_per_s=ips)
 
@@ -326,9 +659,11 @@ def _gate_bits(masks, hw):
     return keep | (~keep).all(-1, keepdim=True)
 
 
-def fp32_parity_phase(cfg, K, build_model, normalize_image) -> None:
-    """One fp32 forward through K1 against the same forward on the plain
-    core (TF32 off): layer 0 is gate-free and must agree tightly; gated
+def fp32_parity_phase(cfg, counts: Counts, build_model, normalize_image,
+                      plain: dict, per_forward: dict, label: str) -> None:
+    """One fp32 forward through the kernels against the same forward on
+    their plain versions (``plain``: build_model's arguments that hand them
+    in), TF32 off: layer 0 is gate-free and must agree tightly; gated
     layers compare only queries whose incoming gates agree bitwise, since
     a logit within float noise of 0 legitimately flips one gate."""
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -338,22 +673,24 @@ def fp32_parity_phase(cfg, K, build_model, normalize_image) -> None:
     images = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
         0, 256, (BATCH, CANVAS, CANVAS, 3), dtype=np.uint8)).cuda()
     outs = {}
-    for tag, core in (("kernel", None),
-                      ("plain", K.ms_deform_attn_core_torch)):
-        model = build_model(cfg, deform_core_fn=core, seed=SEED)
+    for tag, kw, want in (("kernel", {}, per_forward),
+                          ("plain", plain, {})):
+        model = build_model(cfg, seed=SEED, **kw)
+        counts.reset()
         with torch.inference_mode():
             outs[tag] = model(normalize_image(images, cfg), aux_masks=True)
         torch.cuda.synchronize()
+        counts.check(counts.read(), want, f"fp32 forward {label} {tag}")
         del model
     (a_cls, a_mask), (b_cls, b_mask) = outs["kernel"], outs["plain"]
     for name, x, y in (("cls", a_cls[0], b_cls[0]),
                        ("mask", a_mask[0], b_mask[0])):
         err = (x - y).abs().max().item()
         tol = 1e-4 * max(1.0, y.abs().max().item())
-        print(f"fp32 forward, layer 0 {name} (gate-free): max |kernel - "
-              f"plain| = {err:.3e} (tolerance {tol:.3e}: the sampling sums "
-              f"run in another order, through 6 encoder layers and the FPN)",
-              flush=True)
+        print(f"fp32 forward {label}, layer 0 {name} (gate-free): max "
+              f"|kernel - plain| = {err:.3e} (tolerance {tol:.3e}: the "
+              f"kernels' sums run in another order, through the backbone, 6 "
+              f"encoder layers and the FPN)", flush=True)
         if not err <= tol:
             raise AssertionError(f"gate-free layer 0 {name} diverges")
     hm, wm = a_mask.shape[-2:]
@@ -371,7 +708,8 @@ def fp32_parity_phase(cfg, K, build_model, normalize_image) -> None:
             worst_m = max(worst_m, (a_mask[s] - b_mask[s]).abs()[ok].max()
                           .item())
     total = (a_cls.shape[0] - 1) * ok.numel()
-    print(f"fp32 forward, gated layers: {n_ok}/{total} query-layers with "
+    print(f"fp32 forward {label}, gated layers: {n_ok}/{total} "
+          f"query-layers with "
           f"agreeing gates; max diff there cls {worst_c:.3e} (tolerance "
           f"2e-3), mask {worst_m:.3e} (tolerance 4e-3)", flush=True)
     if not (worst_c < 2e-3 and worst_m < 4e-3 and n_ok >= total // 2):
@@ -411,7 +749,31 @@ def _encoder_attn(model):
             model.sem_seg_head.pixel_decoder.transformer.encoder.layers]
 
 
-def grad_check_phase(cfg, K, build_model) -> None:
+def _cotangent_loss(tensors, seed: int):
+    cot = torch.Generator(device="cuda").manual_seed(seed)
+    return sum((t * torch.randn(t.shape, device="cuda", generator=cot)
+                ).sum() for t in tensors)
+
+
+def _compare_grads(grads: dict, label: str) -> None:
+    """Kernel against plain gradients, tensor by tensor: max|diff| within
+    1e-3 of the plain tensor's max|.|, which must be nonzero."""
+    worst = 0.0
+    for name, a in grads["kernel"].items():
+        b = grads["plain"][name]
+        scale = b.abs().max().item()
+        err = (a - b).abs().max().item()
+        if not (scale > 0 and err <= 1e-3 * scale):
+            raise AssertionError(f"{label} {name} gradient: max err "
+                                 f"{err:.3e}, max|plain| {scale:.3e}")
+        worst = max(worst, err / scale)
+    print(f"{label}, kernels vs plain: worst max|diff| / max|plain| over "
+          f"{len(grads['kernel'])} weight gradients = {worst:.3e} "
+          f"(tolerance 1e-3: fp32 sums in another order through every "
+          f"layer)", flush=True)
+
+
+def grad_check_phase(cfg, counts: Counts, build_model, K) -> None:
     """One fp32 pixel-decoder gradient (TF32 off) for a seeded cotangent,
     through K1 and the backward kernel and through the plain core (autograd
     of ms_deform_attn_core_torch), compared on every encoder layer's
@@ -425,126 +787,195 @@ def grad_check_phase(cfg, K, build_model) -> None:
     feats = {f"res{i + 2}": torch.from_numpy(rng.standard_normal(
         (TRAIN_BATCH, s >> i, s >> i, c << i)).astype(np.float32)).cuda()
         for i in range(4)}
+    enc = cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS
     grads = {}
     for tag, core in (("kernel", None),
                       ("plain", K.ms_deform_attn_core_torch)):
         model = build_model(cfg, deform_core_fn=core, seed=SEED)
         dec = model.sem_seg_head.pixel_decoder
-        fwd, bwd = K.ms_deform_attn.launches, K.ms_deform_attn_bwd.launches
+        counts.reset()
         mf, outs = dec(feats)
-        cot = torch.Generator(device="cuda").manual_seed(SEED + 4)
-        loss = sum((t * torch.randn(t.shape, device="cuda", generator=cot)
-                    ).sum() for t in [mf] + outs)
-        loss.backward()
+        _cotangent_loss([mf] + outs, SEED + 4).backward()
         torch.cuda.synchronize()
-        n_fwd = K.ms_deform_attn.launches - fwd
-        n_bwd = K.ms_deform_attn_bwd.launches - bwd
-        want = cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS if core is None \
-            else 0
-        if (n_fwd, n_bwd) != (want, want):
-            raise AssertionError(f"{tag} gradient launched K1 {n_fwd} and "
-                                 f"the backward {n_bwd} times, want {want}")
-        grads[tag] = [{n: getattr(a, n).weight.grad for n in
-                       ("value_proj", "sampling_offsets",
-                        "attention_weights")} for a in _encoder_attn(model)]
-        del model, dec, mf, outs, loss
-    worst = 0.0
-    for i, (gk, gp) in enumerate(zip(grads["kernel"], grads["plain"])):
-        for name in gk:
-            a, b = gk[name], gp[name]
-            scale = b.abs().max().item()
-            err = (a - b).abs().max().item()
-            if not (scale > 0 and err <= 1e-3 * scale):
-                raise AssertionError(f"encoder layer {i} {name} gradient: "
-                                     f"max err {err:.3e}, max|plain| "
-                                     f"{scale:.3e}")
-            worst = max(worst, err / scale)
-    print(f"fp32 pixel-decoder gradient (TF32 off), kernels vs plain core: "
-          f"worst max|diff| / max|plain| over the 6 layers' value_proj, "
-          f"sampling_offsets and attention_weights = {worst:.3e} "
-          f"(tolerance 1e-3: fp32 sums in another order through 6 layers, "
-          f"atomics in d(value))", flush=True)
+        want = enc if core is None else 0
+        counts.check(counts.read(), {"msdeform_attn_fwd": want,
+                                     "msdeform_attn_bwd": want},
+                     f"{tag} pixel-decoder gradient")
+        grads[tag] = {f"layer {i} {n}": getattr(a, n).weight.grad
+                      for i, a in enumerate(_encoder_attn(model))
+                      for n in ("value_proj", "sampling_offsets",
+                                "attention_weights")}
+        del model, dec, mf, outs
+    _compare_grads(grads, "fp32 pixel-decoder gradient (TF32 off)")
 
 
-def _run_steps(K, step, state, batches, seed: int, enc_layers: int,
-               k1_per_step: int):
+def _window_params(model) -> dict:
+    """The window-attention weights of the flagship: every Swin block's qkv
+    and bias table, every window layer's q/k/v projections and table."""
+    out = {}
+    for s, stage in enumerate(model.backbone.layers):
+        for b, blk in enumerate(stage.blocks):
+            out[f"swin {s}.{b} qkv"] = blk.attn.qkv.weight
+            out[f"swin {s}.{b} table"] = blk.attn.relative_position_bias_table
+    layers = model.sem_seg_head.pixel_decoder.transformer.encoder.layers
+    for i, layer in enumerate(layers):
+        for n in ("q_proj", "k_proj", "v_proj"):
+            out[f"encoder {i} {n}"] = getattr(layer, n).weight
+        out[f"encoder {i} table"] = layer.relative_position_bias_table
+    return out
+
+
+def window_grad_check_phase(cfg, counts: Counts, build_model, WA) -> None:
+    """One fp32 backbone + window-encoder gradient (TF32 off) of the NHWC
+    flagship for a seeded cotangent on the pixel decoder's outputs, through
+    K5 / K6 and through their plain versions, compared on every Swin
+    block's qkv and bias table and every window layer's q/k/v projections
+    and table."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = flagship_cfg(cfg, "nhwc")
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    images = torch.from_numpy(np.random.default_rng(SEED + 7).standard_normal(
+        (TRAIN_BATCH, TRAIN_CANVAS, TRAIN_CANVAS, 3)).astype(
+        np.float32)).cuda()
+    grads = {}
+    plain = (WA.window_attention_nhwc_torch,
+             WA.window_attention_nhwc_split_torch)
+    for tag, kw, want in (
+            ("kernel", {}, {"window_attn_k5_fused": 12,
+                            "window_attn_k5_split": 18,
+                            "window_attn_k6_fused": 12,
+                            "window_attn_k6_split": 18}),
+            ("plain", {"window_attn_fn": plain}, {})):
+        model = build_model(cfg, seed=SEED, **kw)
+        counts.reset()
+        mf, outs = model.sem_seg_head.pixel_decoder(model.backbone(images))
+        _cotangent_loss([mf] + outs, SEED + 8).backward()
+        torch.cuda.synchronize()
+        counts.check(counts.read(), want, f"{tag} flagship gradient")
+        grads[tag] = {n: p.grad for n, p in _window_params(model).items()}
+        del model, mf, outs
+    _compare_grads(grads, "fp32 backbone + window-encoder gradient (NHWC "
+                   "flagship, TF32 off)")
+
+
+# ------------------------------------------------------------ train phases
+def train_batch(cfg, seed: int, num_classes: int) -> dict:
+    """A batch in the JAX loader's layout, made from ``seed``: random
+    images with 3-15 bright ellipses per image painted in, their masks,
+    classes and boxes in the first slots, -1 / 0 padding after."""
+    rng = np.random.default_rng(seed)
+    b, s = int(cfg.SOLVER.IMS_PER_BATCH), int(cfg.INPUT.IMAGE_SIZE)
+    m = int(cfg.INPUT.MAX_INSTANCES)
+    image = rng.integers(0, 128, (b, s, s, 3), dtype=np.uint8)
+    masks = np.zeros((b, m, s, s), np.uint8)
+    classes = np.full((b, m), -1, np.int32)
+    boxes = np.zeros((b, m, 4), np.float32)
+    num = rng.integers(3, 16, b).astype(np.int32)
+    yy, xx = np.mgrid[:s, :s]
+    for i in range(b):
+        for j in range(num[i]):
+            cy, cx = rng.uniform(0.1 * s, 0.9 * s, 2)
+            ry, rx = rng.uniform(0.03 * s, 0.15 * s, 2)
+            mask = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+            masks[i, j] = mask
+            classes[i, j] = rng.integers(0, num_classes)
+            boxes[i, j] = (xx[mask].min(), yy[mask].min(),
+                           xx[mask].max() + 1, yy[mask].max() + 1)
+            image[i][mask] = rng.integers(128, 256, 3, dtype=np.uint8)
+    return {"image": image, "gt_classes": classes, "gt_masks": masks,
+            "gt_boxes": boxes, "num_instances": num}
+
+
+def _run_steps(counts: Counts, step, state, batches, seed: int,
+               per_step: dict, label: str):
     """Train steps with the launch counts checked per step; returns the
-    logs and the host time of each step (ended by the logs' host copy)."""
-    logs, times = [], []
+    logs, the host time of each step (ended by the logs' host copy) and the
+    launches of all of them."""
+    logs, times, total = [], [], {}
     for batch in batches:
-        fwd, bwd = K.ms_deform_attn.launches, K.ms_deform_attn_bwd.launches
+        counts.reset()
         t0 = time.perf_counter()
         state, out = step(state, batch, seed)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        n = (K.ms_deform_attn.launches - fwd,
-             K.ms_deform_attn_bwd.launches - bwd)
-        if n != (k1_per_step, enc_layers):
-            raise AssertionError(f"a train step launched K1 {n[0]} and the "
-                                 f"backward {n[1]} times, want "
-                                 f"{k1_per_step} and {enc_layers}")
+        n = counts.read()
+        counts.check(n, per_step, f"a train step ({label})")
+        total = {k: total.get(k, 0) + v for k, v in n.items()}
         if not all(np.isfinite(v) for v in out.values()):
             raise AssertionError(f"non-finite train logs {out}")
         logs.append(out)
-    return logs, times
+    return logs, times, total
 
 
-def train_phase(cfg, K, build_model, engine, smi: str) -> dict:
-    """The training path: 1 warm-up and 10 timed steps at the defaults,
-    then 2 steps each with the training CLIs' settings."""
+def _nonzero_grads(params: dict, label: str) -> None:
+    for name, p in params.items():
+        if p.grad is None or not bool((p.grad != 0).any()):
+            raise AssertionError(f"{label}: {name} got no gradient")
+
+
+def _add(a: dict, b: dict) -> dict:
+    return {k: a.get(k, 0) + b.get(k, 0) for k in set(a) | set(b)}
+
+
+def train_phase(cfg, counts: Counts, build_model, engine, smi: str,
+                per_step: dict, label: str, n_timed: int,
+                grad_params, cli_settings: bool = False) -> dict:
+    """The training path: 1 warm-up and ``n_timed`` timed steps, then
+    (``cli_settings``) 2 steps each with the training CLIs' settings."""
     cfg = cfg.clone()
-    enc = cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS
     ncls = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
-    batches = [train_batch(cfg, SEED + 10 + i, ncls) for i in range(11)]
+    batches = [train_batch(cfg, SEED + 10 + i, ncls)
+               for i in range(n_timed + 1)]
     model = build_model(cfg, seed=SEED)
     state = engine.create_train_state(cfg, model)
     step = engine.make_train_step(cfg, model, state.optimizer)
-    K.ms_deform_attn.launches = 0          # the training path starts here
-    K.ms_deform_attn_bwd.launches = 0
-    logs, times = _run_steps(K, step, state, batches, SEED, enc, enc)
-    launches = (K.ms_deform_attn.launches, K.ms_deform_attn_bwd.launches)
-    # ... and ends here
-    for a in _encoder_attn(model):
-        for name in ("value_proj", "sampling_offsets", "attention_weights"):
-            g = getattr(a, name).weight.grad
-            if g is None or not bool((g != 0).any()):
-                raise AssertionError(f"encoder {name} got no gradient")
+    logs, times, launches = _run_steps(counts, step, state, batches, SEED,
+                                       per_step, label)
+    _nonzero_grads(grad_params(model), label)
     ms = statistics.median(times[1:]) * 1e3
     first = {k: float('%.6g' % v) for k, v in logs[0].items()}
-    print(f"train phase: {len(batches)} steps of batch {TRAIN_BATCH} at "
+    print(f"train {label}: {len(batches)} steps of batch {TRAIN_BATCH} at "
           f"{TRAIN_CANVAS}x{TRAIN_CANVAS} ({cfg.TPU.COMPUTE_DTYPE}, matcher "
           f"{cfg.MODEL.MASK_FORMER.MATCHER}, points "
-          f"{cfg.MODEL.MASK_FORMER.POINT_MODE}); K1 launches {launches[0]}, "
-          f"backward launches {launches[1]} ({enc} each per step); encoder "
-          f"value_proj / sampling_offsets / attention_weights grads nonzero; "
-          f"first step logs {first}; step seconds "
+          f"{cfg.MODEL.MASK_FORMER.POINT_MODE}); launches per step "
+          f"{per_step}, checked each step; attention weights' grads "
+          f"nonzero; first step logs {first}; step seconds "
           f"{['%.4f' % t for t in times]}", flush=True)
-    print(f"train phase: median {ms:.3f} ms/step, "
-          f"{TRAIN_BATCH / (ms / 1e3):.3f} images/s over the 10 steps after "
-          f"the warm-up, on {smi}", flush=True)
+    print(f"train {label}: median {ms:.3f} ms/step, "
+          f"{TRAIN_BATCH / (ms / 1e3):.3f} images/s over the {n_timed} steps "
+          f"after the warm-up, on {smi}", flush=True)
     del model, state, step
-    for matcher in ("hungarian", "greedy"):
-        c = cfg.clone()
-        # training/maskdino/common.py: grid points, remat of the backbone
-        # blocks and the encoder layers (which recomputes K1 once more)
-        c.MODEL.MASK_FORMER.MATCHER = matcher
-        c.MODEL.MASK_FORMER.POINT_MODE = "grid"
-        c.MODEL.SWIN.USE_CHECKPOINT = True
-        c.TPU.REMAT_ENCODER = True
-        model = build_model(c, seed=SEED)
-        state = engine.create_train_state(c, model)
-        step = engine.make_train_step(c, model, state.optimizer)
-        cli_logs, cli_times = _run_steps(K, step, state, batches[:3], SEED,
-                                         enc, 2 * enc)
-        print(f"train phase, CLI settings (matcher {matcher}, grid points, "
-              f"remat): step seconds {['%.4f' % t for t in cli_times]}, "
-              f"loss_total {[round(x['loss_total'], 4) for x in cli_logs]}",
-              flush=True)
-        del model, state, step
+    if cli_settings:
+        for matcher in ("hungarian", "greedy"):
+            c = cfg.clone()
+            # training/maskdino/common.py: grid points, remat of the
+            # backbone blocks and the encoder layers (which recomputes
+            # every forward kernel of the encoder once more)
+            c.MODEL.MASK_FORMER.MATCHER = matcher
+            c.MODEL.MASK_FORMER.POINT_MODE = "grid"
+            c.MODEL.SWIN.USE_CHECKPOINT = True
+            c.TPU.REMAT_ENCODER = True
+            model = build_model(c, seed=SEED)
+            state = engine.create_train_state(c, model)
+            step = engine.make_train_step(c, model, state.optimizer)
+            remat = dict(per_step, msdeform_attn_fwd=2 * per_step.get(
+                "msdeform_attn_fwd", 0))
+            cli_logs, cli_times, n = _run_steps(counts, step, state,
+                                                batches[:2], SEED, remat,
+                                                label)
+            launches = _add(launches, n)
+            print(f"train {label}, CLI settings (matcher {matcher}, grid "
+                  f"points, remat): step seconds "
+                  f"{['%.4f' % t for t in cli_times]}, loss_total "
+                  f"{[round(x['loss_total'], 4) for x in cli_logs]}",
+                  flush=True)
+            del model, state, step
     return dict(launches=launches, ms_per_step=ms)
 
 
-def overfit_phase(cfg, K, build_model, engine) -> None:
+def overfit_phase(cfg, counts: Counts, build_model, engine, per_step: dict,
+                  label: str) -> None:
     """40 steps on one fixed batch from warm-up-free AdamW: the loss must
     fall (mean of the last 5 below the mean of the first 5)."""
     cfg = cfg.clone()
@@ -553,17 +984,42 @@ def overfit_phase(cfg, K, build_model, engine) -> None:
     model = build_model(cfg, seed=SEED + 1)
     state = engine.create_train_state(cfg, model)
     step = engine.make_train_step(cfg, model, state.optimizer)
-    enc = cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS
-    logs, _ = _run_steps(K, step, state, [batch] * 40, SEED, enc, enc)
+    logs, _, _ = _run_steps(counts, step, state, [batch] * 40, SEED, per_step,
+                            label)
     losses = [x["loss_total"] for x in logs]
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-    print(f"overfit phase: 40 steps on one batch, loss_total mean of the "
+    print(f"overfit {label}: 40 steps on one batch, loss_total mean of the "
           f"first 5 {first:.4f}, of the last 5 {last:.4f}, ratio "
           f"{last / first:.4f}; every 5th "
           f"{[round(x, 4) for x in losses[::5]]}", flush=True)
     if not last < first:
-        raise AssertionError("the loss did not fall over 40 steps")
+        raise AssertionError(f"overfit {label}: the loss did not fall over "
+                             "40 steps")
     del model, state, step
+
+
+def _default_grads(model) -> dict:
+    return {f"encoder {i} {n}": getattr(a, n).weight
+            for i, a in enumerate(_encoder_attn(model))
+            for n in ("value_proj", "sampling_offsets", "attention_weights")}
+
+
+SOURCES = "vision_instance_seg_tpu_torch/kernels/csrc/"
+TPU_KERNELS = "vision_instance_seg_tpu/kernels/"
+KERNEL_ROWS = {   # kernels line name -> (source, the TPU function it replaces)
+    "msdeform_attn_fwd": ("msdeform_attn_fwd.cu",
+                          "msdeform_attn.py:185"),
+    "msdeform_attn_bwd": ("msdeform_attn_bwd.cu",
+                          "msdeform_attn.py:483 (K2), :722 (K3a), "
+                          ":873 (K3b)"),
+    "window_attn_k4a": ("window_attn_fwd.cu", "window_attention.py:162"),
+    "window_attn_k4b": ("window_attn_fwd.cu", "window_attention.py:220"),
+    "window_attn_k4b_ws7": ("window_attn_fwd.cu", "window_attention.py:220"),
+    "window_attn_k5_fused": ("window_attn_fwd.cu", "window_attention.py:531"),
+    "window_attn_k5_split": ("window_attn_fwd.cu", "window_attention.py:531"),
+    "window_attn_k6_fused": ("window_attn_bwd.cu", "window_attention.py:696"),
+    "window_attn_k6_split": ("window_attn_bwd.cu", "window_attention.py:696"),
+}
 
 
 def main() -> int:
@@ -575,9 +1031,11 @@ def main() -> int:
     from vision_instance_seg_tpu_torch.config import get_cfg
     from vision_instance_seg_tpu_torch.kernels import build
     from vision_instance_seg_tpu_torch.kernels import msdeform_attn as K
+    from vision_instance_seg_tpu_torch.kernels import window_attention as WA
     from vision_instance_seg_tpu_torch.models import (
         build_model, make_inference_fn, normalize_image)
 
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
@@ -590,39 +1048,83 @@ def main() -> int:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {lib.name}: {line.strip()}")
+    counts = Counts(K, WA)
 
-    k1 = kernel_phase(K, smi)
-    kb = bwd_kernel_phase(K, smi)
+    numbers = {"msdeform_attn_fwd": kernel_phase(K, smi),
+               "msdeform_attn_bwd": bwd_kernel_phase(K, smi)}
+    numbers.update(window_kernel_phase(WA, smi))
+    numbers.update(window_bwd_kernel_phase(WA, smi))
+
     cfg = get_cfg()
-    served = serve_phase(cfg, K, build_model, make_inference_fn)
-    print(f"model phase: {served['images_per_s']:.2f} images/s "
-          f"({cfg.TPU.COMPUTE_DTYPE}, batch {BATCH}, {CANVAS}x{CANVAS}) on "
-          f"{smi}", flush=True)
-    fp32_parity_phase(cfg, K, build_model, normalize_image)
-    grad_check_phase(cfg, K, build_model)
-    trained = train_phase(cfg, K, build_model, engine, smi)
-    overfit_phase(cfg, K, build_model, engine)
+    enc = cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS        # 6
+    blocks = sum(cfg.MODEL.SWIN.DEPTHS)                        # 12
+    levels = len(cfg.MODEL.SEM_SEG_HEAD
+                 .DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES)  # 3
+    k5 = {"window_attn_k5_fused": blocks,
+          "window_attn_k5_split": enc * levels}
+    k6 = {"window_attn_k6_fused": blocks,
+          "window_attn_k6_split": enc * levels}
+    k4 = {"window_attn_k4b": blocks, "window_attn_k4a": enc * levels}
+    nhwc, pallas = flagship_cfg(cfg, "nhwc"), flagship_cfg(cfg, "pallas")
+    default_pallas = cfg.clone()
+    default_pallas.TPU.USE_PALLAS_WINDOW_ATTN = True
 
-    kernels = [{
-        "name": "msdeform_attn_fwd", "route": "cuda",
-        "source": "vision_instance_seg_tpu_torch/kernels/csrc/"
-                  "msdeform_attn_fwd.cu",
-        "replaces": "vision_instance_seg_tpu/kernels/msdeform_attn.py:185",
-        # the serving path's launches and the training path's
-        "launches": served["launches"] + trained["launches"][0],
-        "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"]}, {
-        "name": "msdeform_attn_bwd", "route": "cuda",
-        "source": "vision_instance_seg_tpu_torch/kernels/csrc/"
-                  "msdeform_attn_bwd.cu",
-        "replaces": "vision_instance_seg_tpu/kernels/msdeform_attn.py:483 "
-                    "(K2), :722 (K3a), :873 (K3b)",
-        "launches": trained["launches"][1], "max_abs_err": kb["max_abs_err"],
-        "ms": kb["ms"], "plain_ms": kb["plain_ms"],
-        "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"],
-        "library_ms": kb["library_ms"]}]
+    served = [serve_phase(cfg, counts, build_model, make_inference_fn,
+                          {"msdeform_attn_fwd": enc}, 3, "default"),
+              serve_phase(default_pallas, counts, build_model,
+                          make_inference_fn,
+                          {"msdeform_attn_fwd": enc,
+                           "window_attn_k4b": blocks}, 1,
+                          "default, USE_PALLAS_WINDOW_ATTN (K4b at ws 7)"),
+              serve_phase(nhwc, counts, build_model, make_inference_fn, k5,
+                          4, "flagship, WINDOW_ATTN_NHWC"),
+              serve_phase(pallas, counts, build_model, make_inference_fn, k4,
+                          3, "flagship, USE_PALLAS_WINDOW_ATTN")]
+    fp32_parity_phase(cfg, counts, build_model, normalize_image,
+                      {"deform_core_fn": K.ms_deform_attn_core_torch},
+                      {"msdeform_attn_fwd": enc}, "default")
+    fp32_parity_phase(nhwc, counts, build_model, normalize_image,
+                      {"window_attn_fn": (WA.window_attention_nhwc_torch,
+                                          WA.window_attention_nhwc_split_torch)},
+                      k5, "flagship NHWC")
+    fp32_parity_phase(pallas, counts, build_model, normalize_image,
+                      {"window_attn_fn": WA.window_attention_torch}, k4,
+                      "flagship USE_PALLAS_WINDOW_ATTN")
+    grad_check_phase(cfg, counts, build_model, K)
+    window_grad_check_phase(cfg, counts, build_model, WA)
+    trained = [
+        train_phase(cfg, counts, build_model, engine, smi,
+                    {"msdeform_attn_fwd": enc, "msdeform_attn_bwd": enc},
+                    "default", 6, _default_grads, cli_settings=True),
+        train_phase(nhwc, counts, build_model, engine, smi, _add(k5, k6),
+                    "flagship, WINDOW_ATTN_NHWC", 10, _window_params),
+        train_phase(pallas, counts, build_model, engine, smi, k4,
+                    "flagship, USE_PALLAS_WINDOW_ATTN", 3, _window_params)]
+    overfit_phase(cfg, counts, build_model, engine,
+                  {"msdeform_attn_fwd": enc, "msdeform_attn_bwd": enc},
+                  "default")
+    overfit_phase(nhwc, counts, build_model, engine, _add(k5, k6),
+                  "flagship, WINDOW_ATTN_NHWC")
+
+    launches = {}
+    for run in served + trained:
+        launches = _add(launches, run["launches"])
+    # the ws 7 K4b of the default model is counted under window_attn_k4b
+    # by the wrapper; its own row names its launches on that path
+    launches["window_attn_k4b_ws7"] = served[1]["launches"]["window_attn_k4b"]
+    launches["window_attn_k4b"] -= launches["window_attn_k4b_ws7"]
+    kernels = []
+    for name, (src, replaces) in KERNEL_ROWS.items():
+        row = numbers[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES + src,
+            "replaces": TPU_KERNELS + replaces,
+            "launches": launches[name], "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"]})
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,22 @@
 """Where the time goes in the PyTorch port's serving path, on one GPU.
 
     python3 scripts/profile_port_infer.py [--batch 8] [--size 800] [--iters 5]
+        [KEY VALUE ...]
 
 Builds the default ``get_cfg()`` model of ``vision_instance_seg_tpu_torch``
 (Swin-T, deformable pixel decoder, Mask2Former decoder; weights from a fixed
-seed) on CUDA, serves one warm-up batch and ``--iters`` timed batches of
-random uint8 images through ``make_inference_fn``, and prints:
+seed) on CUDA, with trailing ``KEY VALUE`` config overrides as ``bench.py``
+takes them (the window-attention flagship:
+``MODEL.SEM_SEG_HEAD.ENCODER_ATTENTION window MODEL.SWIN.WINDOW_SIZE 8
+TPU.WINDOW_ATTN_NHWC True``), serves one warm-up batch and ``--iters`` timed
+batches of random uint8 images through ``make_inference_fn``, and prints:
 
 - images/s and per-batch ms (host clock around synchronized batches);
 - device ms per stage per batch (backbone, pixel decoder, of which the
-  deformable attention layers, decoder; the remainder of the batch is
-  normalization and instance post-processing), from CUDA events that
-  forward hooks record around the stage modules;
+  encoder layers and, in the deformable encoder, their deformable
+  attention, decoder; the remainder of the batch is normalization and
+  instance post-processing), from CUDA events that forward hooks record
+  around the stage modules;
 - the top kernels by device time over one profiled batch (torch.profiler),
   and the device's busy share of that batch's wall time.
 
@@ -72,6 +77,7 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--size", type=int, default=800)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("opts", nargs="*", help="KEY VALUE config overrides")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -84,15 +90,17 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     cfg = get_cfg()
+    cfg.merge_from_list(args.opts)
     model = build_model(cfg, seed=0)
     infer = make_inference_fn(model, cfg)
     pd = model.sem_seg_head.pixel_decoder
-    timer = StageTimer({
-        "backbone": [model.backbone],
-        "pixel_decoder": [pd],
-        "deform_attn": [layer.self_attn
-                        for layer in pd.transformer.encoder.layers],
-        "decoder": [model.sem_seg_head.predictor]})
+    layers = list(pd.transformer.encoder.layers)
+    stages = {"backbone": [model.backbone], "pixel_decoder": [pd],
+              "encoder_layers": layers,
+              "deform_attn": [layer.self_attn for layer in layers
+                              if hasattr(layer, "self_attn")],
+              "decoder": [model.sem_seg_head.predictor]}
+    timer = StageTimer({k: v for k, v in stages.items() if v})
     rng = np.random.default_rng(0)
     batches = [rng.integers(0, 256, (args.batch, args.size, args.size, 3),
                             dtype=np.uint8) for _ in range(args.iters + 1)]
@@ -129,7 +137,7 @@ def main() -> int:
 
     ips = args.batch / (batch_ms / 1e3)
     print(f"{card}; batch {args.batch} at {args.size}x{args.size}, "
-          f"{cfg.TPU.COMPUTE_DTYPE}")
+          f"{cfg.TPU.COMPUTE_DTYPE}, opts {args.opts}")
     print(f"serving: {ips:.2f} images/s, batch ms {['%.3f' % w for w in walls]}")
     for k, v in stage_ms.items():
         print(f"stage {k:14s} {v:9.3f} ms/batch ({100 * v / batch_ms:.1f}%)")
@@ -137,7 +145,7 @@ def main() -> int:
           f"{busy_ms:.3f} ms ({100 * busy_ms / prof_wall_ms:.1f}%)")
     for ms, count, name in kernels[:15]:
         print(f"  {ms:9.3f} ms  x{count:<5d} {name[:100]}")
-    print(json.dumps({"card": card, "images_per_s": ips,
+    print(json.dumps({"card": card, "opts": args.opts, "images_per_s": ips,
                       "batch_ms": batch_ms, "stage_ms": stage_ms,
                       "profiled_wall_ms": prof_wall_ms,
                       "device_busy_ms": busy_ms,

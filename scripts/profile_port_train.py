@@ -1,11 +1,14 @@
 """Where the time goes in the PyTorch port's train step, on one GPU.
 
     python3 scripts/profile_port_train.py [--steps 5] [--point-mode random]
-        [--matcher hungarian]
+        [--matcher hungarian] [KEY VALUE ...]
 
 Builds the default ``get_cfg()`` model of ``vision_instance_seg_tpu_torch``
 (Swin-T, deformable pixel decoder, Mask2Former decoder; weights from a fixed
-seed) on CUDA with its train state, makes seeded batches in the JAX loader's
+seed) on CUDA with its train state, with trailing ``KEY VALUE`` config
+overrides as ``bench.py`` takes them (e.g. the window-attention flagship,
+``MODEL.SEM_SEG_HEAD.ENCODER_ATTENTION window MODEL.SWIN.WINDOW_SIZE 8
+TPU.WINDOW_ATTN_NHWC True``), makes seeded batches in the JAX loader's
 layout at the defaults (batch 2, 640x640, 100 GT slots; ``chip_smoke.py``'s
 ``train_batch``), runs one warm-up and ``--steps`` timed train steps, and
 prints:
@@ -50,6 +53,7 @@ def main() -> int:
                     choices=("random", "grid"))
     ap.add_argument("--matcher", default="hungarian",
                     choices=("hungarian", "hungarian_dfs", "greedy"))
+    ap.add_argument("opts", nargs="*", help="KEY VALUE config overrides")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -63,6 +67,7 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     cfg = get_cfg()
+    cfg.merge_from_list(args.opts)
     cfg.MODEL.MASK_FORMER.POINT_MODE = args.point_mode
     cfg.MODEL.MASK_FORMER.MATCHER = args.matcher
     model = build_model(cfg, seed=0)
@@ -126,7 +131,7 @@ def main() -> int:
 
     print(f"{card}; train step of batch {b} at {cfg.INPUT.IMAGE_SIZE}x"
           f"{cfg.INPUT.IMAGE_SIZE}, {cfg.TPU.COMPUTE_DTYPE}, matcher "
-          f"{args.matcher}, points {args.point_mode}")
+          f"{args.matcher}, points {args.point_mode}, opts {args.opts}")
     print(f"training: {step_ms:.3f} ms/step, {b / (step_ms / 1e3):.3f} "
           f"images/s, step ms {['%.3f' % w for w in walls]}, peak device "
           f"memory {peak_gib:.2f} GiB")
@@ -139,7 +144,7 @@ def main() -> int:
               f"{v['device_span_ms']:9.3f} ms{busy}")
     for ms, count, name in kernels[:20]:
         print(f"  {ms:9.3f} ms  x{count:<5d} {name[:100]}")
-    print(json.dumps({"card": card, "step_ms": step_ms,
+    print(json.dumps({"card": card, "opts": args.opts, "step_ms": step_ms,
                       "images_per_s": b / (step_ms / 1e3),
                       "peak_memory_gib": peak_gib,
                       "profiled_wall_ms": prof_wall_ms,

@@ -123,9 +123,8 @@ def test_default_device_needs_cuda(monkeypatch):
 @pytest.mark.parametrize("opts", [
     ["MODEL.BACKBONE.NAME", "resnet"],
     ["MODEL.MASK_DINO.ENABLED", "True"],
-    ["MODEL.SEM_SEG_HEAD.ENCODER_ATTENTION", "window"],
     ["MODEL.SEM_SEG_HEAD.ENCODER_ATTENTION", "full"],
-], ids=["resnet", "maskdino", "window-encoder", "full-encoder"])
+], ids=["resnet", "maskdino", "full-encoder"])
 def test_unported_options_raise(opts):
     cfg = tiny_cfg(get_cfg())
     cfg.merge_from_list(opts)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1 and the backward) against their plain
-PyTorch versions.
+"""The port's CUDA kernels (K1, the sampling backward and the window
+kernels K4a, K4b, K5, K6) against their plain PyTorch versions.
 
 Imports only torch, numpy and the port, so it also runs on a machine
 without JAX. On the card (the repository's conftest imports JAX, so skip
@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from vision_instance_seg_tpu_torch.kernels import msdeform_attn as K
+from vision_instance_seg_tpu_torch.kernels import window_attention as WA
 
 SHAPES = [(8, 8), (4, 4), (2, 2)]
 
@@ -186,3 +187,223 @@ def test_bwd_kernel_rejects_what_it_does_not_take():
         K.ms_deform_attn_bwd(value, SHAPES, loc, aw, strided)
     with pytest.raises(ValueError):
         K.ms_deform_attn_bwd(value, SHAPES, loc, aw, g.double())
+
+
+# ------------------------------------------ window attention: K4a, K4b, K5, K6
+# Both versions compute the logits and softmax in fp32 from the same inputs;
+# the sums run in another order (and the kernel's exp is CUDA's expf), so an
+# fp32 output differs by ~1e-6 of max|v| (the output is a convex combination
+# of v's rows): tolerance 2e-5 * max|v|. In bf16 the kernel and the plain
+# version each round p and the output to bf16 once; the fp32 values they
+# round may straddle a rounding boundary, so each may land one bf16 step
+# (2^-8 relative) away: tolerance 2^-7 * max|v| on top.
+WA_TOKEN_CASES = {            # (B, nW, nH, ws, hd, shift, geometry kernel)
+    "mask-ws7": (2, 6, 3, 7, 32, 3, False),
+    "mask-ws8-shift": (2, 6, 2, 8, 32, 4, False),
+    "geo-ws7-shift": (2, 9, 3, 7, 32, 3, True),
+    "geo-ws8-shift": (1, 6, 3, 8, 32, 4, True),
+    "geo-ws4-hd16": (2, 25, 2, 4, 16, 2, True),
+}
+WA_NHWC_CASES = {             # (B, h, w, nH, hd, ws, shift, split)
+    "fused-shift": (2, 24, 16, 3, 32, 8, 4, False),
+    "fused-odd-cols": (1, 16, 24, 2, 16, 8, 0, False),
+    "split-pad-shift": (2, 13, 21, 8, 32, 8, 4, True),
+    "split-12-pad-shift": (1, 12, 12, 2, 64, 8, 4, True),
+    "split-no-pad": (2, 16, 16, 4, 32, 8, 0, True),
+}
+
+
+def _wa_tol(ref, dtype):
+    tol = 2e-5 * ref.float().abs().max().item()
+    return tol + (2.0 ** -7 * ref.float().abs().max().item()
+                  if dtype == torch.bfloat16 else 0.0)
+
+
+def _wa_token_inputs(case, dtype, seed=20):
+    b, nw, nh, ws, hd, shift, geo = WA_TOKEN_CASES[case]
+    n = ws * ws
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (b * nw, nh, n, hd)).astype(np.float32)).cuda().to(dtype)
+        for _ in range(3))
+    rel = torch.from_numpy(rng.standard_normal((nh, n, n)).astype(
+        np.float32)).cuda()
+    wh = {6: 2, 9: 3, 25: 5}[nw]
+    geometry = (wh * ws, nw // wh * ws, ws, shift)
+    mask = WA.window_mask(*geometry, None, torch.device("cuda"))
+    return q, k, v, rel, mask, nw, geometry if geo else None
+
+
+def _wa_nhwc_inputs(case, dtype, seed=21):
+    b, h, w, nh, hd, ws, shift, split = WA_NHWC_CASES[case]
+    hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+    rng = np.random.default_rng(seed)
+
+    def t(c):
+        return torch.from_numpy(rng.standard_normal((b, hp, wp, c)).astype(
+            np.float32)).cuda().to(dtype)
+
+    ops = (t(nh * hd), t(nh * hd), t(nh * hd)) if split else (t(3 * nh * hd),)
+    rel = torch.from_numpy(rng.standard_normal(
+        (nh, ws * ws, ws * ws)).astype(np.float32)).cuda()
+    g = t(nh * hd)
+    return ops, rel, (hp, wp, ws, shift), (h, w) if split else None, g, hd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(WA_TOKEN_CASES))
+def test_window_token_kernel_matches_plain_on_cuda(case, dtype):
+    """K4a (mask tensor) and K4b (geometry labels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dtype = getattr(torch, dtype)
+    q, k, v, rel, mask, nw, geo = _wa_token_inputs(case, dtype)
+    scale = q.shape[-1] ** -0.5
+    kind = "k4b" if geo else "k4a"
+    before = WA.LAUNCHES[kind]
+    got = WA.window_attention(q, k, v, rel, mask, scale, nw, geometry=geo)
+    torch.cuda.synchronize()
+    assert WA.LAUNCHES[kind] == before + 1
+    want = WA.window_attention_torch(q, k, v, rel, mask, scale, nw, geo)
+    assert got.dtype == want.dtype == dtype
+    assert (got.float() - want.float()).abs().max().item() <= _wa_tol(v,
+                                                                       dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(WA_NHWC_CASES))
+def test_window_nhwc_kernel_matches_plain_on_cuda(case, dtype):
+    """K5, fused qkv (backbone) and split q/k/v with pad labels (encoder)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dtype = getattr(torch, dtype)
+    ops, rel, geo, pad, _, hd = _wa_nhwc_inputs(case, dtype)
+    kind = "k5_split" if len(ops) == 3 else "k5_fused"
+    before = WA.LAUNCHES[kind]
+    if len(ops) == 3:
+        got = WA.window_attention_nhwc_split(*ops, rel, hd ** -0.5, geo,
+                                             pad_hw=pad)
+        want = WA.window_attention_nhwc_split_torch(*ops, rel, hd ** -0.5,
+                                                    geo, pad_hw=pad)
+    else:
+        got = WA.window_attention_nhwc(*ops, rel, hd ** -0.5, geo)
+        want = WA.window_attention_nhwc_torch(*ops, rel, hd ** -0.5, geo)
+    torch.cuda.synchronize()
+    assert WA.LAUNCHES[kind] == before + 1
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= _wa_tol(
+        ops[-1], dtype)
+
+
+def assert_wa_bwd_close(got, want, dtype):
+    """d(operands) and d(rel) of K6 against the plain backward: fp32 sums in
+    another order (d(rel) over every window), 1e-4 of each output's largest
+    magnitude; a bf16 d(operand) may also round one bf16 step apart
+    (2^-7 relative at most)."""
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        a, b = a.float(), b.float()
+        rtol = 2.0 ** -7 if (dtype == torch.bfloat16
+                             and i < len(got) - 1) else 0.0
+        tol = 1e-4 * b.abs().max().item() + rtol * b.abs()
+        err = (a - b).abs()
+        assert bool((err <= tol).all()), (i, err.max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(WA_NHWC_CASES))
+def test_window_bwd_kernel_matches_plain_on_cuda(case, dtype):
+    """K6 for both layouts, and d(rel) bit for bit on a second run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    dtype = getattr(torch, dtype)
+    ops, rel, geo, pad, g, hd = _wa_nhwc_inputs(case, dtype)
+    kind = "k6_split" if len(ops) == 3 else "k6_fused"
+    before = WA.LAUNCHES[kind]
+    got = WA.window_attention_nhwc_bwd(ops, rel, g, hd ** -0.5, geo, pad)
+    again = WA.window_attention_nhwc_bwd(ops, rel, g, hd ** -0.5, geo, pad)
+    torch.cuda.synchronize()
+    assert WA.LAUNCHES[kind] == before + 2
+    want = WA.window_attention_nhwc_bwd_torch(
+        ops, rel, g, hd ** -0.5, geo, pad if pad != geo[:2] else None)
+    assert_wa_bwd_close(got, want, dtype)
+    assert torch.equal(got[-1], again[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["fused-shift", "split-pad-shift"])
+def test_window_nhwc_autograd_takes_both_kernels_on_cuda(case, dtype):
+    """A CUDA map that requires grad runs K5 forward and K6 backward, also
+    for a strided fp32 cotangent (cast to the operands' dtype first)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dtype = getattr(torch, dtype)
+    ops, rel, geo, pad, g, hd = _wa_nhwc_inputs(case, dtype)
+    leaves = [t.clone().requires_grad_() for t in ops + (rel,)]
+    fwd = WA.LAUNCHES.copy()
+    if len(ops) == 3:
+        out = WA.window_attention_nhwc_split(*leaves[:3], leaves[3],
+                                             hd ** -0.5, geo, pad_hw=pad)
+    else:
+        out = WA.window_attention_nhwc(leaves[0], leaves[1], hd ** -0.5, geo)
+    gf = g.float()
+    (out.float().transpose(1, 2) * gf.transpose(1, 2)).sum().backward()
+    torch.cuda.synchronize()
+    bwd = WA.LAUNCHES
+    sfx = "split" if len(ops) == 3 else "fused"
+    assert bwd[f"k5_{sfx}"] == fwd[f"k5_{sfx}"] + 1
+    assert bwd[f"k6_{sfx}"] == fwd[f"k6_{sfx}"] + 1
+    want = WA.window_attention_nhwc_bwd_torch(ops, rel, gf.to(dtype),
+                                              hd ** -0.5, geo, pad)
+    assert_wa_bwd_close([t.grad for t in leaves], want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mask-ws8-shift", "geo-ws7-shift"])
+def test_window_token_autograd_on_cuda(case):
+    """K4 forward on the card; its backward is the JAX recompute in torch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, rel, mask, nw, geo = _wa_token_inputs(case, torch.float32)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, rel)]
+    scale = q.shape[-1] ** -0.5
+    kind = "k4b" if geo else "k4a"
+    before = WA.LAUNCHES[kind]
+    out = WA.window_attention(*leaves, mask, scale, nw, geometry=geo)
+    g = torch.randn(out.shape, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(3))
+    grads = torch.autograd.grad(out, leaves, g)
+    assert WA.LAUNCHES[kind] == before + 1
+    bwd_mask = WA.window_mask(*geo, None, q.device) if geo else mask
+    want = WA.window_attention_bwd_torch(q, k, v, rel, bwd_mask, g, scale, nw)
+    for a, b in zip(grads, want):
+        assert (a - b).abs().max().item() <= 1e-6 * max(
+            1.0, b.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_window_kernels_reject_what_they_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ops, rel, geo, pad, g, hd = _wa_nhwc_inputs("split-pad-shift",
+                                                torch.float32)
+    with pytest.raises(TypeError):
+        WA.window_attention_nhwc_split(*(t.half() for t in ops), rel, 0.1,
+                                       geo, pad_hw=pad)
+    with pytest.raises(ValueError):            # not contiguous
+        WA.window_attention_nhwc_split(
+            ops[0].transpose(1, 2).contiguous().transpose(1, 2), *ops[1:],
+            rel, 0.1, geo, pad_hw=pad)
+    with pytest.raises(ValueError):            # geometry vs maps
+        WA.window_attention_nhwc_split(*ops, rel, 0.1, (8, 8, 8, 4))
+    with pytest.raises(ValueError):            # a bf16 cotangent for fp32
+        WA.window_attention_nhwc_bwd(ops, rel, g.bfloat16(), 0.1, geo, pad)
+    big = torch.zeros(1, 9, 9, 3 * 32, device="cuda")
+    with pytest.raises(ValueError):            # 81 tokens per window
+        WA.window_attention_nhwc(big, torch.zeros(1, 81, 81, device="cuda"),
+                                 0.1, (9, 9, 9, 0))

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 
 from vision_instance_seg_tpu_torch.config.validate import validate_cfg
+from vision_instance_seg_tpu_torch.kernels import window_attention as wa
 from vision_instance_seg_tpu_torch.kernels.msdeform_attn import DEFAULT_HALO
 from vision_instance_seg_tpu_torch.models.deform_attn import DeformCoreFn
 from vision_instance_seg_tpu_torch.models.pixel_decoder import (
@@ -68,13 +69,32 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda")
 
 
+def window_attention_fns(cfg, window_attn_fn=None):
+    """(backbone, window encoder) attention functions, wired from the flags
+    as the JAX ``build_model`` wires them: ``TPU.USE_PALLAS_WINDOW_ATTN``
+    gives both the token-major kernel entry (K4b in Swin, K4a in the
+    encoder) and takes precedence; else ``TPU.WINDOW_ATTN_NHWC`` gives Swin
+    the fused NHWC entry and the encoder the split one (K5); else None, the
+    plain path. A given ``window_attn_fn`` is used for both, or, as a
+    (backbone, encoder) pair, for each."""
+    if isinstance(window_attn_fn, (tuple, list)):
+        return tuple(window_attn_fn)
+    if window_attn_fn is None and cfg.TPU.USE_PALLAS_WINDOW_ATTN:
+        window_attn_fn = wa.window_attention
+    if window_attn_fn is None and cfg.TPU.WINDOW_ATTN_NHWC:
+        return wa.window_attention_nhwc, wa.window_attention_nhwc_split
+    return window_attn_fn, window_attn_fn
+
+
 def build_model(cfg, device=None,
                 deform_core_fn: Optional[DeformCoreFn] = None,
-                seed: int = 0) -> MaskFormer:
+                seed: int = 0, window_attn_fn=None) -> MaskFormer:
     """Build the eval-mode model on ``device``, weights drawn from ``seed``.
 
     ``deform_core_fn`` replaces the sampling core (default: the CUDA kernel
-    for CUDA tensors, its plain version for CPU tensors).
+    for CUDA tensors, its plain version for CPU tensors); ``window_attn_fn``
+    the window attention (``window_attention_fns``), e.g. with the kernels'
+    plain versions.
     """
     validate_cfg(cfg)
     if is_maskdino(cfg):
@@ -83,12 +103,14 @@ def build_model(cfg, device=None,
         raise NotImplementedError(
             f"backbone {cfg.MODEL.BACKBONE.NAME!r}: only Swin is ported")
     device = resolve_device(device)
-    backbone = build_swin(cfg)
+    swin_attn_fn, wenc_attn_fn = window_attention_fns(cfg, window_attn_fn)
+    backbone = build_swin(cfg, swin_attn_fn)
     channels = {f"res{i + 2}": cfg.MODEL.SWIN.EMBED_DIM * 2 ** i
                 for i in range(4)}
     clamp = float(DEFAULT_HALO) if cfg.TPU.USE_PALLAS_DEFORM_ATTN else None
     pixel_decoder = build_pixel_decoder(cfg, channels, core_fn=deform_core_fn,
-                                        offset_clamp=clamp)
+                                        offset_clamp=clamp,
+                                        window_attn_fn=wenc_attn_fn)
     predictor = build_transformer_decoder(cfg,
                                           cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM)
     model = MaskFormer(backbone, pixel_decoder, predictor,

@@ -1,12 +1,17 @@
-"""MSDeformAttn pixel decoder (Mask2Former/MaskDINO), deformable encoder.
+"""MSDeformAttn pixel decoder (Mask2Former/MaskDINO): deformable or window
+encoder.
 
 PyTorch counterpart of ``vision_instance_seg_tpu/models/pixel_decoder.py``
-(its ``encoder_attention="deformable"`` path), with the upstream
-detectron2 state-dict layout: ``input_proj.{i}.{0,1}``,
+(its ``encoder_attention`` "deformable" and "window" paths), with the
+upstream detectron2 state-dict layout: ``input_proj.{i}.{0,1}``,
 ``transformer.level_embed``, ``transformer.encoder.layers.{i}.*`` (one
 module per layer, where the JAX package scans stacked parameters),
 ``lateral_convs.{k}`` / ``output_convs.{k}`` (d2 convs whose norm is an
-attribute) and ``mask_features``.
+attribute) and ``mask_features``. The window encoder has no upstream
+counterpart; its layers keep the JAX names under the same prefix
+(``q_proj``, ``k_proj``, ``v_proj``, ``out_proj``, ``mix{j}``,
+``norm1``-``norm3``, ``linear1``, ``linear2``,
+``relative_position_bias_table``).
 
 Feature maps are NHWC at the module boundary, as in the JAX package; the
 3x3 convolutions run on channels-last NCHW views. ``remat``
@@ -23,10 +28,15 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from vision_instance_seg_tpu_torch.kernels.window_attention import (
+    window_mask)
 from vision_instance_seg_tpu_torch.models.deform_attn import (
     DeformCoreFn, MSDeformAttn)
 from vision_instance_seg_tpu_torch.models.layers import (
     GroupNorm, LayerNorm, position_embedding_sine)
+from vision_instance_seg_tpu_torch.models.swin import (
+    _relative_position_index, gather_rel_bias, wants_nhwc,
+    window_attention_default, window_partition, window_unpartition)
 
 
 def conv1x1(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -73,6 +83,120 @@ class DeformableEncoderLayer(nn.Module):
         return self.norm2(src + y)
 
 
+def _resize_nhwc(x: torch.Tensor, hw) -> torch.Tensor:
+    """Bilinear resize of an NHWC map, half-pixel centers, antialiased when
+    it downsamples: the JAX package's ``jax.image.resize(..., "bilinear")``."""
+    y = F.interpolate(x.permute(0, 3, 1, 2), size=tuple(hw), mode="bilinear",
+                      align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1)
+
+
+class WindowEncoderLayer(nn.Module):
+    """Window encoder layer (the JAX ``WindowEncoderLayer``): per-level
+    window attention with windows of ``window_size``, shifted by half a
+    window when ``shift``, over the padded level maps (q, k from src + pos,
+    v from src), ``out_proj`` and ``norm1``; a cross-scale fusion in which
+    every level gets every other level resized to its grid, mixed by
+    ``mix{i}`` and ``norm2``; the FFN and ``norm3``.
+
+    ``attn_fn`` picks the attention as in the JAX layer: None runs the plain
+    path; a ``wants_nhwc`` function (K5 split, ws % 8 == 0) gets the q, k, v
+    maps with ``pad_hw``; any other gets token-major (nWt, nH, N, hd) q/k/v
+    and the pad + shift mask tensor (K4a).
+    """
+
+    def __init__(self, dim: int, num_heads: int, ffn_dim: int,
+                 window_size: int, shift: bool, num_levels: int,
+                 attn_fn=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.window_size = window_size
+        self.shift = window_size // 2 if shift else 0
+        self.attn_fn = attn_fn
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * window_size - 1) ** 2, num_heads))
+        self.register_buffer("relative_position_index",
+                             _relative_position_index(window_size),
+                             persistent=False)
+        self.q_proj = nn.Linear(dim, dim)
+        self.k_proj = nn.Linear(dim, dim)
+        self.v_proj = nn.Linear(dim, dim)
+        self.out_proj = nn.Linear(dim, dim)
+        self.norm1 = LayerNorm(dim)
+        for i in range(num_levels):
+            self.add_module(f"mix{i}", nn.Linear(num_levels * dim, dim))
+        self.norm2 = LayerNorm(dim)
+        self.linear1 = nn.Linear(dim, ffn_dim)
+        self.linear2 = nn.Linear(ffn_dim, dim)
+        self.norm3 = LayerNorm(dim)
+
+    def _attend_level(self, xq, xv, h: int, w: int,
+                      rel_bias: torch.Tensor) -> torch.Tensor:
+        """Padded, rolled (B, Hp, Wp, C) maps of one level -> (B, Hp, Wp, C)
+        attention output."""
+        b, hp, wp, c = xq.shape
+        ws, shift, nh = self.window_size, self.shift, self.num_heads
+        hd, n = c // nh, ws * ws
+        fn = self.attn_fn
+        if wants_nhwc(fn, ws):
+            return fn(self.q_proj(xq), self.k_proj(xq), self.v_proj(xv),
+                      rel_bias, hd ** -0.5, (hp, wp, ws, shift),
+                      pad_hw=(h, w))
+        mask = window_mask(hp, wp, ws, shift, (h, w), xq.device)
+
+        def heads(t):                                 # (B*nW, nH, N, hd)
+            return t.view(-1, n, nh, hd).transpose(1, 2)
+
+        q = heads(self.q_proj(window_partition(xq, ws)))
+        k = heads(self.k_proj(window_partition(xq, ws)))
+        v = heads(self.v_proj(window_partition(xv, ws)))
+        if fn is None or getattr(fn, "wants_nhwc", False):
+            o = window_attention_default(q, k, v, rel_bias, mask, hd ** -0.5)
+        else:
+            o = fn(q.contiguous(), k.contiguous(), v.contiguous(), rel_bias,
+                   mask, hd ** -0.5, mask.shape[0])
+        return window_unpartition(o.transpose(1, 2).reshape(-1, n, c), ws,
+                                  hp, wp)
+
+    def forward(self, src, pos, reference_points, spatial_shapes):
+        del reference_points
+        b, _, c = src.shape
+        ws, shift = self.window_size, self.shift
+        rel_bias = gather_rel_bias(self.relative_position_bias_table,
+                                   self.relative_position_index)
+        qk_src = src + pos
+        outs, offset = [], 0
+        for h, w in spatial_shapes:
+            xq = qk_src[:, offset:offset + h * w].reshape(b, h, w, c)
+            xv = src[:, offset:offset + h * w].reshape(b, h, w, c)
+            offset += h * w
+            hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+            xq = F.pad(xq, (0, 0, 0, wp - w, 0, hp - h))
+            xv = F.pad(xv, (0, 0, 0, wp - w, 0, hp - h))
+            if shift:
+                xq = torch.roll(xq, (-shift, -shift), (1, 2))
+                xv = torch.roll(xv, (-shift, -shift), (1, 2))
+            o = self._attend_level(xq, xv, h, w, rel_bias)
+            if shift:
+                o = torch.roll(o, (shift, shift), (1, 2))
+            outs.append(o[:, :h, :w].reshape(b, h * w, c))
+        src = self.norm1(src + self.out_proj(torch.cat(outs, 1)))
+
+        maps, offset = [], 0
+        for h, w in spatial_shapes:
+            maps.append(src[:, offset:offset + h * w].reshape(b, h, w, c))
+            offset += h * w
+        mixed = []
+        for i, (h, w) in enumerate(spatial_shapes):
+            feats = [m if j == i else _resize_nhwc(m, (h, w))
+                     for j, m in enumerate(maps)]
+            y = getattr(self, f"mix{i}")(torch.cat(feats, -1))
+            mixed.append(y.reshape(b, h * w, c))
+        src = self.norm2(src + torch.cat(mixed, 1))
+        y = self.linear2(F.relu(self.linear1(src)))
+        return self.norm3(src + y)
+
+
 def encoder_reference_points(spatial_shapes: Sequence[Tuple[int, int]],
                              device: torch.device) -> torch.Tensor:
     """(sum HW, L, 2) normalized pixel-center reference points."""
@@ -111,7 +235,8 @@ class MSDeformAttnPixelDecoder(nn.Module):
                  fpn_fusion: str = "last",
                  core_fn: Optional[DeformCoreFn] = None,
                  offset_clamp: Optional[float] = None,
-                 remat: bool = False):
+                 remat: bool = False, encoder_attention: str = "deformable",
+                 encoder_window_size: int = 8, window_attn_fn=None):
         super().__init__()
         self.conv_dim = conv_dim
         self.remat = remat
@@ -123,10 +248,17 @@ class MSDeformAttnPixelDecoder(nn.Module):
         self.input_proj = nn.ModuleList(
             nn.ModuleList([nn.Conv2d(in_channels[n], conv_dim, 1),
                            GroupNorm(conv_dim)]) for n in tf_names)
-        self.transformer = _Transformer(nl, conv_dim, [
-            DeformableEncoderLayer(conv_dim, num_heads, nl, num_points,
-                                   ffn_dim, core_fn, offset_clamp)
-            for _ in range(num_encoder_layers)])
+        if encoder_attention == "window":
+            layers = [WindowEncoderLayer(conv_dim, num_heads, ffn_dim,
+                                         encoder_window_size, bool(li % 2),
+                                         nl, window_attn_fn)
+                      for li in range(num_encoder_layers)]
+        else:
+            layers = [DeformableEncoderLayer(conv_dim, num_heads, nl,
+                                             num_points, ffn_dim, core_fn,
+                                             offset_clamp)
+                      for _ in range(num_encoder_layers)]
+        self.transformer = _Transformer(nl, conv_dim, layers)
         # FPN over the non-transformer scales, coarsest first
         self.fpn_names = [n for n in ("res2", "res3", "res4", "res5")
                           if n not in self.transformer_in_features][::-1]
@@ -195,13 +327,13 @@ def _upsample_nhwc(x: torch.Tensor, hw) -> torch.Tensor:
 
 def build_pixel_decoder(cfg, in_channels: Dict[str, int],
                         core_fn: Optional[DeformCoreFn] = None,
-                        offset_clamp: Optional[float] = None
-                        ) -> MSDeformAttnPixelDecoder:
+                        offset_clamp: Optional[float] = None,
+                        window_attn_fn=None) -> MSDeformAttnPixelDecoder:
     s = cfg.MODEL.SEM_SEG_HEAD
-    if s.ENCODER_ATTENTION != "deformable":
+    if s.ENCODER_ATTENTION not in ("deformable", "window"):
         raise NotImplementedError(
-            f"SEM_SEG_HEAD.ENCODER_ATTENTION={s.ENCODER_ATTENTION!r}: only "
-            "the deformable encoder is ported")
+            f"SEM_SEG_HEAD.ENCODER_ATTENTION={s.ENCODER_ATTENTION!r}: the "
+            "deformable and window encoders are ported")
     tf_in = tuple(s.DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES)
     if s.TOTAL_NUM_FEATURE_LEVELS > len(tf_in):
         raise NotImplementedError(
@@ -213,4 +345,7 @@ def build_pixel_decoder(cfg, in_channels: Dict[str, int],
         num_encoder_layers=s.TRANSFORMER_ENC_LAYERS,
         num_heads=s.DEFORM_NUM_HEADS, num_points=s.DEFORM_NUM_POINTS,
         fpn_fusion=str(s.FPN_FUSION), core_fn=core_fn,
-        offset_clamp=offset_clamp, remat=bool(cfg.TPU.REMAT_ENCODER))
+        offset_clamp=offset_clamp, remat=bool(cfg.TPU.REMAT_ENCODER),
+        encoder_attention=str(s.ENCODER_ATTENTION),
+        encoder_window_size=int(s.ENCODER_WINDOW_SIZE),
+        window_attn_fn=window_attn_fn)

@@ -13,8 +13,15 @@ JAX module, which follows the fork:
 - ``PatchMerging`` concatenates (0::2,0::2), (1::2,0::2), (0::2,1::2),
   (1::2,1::2) before its LayerNorm.
 
-Window attention is plain matmul + softmax (the JAX package keeps its
-Pallas window kernels switched off on this path). ``use_checkpoint``
+Window attention is pluggable, as in the JAX package: ``attn_fn`` None runs
+plain matmul + softmax (``window_attention_default``, the JAX jnp path); a
+function with ``wants_nhwc`` (``kernels.window_attention_nhwc``, K5) gets
+the fused qkv of the padded, rolled (B, Hp, Wp, 3C) map when ws % 8 == 0,
+the JAX model's own rule, and otherwise the block takes the plain path; a
+function with ``wants_geometry`` (``kernels.window_attention``, K4b) gets
+token-major (nWt, nH, N, hd) q/k/v and the window geometry instead of a
+mask; any other function gets the JAX ``AttnFn`` call with the mask.
+Parameter names are the same on every path. ``use_checkpoint``
 (``MODEL.SWIN.USE_CHECKPOINT`` or ``TPU.REMAT_BACKBONE``) recomputes each
 block in the backward (``torch.utils.checkpoint``), as ``jax.checkpoint``
 does in the JAX package; drop-path masks are drawn before the checkpointed
@@ -31,6 +38,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from vision_instance_seg_tpu_torch.kernels.window_attention import (
+    window_mask)
 from vision_instance_seg_tpu_torch.models.layers import (
     DropPath, LayerNorm, Mlp)
 
@@ -44,18 +53,13 @@ def _relative_position_index(ws: int) -> torch.Tensor:
     return torch.from_numpy(rel[..., 0] * (2 * ws - 1) + rel[..., 1]).long()
 
 
-def _shift_attn_mask(hp: int, wp: int, ws: int, shift: int,
-                     device: torch.device) -> torch.Tensor:
-    """Additive (nW, ws^2, ws^2) mask for shifted windows: tokens from
-    different pre-shift regions must not attend to each other."""
-    ys = torch.arange(hp, device=device)
-    xs = torch.arange(wp, device=device)
-    ry = (ys >= hp - ws).int() + (ys >= hp - shift).int()
-    rx = (xs >= wp - ws).int() + (xs >= wp - shift).int()
-    region = ry[:, None] * 3 + rx[None, :]
-    win = window_partition(region[None, :, :, None], ws)[..., 0]   # nW, N
-    diff = win[:, :, None] != win[:, None, :]
-    return torch.where(diff, -100.0, 0.0)
+def gather_rel_bias(table: torch.Tensor,
+                    index: torch.Tensor) -> torch.Tensor:
+    """(nH, N, N) fp32 relative-position bias gathered from a
+    ((2ws-1)^2, nH) table by the (N, N) index (autograd flows back)."""
+    n = index.shape[0]
+    return table[index.reshape(-1)].view(n, n, -1).permute(2, 0, 1) \
+        .contiguous()
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -74,16 +78,38 @@ def window_unpartition(x: torch.Tensor, ws: int, h: int,
     return x.reshape(b, h, w, c)
 
 
+def window_attention_default(q, k, v, rel_bias, mask,
+                             scale: float) -> torch.Tensor:
+    """Plain window attention, the JAX package's jnp path: q/k/v
+    (nWt, nH, N, hd), rel_bias (nH, N, N), mask (nW, N, N) additive or
+    None; logits in the compute dtype under autocast."""
+    nwt, nh, n, _ = q.shape
+    attn = (q * scale) @ k.transpose(-2, -1) + rel_bias
+    if mask is not None:
+        nw = mask.shape[0]
+        attn = (attn.view(nwt // nw, nw, nh, n, n)
+                + mask[None, :, None]).view(nwt, nh, n, n)
+    return attn.softmax(dim=-1).to(v.dtype) @ v
+
+
+def wants_nhwc(attn_fn, window_size: int) -> bool:
+    """The NHWC kernel takes windows whose size is a multiple of 8 (the JAX
+    model's rule, ``swin.py`` SwinBlock); other sizes take the plain path."""
+    return getattr(attn_fn, "wants_nhwc", False) and window_size % 8 == 0
+
+
 class WindowAttention(nn.Module):
     """W-MSA / SW-MSA with relative position bias (keys qkv, proj,
     relative_position_bias_table)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
-                 qkv_bias: bool = True, qk_scale: float = 0.0):
+                 qkv_bias: bool = True, qk_scale: float = 0.0,
+                 attn_fn=None):
         super().__init__()
         self.num_heads = num_heads
         self.window_size = window_size
         self.scale = qk_scale or (dim // num_heads) ** -0.5
+        self.attn_fn = attn_fn
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
         self.register_buffer("relative_position_index",
@@ -92,35 +118,51 @@ class WindowAttention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, mask) -> torch.Tensor:
-        """x: (nW_total, N, C) windows; mask: (nW, N, N) additive or None."""
+    def rel_bias(self) -> torch.Tensor:
+        return gather_rel_bias(self.relative_position_bias_table,
+                               self.relative_position_index)
+
+    def forward(self, x: torch.Tensor, mask, num_windows: int,
+                geometry=None) -> torch.Tensor:
+        """x: (nW_total, N, C) windows; mask: (nW, N, N) additive or None;
+        ``geometry`` (Hp, Wp, ws, shift) for a ``wants_geometry`` fn."""
         nwt, n, c = x.shape
         nh = self.num_heads
-        q, k, v = self.qkv(x).view(nwt, n, 3, nh, c // nh).permute(
-            2, 0, 3, 1, 4)                               # (nWt, nH, N, hd)
-        attn = (q * self.scale) @ k.transpose(-2, -1)
-        bias = self.relative_position_bias_table[
-            self.relative_position_index.reshape(-1)].view(n, n, nh)
-        attn = attn + bias.permute(2, 0, 1)
-        if mask is not None:
-            nw = mask.shape[0]
-            attn = (attn.view(nwt // nw, nw, nh, n, n)
-                    + mask[None, :, None]).view(nwt, nh, n, n)
-        attn = attn.softmax(dim=-1)
-        out = (attn.to(v.dtype) @ v).transpose(1, 2).reshape(nwt, n, c)
+        fn = None if getattr(self.attn_fn, "wants_nhwc", False) \
+            else self.attn_fn
+        qkv = self.qkv(x).view(nwt, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
+        if fn is None:
+            q, k, v = qkv                                # (nWt, nH, N, hd)
+            out = window_attention_default(q, k, v, self.rel_bias(), mask,
+                                           self.scale)
+        else:
+            q, k, v = qkv.contiguous()
+            if geometry is not None and getattr(fn, "wants_geometry", False):
+                out = fn(q, k, v, self.rel_bias(), None, self.scale,
+                         num_windows, geometry=geometry)
+            else:
+                out = fn(q, k, v, self.rel_bias(), mask, self.scale,
+                         num_windows)
+        return self.proj(out.transpose(1, 2).reshape(nwt, n, c))
+
+    def forward_nhwc(self, x: torch.Tensor, geometry) -> torch.Tensor:
+        """x: the padded, rolled (B, Hp, Wp, C) map -> the same map after
+        attention, through the NHWC kernel on the fused qkv map."""
+        out = self.attn_fn(self.qkv(x), self.rel_bias(), self.scale,
+                           geometry)
         return self.proj(out)
 
 
 class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  shift_size: int, mlp_ratio: float, qkv_bias: bool,
-                 qk_scale: float, drop_path: float):
+                 qk_scale: float, drop_path: float, attn_fn=None):
         super().__init__()
         self.window_size = window_size
         self.shift_size = shift_size
         self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention(dim, num_heads, window_size, qkv_bias,
-                                    qk_scale)
+                                    qk_scale, attn_fn)
         self.drop_path = DropPath(drop_path)
         self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
@@ -145,12 +187,22 @@ class SwinBlock(nn.Module):
         if ph or pw:
             x = F.pad(x, (0, 0, 0, pw, 0, ph))
         hp, wp = h + ph, w + pw
+        fn = self.attn.attn_fn
+        use_geo = getattr(fn, "wants_geometry", False)
+        use_nhwc = wants_nhwc(fn, ws)
+        geometry = (hp, wp, ws, shift)
         mask = None
         if shift > 0:
             x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-            mask = _shift_attn_mask(hp, wp, ws, shift, x.device)
-        x = window_unpartition(self.attn(window_partition(x, ws), mask),
-                               ws, hp, wp)
+            if not (use_geo or use_nhwc):
+                mask = window_mask(hp, wp, ws, shift, None, x.device)
+        if use_nhwc:
+            x = self.attn.forward_nhwc(x, geometry)
+        else:
+            nw = (hp // ws) * (wp // ws)
+            x = window_unpartition(
+                self.attn(window_partition(x, ws), mask, nw,
+                          geometry if use_geo else None), ws, hp, wp)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
         x = shortcut + self.drop_path(x[:, :h, :w], keep_attn)
@@ -200,7 +252,7 @@ class SwinTransformer(nn.Module):
                  patch_norm: bool = True,
                  out_features: Sequence[str] = ("res2", "res3", "res4",
                                                 "res5"),
-                 use_checkpoint: bool = False):
+                 use_checkpoint: bool = False, attn_fn=None):
         super().__init__()
         self.patch_size = patch_size
         self.use_checkpoint = use_checkpoint
@@ -212,7 +264,8 @@ class SwinTransformer(nn.Module):
             dim = embed_dim * 2 ** s
             blocks = [SwinBlock(dim, num_heads[s], window_size,
                                 0 if d % 2 == 0 else window_size // 2,
-                                mlp_ratio, qkv_bias, qk_scale, dpr[blk_i + d])
+                                mlp_ratio, qkv_bias, qk_scale, dpr[blk_i + d],
+                                attn_fn)
                       for d in range(depth)]
             blk_i += depth
             down = PatchMerging(dim) if s < len(depths) - 1 else None
@@ -248,7 +301,7 @@ class SwinTransformer(nn.Module):
         return outs
 
 
-def build_swin(cfg) -> SwinTransformer:
+def build_swin(cfg, attn_fn=None) -> SwinTransformer:
     s = cfg.MODEL.SWIN
     if s.APE:
         raise NotImplementedError(
@@ -260,4 +313,5 @@ def build_swin(cfg) -> SwinTransformer:
         patch_size=s.PATCH_SIZE, mlp_ratio=s.MLP_RATIO, qkv_bias=s.QKV_BIAS,
         qk_scale=s.QK_SCALE, drop_path_rate=s.DROP_PATH_RATE,
         patch_norm=s.PATCH_NORM, out_features=tuple(s.OUT_FEATURES),
-        use_checkpoint=bool(s.USE_CHECKPOINT or cfg.TPU.REMAT_BACKBONE))
+        use_checkpoint=bool(s.USE_CHECKPOINT or cfg.TPU.REMAT_BACKBONE),
+        attn_fn=attn_fn)

@@ -8,11 +8,13 @@ one set of weights runs in both packages:
 - Dense kernels (in, out) become Linear weights (out, in); a Dense that
   upstream holds as a 1x1 conv becomes (out, in, 1, 1);
 - Conv kernels HWIO become OIHW; LayerNorm/GroupNorm ``scale`` -> ``weight``;
-- the q/k/v Denses of an attention layer are concatenated into
-  ``in_proj_weight`` / ``in_proj_bias``;
+- the q/k/v Denses of the predictor's attention layers are concatenated
+  into ``in_proj_weight`` / ``in_proj_bias`` (``nn.MultiheadAttention``);
+  the window encoder keeps its ``q_proj`` / ``k_proj`` / ``v_proj``;
 - scanned stacks are split: ``encoder_layers/layer/*`` (leading axis = the
-  encoder layers) and Swin ``stage{s}_blocks/block{0,1}/*`` (leading axis =
-  the (regular, shifted) block pairs).
+  encoder layers), the window encoder's ``wenc_layers/block{0,1}/*`` and
+  Swin's ``stage{s}_blocks/block{0,1}/*`` (leading axis = the (regular,
+  shifted) pairs, so pair i, block j is layer / block 2i + j).
 
 The JAX tree comes as nested dicts of numpy arrays (``params`` or the full
 ``{"params": ...}`` variables).
@@ -47,6 +49,10 @@ def _unstack(flat: Dict[Path, np.ndarray]) -> Dict[Path, np.ndarray]:
             j = int(path[1][-1])
             for i in range(v.shape[0]):
                 out[(f"stage{m.group(1)}_block{2 * i + j}",) + path[2:]] = v[i]
+        elif path[0] == "wenc_layers" and path[1] in ("block0", "block1"):
+            j = int(path[1][-1])
+            for i in range(v.shape[0]):
+                out[(f"encoder_layer{2 * i + j}",) + path[2:]] = v[i]
         elif path[:2] == ("encoder_layers", "layer"):
             for i in range(v.shape[0]):
                 out[(f"encoder_layer{i}",) + path[2:]] = v[i]
@@ -74,8 +80,8 @@ def _pixel_decoder_name(mod: str, fpn_index: Dict[str, int]) -> str:
         return f"input_proj.{m[1]}.0"
     if m := re.fullmatch(r"input_proj(\d+)_norm", mod):
         return f"input_proj.{m[1]}.1"
-    if m := re.fullmatch(r"encoder_layer(\d+)/(.+)", mod):
-        return f"transformer.encoder.layers.{m[1]}.{m[2]}"
+    if m := re.fullmatch(r"encoder_layer(\d+)(/.+)?", mod):
+        return f"transformer.encoder.layers.{m[1]}{m[2] or ''}"
     if m := re.fullmatch(r"(lateral|output)_(res\d)(_norm)?", mod):
         kind = "lateral_convs" if m[1] == "lateral" else "output_convs"
         return f"{kind}.{fpn_index[m[2]]}" + (".norm" if m[3] else "")
@@ -154,7 +160,7 @@ def state_dict_from_jax(params: Any) -> Dict[str, torch.Tensor]:
             name = name.replace("/", ".")
             key, val = _leaf(leaf, v, bool(_CONV1X1.fullmatch(name)))
             m = re.fullmatch(r"(.+)\.([qkv])_proj", name)
-            if m:   # q/k/v Denses -> nn.MultiheadAttention in_proj_*
+            if m and sub == "predictor":   # -> MultiheadAttention in_proj_*
                 qkv.setdefault((m[1], key), {})[m[2]] = val
                 continue
             sd[f"{prefix}{name}.{key}"] = val
