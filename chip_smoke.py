@@ -6,10 +6,12 @@ Builds every CUDA kernel of the port from the sources in this checkout (one
 ``nvcc`` per source, all started together) and holds each against its plain
 PyTorch version at the shapes its path gives it: K1 (sampling forward) at
 the serving shapes, the sampling backward (the TPU's K2, K3a and K3b) at the
-training shapes, and the window kernels: K5 fused at Swin stage 1 and K5
-split at the window encoder's 100x100 level in serving, K4b at stage 1 with
-windows of 8 and of 7, K4a at the 100x100 level, K6 fused and split at the
-training shapes. Then it drives the port's main paths with weights drawn
+training shapes, and the window kernels: K5 at all seven shapes of the
+flagship's serving path (fused at Swin stages 1-4, split at the window
+encoder's three levels; bf16 on the tensor-core body, fp32 on the SIMT
+body), K4b at stage 1 with windows of 8 and of 7, K4a at the 100x100 level,
+K6 fused and split at the training shapes. Then it drives the port's main
+paths with weights drawn
 from a fixed seed, through ``build_model`` -> ``make_inference_fn`` and
 ``create_train_state`` -> ``make_train_step``:
 
@@ -25,14 +27,17 @@ from a fixed seed, through ``build_model`` -> ``make_inference_fn`` and
   ``TPU.USE_PALLAS_WINDOW_ATTN`` (12 K4b + 18 K4a); train steps at batch 2,
   640 px under both flags (30 K5 and 30 K6 per step under NHWC);
 - checks: fp32 forwards through the kernels against the same forwards on
-  the plain versions (TF32 off), an fp32 pixel-decoder gradient through the
+  the plain versions (TF32 off), a bf16 flagship NHWC backbone + pixel
+  decoder forward through the tensor-core K5 against the plain versions
+  (relative L2 error), an fp32 pixel-decoder gradient through the
   sampling kernels and an fp32 backbone + window-encoder gradient through
   K5 / K6 against the plain versions, and 40 steps on one batch of each
   model that must lower the loss.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path was launched as many
-times as its layers say.
+times as its layers say; under NHWC in bf16, every K5 launch must have run
+the tensor-core body.
 
 Prints the card's name and power limit, the build time, each phase's
 numbers, a ``{"kernels": [...]}`` line, and as its last line
@@ -61,6 +66,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
+SPIN_CYCLES = 1_000_000      # ~0.5 ms at the H100's 1.98 GHz boost clock
 
 # the serving path's sampling shapes: 800 px canvas, levels /32, /16, /8
 BATCH, CANVAS = 8, 800
@@ -73,13 +79,17 @@ TRAIN_LEVELS = [(20, 20), (40, 40), (80, 80)]
 
 
 def cuda_time_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Median device time of one call, from CUDA events around each call."""
+    """Median device time of one call, from CUDA events around each call.
+    A spin kernel (about 0.5 ms) runs first, so that the card is still
+    busy while the host enqueues the events and the call: the host's own
+    time for the call does not count unless it is longer than the spin."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         e0.record()
         fn()
         e1.record()
@@ -307,14 +317,16 @@ def _windows(WA, x, ws, nh):
 def _wa_forward_specs(WA, gen):
     """The window forwards at the serving path's shapes (batch 8, 800 px):
     name -> (operands in fp32, a function of the operands cast to a dtype
-    returning (kernel, plain, library) callables, rel, mask or None)."""
+    returning (kernel, plain, library) callables and the output's bytes,
+    rel, mask or None, flops, launch kind, whether the name is a row of the
+    kernels line)."""
     dev = "cuda"
     specs = {}
 
     def rnd(*shape):
         return torch.randn(shape, device=dev, generator=gen)
 
-    def nhwc(name, b, hp, wp, nh, hd, ws, shift, pad_hw, split):
+    def nhwc(name, b, hp, wp, nh, hd, ws, shift, pad_hw, split, row=True):
         c = nh * hd
         ops = [rnd(b, hp, wp, c) for _ in range(3)] if split \
             else [rnd(b, hp, wp, 3 * c)]
@@ -343,7 +355,7 @@ def _wa_forward_specs(WA, gen):
             return kern, plain, lib, out_bytes
         flops = 4 * b * (hp // ws) * (wp // ws) * nh * (ws * ws) ** 2 * hd
         specs[name] = (ops, calls, rel, None, flops,
-                       "k5_split" if split else "k5_fused")
+                       "k5_split" if split else "k5_fused", row)
 
     def tokens(name, b, hp, wp, nh, hd, ws, shift, with_mask):
         nw, n = (hp // ws) * (wp // ws), ws * ws
@@ -366,7 +378,7 @@ def _wa_forward_specs(WA, gen):
             return kern, plain, lib, _nbytes(cast[0])
         flops = 4 * b * nw * nh * n * n * hd
         specs[name] = (ops, calls, rel, mask, flops,
-                       "k4a" if with_mask else "k4b")
+                       "k4a" if with_mask else "k4b", True)
 
     # Swin stage 1 (800 / 4 = 200, 3 heads x 32) in a shifted block
     nhwc("window_attn_k5_fused", BATCH, 200, 200, 3, 32, 8, 4, None, False)
@@ -377,6 +389,16 @@ def _wa_forward_specs(WA, gen):
     tokens("window_attn_k4b_ws7", BATCH, 203, 203, 3, 32, 7, 3, False)
     # K4a takes the encoder's pad + shift mask of the 100 -> 104 level
     tokens("window_attn_k4a", BATCH, 104, 104, 8, 32, 8, 4, True)
+    # K5's other shapes on the flagship's serving path, shifted: Swin
+    # stages 2-4 (100 -> 104, 50 -> 56, 25 -> 32; padded tokens attend) and
+    # the encoder's 50 -> 56 and 25 -> 32 levels (pad labels)
+    for name, hp, nh in (("k5 fused stage 2", 104, 6),
+                         ("k5 fused stage 3", 56, 12),
+                         ("k5 fused stage 4", 32, 24)):
+        nhwc(name, BATCH, hp, hp, nh, 32, 8, 4, None, False, row=False)
+    for name, hp, h in (("k5 split 50->56", 56, 50),
+                        ("k5 split 25->32", 32, 25)):
+        nhwc(name, BATCH, hp, hp, 8, 32, 8, 4, (h, h), True, row=False)
     return specs
 
 
@@ -390,24 +412,30 @@ def _wa_fwd_tol(ref: torch.Tensor, dtype: torch.dtype) -> float:
 
 
 def window_kernel_phase(WA, smi: str) -> dict:
-    """K4a, K4b (ws 8 and 7) and K5 (fused, split) at the serving shapes,
-    fp32 and bf16, against their plain versions; kernel, plain, library
-    (F.scaled_dot_product_attention with the float mask on
-    window-partitioned tensors, timed here only) and bound times in bf16,
-    the main path's type."""
+    """K4a, K4b (ws 8 and 7) and K5 (fused, split; all seven shapes of the
+    flagship's serving path) at the serving shapes, fp32 and bf16, against
+    their plain versions; kernel, library (F.scaled_dot_product_attention
+    with the float mask on window-partitioned tensors, timed here only) and
+    bound times in bf16, the main path's type, and the plain version's time
+    for the kernels line's rows. bf16 K5 must run the tensor-core body,
+    fp32 K5 the SIMT body."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     results = {}
-    for name, (ops, calls, rel, mask, flops, kind) in \
+    for name, (ops, calls, rel, mask, flops, kind, is_row) in \
             _wa_forward_specs(WA, gen).items():
         max_err, row = 0.0, {}
         for dtype in (torch.float32, torch.bfloat16):
             cast = [t.to(dtype) for t in ops]
             kern, plain, lib, out_bytes = calls(cast)
-            before = WA.LAUNCHES[kind]
+            before = WA.LAUNCHES.copy()
             got = kern()
             torch.cuda.synchronize()
-            if WA.LAUNCHES[kind] != before + 1:
-                raise AssertionError(f"{name} did not launch {kind}")
+            mma = int(kind.startswith("k5") and dtype == torch.bfloat16)
+            if WA.LAUNCHES[kind] != before[kind] + 1 or \
+                    WA.LAUNCHES[kind + "_mma"] != before[kind + "_mma"] + mma:
+                raise AssertionError(f"{name} did not launch {kind} "
+                                     f"({'tensor-core' if mma else 'SIMT'} "
+                                     f"body)")
             want = plain()
             err = (got.float() - want.float()).abs().max().item()
             tol = _wa_fwd_tol(cast[-1], dtype)
@@ -423,17 +451,22 @@ def window_kernel_phase(WA, smi: str) -> dict:
             if dtype != torch.bfloat16:
                 continue
             ms = cuda_time_ms(kern, reps=20)
-            plain_ms = cuda_time_ms(plain, reps=5, warmup=1)
+            plain_ms = cuda_time_ms(plain, reps=5, warmup=1) if is_row \
+                else None
             lib_ms = cuda_time_ms(lib, reps=10)
             extra = _nbytes(rel) + (_nbytes(mask) if mask is not None else 0)
-            bound, bound_by = _bound(_nbytes(*cast) + extra + out_bytes,
-                                     flops, dtype)
+            nbytes = _nbytes(*cast) + extra + out_bytes
+            bound, bound_by = _bound(nbytes, flops, dtype)
+            plain_s = f"plain {plain_ms:.4f} ms, " if is_row else ""
             print(f"{name} bf16 {tuple(cast[0].shape)}: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound "
-                  f"{bound:.4f} ms ({bound_by}) on {smi}", flush=True)
+                  f"{plain_s}SDPA {lib_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB, {bound_by}), {bound / ms:.1%} "
+                  f"of the bound, {lib_ms / ms:.2f}x SDPA's speed, on {smi}",
+                  flush=True)
             row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound, bound_by=bound_by)
-        results[name] = dict(row, max_abs_err=max_err)
+        if is_row:
+            results[name] = dict(row, max_abs_err=max_err)
         del ops, calls
     return results
 
@@ -588,12 +621,15 @@ def flagship_cfg(cfg, flag: str):
 
 
 class Counts:
-    """Every kernel's launch count, by the kernels line's names."""
+    """Every kernel's launch count, by the kernels line's names, and the
+    K5 launches that ran the tensor-core body (``..._mma``)."""
 
     NAMES = {"msdeform_attn_fwd": None, "msdeform_attn_bwd": None,
              "window_attn_k4a": "k4a", "window_attn_k4b": "k4b",
              "window_attn_k5_fused": "k5_fused",
              "window_attn_k5_split": "k5_split",
+             "window_attn_k5_fused_mma": "k5_fused_mma",
+             "window_attn_k5_split_mma": "k5_split_mma",
              "window_attn_k6_fused": "k6_fused",
              "window_attn_k6_split": "k6_split"}
 
@@ -859,32 +895,64 @@ def window_grad_check_phase(cfg, counts: Counts, build_model, WA) -> None:
                    "flagship, TF32 off)")
 
 
-# ------------------------------------------------------------ train phases
-def train_batch(cfg, seed: int, num_classes: int) -> dict:
-    """A batch in the JAX loader's layout, made from ``seed``: random
-    images with 3-15 bright ellipses per image painted in, their masks,
-    classes and boxes in the first slots, -1 / 0 padding after."""
-    rng = np.random.default_rng(seed)
-    b, s = int(cfg.SOLVER.IMS_PER_BATCH), int(cfg.INPUT.IMAGE_SIZE)
-    m = int(cfg.INPUT.MAX_INSTANCES)
-    image = rng.integers(0, 128, (b, s, s, 3), dtype=np.uint8)
-    masks = np.zeros((b, m, s, s), np.uint8)
-    classes = np.full((b, m), -1, np.int32)
-    boxes = np.zeros((b, m, 4), np.float32)
-    num = rng.integers(3, 16, b).astype(np.int32)
-    yy, xx = np.mgrid[:s, :s]
-    for i in range(b):
-        for j in range(num[i]):
-            cy, cx = rng.uniform(0.1 * s, 0.9 * s, 2)
-            ry, rx = rng.uniform(0.03 * s, 0.15 * s, 2)
-            mask = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
-            masks[i, j] = mask
-            classes[i, j] = rng.integers(0, num_classes)
-            boxes[i, j] = (xx[mask].min(), yy[mask].min(),
-                           xx[mask].max() + 1, yy[mask].max() + 1)
-            image[i][mask] = rng.integers(128, 256, 3, dtype=np.uint8)
-    return {"image": image, "gt_classes": classes, "gt_masks": masks,
-            "gt_boxes": boxes, "num_instances": num}
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def bf16_window_parity_phase(cfg, counts: Counts, build_model,
+                             normalize_image, WA, want: dict) -> None:
+    """The flagship NHWC backbone and pixel decoder at batch 8, 800x800,
+    same seeded weights and images, three times: in bf16 through the
+    kernels (the tensor-core K5), in bf16 through the plain versions, and
+    in fp32 through the plain versions (TF32 off). For res2-res5,
+    mask_features and the multi-scale outputs it prints the relative L2
+    error ||a - b|| / ||b|| of kernel against plain and of each bf16 run
+    against fp32, and fails unless the kernel moves every output less
+    than bf16 itself does: ||kernel - plain|| <= ||plain - fp32||. (The
+    tensor cores sum q . k in another order, so a few p and outputs round
+    one bf16 step apart; random weights carry such steps through 12 blocks
+    and 6 encoder layers as bf16 carries its own rounding.)"""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = flagship_cfg(cfg, "nhwc")
+    images = torch.from_numpy(np.random.default_rng(SEED + 9).integers(
+        0, 256, (BATCH, CANVAS, CANVAS, 3), dtype=np.uint8)).cuda()
+    plain = {"window_attn_fn": (WA.window_attention_nhwc_torch,
+                                WA.window_attention_nhwc_split_torch)}
+    outs = {}
+    for tag, kw, dtype, expect in (
+            ("kernel", {}, torch.bfloat16, want),
+            ("plain", plain, torch.bfloat16, {}),
+            ("fp32", plain, torch.float32, {})):
+        model = build_model(cfg, seed=SEED, **kw)
+        counts.reset()
+        with torch.inference_mode(), torch.autocast(
+                "cuda", dtype=torch.bfloat16,
+                enabled=dtype == torch.bfloat16):
+            feats = model.backbone(normalize_image(images, cfg))
+            mf, ms = model.sem_seg_head.pixel_decoder(feats)
+        torch.cuda.synchronize()
+        counts.check(counts.read(), expect, f"flagship forward {tag}")
+        outs[tag] = dict(feats, mask_features=mf,
+                         **{f"multi-scale {i}": m for i, m in enumerate(ms)})
+        del model, feats, mf, ms
+    bad = {}
+    for key, ref in outs["fp32"].items():
+        kp = _rel_l2(outs["kernel"][key], outs["plain"][key])
+        kf = _rel_l2(outs["kernel"][key], ref)
+        pf = _rel_l2(outs["plain"][key], ref)
+        print(f"bf16 flagship NHWC forward, {key}: relative L2 error kernel "
+              f"vs plain {kp:.3e}; against fp32: kernel {kf:.3e}, plain "
+              f"{pf:.3e}", flush=True)
+        if not kp <= pf:
+            bad[key] = (kp, pf)
+    print("bf16 flagship NHWC forward: the tensor-core K5 moves every output "
+          "less than bf16 rounding does (kernel vs plain <= plain vs fp32): "
+          f"{not bad}", flush=True)
+    if bad:
+        raise AssertionError(f"bf16 flagship forward: the kernels move "
+                             f"these outputs more than bf16 does: {bad}")
 
 
 def _run_steps(counts: Counts, step, state, batches, seed: int,
@@ -1015,8 +1083,10 @@ KERNEL_ROWS = {   # kernels line name -> (source, the TPU function it replaces)
     "window_attn_k4a": ("window_attn_fwd.cu", "window_attention.py:162"),
     "window_attn_k4b": ("window_attn_fwd.cu", "window_attention.py:220"),
     "window_attn_k4b_ws7": ("window_attn_fwd.cu", "window_attention.py:220"),
-    "window_attn_k5_fused": ("window_attn_fwd.cu", "window_attention.py:531"),
-    "window_attn_k5_split": ("window_attn_fwd.cu", "window_attention.py:531"),
+    "window_attn_k5_fused": ("window_attn_nhwc_mma.cu",
+                             "window_attention.py:531"),
+    "window_attn_k5_split": ("window_attn_nhwc_mma.cu",
+                             "window_attention.py:531"),
     "window_attn_k6_fused": ("window_attn_bwd.cu", "window_attention.py:696"),
     "window_attn_k6_split": ("window_attn_bwd.cu", "window_attention.py:696"),
 }
@@ -1062,6 +1132,9 @@ def main() -> int:
                  .DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES)  # 3
     k5 = {"window_attn_k5_fused": blocks,
           "window_attn_k5_split": enc * levels}
+    # bf16 K5 (serving, training) runs the tensor-core body every time
+    k5_mma = dict(k5, window_attn_k5_fused_mma=blocks,
+                  window_attn_k5_split_mma=enc * levels)
     k6 = {"window_attn_k6_fused": blocks,
           "window_attn_k6_split": enc * levels}
     k4 = {"window_attn_k4b": blocks, "window_attn_k4a": enc * levels}
@@ -1076,8 +1149,8 @@ def main() -> int:
                           {"msdeform_attn_fwd": enc,
                            "window_attn_k4b": blocks}, 1,
                           "default, USE_PALLAS_WINDOW_ATTN (K4b at ws 7)"),
-              serve_phase(nhwc, counts, build_model, make_inference_fn, k5,
-                          4, "flagship, WINDOW_ATTN_NHWC"),
+              serve_phase(nhwc, counts, build_model, make_inference_fn,
+                          k5_mma, 4, "flagship, WINDOW_ATTN_NHWC"),
               serve_phase(pallas, counts, build_model, make_inference_fn, k4,
                           3, "flagship, USE_PALLAS_WINDOW_ATTN")]
     fp32_parity_phase(cfg, counts, build_model, normalize_image,
@@ -1090,20 +1163,23 @@ def main() -> int:
     fp32_parity_phase(pallas, counts, build_model, normalize_image,
                       {"window_attn_fn": WA.window_attention_torch}, k4,
                       "flagship USE_PALLAS_WINDOW_ATTN")
+    bf16_window_parity_phase(cfg, counts, build_model, normalize_image, WA,
+                             k5_mma)
     grad_check_phase(cfg, counts, build_model, K)
     window_grad_check_phase(cfg, counts, build_model, WA)
     trained = [
         train_phase(cfg, counts, build_model, engine, smi,
                     {"msdeform_attn_fwd": enc, "msdeform_attn_bwd": enc},
                     "default", 6, _default_grads, cli_settings=True),
-        train_phase(nhwc, counts, build_model, engine, smi, _add(k5, k6),
-                    "flagship, WINDOW_ATTN_NHWC", 10, _window_params),
+        train_phase(nhwc, counts, build_model, engine, smi,
+                    _add(k5_mma, k6), "flagship, WINDOW_ATTN_NHWC", 10,
+                    _window_params),
         train_phase(pallas, counts, build_model, engine, smi, k4,
                     "flagship, USE_PALLAS_WINDOW_ATTN", 3, _window_params)]
     overfit_phase(cfg, counts, build_model, engine,
                   {"msdeform_attn_fwd": enc, "msdeform_attn_bwd": enc},
                   "default")
-    overfit_phase(nhwc, counts, build_model, engine, _add(k5, k6),
+    overfit_phase(nhwc, counts, build_model, engine, _add(k5_mma, k6),
                   "flagship, WINDOW_ATTN_NHWC")
 
     launches = {}

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (K1, the sampling backward and the window
-kernels K4a, K4b, K5, K6) against their plain PyTorch versions.
+kernels K4a, K4b, K5, K6) against their plain PyTorch versions, and, on
+the CPU, the tensor-core K5's launch plan and its dtype rule.
 
 Imports only torch, numpy and the port, so it also runs on a machine
 without JAX. On the card (the repository's conftest imports JAX, so skip
@@ -210,7 +211,80 @@ WA_NHWC_CASES = {             # (B, h, w, nH, hd, ws, shift, split)
     "split-pad-shift": (2, 13, 21, 8, 32, 8, 4, True),
     "split-12-pad-shift": (1, 12, 12, 2, 64, 8, 4, True),
     "split-no-pad": (2, 16, 16, 4, 32, 8, 0, True),
+    # the flagship's geometries at batch 2: Swin stages 3 and 4 (head dim
+    # 32), the encoder's 50 -> 56 and 25 -> 32 levels, and head dim 48
+    "fused-stage3": (2, 56, 56, 12, 32, 8, 4, False),
+    "fused-stage4": (2, 32, 32, 24, 32, 8, 4, False),
+    "split-50-pad": (2, 50, 50, 8, 32, 8, 0, True),
+    "split-25-pad-shift": (2, 25, 25, 8, 32, 8, 4, True),
+    "split-hd48-shift": (1, 16, 16, 2, 48, 8, 4, True),
 }
+# K5 at the flagship's serving shapes (batch 8, 800 px): (windows, heads)
+K5_SERVING = {"fused 200": (8 * 25 * 25, 3), "fused 104": (8 * 13 * 13, 6),
+              "fused 56": (8 * 7 * 7, 12), "fused 32": (8 * 4 * 4, 24),
+              "split 104": (8 * 13 * 13, 8), "split 56": (8 * 7 * 7, 8),
+              "split 32": (8 * 4 * 4, 8)}
+H100_SMS = 132
+
+
+def _plan_cases():
+    for name, (b, h, w, nh, _, ws, _, _) in WA_NHWC_CASES.items():
+        yield name, (b * -(-h // ws) * -(-w // ws), nh)
+    yield from K5_SERVING.items()
+
+
+PLAN_CASES = dict(_plan_cases())
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_nhwc_fwd_plan_covers_every_window_head_once(case):
+    """The tensor-core K5's grid (``nhwc_fwd_plan``, and the kernel's own
+    CTA -> work arithmetic): every (window, head) exactly once, the last run
+    of windows cut at the end, the heads of one run on neighbouring CTAs,
+    and at least 4 CTAs per SM of an H100 (or one per window-head where
+    there are fewer)."""
+    windows, heads = PLAN_CASES[case]
+    wpc, ctas = WA.nhwc_fwd_plan(windows, heads, H100_SMS)
+    assert 1 <= wpc <= WA.MMA_MAX_WINDOWS_PER_CTA
+    assert ctas >= min(4 * H100_SMS, windows * heads)
+    seen = np.zeros((windows, heads), np.int64)
+    for cta in range(ctas):
+        head, first, n = WA.nhwc_fwd_cta_work(cta, heads, wpc, windows)
+        assert 1 <= n <= wpc and head == cta % heads
+        seen[first:first + n, head] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("dtype,hd,n,body", [
+    ("bfloat16", 16, 64, "mma"), ("bfloat16", 32, 64, "mma"),
+    ("bfloat16", 48, 64, "mma"), ("bfloat16", 64, 64, "mma"),
+    ("float32", 32, 64, "simt"), ("float32", 8, 49, "simt"),
+    ("bfloat16", 8, 64, None), ("bfloat16", 24, 64, None),
+    ("bfloat16", 32, 49, None)])
+def test_nhwc_fwd_body_rule(dtype, hd, n, body):
+    """bf16 K5 takes the tensor-core body (windows of 64 tokens, head dim a
+    multiple of 16; anything else raises), fp32 the SIMT body."""
+    dtype = getattr(torch, dtype)
+    if body is None:
+        with pytest.raises(ValueError):
+            WA.nhwc_fwd_body(dtype, hd, n)
+    else:
+        assert WA.nhwc_fwd_body(dtype, hd, n) == body
+
+
+def test_nhwc_bf16_takes_plain_version_on_cpu():
+    """The body rule belongs to the card: a CPU bf16 call, even at a head
+    dim the tensor-core body does not take, runs the plain version."""
+    rng = np.random.default_rng(22)
+    ops = [torch.from_numpy(rng.standard_normal((1, 8, 8, 16)).astype(
+        np.float32)).bfloat16() for _ in range(3)]
+    rel = torch.from_numpy(rng.standard_normal((2, 64, 64)).astype(
+        np.float32))
+    before = sum(WA.LAUNCHES.values())
+    got = WA.window_attention_nhwc_split(*ops, rel, 8 ** -0.5, (8, 8, 8, 0))
+    assert sum(WA.LAUNCHES.values()) == before
+    assert torch.equal(got, WA.window_attention_nhwc_split_torch(
+        *ops, rel, 8 ** -0.5, (8, 8, 8, 0)))
 
 
 def _wa_tol(ref, dtype):
@@ -275,13 +349,14 @@ def test_window_token_kernel_matches_plain_on_cuda(case, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", list(WA_NHWC_CASES))
 def test_window_nhwc_kernel_matches_plain_on_cuda(case, dtype):
-    """K5, fused qkv (backbone) and split q/k/v with pad labels (encoder)."""
+    """K5, fused qkv (backbone) and split q/k/v with pad labels (encoder):
+    bf16 on the tensor-core body, fp32 on the SIMT body."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     dtype = getattr(torch, dtype)
     ops, rel, geo, pad, _, hd = _wa_nhwc_inputs(case, dtype)
     kind = "k5_split" if len(ops) == 3 else "k5_fused"
-    before = WA.LAUNCHES[kind]
+    before, mma = WA.LAUNCHES[kind], WA.LAUNCHES[kind + "_mma"]
     if len(ops) == 3:
         got = WA.window_attention_nhwc_split(*ops, rel, hd ** -0.5, geo,
                                              pad_hw=pad)
@@ -292,6 +367,7 @@ def test_window_nhwc_kernel_matches_plain_on_cuda(case, dtype):
         want = WA.window_attention_nhwc_torch(*ops, rel, hd ** -0.5, geo)
     torch.cuda.synchronize()
     assert WA.LAUNCHES[kind] == before + 1
+    assert WA.LAUNCHES[kind + "_mma"] == mma + (dtype == torch.bfloat16)
     assert got.dtype == want.dtype == dtype and got.shape == want.shape
     assert (got.float() - want.float()).abs().max().item() <= _wa_tol(
         ops[-1], dtype)
@@ -407,3 +483,19 @@ def test_window_kernels_reject_what_they_do_not_take():
     with pytest.raises(ValueError):            # 81 tokens per window
         WA.window_attention_nhwc(big, torch.zeros(1, 81, 81, device="cuda"),
                                  0.1, (9, 9, 9, 0))
+    # bf16 runs on the tensor cores: head dim a multiple of 16, 64 tokens,
+    # operands 16-byte aligned
+    rel2 = torch.zeros(2, 64, 64, device="cuda")
+    hd8 = [torch.zeros(1, 8, 8, 16, device="cuda", dtype=torch.bfloat16)
+           for _ in range(3)]
+    with pytest.raises(ValueError):            # head dim 8
+        WA.window_attention_nhwc_split(*hd8, rel2, 0.1, (8, 8, 8, 0))
+    ws4 = torch.zeros(1, 8, 8, 3 * 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):            # windows of 16 tokens
+        WA.window_attention_nhwc(ws4, torch.zeros(2, 16, 16, device="cuda"),
+                                 0.1, (8, 8, 4, 0))
+    flat = torch.zeros(8 * 8 * 64 + 1, device="cuda", dtype=torch.bfloat16)
+    odd = flat[1:].view(1, 8, 8, 64)           # contiguous, 2 bytes off
+    ok = [torch.zeros_like(odd) for _ in range(2)]
+    with pytest.raises(ValueError):
+        WA.window_attention_nhwc_split(odd, *ok, rel2, 0.1, (8, 8, 8, 0))

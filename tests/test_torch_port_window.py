@@ -144,13 +144,19 @@ K5_FUSED_CASES = {"even": (2, 16, 16, 2, 16, 8, 0),
                   "odd-cols": (1, 16, 24, 2, 16, 8, 0),
                   "shift": (1, 24, 24, 3, 8, 8, 4),
                   "shift-odd": (2, 16, 24, 1, 32, 8, 4),
-                  "one-col": (1, 16, 8, 2, 16, 8, 0)}
+                  "one-col": (1, 16, 8, 2, 16, 8, 0),
+                  # Swin stage 4's geometry (25 -> 32, shifted), head dim 32
+                  "hd32-32-shift": (1, 32, 32, 2, 32, 8, 4)}
 # ::TestWindowAttentionNHWCSplit: (b, h, w, nH, hd, ws, shift), padded to ws
 K5_SPLIT_CASES = {"no-pad": (2, 16, 16, 2, 16, 8, 0),
                   "pad": (1, 13, 21, 2, 16, 8, 0),
                   "pad-shift": (1, 13, 21, 2, 16, 8, 4),
                   "shift": (2, 24, 16, 3, 8, 8, 4),
-                  "12-pad-shift": (2, 12, 12, 2, 16, 8, 4)}
+                  "12-pad-shift": (2, 12, 12, 2, 16, 8, 4),
+                  # the encoder's 25 -> 32 (shifted) and 50 -> 56 levels,
+                  # head dim 32
+                  "hd32-25-pad-shift": (1, 25, 25, 2, 32, 8, 4),
+                  "hd32-50-pad": (1, 50, 50, 2, 32, 8, 0)}
 
 
 def _k5_fused_inputs(b, hp, wp, nh, hd, ws, shift, seed=2):

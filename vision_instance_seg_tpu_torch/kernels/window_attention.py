@@ -13,6 +13,12 @@ kernel body in ``csrc/window_attn_fwd.cu`` replaces three TPU kernels:
   NHWC maps, from a fused (B, Hp, Wp, 3C) qkv map (Swin blocks) or split
   (B, Hp, Wp, C) q, k, v maps (window encoder, with canvas-pad labels).
 
+K5 has two bodies, chosen by the operands' dtype (``nhwc_fwd_body``):
+bf16 runs ``csrc/window_attn_nhwc_mma.cu``, the tensor-core body (windows
+of 64 tokens, head dim a multiple of 16; anything else raises), and fp32
+runs the SIMT body of ``window_attn_fwd.cu``, which the fp32 parity checks
+hold bit-equal to the plain version. It is a rule, not a fallback.
+
 ``csrc/window_attn_bwd.cu`` replaces K6 ``_wa_nhwc_bwd_impl``, the recompute
 backward of K5 (d(operands) and d(rel) summed over every window).
 
@@ -34,7 +40,9 @@ Gradients run through ``WindowAttentionFunction`` (K4 forward, the JAX
 package's recompute backward in torch ops, since JAX wrote that backward in
 jnp) and ``WindowAttentionNHWCFunction`` (K5 forward, K6 backward on CUDA,
 the written-out plain backward on the CPU). ``LAUNCHES`` counts the kernel
-launches by name: k4a, k4b, k5_fused, k5_split, k6_fused, k6_split.
+launches by name: k4a, k4b, k5_fused, k5_split, k6_fused, k6_split, and the
+K5 launches that ran the tensor-core body once more under k5_fused_mma and
+k5_split_mma.
 """
 
 from __future__ import annotations
@@ -49,6 +57,8 @@ import torch
 NEG_INF = -1e9               # the TPU kernels' excluded-pair logit
 MAX_TOKENS = 64              # csrc WA_MAX_TOKENS: windows up to 8 x 8
 MAX_HEAD_DIM = 64            # csrc WA_MAX_HEAD_DIM
+MMA_TOKENS = 64              # the tensor-core body's windows: 8 x 8
+MMA_MAX_WINDOWS_PER_CTA = 16
 LAUNCHES: collections.Counter = collections.Counter()
 
 Geometry = Tuple[int, int, int, int]        # (Hp, Wp, ws, shift)
@@ -346,6 +356,54 @@ def _check_nhwc(operands, rel_bias, geometry: Geometry) -> None:
     _check_common(operands, rel_bias, ws * ws, c // nh)
 
 
+def _check_nhwc_fwd(operands, rel_bias, geometry: Geometry) -> None:
+    """K5's checks: K6's, then its body's rule and alignment."""
+    _check_nhwc(operands, rel_bias, geometry)
+    ws, nh = geometry[2], rel_bias.shape[0]
+    c = operands[0].shape[-1] // (1 if len(operands) == 3 else 3)
+    if nhwc_fwd_body(operands[0].dtype, c // nh, ws * ws) == "mma" and (
+            any(t.data_ptr() % 16 for t in operands)
+            or rel_bias.data_ptr() % 8):
+        raise ValueError("the tensor-core body copies 16 bytes at a time: "
+                         "operands must start 16-byte aligned")
+
+
+def nhwc_fwd_body(dtype: torch.dtype, hd: int, n: int) -> str:
+    """Which K5 body runs for operands of ``dtype``: "mma" (bf16, the
+    tensor-core body of ``csrc/window_attn_nhwc_mma.cu``) or "simt" (fp32,
+    the body of ``csrc/window_attn_fwd.cu``, bit-equal to the plain
+    version). bf16 needs windows of 64 tokens and a head dim that is a
+    multiple of 16 (the mma tiles' depth); anything else raises."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if n != MMA_TOKENS or hd % 16:
+        raise ValueError(f"bf16 K5 runs on the tensor cores, which take "
+                         f"windows of {MMA_TOKENS} tokens and a head dim "
+                         f"that is a multiple of 16: got {n} tokens, head "
+                         f"dim {hd}")
+    return "mma"
+
+
+def nhwc_fwd_plan(total_windows: int, heads: int, sms: int
+                  ) -> Tuple[int, int]:
+    """(windows per CTA, CTAs) of the tensor-core K5: runs of windows long
+    enough that the grid is about 8 CTAs per SM (two waves at the 4 CTAs
+    per SM its registers allow), at most 16 windows, so that each CTA reads
+    its head's bias once for many windows; one window per CTA when there
+    are fewer than 8 window-heads per SM."""
+    wpc = -(-total_windows * heads // (8 * sms))
+    wpc = max(1, min(MMA_MAX_WINDOWS_PER_CTA, wpc))
+    return wpc, heads * -(-total_windows // wpc)
+
+
+def nhwc_fwd_cta_work(cta: int, heads: int, windows_per_cta: int,
+                      total_windows: int) -> Tuple[int, int, int]:
+    """(head, first window, windows) of CTA ``cta``: the kernel's own
+    arithmetic (``wa_nhwc_mma_kernel``), for the tests."""
+    first = (cta // heads) * windows_per_cta
+    return cta % heads, first, min(windows_per_cta, total_windows - first)
+
+
 def _lib(name: str) -> ctypes.CDLL:
     from vision_instance_seg_tpu_torch.kernels.build import load_library
     return load_library(name)
@@ -368,6 +426,21 @@ def _fwd_library() -> ctypes.CDLL:
     lib.window_attn_error_string.argtypes = [_I]
     lib.window_attn_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _mma_library() -> ctypes.CDLL:
+    lib = _lib("window_attn_nhwc_mma")
+    lib.window_attn_nhwc_mma.argtypes = [_P] * 5 + [_I] * 10 + [_F, _P]
+    lib.window_attn_nhwc_mma.restype = ctypes.c_int
+    lib.window_attn_nhwc_mma_error_string.argtypes = [_I]
+    lib.window_attn_nhwc_mma_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -414,19 +487,33 @@ def _launch_tokens(q, k, v, rel_bias, shift_mask, scale: float,
 
 def _launch_nhwc(operands, rel_bias, scale: float, geometry: Geometry,
                  pad_hw):
-    lib = _fwd_library()
+    """K5: the tensor-core body for bf16, the SIMT body for fp32
+    (``nhwc_fwd_body``); both count under k5_fused / k5_split."""
     hp, wp, ws, shift = geometry
     fused = len(operands) == 1
     q, k, v = (operands * 3) if fused else operands
     b, _, _, cx = q.shape
     c = cx // 3 if fused else cx
+    nh = rel_bias.shape[0]
     ph, pw = pad_hw or (0, 0)
     out = q.new_empty((b, hp, wp, c))
-    _run(lib, lib.window_attn_fwd_nhwc, lib.window_attn_error_string,
-         "k5_fused" if fused else "k5_split", q.device, q.data_ptr(),
-         k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(), out.data_ptr(),
-         int(q.dtype == torch.bfloat16), int(fused), b, rel_bias.shape[0],
-         c, hp, wp, ws, shift, ph, pw, scale)
+    kind = "k5_fused" if fused else "k5_split"
+    if nhwc_fwd_body(q.dtype, c // nh, ws * ws) == "mma":
+        lib = _mma_library()
+        wpc, _ = nhwc_fwd_plan(b * (hp // ws) * (wp // ws), nh,
+                               _sm_count(q.device))
+        _run(lib, lib.window_attn_nhwc_mma,
+             lib.window_attn_nhwc_mma_error_string, kind, q.device,
+             q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(),
+             out.data_ptr(), int(fused), b, nh, c, hp, wp, shift, ph, pw,
+             wpc, scale)
+        LAUNCHES[kind + "_mma"] += 1
+        return out
+    lib = _fwd_library()
+    _run(lib, lib.window_attn_fwd_nhwc, lib.window_attn_error_string, kind,
+         q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         rel_bias.data_ptr(), out.data_ptr(), 0, int(fused), b, nh, c, hp,
+         wp, ws, shift, ph, pw, scale)
     return out
 
 
@@ -607,7 +694,7 @@ def window_attention(q, k, v, rel_bias, shift_mask, scale: float,
 def _nhwc(operands, rel_bias, scale, geometry, pad_hw):
     _check_device(operands[0].device)
     if operands[0].device.type == "cuda":
-        _check_nhwc(operands, rel_bias, geometry)
+        _check_nhwc_fwd(operands, rel_bias, geometry)
     if _wants_grad(rel_bias, *operands):
         return WindowAttentionNHWCFunction.apply(rel_bias, scale, geometry,
                                                  pad_hw, *operands)
