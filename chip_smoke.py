@@ -10,7 +10,9 @@ training shapes, and the window kernels: K5 at all seven shapes of the
 flagship's serving path (fused at Swin stages 1-4, split at the window
 encoder's three levels; bf16 on the tensor-core body, fp32 on the SIMT
 body), K4b at stage 1 with windows of 8 and of 7, K4a at the 100x100 level,
-K6 fused and split at the training shapes. Then it drives the port's main
+K6 at all seven shapes of the flagship's training path (fused at Swin
+stages 1-4, split at the window encoder's three levels; bf16 on the
+tensor-core body, fp32 on the SIMT body). Then it drives the port's main
 paths with weights drawn
 from a fixed seed, through ``build_model`` -> ``make_inference_fn`` and
 ``create_train_state`` -> ``make_train_step``:
@@ -30,14 +32,16 @@ from a fixed seed, through ``build_model`` -> ``make_inference_fn`` and
   the plain versions (TF32 off), a bf16 flagship NHWC backbone + pixel
   decoder forward through the tensor-core K5 against the plain versions
   (relative L2 error), an fp32 pixel-decoder gradient through the
-  sampling kernels and an fp32 backbone + window-encoder gradient through
-  K5 / K6 against the plain versions, and 40 steps on one batch of each
-  model that must lower the loss.
+  sampling kernels, an fp32 backbone + window-encoder gradient through
+  K5 / K6 against the plain versions and the same gradient in bf16
+  through the tensor-core K5 / K6 (relative L2 error, against the plain
+  versions in bf16 and fp32), and 40 steps on one batch of each model that
+  must lower the loss.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path was launched as many
-times as its layers say; under NHWC in bf16, every K5 launch must have run
-the tensor-core body.
+times as its layers say; under NHWC in bf16, every K5 and K6 launch must
+have run the tensor-core body.
 
 Prints the card's name and power limit, the build time, each phase's
 numbers, a ``{"kernels": [...]}`` line, and as its last line
@@ -471,108 +475,158 @@ def window_kernel_phase(WA, smi: str) -> dict:
     return results
 
 
+# K6 at the flagship's training shapes (batch 2, 640 px, head dim 32, shift
+# 4): name -> (Hp = Wp, heads, pad extent or None, split, launches per
+# step). Swin pads stage 4's 20 to 24 (padded tokens attend); the window
+# encoder's 20 -> 24 level has pad labels.
+K6_HD = 32
+K6_SHAPES = {
+    "window_attn_k6_fused": (160, 3, None, False, 2),   # Swin stage 1
+    "k6 fused 80 (stage 2)": (80, 6, None, False, 2),
+    "k6 fused 40 (stage 3)": (40, 12, None, False, 6),
+    "k6 fused 20->24 (stage 4)": (24, 24, None, False, 2),
+    "window_attn_k6_split": (80, 8, None, True, 6),     # encoder, res3
+    "k6 split 40": (40, 8, None, True, 6),
+    "k6 split 20->24": (24, 8, 20, True, 6),
+}
+
+
+def k6_case(WA, shape, gen):
+    """K6's inputs at one of ``K6_SHAPES``, drawn in fp32 from ``gen``.
+    Returns a function of a dtype that casts them and gives the kernel
+    call, the plain call, the SDPA-autograd call (F.scaled_dot_product_
+    attention with the float mask on window-partitioned operands, timed
+    here only), the bound's bytes and flops, and the number of windows."""
+    hp, nh, pad, split, _ = shape
+    b, c, ws, shift = TRAIN_BATCH, nh * K6_HD, 8, 4
+
+    def rnd(ch):
+        return torch.randn(b, hp, hp, ch, device="cuda", generator=gen)
+
+    ops = [rnd(c) for _ in range(3)] if split else [rnd(3 * c)]
+    rel = torch.randn(nh, ws * ws, ws * ws, device="cuda", generator=gen)
+    g32 = rnd(c)
+    geo, pad_hw = (hp, hp, ws, shift), (pad, pad) if pad else None
+    windows = b * (hp // ws) ** 2
+
+    def calls(dtype):
+        cast, g = [t.to(dtype) for t in ops], g32.to(dtype)
+        args = (cast, rel, g, K6_HD ** -0.5, geo, pad_hw)
+        kern = lambda: WA.window_attention_nhwc_bwd(*args)  # noqa: E731
+        plain = lambda: WA.window_attention_nhwc_bwd_torch(  # noqa: E731
+            *args)
+
+        def library():
+            parts = cast if split else cast[0].split(c, -1)
+            leaves = [_windows(WA, t, ws, nh).requires_grad_()
+                      for t in parts]
+            bias = _sdpa_bias(WA, rel, windows, hp, hp, ws, shift, pad_hw,
+                              dtype)
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=bias,
+                                                 scale=K6_HD ** -0.5)
+            gw = _windows(WA, g, ws, nh)
+            return lambda: torch.autograd.grad(out, leaves, gw,
+                                               retain_graph=True)
+        nbytes = 2 * _nbytes(*cast) + _nbytes(g) + 2 * _nbytes(rel)
+        flops = 10 * windows * nh * (ws * ws) ** 2 * K6_HD
+        return kern, plain, library, nbytes, flops
+    return calls, windows
+
+
 def _wa_bwd_tol_ok(got, want, dtype) -> tuple:
-    """K6 against the plain backward: fp32 sums in another order (d(rel)
-    over every window), 1e-4 of each output's largest magnitude; a bf16
-    d(operand) may round one bf16 step apart (2^-7 relative at most)."""
-    worst = 0.0
+    """K6 against the plain backward, per output: fp32 (the SIMT body, the
+    same arithmetic with sums in another order, d(rel) over every window)
+    within 1e-4 of the output's largest magnitude. bf16 (the tensor-core
+    body) rounds P and dS to bf16 before the products dV, dQ and dK, as
+    FlashAttention-2's and SDPA's backward do: a d(operand) within one
+    bf16 step of the element plus one of the output's scale,
+    2^-7 |plain| + 2^-8 max|plain|; d(rel), summed from fp32 dS, keeps
+    1e-4 max|plain|. Returns (all within, max |kernel - plain|, max
+    |kernel - plain| / tolerance)."""
+    ok, worst, ratio = True, 0.0, 0.0
     for i, (a, b) in enumerate(zip(got, want)):
         if a.dtype != b.dtype or a.shape != b.shape:
             raise AssertionError(f"K6 output {i}: {a.dtype} "
                                  f"{tuple(a.shape)}, plain {b.dtype} "
                                  f"{tuple(b.shape)}")
         a, b = a.float(), b.float()
-        rtol = 2.0 ** -7 if (dtype == torch.bfloat16
-                             and i < len(got) - 1) else 0.0
+        scale = b.abs().max().item()
+        if dtype == torch.bfloat16 and i < len(got) - 1:
+            tol = 2.0 ** -8 * scale + 2.0 ** -7 * b.abs()
+        else:
+            tol = torch.full_like(b, 1e-4 * scale)
         err = (a - b).abs()
-        if not bool((err <= 1e-4 * b.abs().max().item()
-                     + rtol * b.abs()).all()):
-            return False, err.max().item()
+        ok = ok and bool((err <= tol).all())
         worst = max(worst, err.max().item())
-    return True, worst
+        ratio = max(ratio, (err / tol).max().item())
+    return ok, worst, ratio
 
 
 def window_bwd_kernel_phase(WA, smi: str) -> dict:
-    """K6 fused (Swin stage 1) and split (the encoder's 80x80 level, and the
-    20x20 level that pads to 24 and shifts) at the training shapes (batch
-    2, 640 px), fp32 and bf16, against the plain backward; kernel, plain,
-    library (autograd of F.scaled_dot_product_attention for d(q, k, v) on
-    window-partitioned tensors) and bound times in bf16. d(rel) must repeat
-    bit for bit."""
+    """K6 at the seven shapes of ``K6_SHAPES``, fp32 (SIMT body) and bf16
+    (tensor-core body), against the plain backward; d(rel) must repeat bit
+    for bit. In bf16: kernel, library (autograd of SDPA) and bound times,
+    the plain version's time for the kernels line's rows, and the d(rel)
+    partials' bytes against the call's."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-    b = TRAIN_BATCH
-    cases = {   # name -> (hp, wp, nH, hd, ws, shift, pad_hw, split, timed)
-        "window_attn_k6_fused": (160, 160, 3, 32, 8, 4, None, False, True),
-        "window_attn_k6_split": (80, 80, 8, 32, 8, 4, None, True, True),
-        "k6 split 20->24": (24, 24, 8, 32, 8, 4, (20, 20), True, False),
-    }
-    results = {}
-    for name, (hp, wp, nh, hd, ws, shift, pad_hw, split, timed) in \
-            cases.items():
-        c = nh * hd
-        ops = [torch.randn(b, hp, wp, c, device="cuda", generator=gen)
-               for _ in range(3)] if split else [
-            torch.randn(b, hp, wp, 3 * c, device="cuda", generator=gen)]
-        rel = torch.randn(nh, ws * ws, ws * ws, device="cuda", generator=gen)
-        g32 = torch.randn(b, hp, wp, c, device="cuda", generator=gen)
-        geo = (hp, wp, ws, shift)
-        kind = "k6_split" if split else "k6_fused"
-        max_err, row = 0.0, {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    results, errs = {}, {"fused": 0.0, "split": 0.0}
+    for name, shape in K6_SHAPES.items():
+        hp, nh, pad, split, per_step = shape
+        layout = "split" if split else "fused"
+        kind = f"k6_{layout}"
+        calls, windows = k6_case(WA, shape, gen)
         for dtype in (torch.float32, torch.bfloat16):
-            cast, g = [t.to(dtype) for t in ops], g32.to(dtype)
-            kern = lambda: WA.window_attention_nhwc_bwd(  # noqa: E731
-                cast, rel, g, hd ** -0.5, geo, pad_hw)
-            before = WA.LAUNCHES[kind]
+            kern, plain, library, nbytes, flops = calls(dtype)
+            before = WA.LAUNCHES.copy()
             got, again = kern(), kern()
             torch.cuda.synchronize()
-            if WA.LAUNCHES[kind] != before + 2:
-                raise AssertionError(f"{name} did not launch {kind}")
-            want = WA.window_attention_nhwc_bwd_torch(cast, rel, g,
-                                                      hd ** -0.5, geo, pad_hw)
-            ok, err = _wa_bwd_tol_ok(got, want, dtype)
+            mma = 2 * int(dtype == torch.bfloat16)
+            if WA.LAUNCHES[kind] != before[kind] + 2 or \
+                    WA.LAUNCHES[kind + "_mma"] != before[kind + "_mma"] + mma:
+                raise AssertionError(f"{name} did not launch {kind} "
+                                     f"({'tensor-core' if mma else 'SIMT'} "
+                                     f"body)")
+            ok, err, ratio = _wa_bwd_tol_ok(got, plain(), dtype)
+            repeats = bool(torch.equal(got[-1], again[-1]))
             dn = str(dtype).replace("torch.", "")
-            why = "1e-4 * max|plain| per output" + (
-                " + 2^-7 * |plain| for bf16 d(operands)"
-                if dtype == torch.bfloat16 else "")
+            why = ("2^-7 * |plain| + 2^-8 * max|plain| per d(operand) (P "
+                   "and dS rounded to bf16), 1e-4 * max|plain| for d(rel)"
+                   if dtype == torch.bfloat16 else
+                   "1e-4 * max|plain| per output")
             print(f"{name} {dn}: max |kernel - plain| over d(operands), "
-                  f"d(rel) = {err:.3e} (tolerance {why}); d(rel) repeats bit "
-                  f"for bit: {bool(torch.equal(got[-1], again[-1]))}",
-                  flush=True)
-            if not ok or not torch.equal(got[-1], again[-1]):
+                  f"d(rel) = {err:.3e}, {ratio:.3f} of the tolerance ({why}); "
+                  f"d(rel) repeats bit for bit: {repeats}", flush=True)
+            if not ok or not repeats:
                 raise AssertionError(f"{name} ({dn}) disagrees with its "
                                      f"plain version or does not repeat")
-            max_err = max(max_err, err)
-            if not (timed and dtype == torch.bfloat16):
+            errs[layout] = max(errs[layout], err)
+            if dtype != torch.bfloat16:
                 continue
+            is_row = name.startswith("window_attn_")
             ms = cuda_time_ms(kern, reps=20)
-            plain_ms = cuda_time_ms(
-                lambda: WA.window_attention_nhwc_bwd_torch(
-                    cast, rel, g, hd ** -0.5, geo, pad_hw), reps=5, warmup=1)
-            parts = cast if split else cast[0].split(c, -1)
-            leaves = [_windows(WA, t, ws, nh).requires_grad_()
-                      for t in parts]
-            bias = _sdpa_bias(WA, rel, leaves[0].shape[0], hp, wp, ws, shift,
-                              pad_hw, dtype)
-            lib_out = F.scaled_dot_product_attention(
-                *leaves, attn_mask=bias, scale=hd ** -0.5)
-            gw = _windows(WA, g, ws, nh)
-            lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
-                lib_out, leaves, gw, retain_graph=True), reps=10)
-            nbytes = 2 * _nbytes(*cast) + _nbytes(g) + 2 * _nbytes(rel)
-            flops = 10 * b * (hp // ws) * (wp // ws) * nh * (ws * ws) ** 2 \
-                * hd
+            plain_ms = cuda_time_ms(plain, reps=5, warmup=1) if is_row \
+                else None
+            lib_ms = cuda_time_ms(library(), reps=10)
             bound, bound_by = _bound(nbytes, flops, dtype)
-            print(f"{name} bf16 at B={b}, {hp}x{wp}: kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms, SDPA autograd {lib_ms:.4f} ms, "
-                  f"bound {bound:.4f} ms ({bound_by}) on {smi}", flush=True)
-            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=bound, bound_by=bound_by)
-            del lib_out, leaves
-        if timed:
-            results[name] = dict(row, max_abs_err=max_err)
-        else:
-            results["window_attn_k6_split"]["max_abs_err"] = max(
-                results["window_attn_k6_split"]["max_abs_err"], max_err)
+            ctas = WA.nhwc_bwd_plan(windows, nh, sms)[1]
+            part = ctas * 64 * 64 * 4
+            plain_s = f"plain {plain_ms:.4f} ms, " if is_row else ""
+            print(f"{name} bf16 at B={TRAIN_BATCH}, {hp}x{hp}, {nh} heads "
+                  f"(x{per_step} per step): kernel {ms:.4f} ms, {plain_s}"
+                  f"SDPA autograd {lib_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({nbytes / 1e6:.1f} MB, {bound_by}), {bound / ms:.1%} of "
+                  f"the bound, {lib_ms / ms:.2f}x SDPA autograd's speed; "
+                  f"d(rel) partials {part / 1e6:.2f} MB from {ctas} CTAs "
+                  f"({part / nbytes:.1%} of the call's bytes), on {smi}",
+                  flush=True)
+            if is_row:
+                results[name] = dict(ms=ms, plain_ms=plain_ms,
+                                     library_ms=lib_ms, bound_ms=bound,
+                                     bound_by=bound_by)
+        del calls
+    for layout, err in errs.items():
+        results[f"window_attn_k6_{layout}"]["max_abs_err"] = err
     return results
 
 
@@ -622,7 +676,7 @@ def flagship_cfg(cfg, flag: str):
 
 class Counts:
     """Every kernel's launch count, by the kernels line's names, and the
-    K5 launches that ran the tensor-core body (``..._mma``)."""
+    K5 and K6 launches that ran the tensor-core bodies (``..._mma``)."""
 
     NAMES = {"msdeform_attn_fwd": None, "msdeform_attn_bwd": None,
              "window_attn_k4a": "k4a", "window_attn_k4b": "k4b",
@@ -631,7 +685,9 @@ class Counts:
              "window_attn_k5_fused_mma": "k5_fused_mma",
              "window_attn_k5_split_mma": "k5_split_mma",
              "window_attn_k6_fused": "k6_fused",
-             "window_attn_k6_split": "k6_split"}
+             "window_attn_k6_split": "k6_split",
+             "window_attn_k6_fused_mma": "k6_fused_mma",
+             "window_attn_k6_split_mma": "k6_split_mma"}
 
     def __init__(self, K, WA):
         self.K, self.WA = K, WA
@@ -900,6 +956,64 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).norm() / b.norm()).item()
 
 
+def bf16_window_grad_phase(cfg, counts: Counts, build_model, WA,
+                           want: dict) -> None:
+    """The NHWC flagship's backbone + window-encoder gradient at batch 2,
+    640 px, for seeded weights, images and cotangent, three times: in bf16
+    (autocast, as the train step runs) through the kernels (the
+    tensor-core K5 and K6), in bf16 through the plain versions, and in
+    fp32 through the plain versions (TF32 off). For every Swin block's qkv
+    and bias table and every window layer's q/k/v projections and table it
+    prints the relative L2 error of each gradient, and fails unless the
+    kernels move each less than bf16 itself does: ||kernel - plain|| <=
+    ||plain - fp32||. (K6 rounds P and dS to bf16 before its products, as
+    FlashAttention-2 does; the plain backward keeps them in fp32.)"""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = flagship_cfg(cfg, "nhwc")
+    images = torch.from_numpy(np.random.default_rng(SEED + 11)
+                              .standard_normal((TRAIN_BATCH, TRAIN_CANVAS,
+                                                TRAIN_CANVAS, 3))
+                              .astype(np.float32)).cuda()
+    plain = {"window_attn_fn": (WA.window_attention_nhwc_torch,
+                                WA.window_attention_nhwc_split_torch)}
+    grads = {}
+    for tag, kw, dtype, expect in (
+            ("kernel", {}, torch.bfloat16, want),
+            ("plain", plain, torch.bfloat16, {}),
+            ("fp32", plain, torch.float32, {})):
+        model = build_model(cfg, seed=SEED, **kw)
+        counts.reset()
+        with torch.autocast("cuda", dtype=torch.bfloat16,
+                            enabled=dtype == torch.bfloat16):
+            mf, outs = model.sem_seg_head.pixel_decoder(
+                model.backbone(images))
+        _cotangent_loss([mf] + outs, SEED + 12).backward()
+        torch.cuda.synchronize()
+        counts.check(counts.read(), expect, f"bf16 flagship gradient {tag}")
+        grads[tag] = {n: p.grad.float() for n, p in
+                      _window_params(model).items()}
+        del model, mf, outs
+    bad, worst = {}, 0.0
+    for name, ref in grads["fp32"].items():
+        kp = _rel_l2(grads["kernel"][name], grads["plain"][name])
+        pf = _rel_l2(grads["plain"][name], ref)
+        kf = _rel_l2(grads["kernel"][name], ref)
+        print(f"bf16 flagship NHWC gradient, {name}: relative L2 error "
+              f"kernel vs plain {kp:.3e}; against fp32: kernel {kf:.3e}, "
+              f"plain {pf:.3e}", flush=True)
+        worst = max(worst, kp / pf)
+        if not kp <= pf:
+            bad[name] = (kp, pf)
+    print(f"bf16 flagship NHWC gradient: the tensor-core K5 / K6 move every "
+          f"one of {len(grads['fp32'])} weight gradients less than bf16 "
+          f"rounding does (kernel vs plain <= plain vs fp32): {not bad}; "
+          f"largest ratio {worst:.3f}", flush=True)
+    if bad:
+        raise AssertionError(f"bf16 flagship gradient: the kernels move "
+                             f"these gradients more than bf16 does: {bad}")
+
+
 def bf16_window_parity_phase(cfg, counts: Counts, build_model,
                              normalize_image, WA, want: dict) -> None:
     """The flagship NHWC backbone and pixel decoder at batch 8, 800x800,
@@ -1087,8 +1201,10 @@ KERNEL_ROWS = {   # kernels line name -> (source, the TPU function it replaces)
                              "window_attention.py:531"),
     "window_attn_k5_split": ("window_attn_nhwc_mma.cu",
                              "window_attention.py:531"),
-    "window_attn_k6_fused": ("window_attn_bwd.cu", "window_attention.py:696"),
-    "window_attn_k6_split": ("window_attn_bwd.cu", "window_attention.py:696"),
+    "window_attn_k6_fused": ("window_attn_nhwc_bwd_mma.cu",
+                             "window_attention.py:696"),
+    "window_attn_k6_split": ("window_attn_nhwc_bwd_mma.cu",
+                             "window_attention.py:696"),
 }
 
 
@@ -1137,6 +1253,9 @@ def main() -> int:
                   window_attn_k5_split_mma=enc * levels)
     k6 = {"window_attn_k6_fused": blocks,
           "window_attn_k6_split": enc * levels}
+    # bf16 K6 (training) runs the tensor-core body every time
+    k6_mma = dict(k6, window_attn_k6_fused_mma=blocks,
+                  window_attn_k6_split_mma=enc * levels)
     k4 = {"window_attn_k4b": blocks, "window_attn_k4a": enc * levels}
     nhwc, pallas = flagship_cfg(cfg, "nhwc"), flagship_cfg(cfg, "pallas")
     default_pallas = cfg.clone()
@@ -1167,19 +1286,20 @@ def main() -> int:
                              k5_mma)
     grad_check_phase(cfg, counts, build_model, K)
     window_grad_check_phase(cfg, counts, build_model, WA)
+    bf16_window_grad_phase(cfg, counts, build_model, WA, _add(k5_mma, k6_mma))
     trained = [
         train_phase(cfg, counts, build_model, engine, smi,
                     {"msdeform_attn_fwd": enc, "msdeform_attn_bwd": enc},
                     "default", 6, _default_grads, cli_settings=True),
         train_phase(nhwc, counts, build_model, engine, smi,
-                    _add(k5_mma, k6), "flagship, WINDOW_ATTN_NHWC", 10,
+                    _add(k5_mma, k6_mma), "flagship, WINDOW_ATTN_NHWC", 10,
                     _window_params),
         train_phase(pallas, counts, build_model, engine, smi, k4,
                     "flagship, USE_PALLAS_WINDOW_ATTN", 3, _window_params)]
     overfit_phase(cfg, counts, build_model, engine,
                   {"msdeform_attn_fwd": enc, "msdeform_attn_bwd": enc},
                   "default")
-    overfit_phase(nhwc, counts, build_model, engine, _add(k5_mma, k6),
+    overfit_phase(nhwc, counts, build_model, engine, _add(k5_mma, k6_mma),
                   "flagship, WINDOW_ATTN_NHWC")
 
     launches = {}

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1, the sampling backward and the window
 kernels K4a, K4b, K5, K6) against their plain PyTorch versions, and, on
-the CPU, the tensor-core K5's launch plan and its dtype rule.
+the CPU, the tensor-core K5's and K6's launch plans and dtype rules and the
+bf16 bound of K6's tensor-core body.
 
 Imports only torch, numpy and the port, so it also runs on a machine
 without JAX. On the card (the repository's conftest imports JAX, so skip
@@ -224,6 +225,13 @@ K5_SERVING = {"fused 200": (8 * 25 * 25, 3), "fused 104": (8 * 13 * 13, 6),
               "fused 56": (8 * 7 * 7, 12), "fused 32": (8 * 4 * 4, 24),
               "split 104": (8 * 13 * 13, 8), "split 56": (8 * 7 * 7, 8),
               "split 32": (8 * 4 * 4, 8)}
+# K6 at the flagship's training shapes (batch 2, 640 px, head dim 32):
+# (windows, heads, launches per step); Swin stages 1-4 fused, the window
+# encoder's three levels split
+K6_TRAINING = {"fused 160": (2 * 20 * 20, 3, 2), "fused 80": (2 * 10 * 10, 6, 2),
+               "fused 40": (2 * 5 * 5, 12, 6), "fused 20->24": (2 * 3 * 3, 24, 2),
+               "split 80": (2 * 10 * 10, 8, 6), "split 40": (2 * 5 * 5, 8, 6),
+               "split 20->24": (2 * 3 * 3, 8, 6)}
 H100_SMS = 132
 
 
@@ -234,6 +242,9 @@ def _plan_cases():
 
 
 PLAN_CASES = dict(_plan_cases())
+BWD_PLAN_CASES = dict(
+    [(n, c) for n, c in _plan_cases() if n in WA_NHWC_CASES]
+    + [(n, (w, h)) for n, (w, h, _) in K6_TRAINING.items()])
 
 
 @pytest.mark.parametrize("case", list(PLAN_CASES))
@@ -272,6 +283,47 @@ def test_nhwc_fwd_body_rule(dtype, hd, n, body):
         assert WA.nhwc_fwd_body(dtype, hd, n) == body
 
 
+@pytest.mark.parametrize("case", list(BWD_PLAN_CASES))
+def test_nhwc_bwd_plan_covers_every_window_head_once(case):
+    """The tensor-core K6's grid (``nhwc_bwd_plan``, K5's CTA -> work
+    arithmetic): every (window, head) exactly once, one d(rel) partial per
+    CTA, at least 3 windows per CTA where there are 3; at the training
+    shapes (head dim 32: 7 x 64 x 32 bf16 values move per window-head) the
+    partials' bytes stay under a fifth of the call's."""
+    windows, heads = BWD_PLAN_CASES[case]
+    wpc, ctas = WA.nhwc_bwd_plan(windows, heads, H100_SMS)
+    assert min(windows, WA.MMA_BWD_MIN_WINDOWS_PER_CTA) <= wpc \
+        <= WA.MMA_MAX_WINDOWS_PER_CTA
+    assert ctas == heads * -(-windows // wpc)
+    seen = np.zeros((windows, heads), np.int64)
+    for cta in range(ctas):
+        head, first, n = WA.nhwc_bwd_cta_work(cta, heads, wpc, windows)
+        assert 1 <= n <= wpc and head == cta % heads
+        seen[first:first + n, head] += 1
+    assert (seen == 1).all()
+    if case in K6_TRAINING:
+        partial_bytes = ctas * 64 * 64 * 4
+        call_bytes = windows * heads * 7 * 64 * 32 * 2
+        assert partial_bytes < call_bytes / 5
+
+
+@pytest.mark.parametrize("dtype,hd,n,body", [
+    ("bfloat16", 16, 64, "mma"), ("bfloat16", 32, 64, "mma"),
+    ("bfloat16", 48, 64, "mma"), ("bfloat16", 64, 64, "mma"),
+    ("float32", 32, 64, "simt"), ("float32", 8, 49, "simt"),
+    ("bfloat16", 8, 64, None), ("bfloat16", 24, 64, None),
+    ("bfloat16", 32, 49, None)])
+def test_nhwc_bwd_body_rule(dtype, hd, n, body):
+    """bf16 K6 takes the tensor-core body (windows of 64 tokens, head dim a
+    multiple of 16; anything else raises), fp32 the SIMT body."""
+    dtype = getattr(torch, dtype)
+    if body is None:
+        with pytest.raises(ValueError):
+            WA.nhwc_bwd_body(dtype, hd, n)
+    else:
+        assert WA.nhwc_bwd_body(dtype, hd, n) == body
+
+
 def test_nhwc_bf16_takes_plain_version_on_cpu():
     """The body rule belongs to the card: a CPU bf16 call, even at a head
     dim the tensor-core body does not take, runs the plain version."""
@@ -308,18 +360,18 @@ def _wa_token_inputs(case, dtype, seed=20):
     return q, k, v, rel, mask, nw, geometry if geo else None
 
 
-def _wa_nhwc_inputs(case, dtype, seed=21):
+def _wa_nhwc_inputs(case, dtype, seed=21, device="cuda"):
     b, h, w, nh, hd, ws, shift, split = WA_NHWC_CASES[case]
     hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
     rng = np.random.default_rng(seed)
 
     def t(c):
         return torch.from_numpy(rng.standard_normal((b, hp, wp, c)).astype(
-            np.float32)).cuda().to(dtype)
+            np.float32)).to(device, dtype)
 
     ops = (t(nh * hd), t(nh * hd), t(nh * hd)) if split else (t(3 * nh * hd),)
     rel = torch.from_numpy(rng.standard_normal(
-        (nh, ws * ws, ws * ws)).astype(np.float32)).cuda()
+        (nh, ws * ws, ws * ws)).astype(np.float32)).to(device)
     g = t(nh * hd)
     return ops, rel, (hp, wp, ws, shift), (h, w) if split else None, g, hd
 
@@ -373,37 +425,105 @@ def test_window_nhwc_kernel_matches_plain_on_cuda(case, dtype):
         ops[-1], dtype)
 
 
-def assert_wa_bwd_close(got, want, dtype):
-    """d(operands) and d(rel) of K6 against the plain backward: fp32 sums in
-    another order (d(rel) over every window), 1e-4 of each output's largest
-    magnitude; a bf16 d(operand) may also round one bf16 step apart
-    (2^-7 relative at most)."""
+def wa_bwd_within(got, want, dtype) -> list:
+    """Which outputs of K6 (d(operands)..., d(rel)) lie within their bound
+    of the plain backward. fp32 (the SIMT body): the same arithmetic, sums
+    in another order (d(rel) over every window): 1e-4 of each output's
+    largest magnitude. bf16 (the tensor-core body): P and dS are rounded to
+    bf16 before the products dV, dQ and dK, as FlashAttention-2's and
+    SDPA's backward do, so a d(operand) may differ by one bf16 step of the
+    element plus one of the output's scale:
+    2^-7 |plain| + 2^-8 max|plain|; d(rel) is summed from fp32 dS and keeps
+    1e-4 max|plain|."""
     assert len(got) == len(want)
+    ok = []
     for i, (a, b) in enumerate(zip(got, want)):
         assert a.dtype == b.dtype and a.shape == b.shape, i
         a, b = a.float(), b.float()
-        rtol = 2.0 ** -7 if (dtype == torch.bfloat16
-                             and i < len(got) - 1) else 0.0
-        tol = 1e-4 * b.abs().max().item() + rtol * b.abs()
-        err = (a - b).abs()
-        assert bool((err <= tol).all()), (i, err.max().item())
+        scale = b.abs().max().item()
+        if dtype == torch.bfloat16 and i < len(got) - 1:
+            tol = 2.0 ** -8 * scale + 2.0 ** -7 * b.abs()
+        else:
+            tol = 1e-4 * scale
+        ok.append(bool(((a - b).abs() <= tol).all()))
+    return ok
+
+
+def assert_wa_bwd_close(got, want, dtype):
+    ok = wa_bwd_within(got, want, dtype)
+    assert all(ok), [((a.float() - b.float()).abs().max().item())
+                     for a, b in zip(got, want)]
+
+
+def _round_mantissa(x, bits):
+    """x rounded to nearest with ``bits`` explicit mantissa bits (bf16
+    keeps 7)."""
+    m, e = torch.frexp(x)
+    return torch.ldexp(torch.round(m * 2.0 ** (bits + 1))
+                       / 2.0 ** (bits + 1), e)
+
+
+def _k6_body_emulation(operands, rel, g, scale, geometry, pad_hw, bits):
+    """The plain K6 (``window_attention_nhwc_bwd_torch``) with the
+    tensor-core body's rounding: P and dS to ``bits`` mantissa bits before
+    the products dV, dQ and dK; rs and d(rel) from fp32 P and dS."""
+    hp, wp, ws, shift = geometry
+    q, k, v = WA._split_qkv(operands)
+    nh, nw = rel.shape[0], (hp // ws) * (wp // ws)
+    keep = WA.window_keep(hp, wp, ws, shift, pad_hw, q.device)
+    qw, kw, vw, gw = (WA._nhwc_windows(t, ws, nh) for t in (q, k, v, g))
+    nwt, _, n, hd = qw.shape
+    s = torch.matmul(qw * scale, kw.transpose(-1, -2))
+    s = s.reshape(nwt // nw, nw, nh, n, n) + torch.where(
+        keep[:, None], rel[None], WA.NEG_INF)
+    p = s.softmax(-1).reshape(nwt, nh, n, n)
+    dp = torch.matmul(gw, vw.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    pr, dsr = _round_mantissa(p, bits), _round_mantissa(ds, bits)
+    grads = [torch.matmul(dsr, kw) * scale,
+             torch.matmul(dsr.transpose(-1, -2), qw) * scale,
+             torch.matmul(pr.transpose(-1, -2), gw)]
+    grads = [WA._nhwc_merge(t, ws, hp, wp).to(q.dtype) for t in grads]
+    if len(operands) == 1:
+        grads = [torch.cat(grads, -1)]
+    return (*grads, ds.sum(0))
+
+
+@pytest.mark.parametrize("bits,passes", [(7, True), (4, False)])
+@pytest.mark.parametrize("case", list(WA_NHWC_CASES))
+def test_k6_bf16_bound_holds_the_body_rounding(case, bits, passes):
+    """The bf16 bound of ``wa_bwd_within`` is the tensor-core body's
+    rounding and not looser: the plain K6 with P and dS rounded to bf16 (7
+    mantissa bits) stays inside it at every case, and with 4 mantissa bits
+    leaves it."""
+    ops, rel, geo, pad, g, hd = _wa_nhwc_inputs(case, torch.bfloat16,
+                                                device="cpu")
+    pad = WA._pad_or_none(pad, geo)
+    want = WA.window_attention_nhwc_bwd_torch(ops, rel, g, hd ** -0.5, geo,
+                                              pad)
+    got = _k6_body_emulation(ops, rel, g, hd ** -0.5, geo, pad, bits)
+    ok = wa_bwd_within(got, want, torch.bfloat16)
+    assert ok[-1]                                  # d(rel): fp32 dS
+    assert all(ok[:-1]) == passes
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", list(WA_NHWC_CASES))
 def test_window_bwd_kernel_matches_plain_on_cuda(case, dtype):
-    """K6 for both layouts, and d(rel) bit for bit on a second run."""
+    """K6 for both layouts, and d(rel) bit for bit on a second run: bf16
+    on the tensor-core body, fp32 on the SIMT body."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     dtype = getattr(torch, dtype)
     ops, rel, geo, pad, g, hd = _wa_nhwc_inputs(case, dtype)
     kind = "k6_split" if len(ops) == 3 else "k6_fused"
-    before = WA.LAUNCHES[kind]
+    before, mma = WA.LAUNCHES[kind], WA.LAUNCHES[kind + "_mma"]
     got = WA.window_attention_nhwc_bwd(ops, rel, g, hd ** -0.5, geo, pad)
     again = WA.window_attention_nhwc_bwd(ops, rel, g, hd ** -0.5, geo, pad)
     torch.cuda.synchronize()
     assert WA.LAUNCHES[kind] == before + 2
+    assert WA.LAUNCHES[kind + "_mma"] == mma + 2 * (dtype == torch.bfloat16)
     want = WA.window_attention_nhwc_bwd_torch(
         ops, rel, g, hd ** -0.5, geo, pad if pad != geo[:2] else None)
     assert_wa_bwd_close(got, want, dtype)
@@ -432,8 +552,10 @@ def test_window_nhwc_autograd_takes_both_kernels_on_cuda(case, dtype):
     torch.cuda.synchronize()
     bwd = WA.LAUNCHES
     sfx = "split" if len(ops) == 3 else "fused"
+    bf16 = int(dtype == torch.bfloat16)
     assert bwd[f"k5_{sfx}"] == fwd[f"k5_{sfx}"] + 1
     assert bwd[f"k6_{sfx}"] == fwd[f"k6_{sfx}"] + 1
+    assert bwd[f"k6_{sfx}_mma"] == fwd[f"k6_{sfx}_mma"] + bf16
     want = WA.window_attention_nhwc_bwd_torch(ops, rel, gf.to(dtype),
                                               hd ** -0.5, geo, pad)
     assert_wa_bwd_close([t.grad for t in leaves], want, dtype)
@@ -499,3 +621,9 @@ def test_window_kernels_reject_what_they_do_not_take():
     ok = [torch.zeros_like(odd) for _ in range(2)]
     with pytest.raises(ValueError):
         WA.window_attention_nhwc_split(odd, *ok, rel2, 0.1, (8, 8, 8, 0))
+    # ... and so does bf16 K6, the cotangent included
+    with pytest.raises(ValueError):            # head dim 8
+        WA.window_attention_nhwc_bwd(hd8, rel2, hd8[0], 0.1, (8, 8, 8, 0))
+    with pytest.raises(ValueError):
+        WA.window_attention_nhwc_bwd(ok + [ok[0]], rel2, odd, 0.1,
+                                     (8, 8, 8, 0))

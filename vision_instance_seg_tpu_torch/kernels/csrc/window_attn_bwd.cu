@@ -1,20 +1,22 @@
-// Window attention on NHWC maps, backward (Hopper, sm_90a).
+// Window attention on NHWC maps, backward (Hopper, sm_90a), fp32: the SIMT
+// body of K6 (bf16 calls take the tensor-core body of
+// window_attn_nhwc_bwd_mma.cu).
 //
 // Replaces the TPU kernel _wa_nhwc_bwd_impl (body _wa_nhwc_bwd_kernel,
 // vision_instance_seg_tpu/kernels/window_attention.py), the recompute
 // backward of K5: nothing is saved from the forward but its operands. Per
-// (window, head), in fp32 from the operands and the cotangent g (given in
-// the operands' type): s = (q * scale) . k^T + rel where the labels agree,
-// -1e9 where they do not (window_attn_common.cuh); p = softmax(s);
+// (window, head), in fp32 from the operands and the cotangent g:
+// s = (q * scale) . k^T + rel where the labels agree, -1e9 where they do
+// not (window_attn_common.cuh); p = softmax(s);
 // dv = p^T g; dp = g v^T; ds = p (dp - rowsum(dp p)); dq = (ds k) scale;
 // dk = (ds^T q) scale. Excluded pairs have p = 0, so ds = 0 exactly and
 // their bias cells get no gradient. d(q, k, v) are written in the operands'
 // layout and type (fused: one (B, Hp, Wp, 3C) dqkv map). d(rel) (nH, N, N)
 // is ds summed over every window of every image.
 //
-// Bound: memory. At Swin stage 1 in training (qkv (2, 160, 160, 288) bf16)
-// it reads 29.5 MB of qkv and 9.8 MB of g and writes 29.5 MB of dqkv:
-// 68.8 MB, 21 us at 3.35 TB/s, against ~2.5x the forward's products.
+// Bound: memory. At Swin stage 1 in training (qkv (2, 160, 160, 288) fp32)
+// it reads 59.0 MB of qkv and 19.7 MB of g and writes 59.0 MB of dqkv:
+// 137.6 MB, 41 us at 3.35 TB/s, against ~2.5x the forward's products.
 //
 // Design, simple first: one block of 256 threads per (group of windows,
 // head). For each window of its group the block loads q, k, v and g into
@@ -25,10 +27,12 @@
 // broadcasts). d(rel) is not summed with atomics: each block adds its
 // windows' ds into an N x N shared-memory accumulator (one writer per cell
 // and window) and writes it once as its group's partial sum; a second
-// kernel sums the groups' partials in order. So d(rel) repeats bit for bit
-// from run to run (for a given shape and card, which fix the grouping).
+// kernel sums the groups' partials in a fixed order (window_attn_drel.cuh).
+// So d(rel) repeats bit for bit from run to run (for a given shape and
+// card, which fix the grouping).
 
 #include "window_attn_common.cuh"
+#include "window_attn_drel.cuh"
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -146,17 +150,6 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = tid; i < N * N; i += kThreads) part[i] = acc[i];
 }
 
-// drel[c] = sum over groups of partial[group][c], groups in order.
-__global__ void window_attn_drel_sum_kernel(const float* __restrict__ partial,
-                                            float* __restrict__ drel,
-                                            int groups, int cells) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= cells) return;
-  float a = 0.f;
-  for (int gi = 0; gi < groups; ++gi) a += partial[(int64_t)gi * cells + c];
-  drel[c] = a;
-}
-
 template <typename T, int LAYOUT>
 static int launch(const void* q, const void* k, const void* v,
                   const void* gout, const float* rel, void* dq, void* dk,
@@ -180,23 +173,20 @@ static int launch(const void* q, const void* k, const void* v,
       g, total_windows, wpb);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const int cells = g.nH * N * N;
-  window_attn_drel_sum_kernel<<<(cells + 255) / 256, 256, 0, st>>>(
-      partial, drel, groups, cells);
-  return (int)cudaGetLastError();
+  return wa_drel_sum(partial, drel, groups, g.nH * N * N, st);
 }
 
 extern "C" {
 
-// Fused: q = k = v = the qkv map (B, Hp, Wp, 3C) and dq = dk = dv = the
-// dqkv map; split: (B, Hp, Wp, C) each. gout (B, Hp, Wp, C) in the
-// operands' type. partial holds ceil(B * nW / windows_per_block) x nH x
-// N x N floats; drel nH x N x N. Returns cudaGetLastError() (0 = launched).
+// fp32. Fused: q = k = v = the qkv map (B, Hp, Wp, 3C) and dq = dk = dv =
+// the dqkv map; split: (B, Hp, Wp, C) each. gout (B, Hp, Wp, C). partial
+// holds ceil(B * nW / windows_per_block) x nH x N x N floats; drel
+// nH x N x N. Returns cudaGetLastError() (0 = launched).
 int window_attn_bwd_nhwc(const void* q, const void* k, const void* v,
                          const void* gout, const void* rel, void* dq,
                          void* dk, void* dv, void* partial, void* drel,
-                         int is_bf16, int fused, int B, int nH, int C, int Hp,
-                         int Wp, int ws, int shift, int pad_h, int pad_w,
+                         int fused, int B, int nH, int C, int Hp, int Wp,
+                         int ws, int shift, int pad_h, int pad_w,
                          int windows_per_block, float scale, void* stream) {
   if (ws < 1 || nH < 1 || C % nH || windows_per_block < 1 || B < 1)
     return (int)cudaErrorInvalidValue;
@@ -209,15 +199,6 @@ int window_attn_bwd_nhwc(const void* q, const void* k, const void* v,
   float* pp = static_cast<float*>(partial);
   float* dr = static_cast<float*>(drel);
   const int total = B * nW;
-  if (is_bf16) {
-    if (fused)
-      return launch<__nv_bfloat16, WA_NHWC_FUSED>(q, k, v, gout, r, dq, dk, dv,
-                                                  pp, dr, g, total,
-                                                  windows_per_block, st);
-    return launch<__nv_bfloat16, WA_NHWC_SPLIT>(q, k, v, gout, r, dq, dk, dv,
-                                                pp, dr, g, total,
-                                                windows_per_block, st);
-  }
   if (fused)
     return launch<float, WA_NHWC_FUSED>(q, k, v, gout, r, dq, dk, dv, pp, dr,
                                         g, total, windows_per_block, st);

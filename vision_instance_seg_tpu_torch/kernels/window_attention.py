@@ -19,8 +19,12 @@ of 64 tokens, head dim a multiple of 16; anything else raises), and fp32
 runs the SIMT body of ``window_attn_fwd.cu``, which the fp32 parity checks
 hold bit-equal to the plain version. It is a rule, not a fallback.
 
-``csrc/window_attn_bwd.cu`` replaces K6 ``_wa_nhwc_bwd_impl``, the recompute
-backward of K5 (d(operands) and d(rel) summed over every window).
+K6 ``_wa_nhwc_bwd_impl``, the recompute backward of K5 (d(operands) and
+d(rel) summed over every window), has two bodies by the same rule
+(``nhwc_bwd_body``): bf16 runs ``csrc/window_attn_nhwc_bwd_mma.cu`` on the
+tensor cores (P and dS rounded to bf16 before the products dV, dQ, dK, as
+FlashAttention-2 and SDPA do), fp32 the SIMT body of
+``csrc/window_attn_bwd.cu``. Both sum d(rel) in order, without atomics.
 
 Every version computes the logits and the softmax in fp32:
 ``softmax(q * scale . k^T + rel + mask)``, then casts p to v's dtype and
@@ -41,8 +45,8 @@ package's recompute backward in torch ops, since JAX wrote that backward in
 jnp) and ``WindowAttentionNHWCFunction`` (K5 forward, K6 backward on CUDA,
 the written-out plain backward on the CPU). ``LAUNCHES`` counts the kernel
 launches by name: k4a, k4b, k5_fused, k5_split, k6_fused, k6_split, and the
-K5 launches that ran the tensor-core body once more under k5_fused_mma and
-k5_split_mma.
+K5 and K6 launches that ran the tensor-core bodies once more under
+k5_fused_mma, k5_split_mma, k6_fused_mma and k6_split_mma.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ MAX_TOKENS = 64              # csrc WA_MAX_TOKENS: windows up to 8 x 8
 MAX_HEAD_DIM = 64            # csrc WA_MAX_HEAD_DIM
 MMA_TOKENS = 64              # the tensor-core body's windows: 8 x 8
 MMA_MAX_WINDOWS_PER_CTA = 16
+MMA_BWD_MIN_WINDOWS_PER_CTA = 3   # K6: d(rel) partials under 1/5 of bytes
 LAUNCHES: collections.Counter = collections.Counter()
 
 Geometry = Tuple[int, int, int, int]        # (Hp, Wp, ws, shift)
@@ -377,10 +382,10 @@ def nhwc_fwd_body(dtype: torch.dtype, hd: int, n: int) -> str:
     if dtype != torch.bfloat16:
         return "simt"
     if n != MMA_TOKENS or hd % 16:
-        raise ValueError(f"bf16 K5 runs on the tensor cores, which take "
-                         f"windows of {MMA_TOKENS} tokens and a head dim "
-                         f"that is a multiple of 16: got {n} tokens, head "
-                         f"dim {hd}")
+        raise ValueError(f"bf16 K5 and K6 run on the tensor cores, which "
+                         f"take windows of {MMA_TOKENS} tokens and a head "
+                         f"dim that is a multiple of 16: got {n} tokens, "
+                         f"head dim {hd}")
     return "mma"
 
 
@@ -402,6 +407,34 @@ def nhwc_fwd_cta_work(cta: int, heads: int, windows_per_cta: int,
     arithmetic (``wa_nhwc_mma_kernel``), for the tests."""
     first = (cta // heads) * windows_per_cta
     return cta % heads, first, min(windows_per_cta, total_windows - first)
+
+
+def nhwc_bwd_body(dtype: torch.dtype, hd: int, n: int) -> str:
+    """Which K6 body runs for operands of ``dtype``, by K5's rule: "mma"
+    (bf16, the tensor-core body of ``csrc/window_attn_nhwc_bwd_mma.cu``)
+    or "simt" (fp32, the body of ``csrc/window_attn_bwd.cu``)."""
+    return nhwc_fwd_body(dtype, hd, n)
+
+
+def nhwc_bwd_plan(total_windows: int, heads: int, sms: int
+                  ) -> Tuple[int, int]:
+    """(windows per CTA, CTAs) of the tensor-core K6, on K5's grid: one wave
+    at the 2 CTAs per SM its registers allow, at most 16 windows per CTA. Each CTA writes one 64 x 64
+    fp32 d(rel) partial (16 KB) that the in-order sum reads back, so a run
+    holds at least 3 windows: at head dim 32 a window-head moves 28 KB, and
+    the partials stay under a fifth of the call's bytes."""
+    wpc = -(-total_windows * heads // (2 * sms))
+    wpc = max(MMA_BWD_MIN_WINDOWS_PER_CTA, min(MMA_MAX_WINDOWS_PER_CTA, wpc))
+    wpc = min(wpc, total_windows)
+    return wpc, heads * -(-total_windows // wpc)
+
+
+def nhwc_bwd_cta_work(cta: int, heads: int, windows_per_cta: int,
+                      total_windows: int) -> Tuple[int, int, int]:
+    """(head, first window, windows) of CTA ``cta`` of the tensor-core K6
+    (``wa_nhwc_bwd_mma_kernel``: K5's grid), for the tests; the CTA writes
+    its d(rel) partial to row ``cta`` of the partials."""
+    return nhwc_fwd_cta_work(cta, heads, windows_per_cta, total_windows)
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -446,10 +479,20 @@ def _sm_count(device: torch.device) -> int:
 @functools.lru_cache(maxsize=None)
 def _bwd_library() -> ctypes.CDLL:
     lib = _lib("window_attn_bwd")
-    lib.window_attn_bwd_nhwc.argtypes = [_P] * 10 + [_I] * 12 + [_F, _P]
+    lib.window_attn_bwd_nhwc.argtypes = [_P] * 10 + [_I] * 11 + [_F, _P]
     lib.window_attn_bwd_nhwc.restype = ctypes.c_int
     lib.window_attn_bwd_error_string.argtypes = [_I]
     lib.window_attn_bwd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_mma_library() -> ctypes.CDLL:
+    lib = _lib("window_attn_nhwc_bwd_mma")
+    lib.window_attn_nhwc_bwd_mma.argtypes = [_P] * 10 + [_I] * 10 + [_F, _P]
+    lib.window_attn_nhwc_bwd_mma.restype = ctypes.c_int
+    lib.window_attn_nhwc_bwd_mma_error_string.argtypes = [_I]
+    lib.window_attn_nhwc_bwd_mma_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -527,7 +570,8 @@ def bwd_windows_per_block(total_windows: int, heads: int,
 
 def _launch_nhwc_bwd(operands, rel_bias, g, scale: float, geometry: Geometry,
                      pad_hw):
-    lib = _bwd_library()
+    """K6: the tensor-core body for bf16, the SIMT body for fp32
+    (``nhwc_bwd_body``); both count under k6_fused / k6_split."""
     hp, wp, ws, shift = geometry
     fused = len(operands) == 1
     q, k, v = (operands * 3) if fused else operands
@@ -541,18 +585,36 @@ def _launch_nhwc_bwd(operands, rel_bias, g, scale: float, geometry: Geometry,
     grads = [torch.empty_like(t) for t in operands]
     dq, dk, dv = (grads * 3) if fused else grads
     total = b * (hp // ws) * (wp // ws)
-    wpb = bwd_windows_per_block(total, nh, q.device)
-    groups = -(-total // wpb)
-    partial = torch.empty((groups, nh, n, n), dtype=torch.float32,
-                          device=q.device)
     drel = torch.empty((nh, n, n), dtype=torch.float32, device=q.device)
     ph, pw = pad_hw or (0, 0)
+    kind = "k6_fused" if fused else "k6_split"
+    if nhwc_bwd_body(q.dtype, c // nh, n) == "mma":
+        if any(t.data_ptr() % 16 for t in (*operands, g, *grads)) \
+                or rel_bias.data_ptr() % 8:
+            raise ValueError("the tensor-core K6 copies 16 bytes at a time: "
+                             "operands, cotangent and gradients must start "
+                             "16-byte aligned")
+        lib = _bwd_mma_library()
+        wpc, ctas = nhwc_bwd_plan(total, nh, _sm_count(q.device))
+        partial = torch.empty((ctas, n, n), dtype=torch.float32,
+                              device=q.device)
+        _run(lib, lib.window_attn_nhwc_bwd_mma,
+             lib.window_attn_nhwc_bwd_mma_error_string, kind, q.device,
+             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+             rel_bias.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             partial.data_ptr(), drel.data_ptr(), int(fused), b, nh, c, hp,
+             wp, shift, ph, pw, wpc, scale)
+        LAUNCHES[kind + "_mma"] += 1
+        return (*grads, drel)
+    lib = _bwd_library()
+    wpb = bwd_windows_per_block(total, nh, q.device)
+    partial = torch.empty((-(-total // wpb), nh, n, n), dtype=torch.float32,
+                          device=q.device)
     _run(lib, lib.window_attn_bwd_nhwc, lib.window_attn_bwd_error_string,
-         "k6_fused" if fused else "k6_split", q.device, q.data_ptr(),
-         k.data_ptr(), v.data_ptr(), g.data_ptr(), rel_bias.data_ptr(),
-         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), partial.data_ptr(),
-         drel.data_ptr(), int(q.dtype == torch.bfloat16), int(fused), b, nh,
-         c, hp, wp, ws, shift, ph, pw, wpb, scale)
+         kind, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+         g.data_ptr(), rel_bias.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+         dv.data_ptr(), partial.data_ptr(), drel.data_ptr(), int(fused), b,
+         nh, c, hp, wp, ws, shift, ph, pw, wpb, scale)
     return (*grads, drel)
 
 
