@@ -6,28 +6,32 @@ Builds every CUDA kernel of the port from the sources in this checkout (one
 ``nvcc`` per source, all started together) and holds each against its plain
 PyTorch version at the shapes its path gives it: K1 (sampling forward) at
 the serving shapes, the sampling backward (the TPU's K2, K3a and K3b) at the
-training shapes, and the window kernels: K5 at all seven shapes of the
-flagship's serving path (fused at Swin stages 1-4, split at the window
-encoder's three levels; bf16 on the tensor-core body, fp32 on the SIMT
-body), K4b at stage 1 with windows of 8 and of 7, K4a at the 100x100 level,
-K6 at all seven shapes of the flagship's training path (fused at Swin
-stages 1-4, split at the window encoder's three levels; bf16 on the
-tensor-core body, fp32 on the SIMT body). Then it drives the port's main
-paths with weights drawn
-from a fixed seed, through ``build_model`` -> ``make_inference_fn`` and
-``create_train_state`` -> ``make_train_step``:
+training shapes with 8 heads of 32 channels and at head dims 64 and 24, and
+the window kernels: K4b at Swin stages 1-4 with windows of 8, at stage 1
+with windows of 7 and 12, K4a at the window encoder's three levels and at
+window 16, K5 at all seven shapes of the flagship's serving path (fused at
+Swin stages 1-4, split at the window encoder's three levels) and split at
+window 16, K6 at all seven shapes of the flagship's training path and split
+at window 16. bf16 windows of up to 64 tokens run the tensor-core bodies,
+fp32 and larger windows the SIMT bodies. Then it drives the port's main
+paths with weights drawn from a fixed seed, through ``build_model`` ->
+``make_inference_fn`` and ``create_train_state`` -> ``make_train_step``:
 
 - the default ``get_cfg()`` model (Swin-T window 7, 6-layer deformable
   pixel decoder over 3 levels, 9-layer Mask2Former decoder, 100 queries):
   serving batches of 8 at 800x800 (and one batch with
   ``TPU.USE_PALLAS_WINDOW_ATTN``: K4b at 49 tokens beside K1); train steps
   at the JAX defaults (batch 2, 640 px, 100 GT slots, bf16, hungarian
-  matcher, random points) and with the training CLIs' settings;
+  matcher, random points), with the training CLIs' settings, and with 4
+  sampling heads (head dim 64);
 - the window-attention flagship (the same model with Swin window 8 and the
   6-layer window encoder): serving batches of 8 at 800x800 under
   ``TPU.WINDOW_ATTN_NHWC`` (12 fused + 18 split K5 per forward) and under
   ``TPU.USE_PALLAS_WINDOW_ATTN`` (12 K4b + 18 K4a); train steps at batch 2,
-  640 px under both flags (30 K5 and 30 K6 per step under NHWC);
+  640 px under both flags (30 K5 and 30 K6 per step under NHWC); with the
+  window-16 encoder under NHWC (serving and a train step: K5 and K6 split
+  at 256 tokens), and with Swin window 12 and the window-16 encoder under
+  ``USE_PALLAS_WINDOW_ATTN`` (serving: K4b at 144 tokens, K4a at 256);
 - checks: fp32 forwards through the kernels against the same forwards on
   the plain versions (TF32 off), a bf16 flagship NHWC backbone + pixel
   decoder forward through the tensor-core K5 against the plain versions
@@ -35,13 +39,13 @@ from a fixed seed, through ``build_model`` -> ``make_inference_fn`` and
   sampling kernels, an fp32 backbone + window-encoder gradient through
   K5 / K6 against the plain versions and the same gradient in bf16
   through the tensor-core K5 / K6 (relative L2 error, against the plain
-  versions in bf16 and fp32), and 40 steps on one batch of each model that
+  versions in bf16 and fp32), and 30 steps on one batch of each model that
   must lower the loss.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path was launched as many
-times as its layers say; under NHWC in bf16, every K5 and K6 launch must
-have run the tensor-core body.
+times as its layers say; in bf16, every K4 launch at windows of 8 and 7 and
+every K5 and K6 launch at windows of 8 must have run the tensor-core body.
 
 Prints the card's name and power limit, the build time, each phase's
 numbers, a ``{"kernels": [...]}`` line, and as its last line
@@ -104,13 +108,14 @@ def cuda_time_ms(fn, reps: int, warmup: int = 3) -> float:
 
 # ----------------------------------------------------------------- kernel K1
 def sampling_inputs(value_dtype: torch.dtype, gen: torch.Generator,
-                    b: int = BATCH, levels=LEVELS):
+                    b: int = BATCH, levels=LEVELS, nh: int = HEADS,
+                    hd: int = HEAD_DIM):
     """Encoder-shaped sampling inputs on the card: grid queries at their
     pixel centers, offsets up to 12 px (twice the 6 px halo the JAX kernel
     needs) and 5% of the queries' coarsest-level samples pushed off the
     map."""
     dev = "cuda"
-    nh, hd, p, nl = HEADS, HEAD_DIM, POINTS, len(levels)
+    p, nl = POINTS, len(levels)
     q = sum(h * w for h, w in levels)
     value = torch.randn(b, q, nh, hd, device=dev, generator=gen)
     refs = []
@@ -225,64 +230,82 @@ def bwd_bound_ms(value, loc, aw) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+# the backward's head configurations: the default (8 x 32, the kernels
+# line's row), and the head dims past one warp's lanes that F2 repaired:
+# 4 x 64 (CONVS_DIM 256 with DEFORM_NUM_HEADS 4) and 4 x 24 (not a power
+# of two, nH * hd <= 128)
+BWD_HEADS = {"8 x 32": (8, 32), "4 x 64": (4, 64), "4 x 24": (4, 24)}
+
+
 def bwd_kernel_phase(K, smi: str) -> dict:
     """The backward kernel against its plain version at the training
-    shapes, fp32 and bf16 values; kernel, plain, library (autograd through
+    shapes, fp32 and bf16 values, for each head configuration of
+    ``BWD_HEADS``; in bf16 the kernel, plain, library (autograd through
     grid_sample_core) and bound times."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     result, max_err = {}, 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        value, loc, aw = sampling_inputs(dtype, gen, TRAIN_BATCH,
-                                         TRAIN_LEVELS)
-        g = torch.randn(loc.shape[0], loc.shape[1], HEADS * HEAD_DIM,
-                        device="cuda", generator=gen)
-        got = K.ms_deform_attn_bwd(value, TRAIN_LEVELS, loc, aw, g)
-        torch.cuda.synchronize()
-        want = K.ms_deform_attn_bwd_torch(value, TRAIN_LEVELS, loc, aw, g)
-        name = str(dtype).replace("torch.", "")
-        for out, a, b in zip(("d_value", "d_loc", "d_aw"), got, want):
-            if a.dtype != b.dtype or a.shape != b.shape:
-                raise AssertionError(f"backward {out}: {a.dtype} "
-                                     f"{tuple(a.shape)}, plain {b.dtype} "
-                                     f"{tuple(b.shape)}")
-            a, b = a.float(), b.float()
-            err = (a - b).abs()
-            # same inputs and fp32 sums in both, in another order (and with
-            # atomics for d(value)); a bf16 d(value) may also round to the
-            # neighbouring bf16 value (one step is at most 2^-7 relative)
-            rtol = 2.0 ** -7 if (out == "d_value"
-                                 and dtype == torch.bfloat16) else 1e-5
-            tol = 1e-5 * b.abs().max().item() + rtol * b.abs()
-            ok = bool((err <= tol).all())
-            print(f"backward {name} value, {out}: max |kernel - plain| = "
-                  f"{err.max().item():.3e} (tolerance 1e-5 * max|plain| "
-                  f"{1e-5 * b.abs().max().item():.3e} + {rtol:.3g} * "
-                  f"|plain| per element)", flush=True)
-            if not ok:
-                raise AssertionError(f"backward {out} ({name}) disagrees "
-                                     "with its plain version")
-            max_err = max(max_err, err.max().item())
-        ms = cuda_time_ms(
-            lambda: K.ms_deform_attn_bwd(value, TRAIN_LEVELS, loc, aw, g),
-            reps=20)
-        plain_ms = cuda_time_ms(
-            lambda: K.ms_deform_attn_bwd_torch(value, TRAIN_LEVELS, loc, aw,
-                                               g), reps=5, warmup=1)
-        leaves = [t.clone().requires_grad_() for t in (value, loc, aw)]
-        lib_out = grid_sample_core(leaves[0], TRAIN_LEVELS, leaves[1],
-                                   leaves[2])
-        gl = g.to(lib_out.dtype)
-        lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
-            lib_out, leaves, gl, retain_graph=True), reps=10)
-        bound, bound_by = bwd_bound_ms(value, loc, aw)
-        print(f"backward {name} value at B={TRAIN_BATCH}, levels "
-              f"{TRAIN_LEVELS}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"grid_sample autograd {lib_ms:.4f} ms, bound {bound:.4f} ms "
-              f"({bound_by}) on {smi}", flush=True)
-        result[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=bound, bound_by=bound_by)
-    # the train step samples bf16 values (TPU.COMPUTE_DTYPE bfloat16)
-    return dict(result["bfloat16"], max_abs_err=max_err)
+    for heads, (nh, hd) in BWD_HEADS.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            value, loc, aw = sampling_inputs(dtype, gen, TRAIN_BATCH,
+                                             TRAIN_LEVELS, nh, hd)
+            g = torch.randn(loc.shape[0], loc.shape[1], nh * hd,
+                            device="cuda", generator=gen)
+            before = K.ms_deform_attn_bwd.launches
+            got = K.ms_deform_attn_bwd(value, TRAIN_LEVELS, loc, aw, g)
+            torch.cuda.synchronize()
+            if K.ms_deform_attn_bwd.launches != before + 1:
+                raise AssertionError(f"backward {heads}: no kernel launch")
+            want = K.ms_deform_attn_bwd_torch(value, TRAIN_LEVELS, loc, aw,
+                                              g)
+            name = str(dtype).replace("torch.", "")
+            for out, a, b in zip(("d_value", "d_loc", "d_aw"), got, want):
+                if a.dtype != b.dtype or a.shape != b.shape:
+                    raise AssertionError(f"backward {out}: {a.dtype} "
+                                         f"{tuple(a.shape)}, plain {b.dtype} "
+                                         f"{tuple(b.shape)}")
+                a, b = a.float(), b.float()
+                err = (a - b).abs()
+                # same inputs and fp32 sums in both, in another order (and
+                # with atomics for d(value)); a bf16 d(value) may also round
+                # to the neighbouring bf16 value (one step is at most 2^-7
+                # relative)
+                rtol = 2.0 ** -7 if (out == "d_value"
+                                     and dtype == torch.bfloat16) else 1e-5
+                tol = 1e-5 * b.abs().max().item() + rtol * b.abs()
+                ok = bool((err <= tol).all())
+                print(f"backward {heads} heads, {name} value, {out}: max "
+                      f"|kernel - plain| = {err.max().item():.3e} (tolerance "
+                      f"1e-5 * max|plain| {1e-5 * b.abs().max().item():.3e} "
+                      f"+ {rtol:.3g} * |plain| per element)", flush=True)
+                if not ok:
+                    raise AssertionError(f"backward {out} ({heads}, {name}) "
+                                         "disagrees with its plain version")
+                max_err = max(max_err, err.max().item())
+            if dtype != torch.bfloat16:
+                continue
+            ms = cuda_time_ms(
+                lambda: K.ms_deform_attn_bwd(value, TRAIN_LEVELS, loc, aw, g),
+                reps=20)
+            plain_ms = cuda_time_ms(
+                lambda: K.ms_deform_attn_bwd_torch(value, TRAIN_LEVELS, loc,
+                                                   aw, g), reps=5, warmup=1)
+            leaves = [t.clone().requires_grad_() for t in (value, loc, aw)]
+            lib_out = grid_sample_core(leaves[0], TRAIN_LEVELS, leaves[1],
+                                       leaves[2])
+            gl = g.to(lib_out.dtype)
+            lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+                lib_out, leaves, gl, retain_graph=True), reps=10)
+            bound, bound_by = bwd_bound_ms(value, loc, aw)
+            print(f"backward {heads} heads, bf16 value at B={TRAIN_BATCH}, "
+                  f"levels {TRAIN_LEVELS}: kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, grid_sample autograd {lib_ms:.4f} ms, "
+                  f"bound {bound:.4f} ms ({bound_by}), {bound / ms:.1%} of "
+                  f"the bound, on {smi}", flush=True)
+            result[heads] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=bound, bound_by=bound_by)
+    # the train step samples bf16 values (TPU.COMPUTE_DTYPE bfloat16) at
+    # the default 8 x 32 heads
+    return dict(result["8 x 32"], max_abs_err=max_err)
 
 
 # ------------------------------------------- window kernels K4a, K4b, K5, K6
@@ -320,10 +343,11 @@ def _windows(WA, x, ws, nh):
 
 def _wa_forward_specs(WA, gen):
     """The window forwards at the serving path's shapes (batch 8, 800 px):
-    name -> (operands in fp32, a function of the operands cast to a dtype
-    returning (kernel, plain, library) callables and the output's bytes,
-    rel, mask or None, flops, launch kind, whether the name is a row of the
-    kernels line)."""
+    name -> dict(ops: operands in fp32; calls: a function of the operands
+    cast to a dtype returning (kernel, plain, library) callables and the
+    output's bytes; rel; mask or None; flops; kind: the launch counter;
+    body: a function of the dtype naming the body that must run; row:
+    whether the name is a row of the kernels line)."""
     dev = "cuda"
     specs = {}
 
@@ -357,18 +381,21 @@ def _wa_forward_specs(WA, gen):
                 q, k, v, attn_mask=bias, scale=hd ** -0.5)
             out_bytes = b * hp * wp * c * cast[0].element_size()
             return kern, plain, lib, out_bytes
-        flops = 4 * b * (hp // ws) * (wp // ws) * nh * (ws * ws) ** 2 * hd
-        specs[name] = (ops, calls, rel, None, flops,
-                       "k5_split" if split else "k5_fused", row)
+        specs[name] = dict(
+            ops=ops, calls=calls, rel=rel, mask=None,
+            flops=4 * b * (hp // ws) * (wp // ws) * nh * (ws * ws) ** 2 * hd,
+            kind="k5_split" if split else "k5_fused",
+            body=lambda dtype: WA.nhwc_fwd_body(dtype, hd, ws * ws), row=row)
 
-    def tokens(name, b, hp, wp, nh, hd, ws, shift, with_mask):
+    def tokens(name, b, hp, wp, nh, hd, ws, shift, pad, row=True):
+        """K4b (``pad`` None: labels from the geometry) or K4a with the
+        window encoder's pad + shift mask of a level of ``pad`` x ``pad``."""
         nw, n = (hp // ws) * (wp // ws), ws * ws
         ops = [rnd(b * nw, nh, n, hd) for _ in range(3)]
         rel = rnd(nh, n, n)
-        geo = None if with_mask else (hp, wp, ws, shift)
-        pad_hw = (hp - ws // 2, wp - ws // 2) if with_mask else None
-        mask = (WA.window_mask(hp, wp, ws, shift, pad_hw, dev)
-                if with_mask else None)
+        geo = None if pad else (hp, wp, ws, shift)
+        mask = (WA.window_mask(hp, wp, ws, shift, (pad, pad), dev)
+                if pad else None)
 
         def calls(cast):
             kern = lambda: WA.window_attention(  # noqa: E731
@@ -380,19 +407,28 @@ def _wa_forward_specs(WA, gen):
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 *cast, attn_mask=bias, scale=hd ** -0.5)
             return kern, plain, lib, _nbytes(cast[0])
-        flops = 4 * b * nw * nh * n * n * hd
-        specs[name] = (ops, calls, rel, mask, flops,
-                       "k4a" if with_mask else "k4b", True)
+        specs[name] = dict(
+            ops=ops, calls=calls, rel=rel, mask=mask,
+            flops=4 * b * nw * nh * n * n * hd, kind="k4a" if pad else "k4b",
+            body=lambda dtype: WA.tokens_fwd_body(dtype, hd, n), row=row)
 
     # Swin stage 1 (800 / 4 = 200, 3 heads x 32) in a shifted block
     nhwc("window_attn_k5_fused", BATCH, 200, 200, 3, 32, 8, 4, None, False)
     # the window encoder's finest level: 100 -> 104, 8 heads x 32, shifted
     nhwc("window_attn_k5_split", BATCH, 104, 104, 8, 32, 8, 4, (100, 100),
          True)
-    tokens("window_attn_k4b", BATCH, 200, 200, 3, 32, 8, 4, False)
-    tokens("window_attn_k4b_ws7", BATCH, 203, 203, 3, 32, 7, 3, False)
-    # K4a takes the encoder's pad + shift mask of the 100 -> 104 level
-    tokens("window_attn_k4a", BATCH, 104, 104, 8, 32, 8, 4, True)
+    # K4 at every shape of the flagship's forward under
+    # USE_PALLAS_WINDOW_ATTN: K4b at Swin stages 1-4 (shifted; padded
+    # tokens attend), K4a with the encoder's pad + shift masks
+    tokens("window_attn_k4b", BATCH, 200, 200, 3, 32, 8, 4, None)
+    for name, hp, nh in (("k4b stage 2", 104, 6), ("k4b stage 3", 56, 12),
+                         ("k4b stage 4", 32, 24)):
+        tokens(name, BATCH, hp, hp, nh, 32, 8, 4, None, row=False)
+    # the default model's Swin stage 1 at window 7 (200 -> 203)
+    tokens("window_attn_k4b_ws7", BATCH, 203, 203, 3, 32, 7, 3, None)
+    tokens("window_attn_k4a", BATCH, 104, 104, 8, 32, 8, 4, 100)
+    for name, hp, h in (("k4a 50->56", 56, 50), ("k4a 25->32", 32, 25)):
+        tokens(name, BATCH, hp, hp, 8, 32, 8, 4, h, row=False)
     # K5's other shapes on the flagship's serving path, shifted: Swin
     # stages 2-4 (100 -> 104, 50 -> 56, 25 -> 32; padded tokens attend) and
     # the encoder's 50 -> 56 and 25 -> 32 levels (pad labels)
@@ -403,6 +439,13 @@ def _wa_forward_specs(WA, gen):
     for name, hp, h in (("k5 split 50->56", 56, 50),
                         ("k5 split 25->32", 32, 25)):
         nhwc(name, BATCH, hp, hp, 8, 32, 8, 4, (h, h), True, row=False)
+    # windows past 64 tokens (the SIMT bodies in bf16 too): Swin window 12
+    # (Swin-B/L's) at stage 1 (200 -> 204), and window 16 on the encoder's
+    # finest level (100 -> 112, shift 8) through K4a and K5 split
+    tokens("window_attn_k4b_ws12", BATCH, 204, 204, 3, 32, 12, 6, None)
+    tokens("window_attn_k4a_ws16", BATCH, 112, 112, 8, 32, 16, 8, 100)
+    nhwc("window_attn_k5_split_ws16", BATCH, 112, 112, 8, 32, 16, 8,
+         (100, 100), True)
     return specs
 
 
@@ -416,25 +459,24 @@ def _wa_fwd_tol(ref: torch.Tensor, dtype: torch.dtype) -> float:
 
 
 def window_kernel_phase(WA, smi: str) -> dict:
-    """K4a, K4b (ws 8 and 7) and K5 (fused, split; all seven shapes of the
-    flagship's serving path) at the serving shapes, fp32 and bf16, against
-    their plain versions; kernel, library (F.scaled_dot_product_attention
-    with the float mask on window-partitioned tensors, timed here only) and
-    bound times in bf16, the main path's type, and the plain version's time
-    for the kernels line's rows. bf16 K5 must run the tensor-core body,
-    fp32 K5 the SIMT body."""
+    """K4a, K4b and K5 at every shape of ``_wa_forward_specs``, fp32 and
+    bf16, against their plain versions; kernel, library (F.scaled_dot_
+    product_attention with the float mask on window-partitioned tensors,
+    timed here only) and bound times in bf16, the main path's type, and the
+    plain version's time for the kernels line's rows. Each launch must run
+    the body its rule names (``tokens_fwd_body``, ``nhwc_fwd_body``): bf16
+    windows of up to 64 tokens on the tensor cores, the rest SIMT."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     results = {}
-    for name, (ops, calls, rel, mask, flops, kind, is_row) in \
-            _wa_forward_specs(WA, gen).items():
-        max_err, row = 0.0, {}
+    for name, sp in _wa_forward_specs(WA, gen).items():
+        kind, max_err, row = sp["kind"], 0.0, {}
         for dtype in (torch.float32, torch.bfloat16):
-            cast = [t.to(dtype) for t in ops]
-            kern, plain, lib, out_bytes = calls(cast)
+            cast = [t.to(dtype) for t in sp["ops"]]
+            kern, plain, lib, out_bytes = sp["calls"](cast)
             before = WA.LAUNCHES.copy()
             got = kern()
             torch.cuda.synchronize()
-            mma = int(kind.startswith("k5") and dtype == torch.bfloat16)
+            mma = int(sp["body"](dtype) == "mma")
             if WA.LAUNCHES[kind] != before[kind] + 1 or \
                     WA.LAUNCHES[kind + "_mma"] != before[kind + "_mma"] + mma:
                 raise AssertionError(f"{name} did not launch {kind} "
@@ -446,8 +488,9 @@ def window_kernel_phase(WA, smi: str) -> dict:
             dn = str(dtype).replace("torch.", "")
             why = "2e-5 * max|v|" + (" + 2^-7 * max|v| for bf16 rounding"
                                      if dtype == torch.bfloat16 else "")
-            print(f"{name} {dn}: max |kernel - plain| = {err:.3e} "
-                  f"(tolerance {tol:.3e}: {why})", flush=True)
+            print(f"{name} {dn} ({'tensor-core' if mma else 'SIMT'} body): "
+                  f"max |kernel - plain| = {err:.3e} (tolerance {tol:.3e}: "
+                  f"{why})", flush=True)
             if not (got.dtype == want.dtype == dtype and err <= tol):
                 raise AssertionError(f"{name} ({dn}) disagrees with its "
                                      f"plain version: {err} > {tol}")
@@ -455,13 +498,14 @@ def window_kernel_phase(WA, smi: str) -> dict:
             if dtype != torch.bfloat16:
                 continue
             ms = cuda_time_ms(kern, reps=20)
-            plain_ms = cuda_time_ms(plain, reps=5, warmup=1) if is_row \
+            plain_ms = cuda_time_ms(plain, reps=5, warmup=1) if sp["row"] \
                 else None
             lib_ms = cuda_time_ms(lib, reps=10)
-            extra = _nbytes(rel) + (_nbytes(mask) if mask is not None else 0)
+            extra = _nbytes(sp["rel"]) + (_nbytes(sp["mask"])
+                                          if sp["mask"] is not None else 0)
             nbytes = _nbytes(*cast) + extra + out_bytes
-            bound, bound_by = _bound(nbytes, flops, dtype)
-            plain_s = f"plain {plain_ms:.4f} ms, " if is_row else ""
+            bound, bound_by = _bound(nbytes, sp["flops"], dtype)
+            plain_s = f"plain {plain_ms:.4f} ms, " if sp["row"] else ""
             print(f"{name} bf16 {tuple(cast[0].shape)}: kernel {ms:.4f} ms, "
                   f"{plain_s}SDPA {lib_ms:.4f} ms, bound {bound:.4f} ms "
                   f"({nbytes / 1e6:.1f} MB, {bound_by}), {bound / ms:.1%} "
@@ -469,25 +513,28 @@ def window_kernel_phase(WA, smi: str) -> dict:
                   flush=True)
             row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound, bound_by=bound_by)
-        if is_row:
+            del kern, plain, lib, got, want
+        if sp["row"]:
             results[name] = dict(row, max_abs_err=max_err)
-        del ops, calls
+        del sp
     return results
 
 
 # K6 at the flagship's training shapes (batch 2, 640 px, head dim 32, shift
-# 4): name -> (Hp = Wp, heads, pad extent or None, split, launches per
-# step). Swin pads stage 4's 20 to 24 (padded tokens attend); the window
-# encoder's 20 -> 24 level has pad labels.
+# ws / 2): name -> (Hp = Wp, heads, pad extent or None, split, launches per
+# step, window). Swin pads stage 4's 20 to 24 (padded tokens attend); the
+# window encoder's 20 -> 24 level has pad labels. The last is the window-16
+# encoder's finest level (80, no padding), on the SIMT body.
 K6_HD = 32
 K6_SHAPES = {
-    "window_attn_k6_fused": (160, 3, None, False, 2),   # Swin stage 1
-    "k6 fused 80 (stage 2)": (80, 6, None, False, 2),
-    "k6 fused 40 (stage 3)": (40, 12, None, False, 6),
-    "k6 fused 20->24 (stage 4)": (24, 24, None, False, 2),
-    "window_attn_k6_split": (80, 8, None, True, 6),     # encoder, res3
-    "k6 split 40": (40, 8, None, True, 6),
-    "k6 split 20->24": (24, 8, 20, True, 6),
+    "window_attn_k6_fused": (160, 3, None, False, 2, 8),   # Swin stage 1
+    "k6 fused 80 (stage 2)": (80, 6, None, False, 2, 8),
+    "k6 fused 40 (stage 3)": (40, 12, None, False, 6, 8),
+    "k6 fused 20->24 (stage 4)": (24, 24, None, False, 2, 8),
+    "window_attn_k6_split": (80, 8, None, True, 6, 8),     # encoder, res3
+    "k6 split 40": (40, 8, None, True, 6, 8),
+    "k6 split 20->24": (24, 8, 20, True, 6, 8),
+    "window_attn_k6_split_ws16": (80, 8, None, True, 6, 16),
 }
 
 
@@ -497,8 +544,8 @@ def k6_case(WA, shape, gen):
     call, the plain call, the SDPA-autograd call (F.scaled_dot_product_
     attention with the float mask on window-partitioned operands, timed
     here only), the bound's bytes and flops, and the number of windows."""
-    hp, nh, pad, split, _ = shape
-    b, c, ws, shift = TRAIN_BATCH, nh * K6_HD, 8, 4
+    hp, nh, pad, split, _, ws = shape
+    b, c, shift = TRAIN_BATCH, nh * K6_HD, ws // 2
 
     def rnd(ch):
         return torch.randn(b, hp, hp, ch, device="cuda", generator=gen)
@@ -563,25 +610,28 @@ def _wa_bwd_tol_ok(got, want, dtype) -> tuple:
 
 
 def window_bwd_kernel_phase(WA, smi: str) -> dict:
-    """K6 at the seven shapes of ``K6_SHAPES``, fp32 (SIMT body) and bf16
-    (tensor-core body), against the plain backward; d(rel) must repeat bit
-    for bit. In bf16: kernel, library (autograd of SDPA) and bound times,
-    the plain version's time for the kernels line's rows, and the d(rel)
-    partials' bytes against the call's."""
+    """K6 at the shapes of ``K6_SHAPES``, fp32 (SIMT body) and bf16 (the
+    tensor-core body at windows of 8, the SIMT body at 16), against the
+    plain backward; d(rel) must repeat bit for bit. In bf16: kernel,
+    library (autograd of SDPA) and bound times, the plain version's time
+    for the kernels line's rows, and the d(rel) partials' bytes against
+    the call's."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    results, errs = {}, {"fused": 0.0, "split": 0.0}
+    results, errs = {}, {}
     for name, shape in K6_SHAPES.items():
-        hp, nh, pad, split, per_step = shape
-        layout = "split" if split else "fused"
-        kind = f"k6_{layout}"
+        hp, nh, pad, split, per_step, ws = shape
+        n = ws * ws
+        kind = "k6_split" if split else "k6_fused"
+        row = ("window_attn_" + kind + ("_ws16" if ws == 16 else ""))
         calls, windows = k6_case(WA, shape, gen)
         for dtype in (torch.float32, torch.bfloat16):
             kern, plain, library, nbytes, flops = calls(dtype)
+            body = WA.nhwc_bwd_body(dtype, K6_HD, n)
             before = WA.LAUNCHES.copy()
             got, again = kern(), kern()
             torch.cuda.synchronize()
-            mma = 2 * int(dtype == torch.bfloat16)
+            mma = 2 * int(body == "mma")
             if WA.LAUNCHES[kind] != before[kind] + 2 or \
                     WA.LAUNCHES[kind + "_mma"] != before[kind + "_mma"] + mma:
                 raise AssertionError(f"{name} did not launch {kind} "
@@ -591,16 +641,17 @@ def window_bwd_kernel_phase(WA, smi: str) -> dict:
             repeats = bool(torch.equal(got[-1], again[-1]))
             dn = str(dtype).replace("torch.", "")
             why = ("2^-7 * |plain| + 2^-8 * max|plain| per d(operand) (P "
-                   "and dS rounded to bf16), 1e-4 * max|plain| for d(rel)"
-                   if dtype == torch.bfloat16 else
+                   "and dS rounded to bf16, or bf16 outputs), 1e-4 * "
+                   "max|plain| for d(rel)" if dtype == torch.bfloat16 else
                    "1e-4 * max|plain| per output")
-            print(f"{name} {dn}: max |kernel - plain| over d(operands), "
-                  f"d(rel) = {err:.3e}, {ratio:.3f} of the tolerance ({why}); "
-                  f"d(rel) repeats bit for bit: {repeats}", flush=True)
+            print(f"{name} {dn} ({'tensor-core' if mma else 'SIMT'} body): "
+                  f"max |kernel - plain| over d(operands), d(rel) = "
+                  f"{err:.3e}, {ratio:.3f} of the tolerance ({why}); d(rel) "
+                  f"repeats bit for bit: {repeats}", flush=True)
             if not ok or not repeats:
                 raise AssertionError(f"{name} ({dn}) disagrees with its "
                                      f"plain version or does not repeat")
-            errs[layout] = max(errs[layout], err)
+            errs[row] = max(errs.get(row, 0.0), err)
             if dtype != torch.bfloat16:
                 continue
             is_row = name.startswith("window_attn_")
@@ -609,24 +660,28 @@ def window_bwd_kernel_phase(WA, smi: str) -> dict:
                 else None
             lib_ms = cuda_time_ms(library(), reps=10)
             bound, bound_by = _bound(nbytes, flops, dtype)
-            ctas = WA.nhwc_bwd_plan(windows, nh, sms)[1]
-            part = ctas * 64 * 64 * 4
+            if body == "mma":
+                groups = WA.nhwc_bwd_plan(windows, nh, sms)[1]
+            else:
+                groups = nh * -(-windows // WA.bwd_windows_per_block(
+                    windows, nh, n, K6_HD, 2, sms))
+            part = groups * n * n * 4
             plain_s = f"plain {plain_ms:.4f} ms, " if is_row else ""
-            print(f"{name} bf16 at B={TRAIN_BATCH}, {hp}x{hp}, {nh} heads "
-                  f"(x{per_step} per step): kernel {ms:.4f} ms, {plain_s}"
-                  f"SDPA autograd {lib_ms:.4f} ms, bound {bound:.4f} ms "
-                  f"({nbytes / 1e6:.1f} MB, {bound_by}), {bound / ms:.1%} of "
-                  f"the bound, {lib_ms / ms:.2f}x SDPA autograd's speed; "
-                  f"d(rel) partials {part / 1e6:.2f} MB from {ctas} CTAs "
-                  f"({part / nbytes:.1%} of the call's bytes), on {smi}",
-                  flush=True)
+            print(f"{name} bf16 at B={TRAIN_BATCH}, {hp}x{hp}, window {ws}, "
+                  f"{nh} heads (x{per_step} per step): kernel {ms:.4f} ms, "
+                  f"{plain_s}SDPA autograd {lib_ms:.4f} ms, bound "
+                  f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB, {bound_by}), "
+                  f"{bound / ms:.1%} of the bound, {lib_ms / ms:.2f}x SDPA "
+                  f"autograd's speed; d(rel) partials {part / 1e6:.2f} MB "
+                  f"from {groups} blocks ({part / nbytes:.1%} of the call's "
+                  f"bytes), on {smi}", flush=True)
             if is_row:
                 results[name] = dict(ms=ms, plain_ms=plain_ms,
                                      library_ms=lib_ms, bound_ms=bound,
                                      bound_by=bound_by)
         del calls
-    for layout, err in errs.items():
-        results[f"window_attn_k6_{layout}"]["max_abs_err"] = err
+    for row, err in errs.items():
+        results[row]["max_abs_err"] = err
     return results
 
 
@@ -676,10 +731,13 @@ def flagship_cfg(cfg, flag: str):
 
 class Counts:
     """Every kernel's launch count, by the kernels line's names, and the
-    K5 and K6 launches that ran the tensor-core bodies (``..._mma``)."""
+    K4, K5 and K6 launches that ran the tensor-core bodies
+    (``..._mma``)."""
 
     NAMES = {"msdeform_attn_fwd": None, "msdeform_attn_bwd": None,
              "window_attn_k4a": "k4a", "window_attn_k4b": "k4b",
+             "window_attn_k4a_mma": "k4a_mma",
+             "window_attn_k4b_mma": "k4b_mma",
              "window_attn_k5_fused": "k5_fused",
              "window_attn_k5_split": "k5_split",
              "window_attn_k5_fused_mma": "k5_fused_mma",
@@ -899,6 +957,14 @@ def grad_check_phase(cfg, counts: Counts, build_model, K) -> None:
                                 "attention_weights")}
         del model, dec, mf, outs
     _compare_grads(grads, "fp32 pixel-decoder gradient (TF32 off)")
+
+
+def _encoder_window_params(model) -> dict:
+    """The window encoder's q/k/v projections and tables: the weights
+    behind K5 / K6 split. (One step of the flagship can drop a Swin
+    block's attention branch for both images through DropPath.)"""
+    return {n: p for n, p in _window_params(model).items()
+            if n.startswith("encoder")}
 
 
 def _window_params(model) -> dict:
@@ -1156,27 +1222,32 @@ def train_phase(cfg, counts: Counts, build_model, engine, smi: str,
     return dict(launches=launches, ms_per_step=ms)
 
 
+OVERFIT_STEPS = 30
+
+
 def overfit_phase(cfg, counts: Counts, build_model, engine, per_step: dict,
                   label: str) -> None:
-    """40 steps on one fixed batch from warm-up-free AdamW: the loss must
-    fall (mean of the last 5 below the mean of the first 5)."""
+    """``OVERFIT_STEPS`` steps on one fixed batch from warm-up-free AdamW:
+    the loss must fall (mean of the last 5 below the mean of the first
+    5)."""
     cfg = cfg.clone()
     cfg.SOLVER.WARMUP_ITERS = 0
     batch = train_batch(cfg, SEED + 30, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
     model = build_model(cfg, seed=SEED + 1)
     state = engine.create_train_state(cfg, model)
     step = engine.make_train_step(cfg, model, state.optimizer)
-    logs, _, _ = _run_steps(counts, step, state, [batch] * 40, SEED, per_step,
-                            label)
+    logs, _, _ = _run_steps(counts, step, state, [batch] * OVERFIT_STEPS, SEED,
+                            per_step, label)
     losses = [x["loss_total"] for x in logs]
     first, last = np.mean(losses[:5]), np.mean(losses[-5:])
-    print(f"overfit {label}: 40 steps on one batch, loss_total mean of the "
+    print(f"overfit {label}: {OVERFIT_STEPS} steps on one batch, loss_total "
+          f"mean of the "
           f"first 5 {first:.4f}, of the last 5 {last:.4f}, ratio "
           f"{last / first:.4f}; every 5th "
           f"{[round(x, 4) for x in losses[::5]]}", flush=True)
     if not last < first:
         raise AssertionError(f"overfit {label}: the loss did not fall over "
-                             "40 steps")
+                             f"{OVERFIT_STEPS} steps")
     del model, state, step
 
 
@@ -1194,9 +1265,12 @@ KERNEL_ROWS = {   # kernels line name -> (source, the TPU function it replaces)
     "msdeform_attn_bwd": ("msdeform_attn_bwd.cu",
                           "msdeform_attn.py:483 (K2), :722 (K3a), "
                           ":873 (K3b)"),
-    "window_attn_k4a": ("window_attn_fwd.cu", "window_attention.py:162"),
-    "window_attn_k4b": ("window_attn_fwd.cu", "window_attention.py:220"),
-    "window_attn_k4b_ws7": ("window_attn_fwd.cu", "window_attention.py:220"),
+    "window_attn_k4a": ("window_attn_tokens_mma.cu",
+                        "window_attention.py:162"),
+    "window_attn_k4b": ("window_attn_tokens_mma.cu",
+                        "window_attention.py:220"),
+    "window_attn_k4b_ws7": ("window_attn_tokens_mma.cu",
+                            "window_attention.py:220"),
     "window_attn_k5_fused": ("window_attn_nhwc_mma.cu",
                              "window_attention.py:531"),
     "window_attn_k5_split": ("window_attn_nhwc_mma.cu",
@@ -1205,7 +1279,24 @@ KERNEL_ROWS = {   # kernels line name -> (source, the TPU function it replaces)
                              "window_attention.py:696"),
     "window_attn_k6_split": ("window_attn_nhwc_bwd_mma.cu",
                              "window_attention.py:696"),
+    # windows past 64 tokens: the SIMT bodies
+    "window_attn_k4b_ws12": ("window_attn_fwd.cu", "window_attention.py:220"),
+    "window_attn_k4a_ws16": ("window_attn_fwd.cu", "window_attention.py:162"),
+    "window_attn_k5_split_ws16": ("window_attn_fwd.cu",
+                                  "window_attention.py:531"),
+    "window_attn_k6_split_ws16": ("window_attn_bwd.cu",
+                                  "window_attention.py:696"),
 }
+
+
+def _rows(launches: dict, rename: dict) -> dict:
+    """A run's launches under the kernels line's row names: ``rename``
+    moves a counter to the row of the shape that run used (window 7, 12
+    or 16)."""
+    out = {}
+    for k, v in launches.items():
+        out[rename.get(k, k)] = out.get(rename.get(k, k), 0) + v
+    return out
 
 
 def main() -> int:
@@ -1257,21 +1348,54 @@ def main() -> int:
     k6_mma = dict(k6, window_attn_k6_fused_mma=blocks,
                   window_attn_k6_split_mma=enc * levels)
     k4 = {"window_attn_k4b": blocks, "window_attn_k4a": enc * levels}
+    # bf16 K4 (windows of 8 and 7) runs the tensor-core body every time
+    k4_mma = dict(k4, window_attn_k4b_mma=blocks,
+                  window_attn_k4a_mma=enc * levels)
     nhwc, pallas = flagship_cfg(cfg, "nhwc"), flagship_cfg(cfg, "pallas")
     default_pallas = cfg.clone()
     default_pallas.TPU.USE_PALLAS_WINDOW_ATTN = True
+    # windows past 64 tokens: the window-16 encoder (r5 trained it) under
+    # NHWC, K5 / K6 split on the SIMT body; Swin window 12 (Swin-B/L's) with
+    # the window-16 encoder under USE_PALLAS_WINDOW_ATTN, K4b at 144 tokens
+    # and K4a at 256
+    nhwc16 = nhwc.clone()
+    nhwc16.MODEL.SEM_SEG_HEAD.ENCODER_WINDOW_SIZE = 16
+    pallas12 = pallas.clone()
+    pallas12.MODEL.SWIN.WINDOW_SIZE = 12
+    pallas12.MODEL.SEM_SEG_HEAD.ENCODER_WINDOW_SIZE = 16
+    k56_16 = {"window_attn_k5_fused": blocks,
+              "window_attn_k5_fused_mma": blocks,
+              "window_attn_k5_split": enc * levels}
+    k6_16 = {"window_attn_k6_fused": blocks,
+             "window_attn_k6_fused_mma": blocks,
+             "window_attn_k6_split": enc * levels}
+    ws16 = {"window_attn_k5_split": "window_attn_k5_split_ws16",
+            "window_attn_k6_split": "window_attn_k6_split_ws16"}
+    # the sampling backward at head dim 64: 4 heads over 256 channels
+    heads4 = cfg.clone()
+    heads4.MODEL.SEM_SEG_HEAD.DEFORM_NUM_HEADS = 4
+    sampling = {"msdeform_attn_fwd": enc, "msdeform_attn_bwd": enc}
 
-    served = [serve_phase(cfg, counts, build_model, make_inference_fn,
-                          {"msdeform_attn_fwd": enc}, 3, "default"),
-              serve_phase(default_pallas, counts, build_model,
-                          make_inference_fn,
-                          {"msdeform_attn_fwd": enc,
-                           "window_attn_k4b": blocks}, 1,
-                          "default, USE_PALLAS_WINDOW_ATTN (K4b at ws 7)"),
-              serve_phase(nhwc, counts, build_model, make_inference_fn,
-                          k5_mma, 4, "flagship, WINDOW_ATTN_NHWC"),
-              serve_phase(pallas, counts, build_model, make_inference_fn, k4,
-                          3, "flagship, USE_PALLAS_WINDOW_ATTN")]
+    served = [
+        (serve_phase(cfg, counts, build_model, make_inference_fn,
+                     {"msdeform_attn_fwd": enc}, 3, "default"), {}),
+        (serve_phase(default_pallas, counts, build_model, make_inference_fn,
+                     {"msdeform_attn_fwd": enc, "window_attn_k4b": blocks,
+                      "window_attn_k4b_mma": blocks}, 1,
+                     "default, USE_PALLAS_WINDOW_ATTN (K4b at ws 7)"),
+         {"window_attn_k4b": "window_attn_k4b_ws7"}),
+        (serve_phase(nhwc, counts, build_model, make_inference_fn, k5_mma,
+                     4, "flagship, WINDOW_ATTN_NHWC"), {}),
+        (serve_phase(pallas, counts, build_model, make_inference_fn, k4_mma,
+                     3, "flagship, USE_PALLAS_WINDOW_ATTN"), {}),
+        (serve_phase(nhwc16, counts, build_model, make_inference_fn, k56_16,
+                     2, "flagship, ENCODER_WINDOW_SIZE 16, WINDOW_ATTN_NHWC"),
+         ws16),
+        (serve_phase(pallas12, counts, build_model, make_inference_fn, k4,
+                     2, "flagship, SWIN.WINDOW_SIZE 12, ENCODER_WINDOW_SIZE "
+                     "16, USE_PALLAS_WINDOW_ATTN"),
+         {"window_attn_k4b": "window_attn_k4b_ws12",
+          "window_attn_k4a": "window_attn_k4a_ws16"})]
     fp32_parity_phase(cfg, counts, build_model, normalize_image,
                       {"deform_core_fn": K.ms_deform_attn_core_torch},
                       {"msdeform_attn_fwd": enc}, "default")
@@ -1288,29 +1412,31 @@ def main() -> int:
     window_grad_check_phase(cfg, counts, build_model, WA)
     bf16_window_grad_phase(cfg, counts, build_model, WA, _add(k5_mma, k6_mma))
     trained = [
-        train_phase(cfg, counts, build_model, engine, smi,
-                    {"msdeform_attn_fwd": enc, "msdeform_attn_bwd": enc},
-                    "default", 6, _default_grads, cli_settings=True),
-        train_phase(nhwc, counts, build_model, engine, smi,
-                    _add(k5_mma, k6_mma), "flagship, WINDOW_ATTN_NHWC", 10,
-                    _window_params),
-        train_phase(pallas, counts, build_model, engine, smi, k4,
-                    "flagship, USE_PALLAS_WINDOW_ATTN", 3, _window_params)]
-    overfit_phase(cfg, counts, build_model, engine,
-                  {"msdeform_attn_fwd": enc, "msdeform_attn_bwd": enc},
-                  "default")
+        (train_phase(cfg, counts, build_model, engine, smi, sampling,
+                     "default", 4, _default_grads, cli_settings=True), {}),
+        (train_phase(heads4, counts, build_model, engine, smi, sampling,
+                     "default, DEFORM_NUM_HEADS 4 (head dim 64)", 1,
+                     _default_grads), {}),
+        (train_phase(nhwc, counts, build_model, engine, smi,
+                     _add(k5_mma, k6_mma), "flagship, WINDOW_ATTN_NHWC", 6,
+                     _window_params), {}),
+        (train_phase(nhwc16, counts, build_model, engine, smi,
+                     _add(k56_16, k6_16), "flagship, ENCODER_WINDOW_SIZE 16, "
+                     "WINDOW_ATTN_NHWC", 1, _encoder_window_params), ws16),
+        (train_phase(pallas, counts, build_model, engine, smi, k4_mma,
+                     "flagship, USE_PALLAS_WINDOW_ATTN", 3, _window_params),
+         {})]
+    overfit_phase(cfg, counts, build_model, engine, sampling, "default")
     overfit_phase(nhwc, counts, build_model, engine, _add(k5_mma, k6_mma),
                   "flagship, WINDOW_ATTN_NHWC")
 
     launches = {}
-    for run in served + trained:
-        launches = _add(launches, run["launches"])
-    # the ws 7 K4b of the default model is counted under window_attn_k4b
-    # by the wrapper; its own row names its launches on that path
-    launches["window_attn_k4b_ws7"] = served[1]["launches"]["window_attn_k4b"]
-    launches["window_attn_k4b"] -= launches["window_attn_k4b_ws7"]
+    for run, rename in served + trained:
+        launches = _add(launches, _rows(run["launches"], rename))
     kernels = []
     for name, (src, replaces) in KERNEL_ROWS.items():
+        if launches.get(name, 0) < 1:
+            raise AssertionError(f"{name}: no launch on the main paths")
         row = numbers[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES + src,

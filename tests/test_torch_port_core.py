@@ -9,7 +9,9 @@ package's.
   another order, so the tolerance is 1e-5.
 - ``ms_deform_attn_bwd_torch`` (the plain version of the backward kernel)
   against ``jax.vjp`` of the jnp core and against torch autograd of the
-  plain forward, atol = rtol = 2e-4 (the JAX backward golden's tolerance);
+  plain forward, atol = rtol = 2e-4 (the JAX backward golden's tolerance),
+  also at the head dims the backward kernel takes past one warp's lanes
+  (4 x 64) and off powers of two (4 x 24);
   ``MSDeformAttnFunction``'s plumbing on the CPU with its launchers
   replaced by the plain versions.
 - ``MSDeformAttn`` against the JAX module with the offset clamp on
@@ -42,7 +44,7 @@ from vision_instance_seg_tpu_torch.models import matcher
 from vision_instance_seg_tpu_torch.models.deform_attn import MSDeformAttn
 
 CORE_CASES = {k: CASES[k] for k in ("ragged", "4-level", "off-map",
-                                     "beyond-halo")}
+                                     "beyond-halo", "hd64", "hd24")}
 
 
 @pytest.mark.parametrize("case", list(CORE_CASES))

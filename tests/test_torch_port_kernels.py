@@ -69,7 +69,24 @@ CASES = {
     "beyond-halo": lambda: (SHAPES, sampling_inputs(4, offset_px=20.0)),
     "wide-heads": lambda: (SHAPES, off_map(*sampling_inputs(
         9, offset_px=12.0, nh=8, hd=32, p=4))),
+    # head dims past one warp's lanes and not a power of two (the backward
+    # takes what the TPU kernels take: any when nH * hd <= 128, else one
+    # that divides 128)
+    "hd64": lambda: (SHAPES, off_map(*sampling_inputs(
+        10, offset_px=3.0, nh=4, hd=64, p=2))),
+    "hd24": lambda: (SHAPES, off_map(*sampling_inputs(
+        11, offset_px=3.0, nh=4, hd=24, p=2))),
 }
+
+
+@pytest.mark.parametrize("nh,hd,takes", [
+    (8, 32, True), (4, 64, True), (2, 128, True), (4, 24, True),
+    (1, 12, True), (8, 16, True), (16, 64, True), (8, 48, False),
+    (4, 40, False), (3, 96, False)])
+def test_bwd_head_dim_rule(nh, hd, takes):
+    """The backward kernel takes the head dims the TPU kernels take: any
+    when nH * hd <= 128, else one that divides 128."""
+    assert K.bwd_takes_head_dim(nh, hd) == takes
 
 
 def test_wrapper_takes_plain_version_on_cpu():
@@ -178,10 +195,10 @@ def test_bwd_kernel_rejects_what_it_does_not_take():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     value, loc, aw = (torch.from_numpy(a).cuda()
-                      for a in sampling_inputs(8, hd=12))
+                      for a in sampling_inputs(8, nh=8, hd=48))
     g = torch.from_numpy(cotangent(8, value, loc)).cuda()
-    with pytest.raises(ValueError):       # head_dim not a power of two
-        K.ms_deform_attn_bwd(value, SHAPES, loc, aw, g)
+    with pytest.raises(ValueError):       # 8 x 48 > 128 and 48 does not
+        K.ms_deform_attn_bwd(value, SHAPES, loc, aw, g)   # divide 128
     value, loc, aw = (torch.from_numpy(a).cuda() for a in sampling_inputs(8))
     g = torch.from_numpy(cotangent(8, value, loc)).cuda()
     strided = g.transpose(1, 2).contiguous().transpose(1, 2)
@@ -205,6 +222,20 @@ WA_TOKEN_CASES = {            # (B, nW, nH, ws, hd, shift, geometry kernel)
     "geo-ws7-shift": (2, 9, 3, 7, 32, 3, True),
     "geo-ws8-shift": (1, 6, 3, 8, 32, 4, True),
     "geo-ws4-hd16": (2, 25, 2, 4, 16, 2, True),
+    # bf16 windows of up to 64 tokens run the tensor-core body (padded to
+    # 64 tokens in shared memory), shifted and not, head dims 16-64
+    "mask-ws4": (2, 25, 2, 4, 16, 0, False),
+    "mask-ws8": (2, 6, 2, 8, 32, 0, False),
+    "geo-ws7": (2, 9, 3, 7, 32, 0, True),
+    "geo-ws8": (1, 6, 3, 8, 32, 0, True),
+    "geo-ws8-hd64-shift": (1, 6, 2, 8, 64, 4, True),
+    "mask-ws7-hd48-shift": (1, 6, 2, 7, 48, 3, False),
+    # ... and the SIMT body past 64 tokens or at a head dim of 8
+    "geo-ws4-hd8": (2, 25, 2, 4, 8, 2, True),
+    "geo-ws12-shift": (1, 6, 3, 12, 32, 6, True),
+    "mask-ws12": (1, 6, 2, 12, 32, 0, False),
+    "mask-ws16-shift": (1, 6, 2, 16, 32, 8, False),
+    "geo-ws16-hd64-shift": (1, 4, 2, 16, 64, 8, True),
 }
 WA_NHWC_CASES = {             # (B, h, w, nH, hd, ws, shift, split)
     "fused-shift": (2, 24, 16, 3, 32, 8, 4, False),
@@ -219,7 +250,21 @@ WA_NHWC_CASES = {             # (B, h, w, nH, hd, ws, shift, split)
     "split-50-pad": (2, 50, 50, 8, 32, 8, 0, True),
     "split-25-pad-shift": (2, 25, 25, 8, 32, 8, 4, True),
     "split-hd48-shift": (1, 16, 16, 2, 48, 8, 4, True),
+    # windows of 16 x 16 (the SIMT bodies in both dtypes): the window-16
+    # encoder's padded, shifted levels and Swin's fused map
+    "fused-ws16-shift": (1, 32, 32, 2, 32, 16, 8, False),
+    "split-ws16-pad-shift": (1, 20, 28, 2, 32, 16, 8, True),
+    "split-ws16-hd48": (1, 16, 16, 2, 48, 16, 8, True),
 }
+# the tensor-core K6's cases (windows of 8 x 8)
+WA_NHWC_MMA_CASES = [c for c, v in WA_NHWC_CASES.items() if v[5] == 8]
+# K4 at the flagship's serving shapes under USE_PALLAS_WINDOW_ATTN (batch
+# 8, 800 px): K4b at Swin stages 1-4 (window 8; stage 1 also window 7),
+# K4a at the window encoder's three levels: (windows, heads)
+K4_SERVING = {"k4b 200": (8 * 25 * 25, 3), "k4b 104": (8 * 13 * 13, 6),
+              "k4b 56": (8 * 7 * 7, 12), "k4b 32": (8 * 4 * 4, 24),
+              "k4b ws7 203": (8 * 29 * 29, 3), "k4a 104": (8 * 13 * 13, 8),
+              "k4a 56": (8 * 7 * 7, 8), "k4a 32": (8 * 4 * 4, 8)}
 # K5 at the flagship's serving shapes (batch 8, 800 px): (windows, heads)
 K5_SERVING = {"fused 200": (8 * 25 * 25, 3), "fused 104": (8 * 13 * 13, 6),
               "fused 56": (8 * 7 * 7, 12), "fused 32": (8 * 4 * 4, 24),
@@ -266,15 +311,22 @@ def test_nhwc_fwd_plan_covers_every_window_head_once(case):
     assert (seen == 1).all()
 
 
-@pytest.mark.parametrize("dtype,hd,n,body", [
+NHWC_BODY_RULE = [
     ("bfloat16", 16, 64, "mma"), ("bfloat16", 32, 64, "mma"),
     ("bfloat16", 48, 64, "mma"), ("bfloat16", 64, 64, "mma"),
     ("float32", 32, 64, "simt"), ("float32", 8, 49, "simt"),
     ("bfloat16", 8, 64, None), ("bfloat16", 24, 64, None),
-    ("bfloat16", 32, 49, None)])
+    ("bfloat16", 32, 49, None),
+    # windows past 64 tokens take the SIMT body in both dtypes
+    ("bfloat16", 32, 256, "simt"), ("bfloat16", 8, 256, "simt"),
+    ("bfloat16", 64, 144, "simt"), ("float32", 32, 256, "simt")]
+
+
+@pytest.mark.parametrize("dtype,hd,n,body", NHWC_BODY_RULE)
 def test_nhwc_fwd_body_rule(dtype, hd, n, body):
-    """bf16 K5 takes the tensor-core body (windows of 64 tokens, head dim a
-    multiple of 16; anything else raises), fp32 the SIMT body."""
+    """bf16 K5 takes the tensor-core body at windows of 64 tokens (head dim
+    a multiple of 16; else it raises, as it does under 64 tokens), fp32
+    and windows past 64 tokens the SIMT body."""
     dtype = getattr(torch, dtype)
     if body is None:
         with pytest.raises(ValueError):
@@ -307,21 +359,69 @@ def test_nhwc_bwd_plan_covers_every_window_head_once(case):
         assert partial_bytes < call_bytes / 5
 
 
-@pytest.mark.parametrize("dtype,hd,n,body", [
-    ("bfloat16", 16, 64, "mma"), ("bfloat16", 32, 64, "mma"),
-    ("bfloat16", 48, 64, "mma"), ("bfloat16", 64, 64, "mma"),
-    ("float32", 32, 64, "simt"), ("float32", 8, 49, "simt"),
-    ("bfloat16", 8, 64, None), ("bfloat16", 24, 64, None),
-    ("bfloat16", 32, 49, None)])
+@pytest.mark.parametrize("dtype,hd,n,body", NHWC_BODY_RULE)
 def test_nhwc_bwd_body_rule(dtype, hd, n, body):
-    """bf16 K6 takes the tensor-core body (windows of 64 tokens, head dim a
-    multiple of 16; anything else raises), fp32 the SIMT body."""
+    """bf16 K6 takes the tensor-core body at windows of 64 tokens (head dim
+    a multiple of 16; else it raises, as it does under 64 tokens), fp32
+    and windows past 64 tokens the SIMT body."""
     dtype = getattr(torch, dtype)
     if body is None:
         with pytest.raises(ValueError):
             WA.nhwc_bwd_body(dtype, hd, n)
     else:
         assert WA.nhwc_bwd_body(dtype, hd, n) == body
+
+
+@pytest.mark.parametrize("hd", [8, 16, 32, 64])
+@pytest.mark.parametrize("n", [16, 49, 64, 144, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tokens_fwd_body_rule(dtype, n, hd):
+    """K4a / K4b: bf16 windows of up to 64 tokens with a head dim that is a
+    multiple of 16 run the tensor-core body; everything else the SIMT body,
+    which takes any head dim and window up to 256 tokens, as the JAX K4
+    takes them (so nothing within the envelope raises)."""
+    want = "mma" if (dtype == "bfloat16" and n <= 64 and hd % 16 == 0) \
+        else "simt"
+    assert WA.tokens_fwd_body(getattr(torch, dtype), hd, n) == want
+
+
+TOKENS_PLAN_CASES = dict(
+    [(n, (v[0] * v[1], v[2])) for n, v in WA_TOKEN_CASES.items()]
+    + list(K4_SERVING.items()))
+
+
+@pytest.mark.parametrize("case", list(TOKENS_PLAN_CASES))
+def test_tokens_fwd_plan_covers_every_window_head_once(case):
+    """The tensor-core K4's grid (``tokens_fwd_plan``, and the kernel's
+    CTA -> work arithmetic): every (window, head) exactly once, the heads
+    of one run of windows on neighbouring CTAs (so that K4a's CTAs sharing
+    a window's mask run together), at least 4 CTAs per SM of an H100 where
+    there are enough window-heads."""
+    windows, heads = TOKENS_PLAN_CASES[case]
+    wpc, ctas = WA.tokens_fwd_plan(windows, heads, H100_SMS)
+    assert 1 <= wpc <= WA.MMA_MAX_WINDOWS_PER_CTA
+    assert ctas >= min(4 * H100_SMS, windows * heads)
+    seen = np.zeros((windows, heads), np.int64)
+    for cta in range(ctas):
+        head, first, n = WA.tokens_fwd_cta_work(cta, heads, wpc, windows)
+        assert 1 <= n <= wpc and head == cta % heads
+        if cta % heads:
+            assert WA.tokens_fwd_cta_work(cta - 1, heads, wpc,
+                                          windows)[1] == first
+        seen[first:first + n, head] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n,hd,elem,fits", [
+    (64, 64, 4, True), (144, 64, 4, True), (256, 32, 4, True),
+    (256, 48, 4, True), (256, 50, 4, True), (256, 51, 4, False),
+    (256, 64, 4, False), (256, 64, 2, True)])
+def test_simt_bwd_shared_memory_envelope(n, hd, elem, fits):
+    """The SIMT K6 holds one window-head's q, k, v and g in shared memory:
+    at 256 tokens fp32 fits up to head dim 50, bf16 up to 64; the wrapper
+    names that limit when it refuses."""
+    assert (WA.simt_bwd_smem(n, hd, elem) <= WA.MAX_SMEM) == fits
+    assert (hd <= WA.simt_bwd_max_head_dim(n, elem)) == fits
 
 
 def test_nhwc_bf16_takes_plain_version_on_cpu():
@@ -354,7 +454,7 @@ def _wa_token_inputs(case, dtype, seed=20):
         for _ in range(3))
     rel = torch.from_numpy(rng.standard_normal((nh, n, n)).astype(
         np.float32)).cuda()
-    wh = {6: 2, 9: 3, 25: 5}[nw]
+    wh = {4: 2, 6: 2, 9: 3, 25: 5}[nw]
     geometry = (wh * ws, nw // wh * ws, ws, shift)
     mask = WA.window_mask(*geometry, None, torch.device("cuda"))
     return q, k, v, rel, mask, nw, geometry if geo else None
@@ -380,17 +480,21 @@ def _wa_nhwc_inputs(case, dtype, seed=21, device="cuda"):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", list(WA_TOKEN_CASES))
 def test_window_token_kernel_matches_plain_on_cuda(case, dtype):
-    """K4a (mask tensor) and K4b (geometry labels)."""
+    """K4a (mask tensor) and K4b (geometry labels): bf16 windows of up to
+    64 tokens at head dims that are multiples of 16 on the tensor-core
+    body, the rest on the SIMT body."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     dtype = getattr(torch, dtype)
     q, k, v, rel, mask, nw, geo = _wa_token_inputs(case, dtype)
     scale = q.shape[-1] ** -0.5
     kind = "k4b" if geo else "k4a"
-    before = WA.LAUNCHES[kind]
+    before, mma = WA.LAUNCHES[kind], WA.LAUNCHES[kind + "_mma"]
     got = WA.window_attention(q, k, v, rel, mask, scale, nw, geometry=geo)
     torch.cuda.synchronize()
     assert WA.LAUNCHES[kind] == before + 1
+    body = WA.tokens_fwd_body(dtype, q.shape[-1], q.shape[2])
+    assert WA.LAUNCHES[kind + "_mma"] == mma + (body == "mma")
     want = WA.window_attention_torch(q, k, v, rel, mask, scale, nw, geo)
     assert got.dtype == want.dtype == dtype
     assert (got.float() - want.float()).abs().max().item() <= _wa_tol(v,
@@ -402,7 +506,8 @@ def test_window_token_kernel_matches_plain_on_cuda(case, dtype):
 @pytest.mark.parametrize("case", list(WA_NHWC_CASES))
 def test_window_nhwc_kernel_matches_plain_on_cuda(case, dtype):
     """K5, fused qkv (backbone) and split q/k/v with pad labels (encoder):
-    bf16 on the tensor-core body, fp32 on the SIMT body."""
+    bf16 8 x 8 windows on the tensor-core body, fp32 and 16 x 16 windows on
+    the SIMT body."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     dtype = getattr(torch, dtype)
@@ -419,7 +524,8 @@ def test_window_nhwc_kernel_matches_plain_on_cuda(case, dtype):
         want = WA.window_attention_nhwc_torch(*ops, rel, hd ** -0.5, geo)
     torch.cuda.synchronize()
     assert WA.LAUNCHES[kind] == before + 1
-    assert WA.LAUNCHES[kind + "_mma"] == mma + (dtype == torch.bfloat16)
+    body = WA.nhwc_fwd_body(dtype, hd, geo[2] ** 2)
+    assert WA.LAUNCHES[kind + "_mma"] == mma + (body == "mma")
     assert got.dtype == want.dtype == dtype and got.shape == want.shape
     assert (got.float() - want.float()).abs().max().item() <= _wa_tol(
         ops[-1], dtype)
@@ -490,7 +596,7 @@ def _k6_body_emulation(operands, rel, g, scale, geometry, pad_hw, bits):
 
 
 @pytest.mark.parametrize("bits,passes", [(7, True), (4, False)])
-@pytest.mark.parametrize("case", list(WA_NHWC_CASES))
+@pytest.mark.parametrize("case", WA_NHWC_MMA_CASES)
 def test_k6_bf16_bound_holds_the_body_rounding(case, bits, passes):
     """The bf16 bound of ``wa_bwd_within`` is the tensor-core body's
     rounding and not looser: the plain K6 with P and dS rounded to bf16 (7
@@ -507,12 +613,65 @@ def test_k6_bf16_bound_holds_the_body_rounding(case, bits, passes):
     assert all(ok[:-1]) == passes
 
 
+def _k4_body_emulation(q, k, v, rel, mask, scale, nw, geometry, bits):
+    """The tensor-core K4's arithmetic in torch: the window padded to 64
+    tokens (zero rows, padded keys excluded), fp32 logits (q . k scaled
+    afterwards) and softmax, p rounded to ``bits`` mantissa bits, fp32
+    p . v rounded to the operands' dtype; padded rows dropped."""
+    nwt, nh, n, hd = q.shape
+    if geometry is not None:
+        keep = WA.window_keep(*geometry, None, q.device)
+        bias = torch.where(keep[:, None], rel[None], float("-inf"))
+    else:
+        bias = rel[None] + mask[:, None]
+    pad = WA.MMA_TOKENS - n
+    qp, kp, vp = (torch.nn.functional.pad(t.float(), (0, 0, 0, pad))
+                  for t in (q, k, v))
+    bias = torch.nn.functional.pad(bias, (0, pad, 0, pad))
+    bias[..., n:] = float("-inf")
+    s = torch.matmul(qp, kp.transpose(-1, -2)) * scale
+    s = s.reshape(nwt // nw, nw, nh, WA.MMA_TOKENS, -1) + bias
+    p = _round_mantissa(s.softmax(-1).reshape(nwt, nh, WA.MMA_TOKENS, -1),
+                        bits)
+    return torch.matmul(p, vp)[:, :, :n].to(q.dtype)
+
+
+@pytest.mark.parametrize("bits,passes", [(7, True), (4, False)])
+@pytest.mark.parametrize("case", ["mask-ws7", "mask-ws8-shift",
+                                  "geo-ws7-shift", "geo-ws8-shift", "geo-ws7",
+                                  "mask-ws7-hd48-shift"])
+def test_k4_bf16_bound_holds_the_body_rounding(case, bits, passes):
+    """The bf16 bound of the K4 checks (``_wa_tol``: 2e-5 max|v| + 2^-7
+    max|v|) is the tensor-core body's rounding and not looser: K4 on the
+    64-token padded tile with p rounded to bf16 (7 mantissa bits) stays
+    inside it at windows of 7 and 8, and with 4 mantissa bits leaves it."""
+    b, nw, nh, ws, hd, shift, geo = WA_TOKEN_CASES[case]
+    n = ws * ws
+    rng = np.random.default_rng(23)
+    q, k, v = (torch.from_numpy(rng.standard_normal(
+        (b * nw, nh, n, hd)).astype(np.float32)).bfloat16()
+        for _ in range(3))
+    rel = torch.from_numpy(rng.standard_normal((nh, n, n)).astype(
+        np.float32))
+    wh = {6: 2, 9: 3}[nw]
+    geometry = (wh * ws, nw // wh * ws, ws, shift)
+    mask = WA.window_mask(*geometry, None, torch.device("cpu"))
+    geometry = geometry if geo else None
+    want = WA.window_attention_torch(q, k, v, rel, mask, hd ** -0.5, nw,
+                                     geometry)
+    got = _k4_body_emulation(q, k, v, rel, mask, hd ** -0.5, nw, geometry,
+                             bits)
+    err = (got.float() - want.float()).abs().max().item()
+    assert (err <= _wa_tol(v, torch.bfloat16)) == passes
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", list(WA_NHWC_CASES))
 def test_window_bwd_kernel_matches_plain_on_cuda(case, dtype):
     """K6 for both layouts, and d(rel) bit for bit on a second run: bf16
-    on the tensor-core body, fp32 on the SIMT body."""
+    8 x 8 windows on the tensor-core body, fp32 and 16 x 16 windows on the
+    SIMT body."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     dtype = getattr(torch, dtype)
@@ -523,7 +682,8 @@ def test_window_bwd_kernel_matches_plain_on_cuda(case, dtype):
     again = WA.window_attention_nhwc_bwd(ops, rel, g, hd ** -0.5, geo, pad)
     torch.cuda.synchronize()
     assert WA.LAUNCHES[kind] == before + 2
-    assert WA.LAUNCHES[kind + "_mma"] == mma + 2 * (dtype == torch.bfloat16)
+    body = WA.nhwc_bwd_body(dtype, hd, geo[2] ** 2)
+    assert WA.LAUNCHES[kind + "_mma"] == mma + 2 * (body == "mma")
     want = WA.window_attention_nhwc_bwd_torch(
         ops, rel, g, hd ** -0.5, geo, pad if pad != geo[:2] else None)
     assert_wa_bwd_close(got, want, dtype)
@@ -602,9 +762,19 @@ def test_window_kernels_reject_what_they_do_not_take():
     with pytest.raises(ValueError):            # a bf16 cotangent for fp32
         WA.window_attention_nhwc_bwd(ops, rel, g.bfloat16(), 0.1, geo, pad)
     big = torch.zeros(1, 9, 9, 3 * 32, device="cuda")
-    with pytest.raises(ValueError):            # 81 tokens per window
+    with pytest.raises(ValueError):            # ws 9: K5 takes ws % 8 == 0
         WA.window_attention_nhwc(big, torch.zeros(1, 81, 81, device="cuda"),
                                  0.1, (9, 9, 9, 0))
+    tok = torch.zeros(1, 1, 289, 32, device="cuda")
+    with pytest.raises(ValueError):            # K4: 17 x 17 > 256 tokens
+        WA.window_attention(tok, tok, tok,
+                            torch.zeros(1, 289, 289, device="cuda"), None,
+                            0.1, 1, geometry=(17, 17, 17, 0))
+    w16 = [torch.zeros(1, 16, 16, 128, device="cuda") for _ in range(3)]
+    rel16 = torch.zeros(2, 256, 256, device="cuda")
+    with pytest.raises(ValueError, match="up to 50"):   # fp32 K6 at 256
+        WA.window_attention_nhwc_bwd(w16, rel16, w16[0], 0.1,  # tokens,
+                                     (16, 16, 16, 0))         # head dim 64
     # bf16 runs on the tensor cores: head dim a multiple of 16, 64 tokens,
     # operands 16-byte aligned
     rel2 = torch.zeros(2, 64, 64, device="cuda")

@@ -9,7 +9,8 @@ mode (``interpret=True``), as tests/test_kernels.py runs it. Tolerances:
 
 - kernel level (K4a, K4b, K5, K6 and the K4 / K5 gradients): 1e-5
   absolute. Both sides compute the same fp32 logits, softmax and sums in
-  another order (~1e-7 relative per op over at most 64-term sums).
+  another order (~1e-7 relative per op over at most 256-term sums, at
+  windows of up to 16 x 16).
 - modules (``SwinBlock``, ``WindowEncoderLayer``): 1e-5 absolute; their
   Linears and LayerNorms add a few more fp32 ops in another order.
 - the whole model: as tests/test_torch_port_model.py (1e-4, gate-aware
@@ -77,7 +78,11 @@ K4A_CASES = {"even": (1, 4, 2, 49, 32, False),
              "odd-shift": (2, 3, 3, 49, 32, True),
              "single": (1, 1, 2, 49, 32, False),
              "small": (1, 2, 1, 16, 8, True),
-             "ws8": (2, 6, 2, 64, 32, True)}
+             "ws8": (2, 6, 2, 64, 32, True),
+             # window 12 (Swin-B/L's): 144 tokens, past the tensor-core
+             # body's 64
+             "ws12": (1, 2, 2, 144, 16, False),
+             "ws12-shift": (1, 2, 2, 144, 16, True)}
 
 
 def _k4a_inputs(b, nw, nh, n, hd, shift, seed=0):
@@ -108,7 +113,9 @@ K4B_CASES = {"ws7": (1, 3, 4, 2, 7, 32, 0),
              "ws7-shift": (2, 3, 3, 3, 7, 32, 3),
              "ws4-many": (1, 5, 5, 2, 4, 16, 2),
              "ws8-shift": (2, 2, 3, 3, 8, 32, 4),
-             "ws8": (1, 2, 2, 2, 8, 16, 0)}
+             "ws8": (1, 2, 2, 2, 8, 16, 0),
+             "ws12": (1, 2, 2, 2, 12, 16, 0),
+             "ws12-shift": (1, 2, 2, 2, 12, 16, 6)}
 
 
 def _k4b_inputs(b, wh, ww, nh, ws, hd, shift, seed=1):
@@ -146,7 +153,9 @@ K5_FUSED_CASES = {"even": (2, 16, 16, 2, 16, 8, 0),
                   "shift-odd": (2, 16, 24, 1, 32, 8, 4),
                   "one-col": (1, 16, 8, 2, 16, 8, 0),
                   # Swin stage 4's geometry (25 -> 32, shifted), head dim 32
-                  "hd32-32-shift": (1, 32, 32, 2, 32, 8, 4)}
+                  "hd32-32-shift": (1, 32, 32, 2, 32, 8, 4),
+                  # windows of 16 x 16 (256 tokens), shifted by 8
+                  "ws16-shift": (1, 32, 32, 2, 16, 16, 8)}
 # ::TestWindowAttentionNHWCSplit: (b, h, w, nH, hd, ws, shift), padded to ws
 K5_SPLIT_CASES = {"no-pad": (2, 16, 16, 2, 16, 8, 0),
                   "pad": (1, 13, 21, 2, 16, 8, 0),
@@ -156,7 +165,10 @@ K5_SPLIT_CASES = {"no-pad": (2, 16, 16, 2, 16, 8, 0),
                   # the encoder's 25 -> 32 (shifted) and 50 -> 56 levels,
                   # head dim 32
                   "hd32-25-pad-shift": (1, 25, 25, 2, 32, 8, 4),
-                  "hd32-50-pad": (1, 50, 50, 2, 32, 8, 0)}
+                  "hd32-50-pad": (1, 50, 50, 2, 32, 8, 0),
+                  # the window-16 encoder: levels padded to 32, shifted by 8
+                  "ws16-pad-shift": (1, 20, 28, 2, 16, 16, 8),
+                  "ws16-pad": (1, 20, 20, 1, 16, 16, 0)}
 
 
 def _k5_fused_inputs(b, hp, wp, nh, hd, ws, shift, seed=2):

@@ -36,15 +36,17 @@
 // Design. A block takes a few consecutive queries of one image. Phase 1:
 // one (query, head, level, point) per thread turns loc into corner indices
 // and fractional offsets in shared memory (coalesced reads of loc and aw).
-// Phase 2: thread = (head, channel), so a head's hd lanes sit in one warp
-// (hd a power of two <= 32); for every point each lane reads its channel of
-// the four corner rows and of g, forms the three per-lane partial sums of
-// d(aw), d(lx) and d(ly), reduces them across the head's lanes with xor
-// shuffles, and atomically adds aw * w_corner * g into the fp32 d(value)
-// rows (one coalesced 32-lane atomic per corner). The head's lane 0 parks
-// d(loc) and d(aw) in shared memory. Phase 3 writes them coalesced. The
-// atomics make d(value)'s summation order, and so its last bits, vary from
-// run to run.
+// Phase 2: each head takes `lanes` threads, the next power of two >= hd and
+// at most 32, so that a head's lanes sit in one warp; lane i takes channels
+// i, i + lanes, ... below hd (at most 4: hd <= 128). For every point each
+// lane reads its channels of the four corner rows and of g, sums its own
+// channels' terms of d(aw), d(lx) and d(ly), reduces the three sums across
+// the head's lanes with xor shuffles, and atomically adds aw * w_corner * g
+// into the fp32 d(value) rows, one atomic per channel and corner. The
+// head's lane 0 parks d(loc) and d(aw) in shared memory. Phase 3 writes them
+// coalesced. The atomics make d(value)'s summation order, and so its last
+// bits, vary from run to run. Head dims: those the TPU kernels take, any hd
+// when nH * hd <= 128, else one that divides 128 (their channel chunking).
 
 #include "msdeform_attn_common.cuh"
 
@@ -57,6 +59,21 @@ struct __align__(16) BwdPoint {
 
 // bytes of shared memory per (query, head, level, point)
 #define MSDA_BWD_POINT_BYTES ((int)sizeof(BwdPoint) + 3 * (int)sizeof(float))
+// channels of one head a lane takes: hd <= 128 over 32 lanes
+#define MSDA_BWD_MAX_CHANNELS_PER_LANE 4
+
+// threads per head: the next power of two >= hd, at most 32
+__host__ __device__ __forceinline__ int msda_bwd_lanes(int hd) {
+  int lanes = 1;
+  while (lanes < hd && lanes < 32) lanes <<= 1;
+  return lanes;
+}
+
+// the head dims the TPU kernels take: any when nH * hd <= 128 (one lane
+// chunk), else one that divides 128 (channel chunks of 128)
+static inline bool msda_bwd_takes(int nH, int hd) {
+  return hd >= 1 && hd <= 128 && (nH * hd <= 128 || 128 % hd == 0);
+}
 
 template <typename T>
 __global__ void msdeform_attn_bwd_kernel(
@@ -92,51 +109,63 @@ __global__ void msdeform_attn_bwd_kernel(
   }
   __syncthreads();
 
-  // phase 2: thread = (head, channel); value[b, s, h, c] at vb + s * C
-  const int h = t / hd;
-  const int c = t % hd;
+  // phase 2: `lanes` threads per head; value[b, s, h, c] at vb + s * C + c
+  const int lanes = msda_bwd_lanes(hd);
+  const int h = t / lanes;
+  const int li = t - h * lanes;
   const int warp_lanes = min(32, (int)blockDim.x - (t & ~31));
   const unsigned mask =
       warp_lanes == 32 ? 0xffffffffu : ((1u << warp_lanes) - 1u);
-  const T* vb = value + (int64_t)b * S * C + t;
-  float* dvb = dvalue + (int64_t)b * S * C + t;
+  const T* vb = value + (int64_t)b * S * C + h * hd;
+  float* dvb = dvalue + (int64_t)b * S * C + h * hd;
   for (int qi = 0; qi < nq; ++qi) {
-    const float g = grad[(bq0 + qi) * C + t];
+    float g[MSDA_BWD_MAX_CHANNELS_PER_LANE];  // this lane's channels of g
+#pragma unroll
+    for (int k = 0; k < MSDA_BWD_MAX_CHANNELS_PER_LANE; ++k) {
+      const int c = li + k * lanes;
+      g[k] = c < hd ? grad[(bq0 + qi) * C + h * hd + c] : 0.f;
+    }
     const int row = (qi * nH + h) * LP;
     for (int p = 0; p < LP; ++p) {
       const BwdPoint pt = table[row + p];
       const float lx = pt.f.x, ly = pt.f.y, a = pt.f.z;
       const float w00 = (1.f - ly) * (1.f - lx), w01 = (1.f - ly) * lx;
       const float w10 = ly * (1.f - lx), w11 = ly * lx;
-      const float ag = a * g;
-      float gv00 = 0.f, gv01 = 0.f, gv10 = 0.f, gv11 = 0.f;
-      if (pt.idx.x >= 0) {
-        gv00 = g * to_float(vb[(int64_t)pt.idx.x * C]);
-        atomicAdd(dvb + (int64_t)pt.idx.x * C, ag * w00);
+      float s_aw = 0.f, s_x = 0.f, s_y = 0.f;
+#pragma unroll
+      for (int k = 0; k < MSDA_BWD_MAX_CHANNELS_PER_LANE; ++k) {
+        const int c = li + k * lanes;
+        if (c >= hd) break;
+        const float ag = a * g[k];
+        float gv00 = 0.f, gv01 = 0.f, gv10 = 0.f, gv11 = 0.f;
+        if (pt.idx.x >= 0) {
+          gv00 = g[k] * to_float(vb[(int64_t)pt.idx.x * C + c]);
+          atomicAdd(dvb + (int64_t)pt.idx.x * C + c, ag * w00);
+        }
+        if (pt.idx.y >= 0) {
+          gv01 = g[k] * to_float(vb[(int64_t)pt.idx.y * C + c]);
+          atomicAdd(dvb + (int64_t)pt.idx.y * C + c, ag * w01);
+        }
+        if (pt.idx.z >= 0) {
+          gv10 = g[k] * to_float(vb[(int64_t)pt.idx.z * C + c]);
+          atomicAdd(dvb + (int64_t)pt.idx.z * C + c, ag * w10);
+        }
+        if (pt.idx.w >= 0) {
+          gv11 = g[k] * to_float(vb[(int64_t)pt.idx.w * C + c]);
+          atomicAdd(dvb + (int64_t)pt.idx.w * C + c, ag * w11);
+        }
+        s_aw += w00 * gv00 + w01 * gv01 + w10 * gv10 + w11 * gv11;
+        s_x += (1.f - ly) * (gv01 - gv00) + ly * (gv11 - gv10);
+        s_y += (1.f - lx) * (gv10 - gv00) + lx * (gv11 - gv01);
       }
-      if (pt.idx.y >= 0) {
-        gv01 = g * to_float(vb[(int64_t)pt.idx.y * C]);
-        atomicAdd(dvb + (int64_t)pt.idx.y * C, ag * w01);
-      }
-      if (pt.idx.z >= 0) {
-        gv10 = g * to_float(vb[(int64_t)pt.idx.z * C]);
-        atomicAdd(dvb + (int64_t)pt.idx.z * C, ag * w10);
-      }
-      if (pt.idx.w >= 0) {
-        gv11 = g * to_float(vb[(int64_t)pt.idx.w * C]);
-        atomicAdd(dvb + (int64_t)pt.idx.w * C, ag * w11);
-      }
-      float s_aw = w00 * gv00 + w01 * gv01 + w10 * gv10 + w11 * gv11;
-      float s_x = (1.f - ly) * (gv01 - gv00) + ly * (gv11 - gv10);
-      float s_y = (1.f - lx) * (gv10 - gv00) + lx * (gv11 - gv01);
-      // the head's hd lanes are aligned within one warp: xor offsets below
-      // hd never leave them
-      for (int off = hd >> 1; off > 0; off >>= 1) {
+      // the head's lanes are aligned within one warp: xor offsets below
+      // `lanes` never leave them
+      for (int off = lanes >> 1; off > 0; off >>= 1) {
         s_aw += __shfl_xor_sync(mask, s_aw, off);
         s_x += __shfl_xor_sync(mask, s_x, off);
         s_y += __shfl_xor_sync(mask, s_y, off);
       }
-      if (c == 0) {
+      if (li == 0) {
         const int l = p / P;
         res_loc[row + p] = make_float2((float)lv.w[l] * a * s_x,
                                        (float)lv.h[l] * a * s_y);
@@ -175,8 +204,8 @@ int msdeform_attn_bwd(const void* value, int value_is_bf16, const void* loc,
                       int Q, int nH, int hd, int L, int P, const int* hw,
                       int queries_per_block, void* stream) {
   const int point_bytes = nH * L * P * MSDA_BWD_POINT_BYTES;
-  if (L < 1 || L > MSDA_MAX_LEVELS || P < 1 || hd < 1 || hd > 32 ||
-      (hd & (hd - 1)) || nH * hd > 1024 || point_bytes > MSDA_MAX_SMEM)
+  if (L < 1 || L > MSDA_MAX_LEVELS || P < 1 || !msda_bwd_takes(nH, hd) ||
+      nH * hd > 1024 || point_bytes > MSDA_MAX_SMEM)
     return (int)cudaErrorInvalidValue;
   Levels lv;
   if (fill_levels(&lv, hw, L) != S) return (int)cudaErrorInvalidValue;
@@ -188,7 +217,7 @@ int msdeform_attn_bwd(const void* value, int value_is_bf16, const void* loc,
       cudaMemsetAsync(dvalue_acc, 0, (size_t)n_value * sizeof(float), st);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Q + qpb - 1) / qpb, B);
-  dim3 block(nH * hd);
+  dim3 block(nH * msda_bwd_lanes(hd));
   const size_t smem = (size_t)qpb * point_bytes;
   float* acc = static_cast<float*>(dvalue_acc);
   if (value_is_bf16) {

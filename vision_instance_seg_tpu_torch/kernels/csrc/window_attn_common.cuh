@@ -1,6 +1,6 @@
 // Shared geometry of the window-attention kernels (forward and backward).
 //
-// A window is ws x ws tokens (N = ws * ws <= 64) of a padded map Hp x Wp,
+// A window is ws x ws tokens (N = ws * ws <= 256) of a padded map Hp x Wp,
 // windows row-major within an image: window wl of an image sits at window
 // row wl / (Wp / ws) and column wl % (Wp / ws). Token t of a window is map
 // row wi * ws + t / ws, column wj * ws + t % ws. Three operand layouts:
@@ -20,9 +20,10 @@
 #include <math.h>
 #include <stdint.h>
 
-#define WA_MAX_TOKENS 64
+#define WA_MAX_TOKENS 256  // windows up to 16 x 16
 #define WA_MAX_HEAD_DIM 64
 #define WA_NEG_INF (-1e9f)
+#define WA_MAX_SMEM 232448  // dynamic shared memory a block can opt into
 
 enum WaLayout { WA_TOKENS = 0, WA_NHWC_FUSED = 1, WA_NHWC_SPLIT = 2 };
 
@@ -38,6 +39,7 @@ struct WaGeometry {
   float scale;
 };
 
+// element access in the operand type T, arithmetic in fp32
 __device__ __forceinline__ float wa_load(const float* p) { return *p; }
 __device__ __forceinline__ float wa_load(const __nv_bfloat16* p) {
   return __bfloat162float(*p);

@@ -21,12 +21,14 @@
 // block loads its window's q (pre-scaled), k and v head slices into shared
 // memory as fp32 (N x hd each, k rows padded to hd + 1 so that lanes reading
 // different keys hit different banks). Each warp then owns query rows: a
-// lane computes the logits of keys lane and lane + 32 (N <= 64), the row
-// max and sum are warp shuffles, the row of p goes to a per-warp buffer, and
-// the lanes then take output channels (d = lane, lane + 32) and sum p . v
-// over the keys. Every output element is written once; nothing is atomic.
-// The products run on the fp32 cores (mma.sync / wgmma and TMA are for a
-// later change).
+// lane computes the logits of keys lane, lane + 32, ... (N <= 256: up to 8
+// per lane), the row max and sum are warp shuffles, the row of p goes to a
+// per-warp buffer of N floats, and the lanes then take output channels
+// (d = lane, lane + 32) and sum p . v over the keys. Every output element is
+// written once; nothing is atomic. At N = 256 and hd = 64 the block holds
+// 206 KB of shared memory. The products run on the fp32 cores: this body
+// serves fp32 calls, and bf16 calls that the tensor-core bodies do not take
+// (windows past 64 tokens; K4 at a head dim that is not a multiple of 16).
 
 #include "window_attn_common.cuh"
 
@@ -34,6 +36,7 @@ enum WaMask { WA_MASK_TENSOR = 0, WA_MASK_LABELS = 1 };
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kKeysPerLane = WA_MAX_TOKENS / 32;
 
 __device__ __forceinline__ float round_to(float v, const float*) { return v; }
 __device__ __forceinline__ float round_to(float v, const __nv_bfloat16*) {
@@ -52,8 +55,8 @@ __global__ void __launch_bounds__(kThreads)
   float* qs = smem;                    // N x hd, scaled
   float* ks = qs + N * hd;             // N x (hd + 1)
   float* vs = ks + N * kst;            // N x hd
-  float* prow = vs + N * hd;           // kWarps x WA_MAX_TOKENS
-  int* lab = reinterpret_cast<int*>(prow + kWarps * WA_MAX_TOKENS);  // N
+  float* prow = vs + N * hd;           // kWarps x N
+  int* lab = reinterpret_cast<int*>(prow + kWarps * N);  // N
   const int w = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
   const int wl = w % g.nW;
 
@@ -71,12 +74,12 @@ __global__ void __launch_bounds__(kThreads)
   const float* relh = rel + (int64_t)h * N * N;
   const float* mw = MASK == WA_MASK_TENSOR ? mask + (int64_t)wl * N * N
                                            : nullptr;
-  float* pw = prow + warp * WA_MAX_TOKENS;
+  float* pw = prow + warp * N;
   for (int i = warp; i < N; i += kWarps) {
-    float s[2];
+    float s[kKeysPerLane];
     float mx = -INFINITY;
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
+    for (int c = 0; c < kKeysPerLane; ++c) {
       const int j = lane + 32 * c;
       s[c] = -INFINITY;
       if (j < N) {
@@ -91,15 +94,15 @@ __global__ void __launch_bounds__(kThreads)
       mx = fmaxf(mx, s[c]);
     }
     mx = warp_max(mx);
-    float e[2], sum = 0.f;
+    float e[kKeysPerLane], sum = 0.f;
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
+    for (int c = 0; c < kKeysPerLane; ++c) {
       e[c] = lane + 32 * c < N ? expf(s[c] - mx) : 0.f;
       sum += e[c];
     }
     sum = warp_sum(sum);
 #pragma unroll
-    for (int c = 0; c < 2; ++c)
+    for (int c = 0; c < kKeysPerLane; ++c)
       if (lane + 32 * c < N)
         pw[lane + 32 * c] = round_to(e[c] / sum, static_cast<const T*>(nullptr));
     __syncwarp();
@@ -116,7 +119,7 @@ template <typename T, int LAYOUT, int MASK>
 static int launch(const void* q, const void* k, const void* v,
                   const float* rel, const float* mask, void* out,
                   const WaGeometry& g, int total_windows, void* stream) {
-  const size_t smem = (size_t)(g.N * (3 * g.hd + 1) + kWarps * WA_MAX_TOKENS) *
+  const size_t smem = (size_t)(g.N * (3 * g.hd + 1) + kWarps * g.N) *
                           sizeof(float) + g.N * sizeof(int);
   auto kern = window_attn_fwd_kernel<T, LAYOUT, MASK>;
   if (smem > 48 * 1024) {

@@ -1,8 +1,11 @@
 // Building blocks of the tensor-core window-attention kernels (Hopper,
-// sm_90a): the forward K5 (window_attn_nhwc_mma.cu) and its backward K6
-// (window_attn_nhwc_bwd_mma.cu). PTX wrappers for 16-byte cp.async,
-// ldmatrix, stmatrix and mma.sync m16n8k16 (bf16 in, fp32 accumulate), the quad
-// reductions over one mma fragment row, and the NHWC layout policy.
+// sm_90a): the forward K5 (window_attn_nhwc_mma.cu), its backward K6
+// (window_attn_nhwc_bwd_mma.cu) and the token-major forward K4
+// (window_attn_tokens_mma.cu). PTX wrappers for 16-byte cp.async, ldmatrix,
+// stmatrix and mma.sync m16n8k16 (bf16 in, fp32 accumulate), the quad
+// reductions over one mma fragment row, the NHWC and token-major layout
+// policies, and the forward's three steps over a staged 64-token window
+// (S = Q K^T, the row softmax, O = P V) that K5 and K4 share.
 
 #pragma once
 
@@ -40,6 +43,23 @@ struct NhwcLayout {
   }
 };
 
+// Token-major operands (nWt, nH, N, hd), the output likewise: window w and
+// head h start at (w * nH + h) * N * hd, token rows hd * 2 bytes apart.
+struct TokensLayout {
+  __device__ __forceinline__ int64_t origin(const WaGeometry& g,
+                                            int w) const {
+    return ((int64_t)w * g.nH) * g.N;
+  }
+  __device__ __forceinline__ int64_t in(const WaGeometry& g, int64_t o, int h,
+                                        int t) const {
+    return (o + (int64_t)h * g.N + t) * g.hd;
+  }
+  __device__ __forceinline__ int64_t out(const WaGeometry& g, int64_t o,
+                                         int h, int t) const {
+    return in(g, o, h, t);
+  }
+};
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -47,6 +67,21 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
                "l"(src)
+               : "memory");
+}
+
+// 4 bytes (for rows that are not 16-byte aligned)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// 16 bytes when `bytes` is 16, zeros (nothing read) when it is 0
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
+                                                 int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
                : "memory");
 }
 
@@ -127,4 +162,93 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 1);
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The forward's steps for one warp's 16 query rows of a 64-token window
+// staged in shared memory (rows `pitch` bytes apart; lane's fragment rows
+// r0 = warp * 16 + lane / 4 and r0 + 8, columns 8 j + 2 (lane % 4), + 1).
+
+// S = Q K^T: 8 n-tiles of 8 keys x HD / 16 k-steps, K through ldmatrix
+// ([key][d] rows are B's column layout)
+template <int HD>
+__device__ __forceinline__ void wa_qk_tile(float (&s)[8][4], uint32_t qs,
+                                           uint32_t ks, int pitch, int warp,
+                                           int lane) {
+  const int mi = lane >> 3;  // which 8 x 8 matrix this lane addresses
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  uint32_t qa[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    ldsm_x4(qa[kk], qs + (warp * 16 + (mi & 1) * 8 + (lane & 7)) * pitch +
+                        (kk * 16 + (mi >> 1) * 8) * 2);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t b0, b1;
+      ldsm_x2(b0, b1,
+              ks + (8 * j + (lane & 7)) * pitch + (kk * 16 + (mi & 1) * 8) * 2);
+      mma_bf16(s[j], qa[kk], b0, b1);
+    }
+}
+
+// the row softmax of base-2 logits, in place: s = exp2(s - row max) (the
+// max and sum over the 4 lanes of a quad); i0, i1 = 1 / row sum of rows r0
+// and r0 + 8
+__device__ __forceinline__ void wa_softmax_rows(float (&s)[8][4], float& i0,
+                                                float& i1) {
+  float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+    m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+  }
+  m0 = quad_max(m0);
+  m1 = quad_max(m1);
+  float z0 = 0.f, z1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s[j][0] = exp2_approx(s[j][0] - m0);
+    s[j][1] = exp2_approx(s[j][1] - m0);
+    s[j][2] = exp2_approx(s[j][2] - m1);
+    s[j][3] = exp2_approx(s[j][3] - m1);
+    z0 += s[j][0] + s[j][1];
+    z1 += s[j][2] + s[j][3];
+  }
+  i0 = 1.f / quad_sum(z0);
+  i1 = 1.f / quad_sum(z1);
+}
+
+// O = P V: P = s * (i0, i1) rounded to bf16 from the S registers (n-tiles
+// 2 kk and 2 kk + 1 are P's A fragment of k-step kk), V [key][d] through
+// ldmatrix.trans
+template <int HD>
+__device__ __forceinline__ void wa_pv_tile(float (&o)[HD / 8][4],
+                                           const float (&s)[8][4], float i0,
+                                           float i1, uint32_t vs, int pitch,
+                                           int lane) {
+  const int mi = lane >> 3;
+#pragma unroll
+  for (int dn = 0; dn < HD / 8; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t pa[4] = {
+        pack_bf16(s[2 * kk][0] * i0, s[2 * kk][1] * i0),
+        pack_bf16(s[2 * kk][2] * i1, s[2 * kk][3] * i1),
+        pack_bf16(s[2 * kk + 1][0] * i0, s[2 * kk + 1][1] * i0),
+        pack_bf16(s[2 * kk + 1][2] * i1, s[2 * kk + 1][3] * i1)};
+#pragma unroll
+    for (int dn = 0; dn < HD / 8; dn += 2) {
+      uint32_t vb[4];
+      ldsm_x4_trans(vb, vs + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * pitch +
+                            (dn * 8 + (mi >> 1) * 8) * 2);
+      mma_bf16(o[dn], pa, vb[0], vb[1]);
+      mma_bf16(o[dn + 1], pa, vb[2], vb[3]);
+    }
+  }
 }

@@ -87,7 +87,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int nwin = min(windows_per_cta, total_windows - w0);
   // the thread's S fragment: rows r0, r1 = r0 + 8; columns 8 j + cb, + 1
   const int r0 = warp * 16 + (lane >> 2), r1 = r0 + 8, cb = (lane & 3) * 2;
-  const int mi = lane >> 3;  // which 8 x 8 matrix this lane addresses
 
   float bias[8][4];  // rel[h] at the fragment's positions, times log2(e)
   {
@@ -145,29 +144,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     const uint32_t qs = smem_addr(smem + (i % kStages) * T::kStageBytes);
     const uint32_t ks = qs + T::kTileBytes, vs = ks + T::kTileBytes;
 
-    // S = Q K^T: this warp's 16 rows x 64 keys, 8 n-tiles x HD / 16 k-steps
+    // S = Q K^T: this warp's 16 rows x 64 keys
     float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-    {
-      uint32_t qa[HD / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        ldsm_x4(qa[kk], qs + (warp * 16 + (mi & 1) * 8 + (lane & 7)) *
-                                 T::kPitch +
-                            (kk * 16 + (mi >> 1) * 8) * 2);
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
-          uint32_t b0, b1;
-          ldsm_x2(b0, b1, ks + (8 * j + (lane & 7)) * T::kPitch +
-                              (kk * 16 + (mi & 1) * 8) * 2);
-          mma_bf16(s[j], qa[kk], b0, b1);
-        }
-    }
+    wa_qk_tile<HD>(s, qs, ks, T::kPitch, warp, lane);
 
     // logits in base 2: s * scale * log2(e) + rel * log2(e) where the
     // labels agree, -inf (p = 0) where they differ; the diagonal always
@@ -188,49 +167,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         s[j][3] = c1 == l1 ? fmaf(s[j][3], sl, bias[j][3]) : -INFINITY;
       }
     }
-    float m0 = -INFINITY, m1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
-      m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
-    }
-    m0 = quad_max(m0);
-    m1 = quad_max(m1);
-    float z0 = 0.f, z1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = exp2_approx(s[j][0] - m0);
-      s[j][1] = exp2_approx(s[j][1] - m0);
-      s[j][2] = exp2_approx(s[j][2] - m1);
-      s[j][3] = exp2_approx(s[j][3] - m1);
-      z0 += s[j][0] + s[j][1];
-      z1 += s[j][2] + s[j][3];
-    }
-    const float i0 = 1.f / quad_sum(z0), i1 = 1.f / quad_sum(z1);
+    float i0, i1;
+    wa_softmax_rows(s, i0, i1);
 
-    // O = P V: P (bf16) from the S registers, V [key][d] through .trans
+    // O = P V, P rounded to bf16
     float o[HD / 8][4];
-#pragma unroll
-    for (int dn = 0; dn < HD / 8; ++dn)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0] * i0, s[2 * kk][1] * i0),
-          pack_bf16(s[2 * kk][2] * i1, s[2 * kk][3] * i1),
-          pack_bf16(s[2 * kk + 1][0] * i0, s[2 * kk + 1][1] * i0),
-          pack_bf16(s[2 * kk + 1][2] * i1, s[2 * kk + 1][3] * i1)};
-#pragma unroll
-      for (int dn = 0; dn < HD / 8; dn += 2) {
-        uint32_t vb[4];
-        ldsm_x4_trans(vb, vs + (kk * 16 + (mi & 1) * 8 + (lane & 7)) *
-                                   T::kPitch +
-                              (dn * 8 + (mi >> 1) * 8) * 2);
-        mma_bf16(o[dn], pa, vb[0], vb[1]);
-        mma_bf16(o[dn + 1], pa, vb[2], vb[3]);
-      }
-    }
+    wa_pv_tile<HD>(o, s, i0, i1, vs, T::kPitch, lane);
 
     // rows r0 and r1 of the output head slice, as bf16 pairs
     const int64_t org = lay.origin(g, w);

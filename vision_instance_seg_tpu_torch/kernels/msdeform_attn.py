@@ -240,9 +240,18 @@ def _check_grad(value, locations, grad_out):
     if grad_out.device != value.device:
         raise ValueError(f"grad_out on {grad_out.device}, value on "
                          f"{value.device}")
-    if hd > 32 or hd & (hd - 1):
-        raise ValueError(f"head_dim {hd}: the backward kernel takes a power "
-                         "of two up to 32 (a head's lanes share one warp)")
+    if not bwd_takes_head_dim(nh, hd):
+        raise ValueError(f"{nh} heads x head_dim {hd}: the backward kernel "
+                         "takes what the TPU kernels take, any head_dim when "
+                         "heads x head_dim <= 128, else a head_dim that "
+                         "divides 128")
+
+
+def bwd_takes_head_dim(nh: int, hd: int) -> bool:
+    """The backward kernel's head dims (csrc ``msda_bwd_takes``), those of
+    the TPU kernels' channel chunking: any when nH * hd <= 128, else one
+    that divides 128."""
+    return 1 <= hd <= 128 and (nh * hd <= 128 or 128 % hd == 0)
 
 
 def _launch_cuda_bwd(value, spatial_shapes, locations, weights, grad_out):

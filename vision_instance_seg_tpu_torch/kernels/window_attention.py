@@ -1,8 +1,9 @@
 """Window attention (Swin blocks, window encoder): CUDA kernels and plain
 versions.
 
-Port of ``vision_instance_seg_tpu/kernels/window_attention.py``. One CUDA
-kernel body in ``csrc/window_attn_fwd.cu`` replaces three TPU kernels:
+Port of ``vision_instance_seg_tpu/kernels/window_attention.py``. The CUDA
+kernels under ``csrc/`` replace its four TPU kernels (K4a, K4b, K5 and
+K5's backward K6):
 
 - K4a ``_fused_window_attention_impl``: token-major q/k/v (nWt, nH, N, hd)
   with an additive (nW, N, N) mask tensor (-100 / 0);
@@ -13,18 +14,33 @@ kernel body in ``csrc/window_attn_fwd.cu`` replaces three TPU kernels:
   NHWC maps, from a fused (B, Hp, Wp, 3C) qkv map (Swin blocks) or split
   (B, Hp, Wp, C) q, k, v maps (window encoder, with canvas-pad labels).
 
-K5 has two bodies, chosen by the operands' dtype (``nhwc_fwd_body``):
-bf16 runs ``csrc/window_attn_nhwc_mma.cu``, the tensor-core body (windows
-of 64 tokens, head dim a multiple of 16; anything else raises), and fp32
-runs the SIMT body of ``window_attn_fwd.cu``, which the fp32 parity checks
-hold bit-equal to the plain version. It is a rule, not a fallback.
+Each kernel has a SIMT body and a tensor-core body, and which one runs is
+a rule on dtype and shape, chosen before the launch; it is not a fallback:
 
-K6 ``_wa_nhwc_bwd_impl``, the recompute backward of K5 (d(operands) and
-d(rel) summed over every window), has two bodies by the same rule
-(``nhwc_bwd_body``): bf16 runs ``csrc/window_attn_nhwc_bwd_mma.cu`` on the
-tensor cores (P and dS rounded to bf16 before the products dV, dQ, dK, as
-FlashAttention-2 and SDPA do), fp32 the SIMT body of
-``csrc/window_attn_bwd.cu``. Both sum d(rel) in order, without atomics.
+- K4a and K4b (``tokens_fwd_body``): bf16 windows of up to 64 tokens with a
+  head dim that is a multiple of 16 run ``csrc/window_attn_tokens_mma.cu``
+  (the tensor-core body, windows padded to 64 tokens in shared memory);
+  fp32, windows past 64 tokens and other head dims run the SIMT body of
+  ``csrc/window_attn_fwd.cu``.
+- K5 (``nhwc_fwd_body``): bf16 windows of 64 tokens run
+  ``csrc/window_attn_nhwc_mma.cu`` (head dim a multiple of 16; anything
+  else raises, as does a bf16 window under 64 tokens, which the JAX K5
+  never takes); fp32 and windows past 64 tokens run the SIMT body of
+  ``window_attn_fwd.cu``.
+- K6 ``_wa_nhwc_bwd_impl``, the recompute backward of K5 (d(operands) and
+  d(rel) summed over every window), by K5's rule (``nhwc_bwd_body``): the
+  tensor-core body of ``csrc/window_attn_nhwc_bwd_mma.cu`` (P and dS
+  rounded to bf16 before the products dV, dQ, dK, as FlashAttention-2 and
+  SDPA do) or the SIMT body of ``csrc/window_attn_bwd.cu``. Both sum d(rel)
+  in order, without atomics.
+
+The fp32 SIMT bodies are held bit-equal (forward) or within 1e-4 (K6) to
+the plain versions. The envelope on the card: K4a and K4b take any window
+up to 256 tokens (16 x 16; JAX's K4 takes any), K5 and K6 any ws % 8 == 0
+up to 256 tokens (ws 8 and 16), every head dim up to 64; the SIMT K6 holds
+a window in shared memory and so takes, at 256 tokens, fp32 head dims up
+to 50 (``simt_bwd_max_head_dim``). Past the envelope the wrappers raise
+and name the limit.
 
 Every version computes the logits and the softmax in fp32:
 ``softmax(q * scale . k^T + rel + mask)``, then casts p to v's dtype and
@@ -39,13 +55,13 @@ The entry points the model calls have the JAX contracts and attributes:
 ``window_attention`` (K4a, or K4b when given ``geometry``;
 ``wants_geometry``), ``window_attention_nhwc`` (K5 fused) and
 ``window_attention_nhwc_split`` (K5 split; ``wants_nhwc``). A CPU tensor
-takes the plain version, a CUDA tensor the kernel, and nothing falls back.
+takes the plain version, a CUDA tensor a kernel, and nothing falls back.
 Gradients run through ``WindowAttentionFunction`` (K4 forward, the JAX
 package's recompute backward in torch ops, since JAX wrote that backward in
 jnp) and ``WindowAttentionNHWCFunction`` (K5 forward, K6 backward on CUDA,
 the written-out plain backward on the CPU). ``LAUNCHES`` counts the kernel
 launches by name: k4a, k4b, k5_fused, k5_split, k6_fused, k6_split, and the
-K5 and K6 launches that ran the tensor-core bodies once more under
+launches that ran the tensor-core bodies once more under k4a_mma, k4b_mma,
 k5_fused_mma, k5_split_mma, k6_fused_mma and k6_split_mma.
 """
 
@@ -59,9 +75,10 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 NEG_INF = -1e9               # the TPU kernels' excluded-pair logit
-MAX_TOKENS = 64              # csrc WA_MAX_TOKENS: windows up to 8 x 8
+MAX_TOKENS = 256             # csrc WA_MAX_TOKENS: windows up to 16 x 16
 MAX_HEAD_DIM = 64            # csrc WA_MAX_HEAD_DIM
-MMA_TOKENS = 64              # the tensor-core body's windows: 8 x 8
+MAX_SMEM = 232448            # csrc WA_MAX_SMEM: a block's shared memory
+MMA_TOKENS = 64              # the tensor-core bodies' (padded) windows
 MMA_MAX_WINDOWS_PER_CTA = 16
 MMA_BWD_MIN_WINDOWS_PER_CTA = 3   # K6: d(rel) partials under 1/5 of bytes
 LAUNCHES: collections.Counter = collections.Counter()
@@ -330,9 +347,9 @@ def _check_common(tensors, rel_bias, n: int, hd: int) -> None:
     if tuple(rel_bias.shape[1:]) != (n, n):
         raise ValueError(f"rel_bias {tuple(rel_bias.shape)} for {n} tokens")
     if not (1 <= n <= MAX_TOKENS and 1 <= hd <= MAX_HEAD_DIM):
-        raise ValueError(f"{n} tokens x head_dim {hd}: the kernel takes up "
-                         f"to {MAX_TOKENS} tokens and head_dim "
-                         f"{MAX_HEAD_DIM}")
+        raise ValueError(f"{n} tokens x head_dim {hd}: the window kernels "
+                         f"take windows of up to {MAX_TOKENS} tokens (16 x "
+                         f"16) and head dims up to {MAX_HEAD_DIM}")
 
 
 def _check_tokens(q, k, v, rel_bias, num_windows: int) -> None:
@@ -354,6 +371,9 @@ def _check_nhwc(operands, rel_bias, geometry: Geometry) -> None:
     if (h, w) != (hp, wp) or hp % ws or wp % ws or not 0 <= shift < ws:
         raise ValueError(f"maps {tuple(operands[0].shape)} vs geometry "
                          f"{geometry}")
+    if ws % 8:
+        raise ValueError(f"window {ws}: K5 and K6 take windows of a multiple "
+                         "of 8, as the JAX kernels do (sublane tiling)")
     if any(t.shape != operands[0].shape for t in operands) \
             or c % nh or (len(operands) == 1 and cx % 3):
         raise ValueError(f"operands {[tuple(t.shape) for t in operands]} "
@@ -374,19 +394,47 @@ def _check_nhwc_fwd(operands, rel_bias, geometry: Geometry) -> None:
 
 
 def nhwc_fwd_body(dtype: torch.dtype, hd: int, n: int) -> str:
-    """Which K5 body runs for operands of ``dtype``: "mma" (bf16, the
-    tensor-core body of ``csrc/window_attn_nhwc_mma.cu``) or "simt" (fp32,
-    the body of ``csrc/window_attn_fwd.cu``, bit-equal to the plain
-    version). bf16 needs windows of 64 tokens and a head dim that is a
-    multiple of 16 (the mma tiles' depth); anything else raises."""
-    if dtype != torch.bfloat16:
+    """Which K5 body runs for operands of ``dtype`` and windows of ``n``
+    tokens: "mma" (bf16 windows of 64 tokens, the tensor-core body of
+    ``csrc/window_attn_nhwc_mma.cu``) or "simt" (fp32, or windows past 64
+    tokens: the body of ``csrc/window_attn_fwd.cu``). A bf16 window of 64
+    tokens needs a head dim that is a multiple of 16 (the mma tiles'
+    depth), and a bf16 window under 64 tokens (not ws % 8 == 0, which the
+    JAX K5 never takes) raises."""
+    if dtype != torch.bfloat16 or n > MMA_TOKENS:
         return "simt"
     if n != MMA_TOKENS or hd % 16:
-        raise ValueError(f"bf16 K5 and K6 run on the tensor cores, which "
-                         f"take windows of {MMA_TOKENS} tokens and a head "
-                         f"dim that is a multiple of 16: got {n} tokens, "
-                         f"head dim {hd}")
+        raise ValueError(f"bf16 K5 and K6 run on the tensor cores at 8 x 8 "
+                         f"windows, which take a head dim that is a multiple "
+                         f"of 16: got {n} tokens, head dim {hd}")
     return "mma"
+
+
+def tokens_fwd_body(dtype: torch.dtype, hd: int, n: int) -> str:
+    """Which K4a / K4b body runs: "mma" (bf16 windows of up to 64 tokens,
+    head dim a multiple of 16: the tensor-core body of
+    ``csrc/window_attn_tokens_mma.cu``, windows padded to 64 tokens in
+    shared memory) or "simt" (fp32, windows past 64 tokens or other head
+    dims: the body of ``csrc/window_attn_fwd.cu``, which takes them as the
+    JAX K4 does)."""
+    if dtype == torch.bfloat16 and n <= MMA_TOKENS and hd % 16 == 0:
+        return "mma"
+    return "simt"
+
+
+def tokens_fwd_plan(total_windows: int, heads: int, sms: int
+                    ) -> Tuple[int, int]:
+    """(windows per CTA, CTAs) of the tensor-core K4: K5's grid
+    (``nhwc_fwd_plan``), heads of a run of windows on neighbouring CTAs, so
+    that K4a's CTAs that share a window's mask run together."""
+    return nhwc_fwd_plan(total_windows, heads, sms)
+
+
+def tokens_fwd_cta_work(cta: int, heads: int, windows_per_cta: int,
+                        total_windows: int) -> Tuple[int, int, int]:
+    """(head, first window, windows) of CTA ``cta`` of the tensor-core K4
+    (``wa_tokens_mma_kernel``), for the tests."""
+    return nhwc_fwd_cta_work(cta, heads, windows_per_cta, total_windows)
 
 
 def nhwc_fwd_plan(total_windows: int, heads: int, sms: int
@@ -410,10 +458,24 @@ def nhwc_fwd_cta_work(cta: int, heads: int, windows_per_cta: int,
 
 
 def nhwc_bwd_body(dtype: torch.dtype, hd: int, n: int) -> str:
-    """Which K6 body runs for operands of ``dtype``, by K5's rule: "mma"
-    (bf16, the tensor-core body of ``csrc/window_attn_nhwc_bwd_mma.cu``)
-    or "simt" (fp32, the body of ``csrc/window_attn_bwd.cu``)."""
+    """Which K6 body runs, by K5's rule: "mma" (bf16 windows of 64 tokens,
+    the tensor-core body of ``csrc/window_attn_nhwc_bwd_mma.cu``) or
+    "simt" (fp32, or windows past 64 tokens: ``csrc/window_attn_bwd.cu``)."""
     return nhwc_fwd_body(dtype, hd, n)
+
+
+def simt_bwd_smem(n: int, hd: int, elem: int) -> int:
+    """Shared memory of the SIMT K6 (csrc ``bwd_smem_bytes``): q, k, v and
+    g of one window-head in the operands' type, rows padded to hd + 1, the
+    row statistics and two per-warp rows of N floats, the labels."""
+    return 4 * n * (hd + 1) * elem + (3 * n + 16 * n) * 4 + 4 * n
+
+
+def simt_bwd_max_head_dim(n: int, elem: int) -> int:
+    """The largest head dim (up to 64) whose window of ``n`` tokens the
+    SIMT K6 holds in a block's shared memory."""
+    return max([hd for hd in range(1, MAX_HEAD_DIM + 1)
+                if simt_bwd_smem(n, hd, elem) <= MAX_SMEM], default=0)
 
 
 def nhwc_bwd_plan(total_windows: int, heads: int, sms: int
@@ -472,6 +534,19 @@ def _mma_library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+def _tokens_mma_library() -> ctypes.CDLL:
+    lib = _lib("window_attn_tokens_mma")
+    lib.window_attn_tokens_mma_mask.argtypes = [_P] * 6 + [_I] * 6 + [_F, _P]
+    lib.window_attn_tokens_mma_geo.argtypes = [_P] * 5 + [_I] * 8 + [_F, _P]
+    for fn in (lib.window_attn_tokens_mma_mask,
+               lib.window_attn_tokens_mma_geo):
+        fn.restype = ctypes.c_int
+    lib.window_attn_tokens_mma_error_string.argtypes = [_I]
+    lib.window_attn_tokens_mma_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -479,7 +554,7 @@ def _sm_count(device: torch.device) -> int:
 @functools.lru_cache(maxsize=None)
 def _bwd_library() -> ctypes.CDLL:
     lib = _lib("window_attn_bwd")
-    lib.window_attn_bwd_nhwc.argtypes = [_P] * 10 + [_I] * 11 + [_F, _P]
+    lib.window_attn_bwd_nhwc.argtypes = [_P] * 10 + [_I] * 12 + [_F, _P]
     lib.window_attn_bwd_nhwc.restype = ctypes.c_int
     lib.window_attn_bwd_error_string.argtypes = [_I]
     lib.window_attn_bwd_error_string.restype = ctypes.c_char_p
@@ -508,20 +583,45 @@ def _run(lib, fn, err_fn, kind: str, dev: torch.device, *args) -> None:
 
 def _launch_tokens(q, k, v, rel_bias, shift_mask, scale: float,
                    num_windows: int, geometry: Optional[Geometry]):
-    """K4b when ``geometry`` is given, else K4a with ``shift_mask``."""
-    lib = _fwd_library()
+    """K4b when ``geometry`` is given, else K4a with ``shift_mask``: the
+    tensor-core body or the SIMT body by ``tokens_fwd_body``; both count
+    under k4a / k4b, the tensor-core launches also under k4a_mma /
+    k4b_mma."""
     nwt, nh, n, hd = q.shape
-    bf16 = int(q.dtype == torch.bfloat16)
     out = torch.empty_like(q)
+    kind = "k4a" if geometry is None else "k4b"
+    if tokens_fwd_body(q.dtype, hd, n) == "mma":
+        if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+            raise ValueError("the tensor-core K4 copies 16 bytes at a time: "
+                             "q, k, v and out must start 16-byte aligned")
+        lib = _tokens_mma_library()
+        wpc, _ = tokens_fwd_plan(nwt, nh, _sm_count(q.device))
+        if geometry is not None:
+            hp, wp, ws, shift = geometry
+            _run(lib, lib.window_attn_tokens_mma_geo,
+                 lib.window_attn_tokens_mma_error_string, kind, q.device,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 rel_bias.data_ptr(), out.data_ptr(), nwt, nh, hd, hp, wp, ws,
+                 shift, wpc, scale)
+        else:
+            _run(lib, lib.window_attn_tokens_mma_mask,
+                 lib.window_attn_tokens_mma_error_string, kind, q.device,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 rel_bias.data_ptr(), shift_mask.data_ptr(), out.data_ptr(),
+                 nwt, num_windows, nh, n, hd, wpc, scale)
+        LAUNCHES[kind + "_mma"] += 1
+        return out
+    lib = _fwd_library()
+    bf16 = int(q.dtype == torch.bfloat16)
     if geometry is not None:
         hp, wp, ws, shift = geometry
         _run(lib, lib.window_attn_fwd_tokens_geo, lib.window_attn_error_string,
-             "k4b", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             kind, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
              rel_bias.data_ptr(), out.data_ptr(), bf16, nwt, nh, hd, hp, wp,
              ws, shift, scale)
     else:
         _run(lib, lib.window_attn_fwd_tokens_mask,
-             lib.window_attn_error_string, "k4a", q.device, q.data_ptr(),
+             lib.window_attn_error_string, kind, q.device, q.data_ptr(),
              k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(),
              shift_mask.data_ptr(), out.data_ptr(), bf16, nwt, num_windows,
              nh, n, hd, scale)
@@ -530,8 +630,8 @@ def _launch_tokens(q, k, v, rel_bias, shift_mask, scale: float,
 
 def _launch_nhwc(operands, rel_bias, scale: float, geometry: Geometry,
                  pad_hw):
-    """K5: the tensor-core body for bf16, the SIMT body for fp32
-    (``nhwc_fwd_body``); both count under k5_fused / k5_split."""
+    """K5: the tensor-core body or the SIMT body by ``nhwc_fwd_body``; both
+    count under k5_fused / k5_split."""
     hp, wp, ws, shift = geometry
     fused = len(operands) == 1
     q, k, v = (operands * 3) if fused else operands
@@ -555,23 +655,25 @@ def _launch_nhwc(operands, rel_bias, scale: float, geometry: Geometry,
     lib = _fwd_library()
     _run(lib, lib.window_attn_fwd_nhwc, lib.window_attn_error_string, kind,
          q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-         rel_bias.data_ptr(), out.data_ptr(), 0, int(fused), b, nh, c, hp,
-         wp, ws, shift, ph, pw, scale)
+         rel_bias.data_ptr(), out.data_ptr(), int(q.dtype == torch.bfloat16),
+         int(fused), b, nh, c, hp, wp, ws, shift, ph, pw, scale)
     return out
 
 
-def bwd_windows_per_block(total_windows: int, heads: int,
-                          device: torch.device) -> int:
-    """Windows one K6 block walks through (summing its d(rel) share in
-    shared memory): enough blocks for ~4 per SM, at most 16 windows."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(16, total_windows * heads // (4 * sms)))
+def bwd_windows_per_block(total_windows: int, heads: int, n: int, hd: int,
+                          elem: int, sms: int) -> int:
+    """Windows one SIMT K6 block walks through (adding its d(rel) share to
+    its own N x N partial): one wave of blocks at the blocks per SM that
+    its shared memory allows (at most 4), at most 16 windows; each block
+    writes one partial, so fewer, longer blocks write fewer bytes."""
+    per_sm = max(1, min(4, MAX_SMEM // (simt_bwd_smem(n, hd, elem) + 1024)))
+    return max(1, min(16, -(-total_windows * heads // (per_sm * sms))))
 
 
 def _launch_nhwc_bwd(operands, rel_bias, g, scale: float, geometry: Geometry,
                      pad_hw):
-    """K6: the tensor-core body for bf16, the SIMT body for fp32
-    (``nhwc_bwd_body``); both count under k6_fused / k6_split."""
+    """K6: the tensor-core body or the SIMT body by ``nhwc_bwd_body``; both
+    count under k6_fused / k6_split."""
     hp, wp, ws, shift = geometry
     fused = len(operands) == 1
     q, k, v = (operands * 3) if fused else operands
@@ -606,15 +708,23 @@ def _launch_nhwc_bwd(operands, rel_bias, g, scale: float, geometry: Geometry,
              wp, shift, ph, pw, wpc, scale)
         LAUNCHES[kind + "_mma"] += 1
         return (*grads, drel)
+    elem = q.element_size()
+    if simt_bwd_smem(n, c // nh, elem) > MAX_SMEM:
+        raise ValueError(
+            f"the SIMT K6 holds a window in shared memory: at {n} tokens it "
+            f"takes {q.dtype} head dims up to "
+            f"{simt_bwd_max_head_dim(n, elem)}, got {c // nh}")
     lib = _bwd_library()
-    wpb = bwd_windows_per_block(total, nh, q.device)
+    wpb = bwd_windows_per_block(total, nh, n, c // nh, elem,
+                                _sm_count(q.device))
     partial = torch.empty((-(-total // wpb), nh, n, n), dtype=torch.float32,
                           device=q.device)
     _run(lib, lib.window_attn_bwd_nhwc, lib.window_attn_bwd_error_string,
          kind, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
          g.data_ptr(), rel_bias.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-         dv.data_ptr(), partial.data_ptr(), drel.data_ptr(), int(fused), b,
-         nh, c, hp, wp, ws, shift, ph, pw, wpb, scale)
+         dv.data_ptr(), partial.data_ptr(), drel.data_ptr(),
+         int(q.dtype == torch.bfloat16), int(fused), b, nh, c, hp, wp, ws,
+         shift, ph, pw, wpb, scale)
     return (*grads, drel)
 
 
