@@ -439,9 +439,10 @@ def _wa_forward_specs(WA, gen):
     for name, hp, h in (("k5 split 50->56", 56, 50),
                         ("k5 split 25->32", 32, 25)):
         nhwc(name, BATCH, hp, hp, 8, 32, 8, 4, (h, h), True, row=False)
-    # windows past 64 tokens (the SIMT bodies in bf16 too): Swin window 12
-    # (Swin-B/L's) at stage 1 (200 -> 204), and window 16 on the encoder's
-    # finest level (100 -> 112, shift 8) through K4a and K5 split
+    # windows past 64 tokens: Swin window 12 (Swin-B/L's) at stage 1
+    # (200 -> 204) on the SIMT body, and window 16 on the encoder's finest
+    # level (100 -> 112, shift 8) through K4a and K5 split on the 256-token
+    # tensor-core body
     tokens("window_attn_k4b_ws12", BATCH, 204, 204, 3, 32, 12, 6, None)
     tokens("window_attn_k4a_ws16", BATCH, 112, 112, 8, 32, 16, 8, 100)
     nhwc("window_attn_k5_split_ws16", BATCH, 112, 112, 8, 32, 16, 8,
@@ -465,7 +466,8 @@ def window_kernel_phase(WA, smi: str) -> dict:
     timed here only) and bound times in bf16, the main path's type, and the
     plain version's time for the kernels line's rows. Each launch must run
     the body its rule names (``tokens_fwd_body``, ``nhwc_fwd_body``): bf16
-    windows of up to 64 tokens on the tensor cores, the rest SIMT."""
+    windows of up to 64 tokens and of 256 on the tensor cores, the rest
+    SIMT."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     results = {}
     for name, sp in _wa_forward_specs(WA, gen).items():
@@ -1081,8 +1083,10 @@ def bf16_window_grad_phase(cfg, counts: Counts, build_model, WA,
 
 
 def bf16_window_parity_phase(cfg, counts: Counts, build_model,
-                             normalize_image, WA, want: dict) -> None:
-    """The flagship NHWC backbone and pixel decoder at batch 8, 800x800,
+                             normalize_image, WA, want: dict,
+                             label: str) -> None:
+    """A flagship NHWC config's (``cfg``: window 8, or the window-16
+    encoder) backbone and pixel decoder at batch 8, 800x800,
     same seeded weights and images, three times: in bf16 through the
     kernels (the tensor-core K5), in bf16 through the plain versions, and
     in fp32 through the plain versions (TF32 off). For res2-res5,
@@ -1095,7 +1099,6 @@ def bf16_window_parity_phase(cfg, counts: Counts, build_model,
     and 6 encoder layers as bf16 carries its own rounding.)"""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = flagship_cfg(cfg, "nhwc")
     images = torch.from_numpy(np.random.default_rng(SEED + 9).integers(
         0, 256, (BATCH, CANVAS, CANVAS, 3), dtype=np.uint8)).cuda()
     plain = {"window_attn_fn": (WA.window_attention_nhwc_torch,
@@ -1113,7 +1116,7 @@ def bf16_window_parity_phase(cfg, counts: Counts, build_model,
             feats = model.backbone(normalize_image(images, cfg))
             mf, ms = model.sem_seg_head.pixel_decoder(feats)
         torch.cuda.synchronize()
-        counts.check(counts.read(), expect, f"flagship forward {tag}")
+        counts.check(counts.read(), expect, f"{label} forward {tag}")
         outs[tag] = dict(feats, mask_features=mf,
                          **{f"multi-scale {i}": m for i, m in enumerate(ms)})
         del model, feats, mf, ms
@@ -1122,16 +1125,16 @@ def bf16_window_parity_phase(cfg, counts: Counts, build_model,
         kp = _rel_l2(outs["kernel"][key], outs["plain"][key])
         kf = _rel_l2(outs["kernel"][key], ref)
         pf = _rel_l2(outs["plain"][key], ref)
-        print(f"bf16 flagship NHWC forward, {key}: relative L2 error kernel "
+        print(f"bf16 {label} NHWC forward, {key}: relative L2 error kernel "
               f"vs plain {kp:.3e}; against fp32: kernel {kf:.3e}, plain "
               f"{pf:.3e}", flush=True)
         if not kp <= pf:
             bad[key] = (kp, pf)
-    print("bf16 flagship NHWC forward: the tensor-core K5 moves every output "
-          "less than bf16 rounding does (kernel vs plain <= plain vs fp32): "
-          f"{not bad}", flush=True)
+    print(f"bf16 {label} NHWC forward: the tensor-core K5 moves every "
+          "output less than bf16 rounding does (kernel vs plain <= plain vs "
+          f"fp32): {not bad}", flush=True)
     if bad:
-        raise AssertionError(f"bf16 flagship forward: the kernels move "
+        raise AssertionError(f"bf16 {label} forward: the kernels move "
                              f"these outputs more than bf16 does: {bad}")
 
 
@@ -1279,11 +1282,13 @@ KERNEL_ROWS = {   # kernels line name -> (source, the TPU function it replaces)
                              "window_attention.py:696"),
     "window_attn_k6_split": ("window_attn_nhwc_bwd_mma.cu",
                              "window_attention.py:696"),
-    # windows past 64 tokens: the SIMT bodies
-    "window_attn_k4b_ws12": ("window_attn_fwd.cu", "window_attention.py:220"),
-    "window_attn_k4a_ws16": ("window_attn_fwd.cu", "window_attention.py:162"),
-    "window_attn_k5_split_ws16": ("window_attn_fwd.cu",
+    # windows of 16 x 16: the forwards on the 256-token tensor-core body
+    "window_attn_k4a_ws16": ("window_attn_mma256.cu",
+                             "window_attention.py:162"),
+    "window_attn_k5_split_ws16": ("window_attn_mma256.cu",
                                   "window_attention.py:531"),
+    # ... the backward, and windows of 12 x 12, on the SIMT bodies
+    "window_attn_k4b_ws12": ("window_attn_fwd.cu", "window_attention.py:220"),
     "window_attn_k6_split_ws16": ("window_attn_bwd.cu",
                                   "window_attention.py:696"),
 }
@@ -1355,17 +1360,17 @@ def main() -> int:
     default_pallas = cfg.clone()
     default_pallas.TPU.USE_PALLAS_WINDOW_ATTN = True
     # windows past 64 tokens: the window-16 encoder (r5 trained it) under
-    # NHWC, K5 / K6 split on the SIMT body; Swin window 12 (Swin-B/L's) with
-    # the window-16 encoder under USE_PALLAS_WINDOW_ATTN, K4b at 144 tokens
-    # and K4a at 256
+    # NHWC, every K5 (8 x 8 fused, 16 x 16 split) on a tensor-core body and
+    # K6 split on the SIMT body; Swin window 12 (Swin-B/L's) with the
+    # window-16 encoder under USE_PALLAS_WINDOW_ATTN, K4b at 144 tokens on
+    # the SIMT body and K4a at 256 on the tensor cores
     nhwc16 = nhwc.clone()
     nhwc16.MODEL.SEM_SEG_HEAD.ENCODER_WINDOW_SIZE = 16
     pallas12 = pallas.clone()
     pallas12.MODEL.SWIN.WINDOW_SIZE = 12
     pallas12.MODEL.SEM_SEG_HEAD.ENCODER_WINDOW_SIZE = 16
-    k56_16 = {"window_attn_k5_fused": blocks,
-              "window_attn_k5_fused_mma": blocks,
-              "window_attn_k5_split": enc * levels}
+    k56_16 = k5_mma
+    k4_12 = dict(k4, window_attn_k4a_mma=enc * levels)
     k6_16 = {"window_attn_k6_fused": blocks,
              "window_attn_k6_fused_mma": blocks,
              "window_attn_k6_split": enc * levels}
@@ -1391,7 +1396,7 @@ def main() -> int:
         (serve_phase(nhwc16, counts, build_model, make_inference_fn, k56_16,
                      2, "flagship, ENCODER_WINDOW_SIZE 16, WINDOW_ATTN_NHWC"),
          ws16),
-        (serve_phase(pallas12, counts, build_model, make_inference_fn, k4,
+        (serve_phase(pallas12, counts, build_model, make_inference_fn, k4_12,
                      2, "flagship, SWIN.WINDOW_SIZE 12, ENCODER_WINDOW_SIZE "
                      "16, USE_PALLAS_WINDOW_ATTN"),
          {"window_attn_k4b": "window_attn_k4b_ws12",
@@ -1406,8 +1411,10 @@ def main() -> int:
     fp32_parity_phase(pallas, counts, build_model, normalize_image,
                       {"window_attn_fn": WA.window_attention_torch}, k4,
                       "flagship USE_PALLAS_WINDOW_ATTN")
-    bf16_window_parity_phase(cfg, counts, build_model, normalize_image, WA,
-                             k5_mma)
+    bf16_window_parity_phase(nhwc, counts, build_model, normalize_image, WA,
+                             k5_mma, "window-8 flagship")
+    bf16_window_parity_phase(nhwc16, counts, build_model, normalize_image,
+                             WA, k56_16, "window-16 encoder flagship")
     grad_check_phase(cfg, counts, build_model, K)
     window_grad_check_phase(cfg, counts, build_model, WA)
     bf16_window_grad_phase(cfg, counts, build_model, WA, _add(k5_mma, k6_mma))

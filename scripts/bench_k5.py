@@ -1,6 +1,7 @@
 """Time K5 (NHWC window attention, bf16) at the seven shapes of the window
-flagship's serving path (batch 8, 800x800), for one or more checkouts of
-the PyTorch port, on one NVIDIA GPU.
+flagship's serving path (batch 8, 800x800) and the window-16 encoder's
+three split levels, for one or more checkouts of the PyTorch port, on one
+NVIDIA GPU.
 
     python3 scripts/bench_k5.py [ROOT ...]
 
@@ -25,15 +26,20 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# name -> (Hp, nH, pad extent or None, split); all shifted by 4, head dim 32
-SHAPES = {"fused 200 (stage 1)": (200, 3, None, False),
-          "fused 104 (stage 2)": (104, 6, None, False),
-          "fused 56 (stage 3)": (56, 12, None, False),
-          "fused 32 (stage 4)": (32, 24, None, False),
-          "split 100->104": (104, 8, 100, True),
-          "split 50->56": (56, 8, 50, True),
-          "split 25->32": (32, 8, 25, True)}
-HD, WS, SHIFT = 32, 8, 4
+# name -> (Hp, nH, pad extent or None, split, window, shift); head dim 32.
+# Windows of 8 shifted by 4 (the flagship), then the window-16 encoder's
+# levels 100 -> 112, 50 -> 64 and 25 -> 32, shifted by 8.
+SHAPES = {"fused 200 (stage 1)": (200, 3, None, False, 8, 4),
+          "fused 104 (stage 2)": (104, 6, None, False, 8, 4),
+          "fused 56 (stage 3)": (56, 12, None, False, 8, 4),
+          "fused 32 (stage 4)": (32, 24, None, False, 8, 4),
+          "split 100->104": (104, 8, 100, True, 8, 4),
+          "split 50->56": (56, 8, 50, True, 8, 4),
+          "split 25->32": (32, 8, 25, True, 8, 4),
+          "split ws16 100->112": (112, 8, 100, True, 16, 8),
+          "split ws16 50->64": (64, 8, 50, True, 16, 8),
+          "split ws16 25->32": (32, 8, 25, True, 16, 8)}
+HD = 32
 
 
 def measure(root: str) -> dict:
@@ -46,15 +52,15 @@ def measure(root: str) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
     out = {}
-    for name, (hp, nh, pad, split) in SHAPES.items():
+    for name, (hp, nh, pad, split, ws, shift) in SHAPES.items():
         c = nh * HD
         shape = (cs.BATCH, hp, hp, c)
         ops = [torch.randn(shape, device="cuda", generator=gen).bfloat16()
                for _ in range(3)] if split else [torch.randn(
                    shape[:3] + (3 * c,), device="cuda",
                    generator=gen).bfloat16()]
-        rel = torch.randn(nh, WS * WS, WS * WS, device="cuda", generator=gen)
-        geo, pad_hw = (hp, hp, WS, SHIFT), (pad, pad) if pad else None
+        rel = torch.randn(nh, ws * ws, ws * ws, device="cuda", generator=gen)
+        geo, pad_hw = (hp, hp, ws, shift), (pad, pad) if pad else None
         if split:
             kern = lambda: WA.window_attention_nhwc_split(  # noqa: E731
                 *ops, rel, HD ** -0.5, geo, pad_hw=pad_hw)
@@ -72,8 +78,8 @@ def measure(root: str) -> dict:
         err = (got.float() - want.float()).abs().max().item()
         if not err <= cs._wa_fwd_tol(ops[-1], torch.bfloat16):
             raise AssertionError(f"{name}: kernel vs plain {err}")
-        q, k, v = (cs._windows(WA, t, WS, nh) for t in parts)
-        bias = cs._sdpa_bias(WA, rel, q.shape[0], hp, hp, WS, SHIFT, pad_hw,
+        q, k, v = (cs._windows(WA, t, ws, nh) for t in parts)
+        bias = cs._sdpa_bias(WA, rel, q.shape[0], hp, hp, ws, shift, pad_hw,
                              torch.bfloat16)
         ms = cs.cuda_time_ms(kern, reps=50)
         sdpa = cs.cuda_time_ms(lambda: F.scaled_dot_product_attention(

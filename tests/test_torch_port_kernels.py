@@ -230,10 +230,11 @@ WA_TOKEN_CASES = {            # (B, nW, nH, ws, hd, shift, geometry kernel)
     "geo-ws8": (1, 6, 3, 8, 32, 0, True),
     "geo-ws8-hd64-shift": (1, 6, 2, 8, 64, 4, True),
     "mask-ws7-hd48-shift": (1, 6, 2, 7, 48, 3, False),
-    # ... and the SIMT body past 64 tokens or at a head dim of 8
+    # ... the SIMT body at 65-255 tokens or at a head dim of 8
     "geo-ws4-hd8": (2, 25, 2, 4, 8, 2, True),
     "geo-ws12-shift": (1, 6, 3, 12, 32, 6, True),
     "mask-ws12": (1, 6, 2, 12, 32, 0, False),
+    # ... and bf16 windows of 16 x 16 the 256-token tensor-core body
     "mask-ws16-shift": (1, 6, 2, 16, 32, 8, False),
     "geo-ws16-hd64-shift": (1, 4, 2, 16, 64, 8, True),
 }
@@ -250,14 +251,26 @@ WA_NHWC_CASES = {             # (B, h, w, nH, hd, ws, shift, split)
     "split-50-pad": (2, 50, 50, 8, 32, 8, 0, True),
     "split-25-pad-shift": (2, 25, 25, 8, 32, 8, 4, True),
     "split-hd48-shift": (1, 16, 16, 2, 48, 8, 4, True),
-    # windows of 16 x 16 (the SIMT bodies in both dtypes): the window-16
-    # encoder's padded, shifted levels and Swin's fused map
+    # windows of 16 x 16 (bf16 on the 256-token tensor-core body, fp32 and
+    # a head dim of 24 on the SIMT body): the window-16 encoder's padded,
+    # shifted levels and Swin's fused map; head dim 64 has the least
+    # shared memory to spare
     "fused-ws16-shift": (1, 32, 32, 2, 32, 16, 8, False),
     "split-ws16-pad-shift": (1, 20, 28, 2, 32, 16, 8, True),
     "split-ws16-hd48": (1, 16, 16, 2, 48, 16, 8, True),
+    "split-ws16-hd64-pad-shift": (1, 20, 20, 2, 64, 16, 8, True),
+    "split-ws16-hd24-shift": (1, 16, 16, 2, 24, 16, 8, True),
 }
 # the tensor-core K6's cases (windows of 8 x 8)
 WA_NHWC_MMA_CASES = [c for c, v in WA_NHWC_CASES.items() if v[5] == 8]
+# K6's cases: the fp32 SIMT K6 holds a 256-token window in shared memory
+# up to head dim 50 only (``simt_bwd_max_head_dim``)
+WA_NHWC_BWD_CASES = [c for c, v in WA_NHWC_CASES.items()
+                     if v[5] == 8 or v[4] <= 50]
+# the 256-token body's cases (windows of 16 x 16, head dim % 16 == 0)
+WA_NHWC_MMA256_CASES = [c for c, v in WA_NHWC_CASES.items()
+                        if v[5] == 16 and v[4] % 16 == 0]
+WA_TOKEN_MMA256_CASES = [c for c, v in WA_TOKEN_CASES.items() if v[3] == 16]
 # K4 at the flagship's serving shapes under USE_PALLAS_WINDOW_ATTN (batch
 # 8, 800 px): K4b at Swin stages 1-4 (window 8; stage 1 also window 7),
 # K4a at the window encoder's three levels: (windows, heads)
@@ -317,16 +330,21 @@ NHWC_BODY_RULE = [
     ("float32", 32, 64, "simt"), ("float32", 8, 49, "simt"),
     ("bfloat16", 8, 64, None), ("bfloat16", 24, 64, None),
     ("bfloat16", 32, 49, None),
-    # windows past 64 tokens take the SIMT body in both dtypes
-    ("bfloat16", 32, 256, "simt"), ("bfloat16", 8, 256, "simt"),
+    # bf16 windows of 256 tokens take the 256-token tensor-core body at
+    # head dims that are multiples of 16, else the SIMT body; fp32 and the
+    # other windows past 64 tokens the SIMT body
+    ("bfloat16", 32, 256, "mma"), ("bfloat16", 8, 256, "simt"),
+    ("bfloat16", 48, 256, "mma"), ("bfloat16", 64, 256, "mma"),
+    ("bfloat16", 24, 256, "simt"),
     ("bfloat16", 64, 144, "simt"), ("float32", 32, 256, "simt")]
 
 
 @pytest.mark.parametrize("dtype,hd,n,body", NHWC_BODY_RULE)
 def test_nhwc_fwd_body_rule(dtype, hd, n, body):
-    """bf16 K5 takes the tensor-core body at windows of 64 tokens (head dim
-    a multiple of 16; else it raises, as it does under 64 tokens), fp32
-    and windows past 64 tokens the SIMT body."""
+    """bf16 K5 takes a tensor-core body at windows of 64 and of 256 tokens
+    (head dim a multiple of 16; at 64 tokens anything else raises, as a
+    window under 64 tokens does, at 256 it takes the SIMT body), fp32 and
+    the other windows past 64 tokens the SIMT body."""
     dtype = getattr(torch, dtype)
     if body is None:
         with pytest.raises(ValueError):
@@ -365,6 +383,8 @@ def test_nhwc_bwd_body_rule(dtype, hd, n, body):
     a multiple of 16; else it raises, as it does under 64 tokens), fp32
     and windows past 64 tokens the SIMT body."""
     dtype = getattr(torch, dtype)
+    if n > WA.MMA_TOKENS:
+        body = "simt"
     if body is None:
         with pytest.raises(ValueError):
             WA.nhwc_bwd_body(dtype, hd, n)
@@ -376,12 +396,13 @@ def test_nhwc_bwd_body_rule(dtype, hd, n, body):
 @pytest.mark.parametrize("n", [16, 49, 64, 144, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_tokens_fwd_body_rule(dtype, n, hd):
-    """K4a / K4b: bf16 windows of up to 64 tokens with a head dim that is a
-    multiple of 16 run the tensor-core body; everything else the SIMT body,
-    which takes any head dim and window up to 256 tokens, as the JAX K4
-    takes them (so nothing within the envelope raises)."""
-    want = "mma" if (dtype == "bfloat16" and n <= 64 and hd % 16 == 0) \
-        else "simt"
+    """K4a / K4b: bf16 windows of up to 64 tokens or of 256 tokens with a
+    head dim that is a multiple of 16 run a tensor-core body; everything
+    else the SIMT body, which takes any head dim and window up to 256
+    tokens, as the JAX K4 takes them (so nothing within the envelope
+    raises)."""
+    want = "mma" if (dtype == "bfloat16" and (n <= 64 or n == 256)
+                     and hd % 16 == 0) else "simt"
     assert WA.tokens_fwd_body(getattr(torch, dtype), hd, n) == want
 
 
@@ -409,6 +430,50 @@ def test_tokens_fwd_plan_covers_every_window_head_once(case):
             assert WA.tokens_fwd_cta_work(cta - 1, heads, wpc,
                                           windows)[1] == first
         seen[first:first + n, head] += 1
+    assert (seen == 1).all()
+
+
+# The 256-token body at the window-16 encoder's levels (100 -> 112,
+# 50 -> 64, 25 -> 32) in serving (batch 8) and training (batch 2, 640 px:
+# 80, 40 -> 48, 20 -> 32): (windows, heads, runs); K5 and K4b take runs of
+# consecutive windows (runs 1), K4a one window place across the images
+# (runs = nW), and the card tests' ws-16 cases.
+MMA256_PLAN_CASES = {
+    "k5 112 serving": (8 * 49, 8, 1), "k5 64 serving": (8 * 16, 8, 1),
+    "k5 32 serving": (8 * 4, 8, 1), "k5 80 training": (2 * 25, 8, 1),
+    "k5 48 training": (2 * 9, 8, 1), "k5 32 training": (2 * 4, 8, 1),
+    "k4a 112 serving": (8 * 49, 8, 49), "k4a 64 serving": (8 * 16, 8, 16),
+    "k4a 32 serving": (8 * 4, 8, 4), "k4a 80 training": (2 * 25, 8, 25),
+    **{c: (v[0] * v[1], v[2], 1 if v[6] else v[1])
+       for c, v in WA_TOKEN_CASES.items() if c in WA_TOKEN_MMA256_CASES},
+    **{c: (v[0] * -(-v[1] // 16) * -(-v[2] // 16), v[3], 1)
+       for c, v in WA_NHWC_CASES.items() if c in WA_NHWC_MMA256_CASES}}
+
+
+@pytest.mark.parametrize("case", list(MMA256_PLAN_CASES))
+def test_mma256_plan_covers_every_window_head_query_block_once(case):
+    """The 256-token body's grid (``mma256_plan``, and the kernel's own
+    CTA -> work arithmetic): every (window, head, query block) exactly
+    once; the query blocks of one (head, run) on neighbouring CTAs,
+    then the heads; a K4a run holds one window place only (its CTAs fold
+    that place's mask into their bias once); at least two waves of CTAs on
+    an H100 (1 CTA per SM) where there are enough window-heads."""
+    windows, heads, runs = MMA256_PLAN_CASES[case]
+    wpc, ctas = WA.mma256_plan(windows, heads, H100_SMS, runs)
+    assert 1 <= wpc <= min(WA.MMA_MAX_WINDOWS_PER_CTA, windows // runs)
+    blocks = WA.MMA256_QUERY_BLOCKS
+    assert ctas >= min(2 * H100_SMS, windows * heads * blocks)
+    seen = np.zeros((windows, heads, blocks), np.int64)
+    for cta in range(ctas):
+        qb, head, wins = WA.mma256_cta_work(cta, heads, wpc, windows, runs)
+        assert 1 <= len(wins) <= wpc and qb == cta % blocks
+        assert head == (cta // blocks) % heads
+        assert len({w % runs for w in wins}) == 1
+        if qb:
+            assert WA.mma256_cta_work(cta - 1, heads, wpc, windows,
+                                      runs)[1:] == (head, wins)
+        for w in wins:
+            seen[w, head, qb] += 1
     assert (seen == 1).all()
 
 
@@ -481,8 +546,8 @@ def _wa_nhwc_inputs(case, dtype, seed=21, device="cuda"):
 @pytest.mark.parametrize("case", list(WA_TOKEN_CASES))
 def test_window_token_kernel_matches_plain_on_cuda(case, dtype):
     """K4a (mask tensor) and K4b (geometry labels): bf16 windows of up to
-    64 tokens at head dims that are multiples of 16 on the tensor-core
-    body, the rest on the SIMT body."""
+    64 and of 256 tokens at head dims that are multiples of 16 on a
+    tensor-core body, the rest on the SIMT body."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     dtype = getattr(torch, dtype)
@@ -506,8 +571,8 @@ def test_window_token_kernel_matches_plain_on_cuda(case, dtype):
 @pytest.mark.parametrize("case", list(WA_NHWC_CASES))
 def test_window_nhwc_kernel_matches_plain_on_cuda(case, dtype):
     """K5, fused qkv (backbone) and split q/k/v with pad labels (encoder):
-    bf16 8 x 8 windows on the tensor-core body, fp32 and 16 x 16 windows on
-    the SIMT body."""
+    bf16 8 x 8 and 16 x 16 windows (head dim a multiple of 16) on a
+    tensor-core body, fp32 and a head dim of 24 on the SIMT body."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     dtype = getattr(torch, dtype)
@@ -665,9 +730,87 @@ def test_k4_bf16_bound_holds_the_body_rounding(case, bits, passes):
     assert (err <= _wa_tol(v, torch.bfloat16)) == passes
 
 
+def _online_body_emulation(q, k, v, bias, scale, bits):
+    """The 256-token tensor-core body's arithmetic in torch on windowed
+    (..., N, hd) operands and a broadcastable (..., N, N) bias (-inf where
+    excluded): fp32 logits (q . k scaled afterwards) plus the bias; key
+    blocks of 64 with an fp32 running max and sum; p = exp(s - running
+    max), unnormalized, rounded to ``bits`` mantissa bits per block before
+    p . v; the sum from fp32 p; o rescaled when the max moves and scaled
+    by 1 / sum at the end (fp32 result)."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale + bias
+    m = torch.full(s.shape[:-1], float("-inf"))
+    total, o = torch.zeros(s.shape[:-1]), 0.0
+    for kb in range(0, s.shape[-1], WA.MMA_TOKENS):
+        sb = s[..., kb:kb + WA.MMA_TOKENS]
+        new = torch.maximum(m, sb.amax(-1))
+        sub = torch.where(new == float("-inf"), 0.0, new)
+        alpha, p = torch.exp(m - sub), torch.exp(sb - sub[..., None])
+        total = total * alpha + p.sum(-1)
+        o = o * alpha[..., None] + torch.matmul(
+            _round_mantissa(p, bits), v.float()[..., kb:kb + WA.MMA_TOKENS, :])
+        m = new
+    return o / total[..., None]
+
+
+# At 256 tokens a row's p spreads over many keys and the rounding errors of
+# p average out: the output's own bf16 rounding sets most of the error, and
+# p rounded to 3 or 4 mantissa bits still fits the bound (a CPU run of this
+# emulation: 0.2-0.6 of it at 4 bits, 0.5-0.8 at 3); at 2 bits it leaves.
+@pytest.mark.parametrize("bits,passes", [(7, True), (2, False)])
+@pytest.mark.parametrize("case", WA_TOKEN_MMA256_CASES
+                         + WA_NHWC_MMA256_CASES)
+def test_mma256_bf16_bound_holds_the_body_rounding(case, bits, passes):
+    """The bf16 bound of the K4 and K5 checks (``_wa_tol``) holds the
+    256-token body's rounding (``_online_body_emulation``: unnormalized p
+    in bf16 per 64-key block, fp32 running max and sum, o scaled by 1 /
+    sum at the end) at its K4a-mask, K4b-label and K5-label cases at
+    ws 16, and a body that rounded p to 2 mantissa bits would leave it."""
+    if case in WA_TOKEN_CASES:
+        b, nw, nh, ws, hd, shift, geo = WA_TOKEN_CASES[case]
+        n = ws * ws
+        rng = np.random.default_rng(23)
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (b * nw, nh, n, hd)).astype(np.float32)).bfloat16()
+            for _ in range(3))
+        rel = torch.from_numpy(rng.standard_normal((nh, n, n)).astype(
+            np.float32))
+        geometry = (2 * ws, nw // 2 * ws, ws, shift)
+        mask = WA.window_mask(*geometry, None, torch.device("cpu"))
+        geometry = geometry if geo else None
+        want = WA.window_attention_torch(q, k, v, rel, mask, hd ** -0.5, nw,
+                                         geometry)
+        bias = (torch.where(WA.window_keep(*geometry, None, q.device)[:, None],
+                            rel[None], float("-inf")) if geo
+                else rel[None] + mask[:, None])
+        shp = (b, nw, nh, n, hd)
+        got = _online_body_emulation(q.reshape(shp), k.reshape(shp),
+                                     v.reshape(shp), bias, hd ** -0.5, bits)
+        got = got.reshape(q.shape).to(q.dtype)
+    else:
+        ops, rel, geo, pad, _, hd = _wa_nhwc_inputs(case, torch.bfloat16,
+                                                    device="cpu")
+        hp, wp, ws, shift = geo
+        pad = WA._pad_or_none(pad, geo)
+        nh, nw = rel.shape[0], (hp // ws) * (wp // ws)
+        q, k, v = WA._split_qkv(ops)
+        want = WA.window_attention_nhwc_plain(ops, rel, hd ** -0.5, geo, pad)
+        qw, kw, vw = (WA._nhwc_windows(t, ws, nh) for t in (q, k, v))
+        shp = (qw.shape[0] // nw, nw) + qw.shape[1:]
+        keep = WA.window_keep(hp, wp, ws, shift, pad, q.device)
+        bias = torch.where(keep[:, None], rel[None], float("-inf"))
+        got = _online_body_emulation(qw.reshape(shp), kw.reshape(shp),
+                                     vw.to(v.dtype).reshape(shp), bias,
+                                     hd ** -0.5, bits)
+        got = WA._nhwc_merge(got.reshape(qw.shape), ws, hp,
+                             wp).to(q.dtype)
+    err = (got.float() - want.float()).abs().max().item()
+    assert (err <= _wa_tol(v, torch.bfloat16)) == passes
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", list(WA_NHWC_CASES))
+@pytest.mark.parametrize("case", WA_NHWC_BWD_CASES)
 def test_window_bwd_kernel_matches_plain_on_cuda(case, dtype):
     """K6 for both layouts, and d(rel) bit for bit on a second run: bf16
     8 x 8 windows on the tensor-core body, fp32 and 16 x 16 windows on the

@@ -87,10 +87,9 @@ __device__ __forceinline__ int64_t wa_out_offset(const WaGeometry& g, int w,
       g, w, h, t, 0);
 }
 
-__device__ __forceinline__ int wa_label(const WaGeometry& g, int wl, int t) {
-  const int ww = g.Wp / g.ws;
-  const int wi = wl / ww, wj = wl - wi * ww;
-  const int gy = wi * g.ws + t / g.ws, gx = wj * g.ws + t % g.ws;
+// the label of map cell (gy, gx)
+__device__ __forceinline__ int wa_label_at(const WaGeometry& g, int gy,
+                                           int gx) {
   int lab = 0;
   if (g.shift > 0)
     lab = 3 * ((gy >= g.Hp - g.ws) + (gy >= g.Hp - g.shift)) +
@@ -102,6 +101,13 @@ __device__ __forceinline__ int wa_label(const WaGeometry& g, int wl, int t) {
     lab += 10 * (oy >= g.pad_h || ox >= g.pad_w);
   }
   return lab;
+}
+
+// the label of token t of window wl of an image
+__device__ __forceinline__ int wa_label(const WaGeometry& g, int wl, int t) {
+  const int ww = g.Wp / g.ws;
+  const int wi = wl / ww, wj = wl - wi * ww;
+  return wa_label_at(g, wi * g.ws + t / g.ws, wj * g.ws + t % g.ws);
 }
 
 // Checks what both kernels assume; returns 0 or cudaErrorInvalidValue.

@@ -14,33 +14,39 @@ K5's backward K6):
   NHWC maps, from a fused (B, Hp, Wp, 3C) qkv map (Swin blocks) or split
   (B, Hp, Wp, C) q, k, v maps (window encoder, with canvas-pad labels).
 
-Each kernel has a SIMT body and a tensor-core body, and which one runs is
+Each kernel has a SIMT body and tensor-core bodies, and which one runs is
 a rule on dtype and shape, chosen before the launch; it is not a fallback:
 
 - K4a and K4b (``tokens_fwd_body``): bf16 windows of up to 64 tokens with a
   head dim that is a multiple of 16 run ``csrc/window_attn_tokens_mma.cu``
-  (the tensor-core body, windows padded to 64 tokens in shared memory);
-  fp32, windows past 64 tokens and other head dims run the SIMT body of
+  (the 64-token tensor-core body, windows padded to 64 tokens in shared
+  memory), bf16 windows of 256 tokens (16 x 16) with such a head dim
+  ``csrc/window_attn_mma256.cu`` (64-key blocks, online softmax); fp32,
+  windows of 65-255 tokens and other head dims run the SIMT body of
   ``csrc/window_attn_fwd.cu``.
 - K5 (``nhwc_fwd_body``): bf16 windows of 64 tokens run
   ``csrc/window_attn_nhwc_mma.cu`` (head dim a multiple of 16; anything
   else raises, as does a bf16 window under 64 tokens, which the JAX K5
-  never takes); fp32 and windows past 64 tokens run the SIMT body of
-  ``window_attn_fwd.cu``.
+  never takes), bf16 windows of 256 tokens with such a head dim
+  ``csrc/window_attn_mma256.cu``; fp32 and the other bf16 windows of 256
+  tokens run the SIMT body of ``window_attn_fwd.cu``.
 - K6 ``_wa_nhwc_bwd_impl``, the recompute backward of K5 (d(operands) and
-  d(rel) summed over every window), by K5's rule (``nhwc_bwd_body``): the
-  tensor-core body of ``csrc/window_attn_nhwc_bwd_mma.cu`` (P and dS
-  rounded to bf16 before the products dV, dQ, dK, as FlashAttention-2 and
-  SDPA do) or the SIMT body of ``csrc/window_attn_bwd.cu``. Both sum d(rel)
-  in order, without atomics.
+  d(rel) summed over every window), by ``nhwc_bwd_body``: bf16 windows of
+  64 tokens take the tensor-core body of ``csrc/window_attn_nhwc_bwd_mma.cu``
+  (P and dS rounded to bf16 before the products dV, dQ, dK, as
+  FlashAttention-2 and SDPA do), fp32 and windows of 256 tokens the SIMT
+  body of ``csrc/window_attn_bwd.cu``. Both sum d(rel) in order, without
+  atomics.
 
 The fp32 SIMT bodies are held bit-equal (forward) or within 1e-4 (K6) to
 the plain versions. The envelope on the card: K4a and K4b take any window
 up to 256 tokens (16 x 16; JAX's K4 takes any), K5 and K6 any ws % 8 == 0
-up to 256 tokens (ws 8 and 16), every head dim up to 64; the SIMT K6 holds
-a window in shared memory and so takes, at 256 tokens, fp32 head dims up
-to 50 (``simt_bwd_max_head_dim``). Past the envelope the wrappers raise
-and name the limit.
+up to 256 tokens (ws 8 and 16), every head dim up to 64; the tensor-core
+forwards take bf16 windows of up to 64 tokens (K5: exactly 64) and of 256
+tokens at head dims 16, 32, 48 and 64; the SIMT K6 holds a window in
+shared memory and so takes, at 256 tokens, fp32 head dims up to 50
+(``simt_bwd_max_head_dim``). Past the envelope the wrappers raise and name
+the limit.
 
 Every version computes the logits and the softmax in fp32:
 ``softmax(q * scale . k^T + rel + mask)``, then casts p to v's dtype and
@@ -61,8 +67,9 @@ package's recompute backward in torch ops, since JAX wrote that backward in
 jnp) and ``WindowAttentionNHWCFunction`` (K5 forward, K6 backward on CUDA,
 the written-out plain backward on the CPU). ``LAUNCHES`` counts the kernel
 launches by name: k4a, k4b, k5_fused, k5_split, k6_fused, k6_split, and the
-launches that ran the tensor-core bodies once more under k4a_mma, k4b_mma,
-k5_fused_mma, k5_split_mma, k6_fused_mma and k6_split_mma.
+launches that ran a tensor-core body (of 64 or 256 tokens) once more under
+k4a_mma, k4b_mma, k5_fused_mma, k5_split_mma, k6_fused_mma and
+k6_split_mma.
 """
 
 from __future__ import annotations
@@ -79,6 +86,8 @@ MAX_TOKENS = 256             # csrc WA_MAX_TOKENS: windows up to 16 x 16
 MAX_HEAD_DIM = 64            # csrc WA_MAX_HEAD_DIM
 MAX_SMEM = 232448            # csrc WA_MAX_SMEM: a block's shared memory
 MMA_TOKENS = 64              # the tensor-core bodies' (padded) windows
+MMA256_TOKENS = 256          # ... and the 16 x 16 windows of the 256-token body
+MMA256_QUERY_BLOCKS = 4      # its CTAs: 64 query rows each
 MMA_MAX_WINDOWS_PER_CTA = 16
 MMA_BWD_MIN_WINDOWS_PER_CTA = 3   # K6: d(rel) partials under 1/5 of bytes
 LAUNCHES: collections.Counter = collections.Counter()
@@ -396,12 +405,18 @@ def _check_nhwc_fwd(operands, rel_bias, geometry: Geometry) -> None:
 def nhwc_fwd_body(dtype: torch.dtype, hd: int, n: int) -> str:
     """Which K5 body runs for operands of ``dtype`` and windows of ``n``
     tokens: "mma" (bf16 windows of 64 tokens, the tensor-core body of
-    ``csrc/window_attn_nhwc_mma.cu``) or "simt" (fp32, or windows past 64
-    tokens: the body of ``csrc/window_attn_fwd.cu``). A bf16 window of 64
-    tokens needs a head dim that is a multiple of 16 (the mma tiles'
-    depth), and a bf16 window under 64 tokens (not ws % 8 == 0, which the
-    JAX K5 never takes) raises."""
-    if dtype != torch.bfloat16 or n > MMA_TOKENS:
+    ``csrc/window_attn_nhwc_mma.cu``; bf16 windows of 256 tokens at a head
+    dim that is a multiple of 16, ``csrc/window_attn_mma256.cu``) or "simt"
+    (fp32, the other bf16 windows past 64 tokens: the body of
+    ``csrc/window_attn_fwd.cu``). A bf16 window of 64 tokens needs a head
+    dim that is a multiple of 16 (the mma tiles' depth), and a bf16 window
+    under 64 tokens (not ws % 8 == 0, which the JAX K5 never takes)
+    raises."""
+    if dtype != torch.bfloat16:
+        return "simt"
+    if n == MMA256_TOKENS:
+        return "mma" if hd % 16 == 0 else "simt"
+    if n > MMA_TOKENS:
         return "simt"
     if n != MMA_TOKENS or hd % 16:
         raise ValueError(f"bf16 K5 and K6 run on the tensor cores at 8 x 8 "
@@ -411,15 +426,44 @@ def nhwc_fwd_body(dtype: torch.dtype, hd: int, n: int) -> str:
 
 
 def tokens_fwd_body(dtype: torch.dtype, hd: int, n: int) -> str:
-    """Which K4a / K4b body runs: "mma" (bf16 windows of up to 64 tokens,
-    head dim a multiple of 16: the tensor-core body of
-    ``csrc/window_attn_tokens_mma.cu``, windows padded to 64 tokens in
-    shared memory) or "simt" (fp32, windows past 64 tokens or other head
-    dims: the body of ``csrc/window_attn_fwd.cu``, which takes them as the
-    JAX K4 does)."""
-    if dtype == torch.bfloat16 and n <= MMA_TOKENS and hd % 16 == 0:
+    """Which K4a / K4b body runs: "mma" (bf16, head dim a multiple of 16:
+    windows of up to 64 tokens on the tensor-core body of
+    ``csrc/window_attn_tokens_mma.cu``, padded to 64 tokens in shared
+    memory; windows of 256 tokens on ``csrc/window_attn_mma256.cu``) or
+    "simt" (fp32, windows of 65-255 tokens or other head dims: the body of
+    ``csrc/window_attn_fwd.cu``, which takes them as the JAX K4 does)."""
+    if dtype == torch.bfloat16 and hd % 16 == 0 and (
+            n <= MMA_TOKENS or n == MMA256_TOKENS):
         return "mma"
     return "simt"
+
+
+def mma256_plan(total_windows: int, heads: int, sms: int, runs: int = 1
+                ) -> Tuple[int, int]:
+    """(windows per CTA, CTAs) of the 256-token tensor-core body
+    (``csrc/window_attn_mma256.cu``): 4 query-block CTAs per (head, run of
+    windows), runs long enough that the grid is about 8 CTAs per SM (four
+    waves at the 2 CTAs per SM its shared memory allows), at most 16
+    windows, so that each CTA's 64 KB bias slice serves many windows.
+    ``runs`` = nW for K4a, whose runs are one window place across the
+    images (they share the mask), so a run is at most total / nW long; 1
+    for K4b and K5 (runs of consecutive windows)."""
+    per_run = total_windows // runs
+    wpc = -(-total_windows * heads * MMA256_QUERY_BLOCKS // (8 * sms))
+    wpc = max(1, min(MMA_MAX_WINDOWS_PER_CTA, per_run, wpc))
+    return wpc, MMA256_QUERY_BLOCKS * heads * runs * -(-per_run // wpc)
+
+
+def mma256_cta_work(cta: int, heads: int, windows_per_cta: int,
+                    total_windows: int, runs: int = 1
+                    ) -> Tuple[int, int, Tuple[int, ...]]:
+    """(query block, head, windows) of CTA ``cta`` of the 256-token body:
+    the kernel's own arithmetic (``wa_mma256_kernel``), for the tests."""
+    qb, rest = cta % MMA256_QUERY_BLOCKS, cta // MMA256_QUERY_BLOCKS
+    head, grp = rest % heads, rest // heads
+    first = (grp // runs) * windows_per_cta
+    n = min(windows_per_cta, total_windows // runs - first)
+    return qb, head, tuple((first + i) * runs + grp % runs for i in range(n))
 
 
 def tokens_fwd_plan(total_windows: int, heads: int, sms: int
@@ -458,9 +502,11 @@ def nhwc_fwd_cta_work(cta: int, heads: int, windows_per_cta: int,
 
 
 def nhwc_bwd_body(dtype: torch.dtype, hd: int, n: int) -> str:
-    """Which K6 body runs, by K5's rule: "mma" (bf16 windows of 64 tokens,
-    the tensor-core body of ``csrc/window_attn_nhwc_bwd_mma.cu``) or
-    "simt" (fp32, or windows past 64 tokens: ``csrc/window_attn_bwd.cu``)."""
+    """Which K6 body runs: "mma" (bf16 windows of 64 tokens, the
+    tensor-core body of ``csrc/window_attn_nhwc_bwd_mma.cu``, by K5's rule)
+    or "simt" (fp32, or windows past 64 tokens: ``csrc/window_attn_bwd.cu``)."""
+    if n > MMA_TOKENS:
+        return "simt"
     return nhwc_fwd_body(dtype, hd, n)
 
 
@@ -547,6 +593,23 @@ def _tokens_mma_library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
+def _mma256_library() -> ctypes.CDLL:
+    lib = _lib("window_attn_mma256")
+    lib.window_attn_tokens_mma256_mask.argtypes = (
+        [_P] * 6 + [_I] * 6 + [_F, _P])
+    lib.window_attn_tokens_mma256_geo.argtypes = (
+        [_P] * 5 + [_I] * 8 + [_F, _P])
+    lib.window_attn_nhwc_mma256.argtypes = [_P] * 5 + [_I] * 10 + [_F, _P]
+    for fn in (lib.window_attn_tokens_mma256_mask,
+               lib.window_attn_tokens_mma256_geo,
+               lib.window_attn_nhwc_mma256):
+        fn.restype = ctypes.c_int
+    lib.window_attn_mma256_error_string.argtypes = [_I]
+    lib.window_attn_mma256_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -583,10 +646,10 @@ def _run(lib, fn, err_fn, kind: str, dev: torch.device, *args) -> None:
 
 def _launch_tokens(q, k, v, rel_bias, shift_mask, scale: float,
                    num_windows: int, geometry: Optional[Geometry]):
-    """K4b when ``geometry`` is given, else K4a with ``shift_mask``: the
-    tensor-core body or the SIMT body by ``tokens_fwd_body``; both count
-    under k4a / k4b, the tensor-core launches also under k4a_mma /
-    k4b_mma."""
+    """K4b when ``geometry`` is given, else K4a with ``shift_mask``: a
+    tensor-core body (of 64 or of 256 tokens) or the SIMT body by
+    ``tokens_fwd_body``; all count under k4a / k4b, the tensor-core
+    launches also under k4a_mma / k4b_mma."""
     nwt, nh, n, hd = q.shape
     out = torch.empty_like(q)
     kind = "k4a" if geometry is None else "k4b"
@@ -594,21 +657,35 @@ def _launch_tokens(q, k, v, rel_bias, shift_mask, scale: float,
         if any(t.data_ptr() % 16 for t in (q, k, v, out)):
             raise ValueError("the tensor-core K4 copies 16 bytes at a time: "
                              "q, k, v and out must start 16-byte aligned")
-        lib = _tokens_mma_library()
-        wpc, _ = tokens_fwd_plan(nwt, nh, _sm_count(q.device))
+        sms = _sm_count(q.device)
+        if n == MMA256_TOKENS:
+            if any(t.data_ptr() % 8 for t in (rel_bias, shift_mask)
+                   if t is not None):
+                raise ValueError("the 256-token K4 reads rel and the mask "
+                                 "8 bytes at a time: they must start "
+                                 "8-byte aligned")
+            lib = _mma256_library()
+            fn_mask, fn_geo = (lib.window_attn_tokens_mma256_mask,
+                               lib.window_attn_tokens_mma256_geo)
+            err = lib.window_attn_mma256_error_string
+            wpc, _ = mma256_plan(nwt, nh, sms,
+                                 num_windows if geometry is None else 1)
+        else:
+            lib = _tokens_mma_library()
+            fn_mask, fn_geo = (lib.window_attn_tokens_mma_mask,
+                               lib.window_attn_tokens_mma_geo)
+            err = lib.window_attn_tokens_mma_error_string
+            wpc, _ = tokens_fwd_plan(nwt, nh, sms)
         if geometry is not None:
             hp, wp, ws, shift = geometry
-            _run(lib, lib.window_attn_tokens_mma_geo,
-                 lib.window_attn_tokens_mma_error_string, kind, q.device,
-                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 rel_bias.data_ptr(), out.data_ptr(), nwt, nh, hd, hp, wp, ws,
-                 shift, wpc, scale)
+            _run(lib, fn_geo, err, kind, q.device, q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(),
+                 out.data_ptr(), nwt, nh, hd, hp, wp, ws, shift, wpc, scale)
         else:
-            _run(lib, lib.window_attn_tokens_mma_mask,
-                 lib.window_attn_tokens_mma_error_string, kind, q.device,
-                 q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 rel_bias.data_ptr(), shift_mask.data_ptr(), out.data_ptr(),
-                 nwt, num_windows, nh, n, hd, wpc, scale)
+            _run(lib, fn_mask, err, kind, q.device, q.data_ptr(),
+                 k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(),
+                 shift_mask.data_ptr(), out.data_ptr(), nwt, num_windows, nh,
+                 n, hd, wpc, scale)
         LAUNCHES[kind + "_mma"] += 1
         return out
     lib = _fwd_library()
@@ -630,8 +707,9 @@ def _launch_tokens(q, k, v, rel_bias, shift_mask, scale: float,
 
 def _launch_nhwc(operands, rel_bias, scale: float, geometry: Geometry,
                  pad_hw):
-    """K5: the tensor-core body or the SIMT body by ``nhwc_fwd_body``; both
-    count under k5_fused / k5_split."""
+    """K5: a tensor-core body (windows of 8 or of 16) or the SIMT body by
+    ``nhwc_fwd_body``; all count under k5_fused / k5_split, the
+    tensor-core launches also under k5_fused_mma / k5_split_mma."""
     hp, wp, ws, shift = geometry
     fused = len(operands) == 1
     q, k, v = (operands * 3) if fused else operands
@@ -642,14 +720,20 @@ def _launch_nhwc(operands, rel_bias, scale: float, geometry: Geometry,
     out = q.new_empty((b, hp, wp, c))
     kind = "k5_fused" if fused else "k5_split"
     if nhwc_fwd_body(q.dtype, c // nh, ws * ws) == "mma":
-        lib = _mma_library()
-        wpc, _ = nhwc_fwd_plan(b * (hp // ws) * (wp // ws), nh,
-                               _sm_count(q.device))
-        _run(lib, lib.window_attn_nhwc_mma,
-             lib.window_attn_nhwc_mma_error_string, kind, q.device,
-             q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(),
-             out.data_ptr(), int(fused), b, nh, c, hp, wp, shift, ph, pw,
-             wpc, scale)
+        total, sms = b * (hp // ws) * (wp // ws), _sm_count(q.device)
+        if ws * ws == MMA256_TOKENS:
+            lib = _mma256_library()
+            fn, err = (lib.window_attn_nhwc_mma256,
+                       lib.window_attn_mma256_error_string)
+            wpc, _ = mma256_plan(total, nh, sms)
+        else:
+            lib = _mma_library()
+            fn, err = (lib.window_attn_nhwc_mma,
+                       lib.window_attn_nhwc_mma_error_string)
+            wpc, _ = nhwc_fwd_plan(total, nh, sms)
+        _run(lib, fn, err, kind, q.device, q.data_ptr(), k.data_ptr(),
+             v.data_ptr(), rel_bias.data_ptr(), out.data_ptr(), int(fused),
+             b, nh, c, hp, wp, shift, ph, pw, wpc, scale)
         LAUNCHES[kind + "_mma"] += 1
         return out
     lib = _fwd_library()
