@@ -525,8 +525,9 @@ def window_kernel_phase(WA, smi: str) -> dict:
 # K6 at the flagship's training shapes (batch 2, 640 px, head dim 32, shift
 # ws / 2): name -> (Hp = Wp, heads, pad extent or None, split, launches per
 # step, window). Swin pads stage 4's 20 to 24 (padded tokens attend); the
-# window encoder's 20 -> 24 level has pad labels. The last is the window-16
-# encoder's finest level (80, no padding), on the SIMT body.
+# window encoder's 20 -> 24 level has pad labels. The last three are the
+# window-16 encoder's levels (80 with no padding, 40 -> 48 and 20 -> 32 with
+# pad labels), on the 256-token tensor-core body in bf16.
 K6_HD = 32
 K6_SHAPES = {
     "window_attn_k6_fused": (160, 3, None, False, 2, 8),   # Swin stage 1
@@ -537,6 +538,8 @@ K6_SHAPES = {
     "k6 split 40": (40, 8, None, True, 6, 8),
     "k6 split 20->24": (24, 8, 20, True, 6, 8),
     "window_attn_k6_split_ws16": (80, 8, None, True, 6, 16),
+    "k6 split ws16 40->48": (48, 8, 40, True, 6, 16),
+    "k6 split ws16 20->32": (32, 8, 20, True, 6, 16),
 }
 
 
@@ -613,7 +616,7 @@ def _wa_bwd_tol_ok(got, want, dtype) -> tuple:
 
 def window_bwd_kernel_phase(WA, smi: str) -> dict:
     """K6 at the shapes of ``K6_SHAPES``, fp32 (SIMT body) and bf16 (the
-    tensor-core body at windows of 8, the SIMT body at 16), against the
+    tensor-core bodies at windows of 8 and of 16), against the
     plain backward; d(rel) must repeat bit for bit. In bf16: kernel,
     library (autograd of SDPA) and bound times, the plain version's time
     for the kernels line's rows, and the d(rel) partials' bytes against
@@ -662,7 +665,10 @@ def window_bwd_kernel_phase(WA, smi: str) -> dict:
                 else None
             lib_ms = cuda_time_ms(library(), reps=10)
             bound, bound_by = _bound(nbytes, flops, dtype)
-            if body == "mma":
+            if body == "mma" and ws == 16:
+                groups = WA.mma256_bwd_plan(windows, nh, K6_HD, sms)[0][1] \
+                    // WA.MMA256_QUERY_BLOCKS
+            elif body == "mma":
                 groups = WA.nhwc_bwd_plan(windows, nh, sms)[1]
             else:
                 groups = nh * -(-windows // WA.bwd_windows_per_block(
@@ -1025,20 +1031,20 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 def bf16_window_grad_phase(cfg, counts: Counts, build_model, WA,
-                           want: dict) -> None:
-    """The NHWC flagship's backbone + window-encoder gradient at batch 2,
-    640 px, for seeded weights, images and cotangent, three times: in bf16
-    (autocast, as the train step runs) through the kernels (the
-    tensor-core K5 and K6), in bf16 through the plain versions, and in
-    fp32 through the plain versions (TF32 off). For every Swin block's qkv
-    and bias table and every window layer's q/k/v projections and table it
-    prints the relative L2 error of each gradient, and fails unless the
-    kernels move each less than bf16 itself does: ||kernel - plain|| <=
-    ||plain - fp32||. (K6 rounds P and dS to bf16 before its products, as
+                           want: dict, label: str) -> None:
+    """An NHWC flagship config's (``cfg``: window 8, or the window-16
+    encoder) backbone + window-encoder gradient at batch 2, 640 px, for
+    seeded weights, images and cotangent, three times: in bf16 (autocast,
+    as the train step runs) through the kernels (the tensor-core K5 and
+    K6), in bf16 through the plain versions, and in fp32 through the plain
+    versions (TF32 off). For every Swin block's qkv and bias table and
+    every window layer's q/k/v projections and table it prints the
+    relative L2 error of each gradient, and fails unless the kernels move
+    each less than bf16 itself does: ||kernel - plain|| <= ||plain -
+    fp32||. (K6 rounds P and dS to bf16 before its products, as
     FlashAttention-2 does; the plain backward keeps them in fp32.)"""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = flagship_cfg(cfg, "nhwc")
     images = torch.from_numpy(np.random.default_rng(SEED + 11)
                               .standard_normal((TRAIN_BATCH, TRAIN_CANVAS,
                                                 TRAIN_CANVAS, 3))
@@ -1058,7 +1064,7 @@ def bf16_window_grad_phase(cfg, counts: Counts, build_model, WA,
                 model.backbone(images))
         _cotangent_loss([mf] + outs, SEED + 12).backward()
         torch.cuda.synchronize()
-        counts.check(counts.read(), expect, f"bf16 flagship gradient {tag}")
+        counts.check(counts.read(), expect, f"bf16 {label} gradient {tag}")
         grads[tag] = {n: p.grad.float() for n, p in
                       _window_params(model).items()}
         del model, mf, outs
@@ -1067,18 +1073,18 @@ def bf16_window_grad_phase(cfg, counts: Counts, build_model, WA,
         kp = _rel_l2(grads["kernel"][name], grads["plain"][name])
         pf = _rel_l2(grads["plain"][name], ref)
         kf = _rel_l2(grads["kernel"][name], ref)
-        print(f"bf16 flagship NHWC gradient, {name}: relative L2 error "
+        print(f"bf16 {label} gradient, {name}: relative L2 error "
               f"kernel vs plain {kp:.3e}; against fp32: kernel {kf:.3e}, "
               f"plain {pf:.3e}", flush=True)
         worst = max(worst, kp / pf)
         if not kp <= pf:
             bad[name] = (kp, pf)
-    print(f"bf16 flagship NHWC gradient: the tensor-core K5 / K6 move every "
+    print(f"bf16 {label} gradient: the tensor-core K5 / K6 move every "
           f"one of {len(grads['fp32'])} weight gradients less than bf16 "
           f"rounding does (kernel vs plain <= plain vs fp32): {not bad}; "
           f"largest ratio {worst:.3f}", flush=True)
     if bad:
-        raise AssertionError(f"bf16 flagship gradient: the kernels move "
+        raise AssertionError(f"bf16 {label} gradient: the kernels move "
                              f"these gradients more than bf16 does: {bad}")
 
 
@@ -1282,15 +1288,15 @@ KERNEL_ROWS = {   # kernels line name -> (source, the TPU function it replaces)
                              "window_attention.py:696"),
     "window_attn_k6_split": ("window_attn_nhwc_bwd_mma.cu",
                              "window_attention.py:696"),
-    # windows of 16 x 16: the forwards on the 256-token tensor-core body
+    # windows of 16 x 16 on the 256-token tensor-core bodies
     "window_attn_k4a_ws16": ("window_attn_mma256.cu",
                              "window_attention.py:162"),
     "window_attn_k5_split_ws16": ("window_attn_mma256.cu",
                                   "window_attention.py:531"),
-    # ... the backward, and windows of 12 x 12, on the SIMT bodies
-    "window_attn_k4b_ws12": ("window_attn_fwd.cu", "window_attention.py:220"),
-    "window_attn_k6_split_ws16": ("window_attn_bwd.cu",
+    "window_attn_k6_split_ws16": ("window_attn_mma256_bwd.cu",
                                   "window_attention.py:696"),
+    # ... and windows of 12 x 12 on the SIMT body
+    "window_attn_k4b_ws12": ("window_attn_fwd.cu", "window_attention.py:220"),
 }
 
 
@@ -1352,6 +1358,7 @@ def main() -> int:
     # bf16 K6 (training) runs the tensor-core body every time
     k6_mma = dict(k6, window_attn_k6_fused_mma=blocks,
                   window_attn_k6_split_mma=enc * levels)
+    k56_mma = _add(k5_mma, k6_mma)     # a train step's window kernels
     k4 = {"window_attn_k4b": blocks, "window_attn_k4a": enc * levels}
     # bf16 K4 (windows of 8 and 7) runs the tensor-core body every time
     k4_mma = dict(k4, window_attn_k4b_mma=blocks,
@@ -1360,8 +1367,8 @@ def main() -> int:
     default_pallas = cfg.clone()
     default_pallas.TPU.USE_PALLAS_WINDOW_ATTN = True
     # windows past 64 tokens: the window-16 encoder (r5 trained it) under
-    # NHWC, every K5 (8 x 8 fused, 16 x 16 split) on a tensor-core body and
-    # K6 split on the SIMT body; Swin window 12 (Swin-B/L's) with the
+    # NHWC, every K5 and K6 (8 x 8 fused, 16 x 16 split) on a tensor-core
+    # body; Swin window 12 (Swin-B/L's) with the
     # window-16 encoder under USE_PALLAS_WINDOW_ATTN, K4b at 144 tokens on
     # the SIMT body and K4a at 256 on the tensor cores
     nhwc16 = nhwc.clone()
@@ -1369,11 +1376,7 @@ def main() -> int:
     pallas12 = pallas.clone()
     pallas12.MODEL.SWIN.WINDOW_SIZE = 12
     pallas12.MODEL.SEM_SEG_HEAD.ENCODER_WINDOW_SIZE = 16
-    k56_16 = k5_mma
     k4_12 = dict(k4, window_attn_k4a_mma=enc * levels)
-    k6_16 = {"window_attn_k6_fused": blocks,
-             "window_attn_k6_fused_mma": blocks,
-             "window_attn_k6_split": enc * levels}
     ws16 = {"window_attn_k5_split": "window_attn_k5_split_ws16",
             "window_attn_k6_split": "window_attn_k6_split_ws16"}
     # the sampling backward at head dim 64: 4 heads over 256 channels
@@ -1393,7 +1396,7 @@ def main() -> int:
                      4, "flagship, WINDOW_ATTN_NHWC"), {}),
         (serve_phase(pallas, counts, build_model, make_inference_fn, k4_mma,
                      3, "flagship, USE_PALLAS_WINDOW_ATTN"), {}),
-        (serve_phase(nhwc16, counts, build_model, make_inference_fn, k56_16,
+        (serve_phase(nhwc16, counts, build_model, make_inference_fn, k5_mma,
                      2, "flagship, ENCODER_WINDOW_SIZE 16, WINDOW_ATTN_NHWC"),
          ws16),
         (serve_phase(pallas12, counts, build_model, make_inference_fn, k4_12,
@@ -1414,10 +1417,13 @@ def main() -> int:
     bf16_window_parity_phase(nhwc, counts, build_model, normalize_image, WA,
                              k5_mma, "window-8 flagship")
     bf16_window_parity_phase(nhwc16, counts, build_model, normalize_image,
-                             WA, k56_16, "window-16 encoder flagship")
+                             WA, k5_mma, "window-16 encoder flagship")
     grad_check_phase(cfg, counts, build_model, K)
     window_grad_check_phase(cfg, counts, build_model, WA)
-    bf16_window_grad_phase(cfg, counts, build_model, WA, _add(k5_mma, k6_mma))
+    bf16_window_grad_phase(nhwc, counts, build_model, WA, k56_mma,
+                           "window-8 flagship")
+    bf16_window_grad_phase(nhwc16, counts, build_model, WA, k56_mma,
+                           "window-16 encoder flagship")
     trained = [
         (train_phase(cfg, counts, build_model, engine, smi, sampling,
                      "default", 4, _default_grads, cli_settings=True), {}),
@@ -1425,16 +1431,16 @@ def main() -> int:
                      "default, DEFORM_NUM_HEADS 4 (head dim 64)", 1,
                      _default_grads), {}),
         (train_phase(nhwc, counts, build_model, engine, smi,
-                     _add(k5_mma, k6_mma), "flagship, WINDOW_ATTN_NHWC", 6,
+                     k56_mma, "flagship, WINDOW_ATTN_NHWC", 6,
                      _window_params), {}),
         (train_phase(nhwc16, counts, build_model, engine, smi,
-                     _add(k56_16, k6_16), "flagship, ENCODER_WINDOW_SIZE 16, "
+                     k56_mma, "flagship, ENCODER_WINDOW_SIZE 16, "
                      "WINDOW_ATTN_NHWC", 1, _encoder_window_params), ws16),
         (train_phase(pallas, counts, build_model, engine, smi, k4_mma,
                      "flagship, USE_PALLAS_WINDOW_ATTN", 3, _window_params),
          {})]
     overfit_phase(cfg, counts, build_model, engine, sampling, "default")
-    overfit_phase(nhwc, counts, build_model, engine, _add(k5_mma, k6_mma),
+    overfit_phase(nhwc, counts, build_model, engine, k56_mma,
                   "flagship, WINDOW_ATTN_NHWC")
 
     launches = {}

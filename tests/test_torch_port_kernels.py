@@ -260,13 +260,16 @@ WA_NHWC_CASES = {             # (B, h, w, nH, hd, ws, shift, split)
     "split-ws16-hd48": (1, 16, 16, 2, 48, 16, 8, True),
     "split-ws16-hd64-pad-shift": (1, 20, 20, 2, 64, 16, 8, True),
     "split-ws16-hd24-shift": (1, 16, 16, 2, 24, 16, 8, True),
+    "fused-ws16-hd64": (2, 32, 16, 2, 64, 16, 0, False),
 }
 # the tensor-core K6's cases (windows of 8 x 8)
 WA_NHWC_MMA_CASES = [c for c, v in WA_NHWC_CASES.items() if v[5] == 8]
-# K6's cases: the fp32 SIMT K6 holds a 256-token window in shared memory
-# up to head dim 50 only (``simt_bwd_max_head_dim``)
-WA_NHWC_BWD_CASES = [c for c, v in WA_NHWC_CASES.items()
-                     if v[5] == 8 or v[4] <= 50]
+# K6's cases, (case, dtype): every case in bf16; in fp32 the SIMT K6 holds
+# a 256-token window in shared memory up to head dim 50 only
+# (``simt_bwd_max_head_dim``)
+WA_NHWC_BWD_CASES = [(c, d) for c, v in WA_NHWC_CASES.items()
+                     for d in ("float32", "bfloat16")
+                     if d == "bfloat16" or v[5] == 8 or v[4] <= 50]
 # the 256-token body's cases (windows of 16 x 16, head dim % 16 == 0)
 WA_NHWC_MMA256_CASES = [c for c, v in WA_NHWC_CASES.items()
                         if v[5] == 16 and v[4] % 16 == 0]
@@ -379,12 +382,11 @@ def test_nhwc_bwd_plan_covers_every_window_head_once(case):
 
 @pytest.mark.parametrize("dtype,hd,n,body", NHWC_BODY_RULE)
 def test_nhwc_bwd_body_rule(dtype, hd, n, body):
-    """bf16 K6 takes the tensor-core body at windows of 64 tokens (head dim
-    a multiple of 16; else it raises, as it does under 64 tokens), fp32
-    and windows past 64 tokens the SIMT body."""
+    """bf16 K6 takes K5's rule: a tensor-core body at windows of 64 tokens
+    (head dim a multiple of 16; else it raises, as it does under 64
+    tokens) and at windows of 256 tokens with such a head dim (else the
+    SIMT body); fp32 and the other windows past 64 tokens the SIMT body."""
     dtype = getattr(torch, dtype)
-    if n > WA.MMA_TOKENS:
-        body = "simt"
     if body is None:
         with pytest.raises(ValueError):
             WA.nhwc_bwd_body(dtype, hd, n)
@@ -475,6 +477,58 @@ def test_mma256_plan_covers_every_window_head_query_block_once(case):
         for w in wins:
             seen[w, head, qb] += 1
     assert (seen == 1).all()
+
+
+# The 256-token K6 at the window-16 encoder's three levels in training
+# (batch 2, 640 px, 8 heads x 32: 80, 40 -> 48 and 20 -> 32) and the card
+# tests' ws-16 cases: (windows, heads, head dim).
+MMA256_BWD_PLAN_CASES = {
+    "k6 80 training": (2 * 25, 8, 32), "k6 48 training": (2 * 9, 8, 32),
+    "k6 32 training": (2 * 4, 8, 32),
+    **{c: (v[0] * -(-v[1] // 16) * -(-v[2] // 16), v[3], v[4])
+       for c, v in WA_NHWC_CASES.items() if c in WA_NHWC_MMA256_CASES}}
+
+
+@pytest.mark.parametrize("case", list(MMA256_BWD_PLAN_CASES))
+def test_mma256_bwd_plan_covers_every_window_head_block_once(case):
+    """The 256-token K6's two grids (``mma256_bwd_plan``, and the kernels'
+    own CTA -> work arithmetic): kernel A covers every (window, head, query
+    block) exactly once and kernel B every (window, head, key block); the
+    blocks of one (head, run) on neighbouring CTAs. Kernel A's d(rel)
+    partials (one nH x 256 x 256 fp32 per run of windows) stay under a
+    fifth of the call's bytes (q, k, v, g, dq, dk, dv in bf16), which at
+    the finest level allows 4 runs (128 CTAs, about one wave); at 48 two
+    2 MB partials would be past a fifth of the 16.5 MB call and at 32 a
+    single one is past a fifth of 7.3 MB, so there the plan takes one
+    run."""
+    windows, heads, hd = MMA256_BWD_PLAN_CASES[case]
+    blocks = WA.MMA256_QUERY_BLOCKS
+    (wpc_a, ctas_a), (wpc_b, ctas_b) = WA.mma256_bwd_plan(windows, heads, hd,
+                                                          H100_SMS)
+    for wpc, ctas in ((wpc_a, ctas_a), (wpc_b, ctas_b)):
+        assert 1 <= wpc <= windows
+        assert ctas == blocks * heads * -(-windows // wpc)
+        seen = np.zeros((windows, heads, blocks), np.int64)
+        for cta in range(ctas):
+            blk, head, wins = WA.mma256_bwd_cta_work(cta, heads, wpc, windows)
+            assert 1 <= len(wins) <= wpc and blk == cta % blocks
+            assert head == (cta // blocks) % heads
+            assert wins == tuple(range(wins[0], wins[0] + len(wins)))
+            for w in wins:
+                seen[w, head, blk] += 1
+        assert (seen == 1).all()
+    groups = ctas_a // (blocks * heads)
+    n = WA.MMA256_TOKENS
+    partial_bytes = groups * heads * n * n * 4
+    call_bytes = 7 * windows * heads * n * hd * 2
+    assert partial_bytes < call_bytes / 5 or groups == 1
+    assert ctas_a <= H100_SMS or groups == 1
+    if case == "k6 80 training":
+        assert groups == 4 and ctas_a == 128
+    if case == "k6 48 training":
+        assert groups == 1 and 2 * heads * n * n * 4 > call_bytes / 5
+    if case == "k6 32 training":
+        assert groups == 1 and heads * n * n * 4 > call_bytes / 5
 
 
 @pytest.mark.parametrize("n,hd,elem,fits", [
@@ -661,12 +715,15 @@ def _k6_body_emulation(operands, rel, g, scale, geometry, pad_hw, bits):
 
 
 @pytest.mark.parametrize("bits,passes", [(7, True), (4, False)])
-@pytest.mark.parametrize("case", WA_NHWC_MMA_CASES)
+@pytest.mark.parametrize("case", WA_NHWC_MMA_CASES + WA_NHWC_MMA256_CASES)
 def test_k6_bf16_bound_holds_the_body_rounding(case, bits, passes):
-    """The bf16 bound of ``wa_bwd_within`` is the tensor-core body's
+    """The bf16 bound of ``wa_bwd_within`` is the tensor-core bodies'
     rounding and not looser: the plain K6 with P and dS rounded to bf16 (7
-    mantissa bits) stays inside it at every case, and with 4 mantissa bits
-    leaves it."""
+    mantissa bits) stays inside it at every case of windows of 8 and of 16,
+    and with 4 mantissa bits leaves it. (Unlike the forward's p at 256
+    tokens, whose rounding errors average out over the row, dQ, dK and dV
+    carry dS's rounding: at 16 x 16 windows 5 mantissa bits already leave
+    the bound at every case but head dim 48, a CPU run of this emulation.)"""
     ops, rel, geo, pad, g, hd = _wa_nhwc_inputs(case, torch.bfloat16,
                                                 device="cpu")
     pad = WA._pad_or_none(pad, geo)
@@ -809,12 +866,12 @@ def test_mma256_bf16_bound_holds_the_body_rounding(case, bits, passes):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", WA_NHWC_BWD_CASES)
+@pytest.mark.parametrize("case,dtype", WA_NHWC_BWD_CASES)
 def test_window_bwd_kernel_matches_plain_on_cuda(case, dtype):
     """K6 for both layouts, and d(rel) bit for bit on a second run: bf16
-    8 x 8 windows on the tensor-core body, fp32 and 16 x 16 windows on the
-    SIMT body."""
+    8 x 8 windows and 16 x 16 windows at head dims that are multiples of 16
+    on the tensor-core bodies, fp32 and a bf16 head dim of 24 on the SIMT
+    body."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     dtype = getattr(torch, dtype)
@@ -835,7 +892,8 @@ def test_window_bwd_kernel_matches_plain_on_cuda(case, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", ["fused-shift", "split-pad-shift"])
+@pytest.mark.parametrize("case", ["fused-shift", "split-pad-shift",
+                                  "split-ws16-pad-shift"])
 def test_window_nhwc_autograd_takes_both_kernels_on_cuda(case, dtype):
     """A CUDA map that requires grad runs K5 forward and K6 backward, also
     for a strided fp32 cotangent (cast to the operands' dtype first)."""

@@ -1,6 +1,7 @@
-// The last step of both window-attention backward kernels (the SIMT body of
-// window_attn_bwd.cu and the tensor-core body of
-// window_attn_nhwc_bwd_mma.cu): d(rel) without atomics. Each block or CTA
+// The last step of the window-attention backward kernels (the SIMT body of
+// window_attn_bwd.cu and the tensor-core bodies of
+// window_attn_nhwc_bwd_mma.cu and window_attn_mma256_bwd.cu): d(rel)
+// without atomics. Each block or CTA
 // writes its run of windows' d(rel) sum as one partial (nH x N x N floats
 // per group of blocks); drel[c] = sum over groups of partial[group][c] in
 // a fixed order, so d(rel) repeats bit for bit.

@@ -1,8 +1,9 @@
 // Building blocks of the tensor-core window-attention kernels (Hopper,
 // sm_90a): the forward K5 (window_attn_nhwc_mma.cu), its backward K6
 // (window_attn_nhwc_bwd_mma.cu), the token-major forward K4
-// (window_attn_tokens_mma.cu) and the 256-token forwards of K4 and K5
-// (window_attn_mma256.cu). PTX wrappers for 16-byte cp.async, ldmatrix,
+// (window_attn_tokens_mma.cu), the 256-token forwards of K4 and K5
+// (window_attn_mma256.cu) and the 256-token K6 (window_attn_mma256_bwd.cu).
+// PTX wrappers for 16-byte cp.async, ldmatrix,
 // stmatrix and mma.sync m16n8k16 (bf16 in, fp32 accumulate), the quad
 // reductions over one mma fragment row, the NHWC and token-major layout
 // policies, the forward's three steps over a staged 64-token window

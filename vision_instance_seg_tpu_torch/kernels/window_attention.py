@@ -31,22 +31,25 @@ a rule on dtype and shape, chosen before the launch; it is not a fallback:
   ``csrc/window_attn_mma256.cu``; fp32 and the other bf16 windows of 256
   tokens run the SIMT body of ``window_attn_fwd.cu``.
 - K6 ``_wa_nhwc_bwd_impl``, the recompute backward of K5 (d(operands) and
-  d(rel) summed over every window), by ``nhwc_bwd_body``: bf16 windows of
-  64 tokens take the tensor-core body of ``csrc/window_attn_nhwc_bwd_mma.cu``
-  (P and dS rounded to bf16 before the products dV, dQ, dK, as
-  FlashAttention-2 and SDPA do), fp32 and windows of 256 tokens the SIMT
-  body of ``csrc/window_attn_bwd.cu``. Both sum d(rel) in order, without
-  atomics.
+  d(rel) summed over every window), by ``nhwc_bwd_body`` (K5's rule): bf16
+  windows of 64 tokens take the tensor-core body of
+  ``csrc/window_attn_nhwc_bwd_mma.cu``, bf16 windows of 256 tokens with a
+  head dim that is a multiple of 16 the two tensor-core kernels of
+  ``csrc/window_attn_mma256_bwd.cu`` (row statistics, dQ and d(rel) by
+  query block; dK and dV by key block); P and dS are rounded to bf16
+  before the products dV, dQ, dK, as FlashAttention-2 and SDPA do. fp32
+  and the other bf16 windows of 256 tokens run the SIMT body of
+  ``csrc/window_attn_bwd.cu``. All sum d(rel) in order, without atomics.
 
 The fp32 SIMT bodies are held bit-equal (forward) or within 1e-4 (K6) to
 the plain versions. The envelope on the card: K4a and K4b take any window
 up to 256 tokens (16 x 16; JAX's K4 takes any), K5 and K6 any ws % 8 == 0
 up to 256 tokens (ws 8 and 16), every head dim up to 64; the tensor-core
-forwards take bf16 windows of up to 64 tokens (K5: exactly 64) and of 256
-tokens at head dims 16, 32, 48 and 64; the SIMT K6 holds a window in
-shared memory and so takes, at 256 tokens, fp32 head dims up to 50
-(``simt_bwd_max_head_dim``). Past the envelope the wrappers raise and name
-the limit.
+forwards and K6 take bf16 windows of up to 64 tokens (K5 and K6: exactly
+64) and of 256 tokens at head dims 16, 32, 48 and 64; the SIMT K6 holds a
+window in shared memory and so takes, at 256 tokens, fp32 head dims up to
+50 (``simt_bwd_max_head_dim``). Past the envelope the wrappers raise and
+name the limit.
 
 Every version computes the logits and the softmax in fp32:
 ``softmax(q * scale . k^T + rel + mask)``, then casts p to v's dtype and
@@ -502,11 +505,12 @@ def nhwc_fwd_cta_work(cta: int, heads: int, windows_per_cta: int,
 
 
 def nhwc_bwd_body(dtype: torch.dtype, hd: int, n: int) -> str:
-    """Which K6 body runs: "mma" (bf16 windows of 64 tokens, the
-    tensor-core body of ``csrc/window_attn_nhwc_bwd_mma.cu``, by K5's rule)
-    or "simt" (fp32, or windows past 64 tokens: ``csrc/window_attn_bwd.cu``)."""
-    if n > MMA_TOKENS:
-        return "simt"
+    """Which K6 body runs, by K5's rule (``nhwc_fwd_body``): "mma" (bf16
+    windows of 64 tokens, the tensor-core body of
+    ``csrc/window_attn_nhwc_bwd_mma.cu``; bf16 windows of 256 tokens at a
+    head dim that is a multiple of 16, ``csrc/window_attn_mma256_bwd.cu``)
+    or "simt" (fp32, the other bf16 windows past 64 tokens:
+    ``csrc/window_attn_bwd.cu``)."""
     return nhwc_fwd_body(dtype, hd, n)
 
 
@@ -543,6 +547,40 @@ def nhwc_bwd_cta_work(cta: int, heads: int, windows_per_cta: int,
     (``wa_nhwc_bwd_mma_kernel``: K5's grid), for the tests; the CTA writes
     its d(rel) partial to row ``cta`` of the partials."""
     return nhwc_fwd_cta_work(cta, heads, windows_per_cta, total_windows)
+
+
+def mma256_bwd_plan(total_windows: int, heads: int, hd: int, sms: int
+                    ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """((windows per CTA, CTAs) of kernel A, (windows per CTA, CTAs) of
+    kernel B) of the 256-token tensor-core K6
+    (``csrc/window_attn_mma256_bwd.cu``), both on the grid of
+    ``mma256_bwd_cta_work``. Each run of kernel A writes one d(rel) partial
+    of nH x 256 x 256 fp32 (2 MB at 8 heads) that the in-order sum reads
+    back, so A takes as few, long runs as keep the partials under a fifth
+    of the call's bytes (q, k, v, g, dq, dk, dv in bf16), at most one wave
+    at the 1 CTA per SM its shared memory allows, and at least one run.
+    Kernel B writes no partial: runs that make about one wave at 2 CTAs per
+    SM."""
+    blocks, n = MMA256_QUERY_BLOCKS, MMA256_TOKENS
+    call = 7 * total_windows * heads * n * hd * 2
+    partial = heads * n * n * 4
+    groups = max(1, min(sms // (blocks * heads), total_windows))
+    while groups > 1 and 5 * groups * partial >= call:
+        groups -= 1
+    wpc_a = -(-total_windows // groups)
+    wpc_b = max(1, -(-total_windows * heads * blocks // (2 * sms)))
+    return ((wpc_a, blocks * heads * -(-total_windows // wpc_a)),
+            (wpc_b, blocks * heads * -(-total_windows // wpc_b)))
+
+
+def mma256_bwd_cta_work(cta: int, heads: int, windows_per_cta: int,
+                        total_windows: int
+                        ) -> Tuple[int, int, Tuple[int, ...]]:
+    """(block, head, windows) of CTA ``cta`` of either kernel of the
+    256-token K6: the kernels' own arithmetic, for the tests. The block is
+    kernel A's query block or kernel B's key block; kernel A's CTA writes
+    those 64 rows of head ``head`` of partial ``cta // (4 heads)``."""
+    return mma256_cta_work(cta, heads, windows_per_cta, total_windows)
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -631,6 +669,17 @@ def _bwd_mma_library() -> ctypes.CDLL:
     lib.window_attn_nhwc_bwd_mma.restype = ctypes.c_int
     lib.window_attn_nhwc_bwd_mma_error_string.argtypes = [_I]
     lib.window_attn_nhwc_bwd_mma_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_mma256_library() -> ctypes.CDLL:
+    lib = _lib("window_attn_mma256_bwd")
+    lib.window_attn_nhwc_mma256_bwd.argtypes = (
+        [_P] * 12 + [_I] * 11 + [_F, _P])
+    lib.window_attn_nhwc_mma256_bwd.restype = ctypes.c_int
+    lib.window_attn_mma256_bwd_error_string.argtypes = [_I]
+    lib.window_attn_mma256_bwd_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -756,8 +805,9 @@ def bwd_windows_per_block(total_windows: int, heads: int, n: int, hd: int,
 
 def _launch_nhwc_bwd(operands, rel_bias, g, scale: float, geometry: Geometry,
                      pad_hw):
-    """K6: the tensor-core body or the SIMT body by ``nhwc_bwd_body``; both
-    count under k6_fused / k6_split."""
+    """K6: a tensor-core body (windows of 8 or of 16) or the SIMT body by
+    ``nhwc_bwd_body``; all count under k6_fused / k6_split, the
+    tensor-core launches also under k6_fused_mma / k6_split_mma."""
     hp, wp, ws, shift = geometry
     fused = len(operands) == 1
     q, k, v = (operands * 3) if fused else operands
@@ -780,6 +830,25 @@ def _launch_nhwc_bwd(operands, rel_bias, g, scale: float, geometry: Geometry,
             raise ValueError("the tensor-core K6 copies 16 bytes at a time: "
                              "operands, cotangent and gradients must start "
                              "16-byte aligned")
+        if n == MMA256_TOKENS:
+            lib = _bwd_mma256_library()
+            (wpc_a, ctas_a), (wpc_b, _) = mma256_bwd_plan(
+                total, nh, c // nh, _sm_count(q.device))
+            dev = q.device
+            lse, rsum = (torch.empty((total, nh, n), dtype=torch.float32,
+                                     device=dev) for _ in range(2))
+            partial = torch.empty(
+                (ctas_a // MMA256_QUERY_BLOCKS, n, n), dtype=torch.float32,
+                device=dev)
+            _run(lib, lib.window_attn_nhwc_mma256_bwd,
+                 lib.window_attn_mma256_bwd_error_string, kind, dev,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+                 rel_bias.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), lse.data_ptr(), rsum.data_ptr(),
+                 partial.data_ptr(), drel.data_ptr(), int(fused), b, nh, c,
+                 hp, wp, shift, ph, pw, wpc_a, wpc_b, scale)
+            LAUNCHES[kind + "_mma"] += 1
+            return (*grads, drel)
         lib = _bwd_mma_library()
         wpc, ctas = nhwc_bwd_plan(total, nh, _sm_count(q.device))
         partial = torch.empty((ctas, n, n), dtype=torch.float32,
