@@ -7,13 +7,13 @@ Builds every CUDA kernel of the port from the sources in this checkout (one
 PyTorch version at the shapes its path gives it: K1 (sampling forward) at
 the serving shapes, the sampling backward (the TPU's K2, K3a and K3b) at the
 training shapes with 8 heads of 32 channels and at head dims 64 and 24, and
-the window kernels: K4b at Swin stages 1-4 with windows of 8, at stage 1
-with windows of 7 and 12, K4a at the window encoder's three levels and at
+the window kernels: K4b at Swin stages 1-4 with windows of 8 and of 12, at
+stage 1 with windows of 7, K4a at the window encoder's three levels and at
 window 16, K5 at all seven shapes of the flagship's serving path (fused at
 Swin stages 1-4, split at the window encoder's three levels) and split at
 window 16, K6 at all seven shapes of the flagship's training path and split
-at window 16. bf16 windows of up to 64 tokens run the tensor-core bodies,
-fp32 and larger windows the SIMT bodies. Then it drives the port's main
+at window 16. bf16 windows of up to 64 tokens, of 144 (K4) and of 256 run
+the tensor-core bodies, fp32 the SIMT bodies. Then it drives the port's main
 paths with weights drawn from a fixed seed, through ``build_model`` ->
 ``make_inference_fn`` and ``create_train_state`` -> ``make_train_step``:
 
@@ -31,11 +31,14 @@ paths with weights drawn from a fixed seed, through ``build_model`` ->
   640 px under both flags (30 K5 and 30 K6 per step under NHWC); with the
   window-16 encoder under NHWC (serving and a train step: K5 and K6 split
   at 256 tokens), and with Swin window 12 and the window-16 encoder under
-  ``USE_PALLAS_WINDOW_ATTN`` (serving: K4b at 144 tokens, K4a at 256);
+  ``USE_PALLAS_WINDOW_ATTN`` (serving: K4b at 144 tokens, K4a at 256, both
+  on the tensor cores);
 - checks: fp32 forwards through the kernels against the same forwards on
-  the plain versions (TF32 off), a bf16 flagship NHWC backbone + pixel
-  decoder forward through the tensor-core K5 against the plain versions
-  (relative L2 error), an fp32 pixel-decoder gradient through the
+  the plain versions (TF32 off), bf16 backbone + pixel decoder forwards
+  through the tensor-core bodies against the plain versions (relative L2
+  error: the NHWC flagship and window-16 encoder through K5, Swin window
+  12 with the window-16 encoder through K4b and K4a), an fp32
+  pixel-decoder gradient through the
   sampling kernels, an fp32 backbone + window-encoder gradient through
   K5 / K6 against the plain versions and the same gradient in bf16
   through the tensor-core K5 / K6 (relative L2 error, against the plain
@@ -44,8 +47,8 @@ paths with weights drawn from a fixed seed, through ``build_model`` ->
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path was launched as many
-times as its layers say; in bf16, every K4 launch at windows of 8 and 7 and
-every K5 and K6 launch at windows of 8 must have run the tensor-core body.
+times as its layers say; in bf16, every K4 launch (windows of 7, 8, 12 and
+16) and every K5 and K6 launch must have run a tensor-core body.
 
 Prints the card's name and power limit, the build time, each phase's
 numbers, a ``{"kernels": [...]}`` line, and as its last line
@@ -439,11 +442,15 @@ def _wa_forward_specs(WA, gen):
     for name, hp, h in (("k5 split 50->56", 56, 50),
                         ("k5 split 25->32", 32, 25)):
         nhwc(name, BATCH, hp, hp, 8, 32, 8, 4, (h, h), True, row=False)
-    # windows past 64 tokens: Swin window 12 (Swin-B/L's) at stage 1
-    # (200 -> 204) on the SIMT body, and window 16 on the encoder's finest
-    # level (100 -> 112, shift 8) through K4a and K5 split on the 256-token
-    # tensor-core body
+    # windows past 64 tokens on the 256-token tensor-core body: Swin
+    # window 12 (Swin-B/L's; 144 tokens, padded to 192) at stages 1-4
+    # (200 -> 204, 100 -> 108, 50 -> 60, 25 -> 36), and window 16 on the
+    # encoder's finest level (100 -> 112, shift 8) through K4a and K5 split
     tokens("window_attn_k4b_ws12", BATCH, 204, 204, 3, 32, 12, 6, None)
+    for name, hp, nh in (("k4b ws12 stage 2", 108, 6),
+                         ("k4b ws12 stage 3", 60, 12),
+                         ("k4b ws12 stage 4", 36, 24)):
+        tokens(name, BATCH, hp, hp, nh, 32, 12, 6, None, row=False)
     tokens("window_attn_k4a_ws16", BATCH, 112, 112, 8, 32, 16, 8, 100)
     nhwc("window_attn_k5_split_ws16", BATCH, 112, 112, 8, 32, 16, 8,
          (100, 100), True)
@@ -1089,12 +1096,14 @@ def bf16_window_grad_phase(cfg, counts: Counts, build_model, WA,
 
 
 def bf16_window_parity_phase(cfg, counts: Counts, build_model,
-                             normalize_image, WA, want: dict,
+                             normalize_image, plain: dict, want: dict,
                              label: str) -> None:
-    """A flagship NHWC config's (``cfg``: window 8, or the window-16
-    encoder) backbone and pixel decoder at batch 8, 800x800,
+    """A window config's (``cfg``: the NHWC flagship at window 8, or with
+    the window-16 encoder; Swin window 12 with the window-16 encoder under
+    the Pallas flag) backbone and pixel decoder at batch 8, 800x800,
     same seeded weights and images, three times: in bf16 through the
-    kernels (the tensor-core K5), in bf16 through the plain versions, and
+    kernels (the tensor-core K5, or K4b and K4a), in bf16 through the plain
+    versions (``plain``: build_model's arguments that hand them in), and
     in fp32 through the plain versions (TF32 off). For res2-res5,
     mask_features and the multi-scale outputs it prints the relative L2
     error ||a - b|| / ||b|| of kernel against plain and of each bf16 run
@@ -1107,8 +1116,6 @@ def bf16_window_parity_phase(cfg, counts: Counts, build_model,
     torch.backends.cudnn.allow_tf32 = False
     images = torch.from_numpy(np.random.default_rng(SEED + 9).integers(
         0, 256, (BATCH, CANVAS, CANVAS, 3), dtype=np.uint8)).cuda()
-    plain = {"window_attn_fn": (WA.window_attention_nhwc_torch,
-                                WA.window_attention_nhwc_split_torch)}
     outs = {}
     for tag, kw, dtype, expect in (
             ("kernel", {}, torch.bfloat16, want),
@@ -1131,12 +1138,12 @@ def bf16_window_parity_phase(cfg, counts: Counts, build_model,
         kp = _rel_l2(outs["kernel"][key], outs["plain"][key])
         kf = _rel_l2(outs["kernel"][key], ref)
         pf = _rel_l2(outs["plain"][key], ref)
-        print(f"bf16 {label} NHWC forward, {key}: relative L2 error kernel "
+        print(f"bf16 {label} forward, {key}: relative L2 error kernel "
               f"vs plain {kp:.3e}; against fp32: kernel {kf:.3e}, plain "
               f"{pf:.3e}", flush=True)
         if not kp <= pf:
             bad[key] = (kp, pf)
-    print(f"bf16 {label} NHWC forward: the tensor-core K5 moves every "
+    print(f"bf16 {label} forward: the tensor-core kernels move every "
           "output less than bf16 rounding does (kernel vs plain <= plain vs "
           f"fp32): {not bad}", flush=True)
     if bad:
@@ -1295,8 +1302,9 @@ KERNEL_ROWS = {   # kernels line name -> (source, the TPU function it replaces)
                                   "window_attention.py:531"),
     "window_attn_k6_split_ws16": ("window_attn_mma256_bwd.cu",
                                   "window_attention.py:696"),
-    # ... and windows of 12 x 12 on the SIMT body
-    "window_attn_k4b_ws12": ("window_attn_fwd.cu", "window_attention.py:220"),
+    # ... and windows of 12 x 12, padded to 192 tokens
+    "window_attn_k4b_ws12": ("window_attn_mma256.cu",
+                             "window_attention.py:220"),
 }
 
 
@@ -1336,6 +1344,9 @@ def main() -> int:
         for line in lib.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {lib.name}: {line.strip()}")
+    occ = WA._mma256_library().window_attn_mma256_occupancy
+    print("window_attn_mma256.cu CTAs per SM at head dim 32: K4a ws 16 "
+          f"{occ(0)}, K5 ws 16 {occ(1)}, K4b ws 12 {occ(2)}", flush=True)
     counts = Counts(K, WA)
 
     numbers = {"msdeform_attn_fwd": kernel_phase(K, smi),
@@ -1368,15 +1379,14 @@ def main() -> int:
     default_pallas.TPU.USE_PALLAS_WINDOW_ATTN = True
     # windows past 64 tokens: the window-16 encoder (r5 trained it) under
     # NHWC, every K5 and K6 (8 x 8 fused, 16 x 16 split) on a tensor-core
-    # body; Swin window 12 (Swin-B/L's) with the
-    # window-16 encoder under USE_PALLAS_WINDOW_ATTN, K4b at 144 tokens on
-    # the SIMT body and K4a at 256 on the tensor cores
+    # body; Swin window 12 (Swin-B/L's) with the window-16 encoder under
+    # USE_PALLAS_WINDOW_ATTN, K4b at 144 tokens and K4a at 256, every
+    # launch on the tensor cores (k4_mma)
     nhwc16 = nhwc.clone()
     nhwc16.MODEL.SEM_SEG_HEAD.ENCODER_WINDOW_SIZE = 16
     pallas12 = pallas.clone()
     pallas12.MODEL.SWIN.WINDOW_SIZE = 12
     pallas12.MODEL.SEM_SEG_HEAD.ENCODER_WINDOW_SIZE = 16
-    k4_12 = dict(k4, window_attn_k4a_mma=enc * levels)
     ws16 = {"window_attn_k5_split": "window_attn_k5_split_ws16",
             "window_attn_k6_split": "window_attn_k6_split_ws16"}
     # the sampling backward at head dim 64: 4 heads over 256 channels
@@ -1399,7 +1409,7 @@ def main() -> int:
         (serve_phase(nhwc16, counts, build_model, make_inference_fn, k5_mma,
                      2, "flagship, ENCODER_WINDOW_SIZE 16, WINDOW_ATTN_NHWC"),
          ws16),
-        (serve_phase(pallas12, counts, build_model, make_inference_fn, k4_12,
+        (serve_phase(pallas12, counts, build_model, make_inference_fn, k4_mma,
                      2, "flagship, SWIN.WINDOW_SIZE 12, ENCODER_WINDOW_SIZE "
                      "16, USE_PALLAS_WINDOW_ATTN"),
          {"window_attn_k4b": "window_attn_k4b_ws12",
@@ -1414,10 +1424,17 @@ def main() -> int:
     fp32_parity_phase(pallas, counts, build_model, normalize_image,
                       {"window_attn_fn": WA.window_attention_torch}, k4,
                       "flagship USE_PALLAS_WINDOW_ATTN")
-    bf16_window_parity_phase(nhwc, counts, build_model, normalize_image, WA,
-                             k5_mma, "window-8 flagship")
+    plain_nhwc = {"window_attn_fn": (WA.window_attention_nhwc_torch,
+                                     WA.window_attention_nhwc_split_torch)}
+    bf16_window_parity_phase(nhwc, counts, build_model, normalize_image,
+                             plain_nhwc, k5_mma, "window-8 flagship NHWC")
     bf16_window_parity_phase(nhwc16, counts, build_model, normalize_image,
-                             WA, k5_mma, "window-16 encoder flagship")
+                             plain_nhwc, k5_mma,
+                             "window-16 encoder flagship NHWC")
+    bf16_window_parity_phase(pallas12, counts, build_model, normalize_image,
+                             {"window_attn_fn": WA.window_attention_torch},
+                             k4_mma, "Swin window 12, window-16 encoder, "
+                             "USE_PALLAS_WINDOW_ATTN")
     grad_check_phase(cfg, counts, build_model, K)
     window_grad_check_phase(cfg, counts, build_model, WA)
     bf16_window_grad_phase(nhwc, counts, build_model, WA, k56_mma,

@@ -1,8 +1,8 @@
 """Time K4a and K4b (token-major window attention, bf16) at the shapes of the
 window flagship's serving path under ``TPU.USE_PALLAS_WINDOW_ATTN`` (batch
-8, 800x800), K4b at the default model's window 7 and K4a at the window-16
-encoder's three levels, for one or more checkouts of the PyTorch port, on
-one NVIDIA GPU.
+8, 800x800), K4b at the default model's window 7 and at Swin window 12's
+four stages, and K4a at the window-16 encoder's three levels, for one or
+more checkouts of the PyTorch port, on one NVIDIA GPU.
 
     python3 scripts/bench_k4.py [ROOT ...]
 
@@ -30,14 +30,19 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # name -> (Hp = Wp, heads, window, shift, pad extent or None for K4b);
 # head dim 32. K4b: Swin stages 1-4 (800 / 4 = 200, then 100 -> 104,
-# 50 -> 56, 25 -> 32) and stage 1 at window 7 (200 -> 203); K4a: the window
-# encoder's three levels with their pad + shift masks, at window 8 and at
-# window 16 (100 -> 112, 50 -> 64, 25 -> 32, shift 8).
+# 50 -> 56, 25 -> 32), stage 1 at window 7 (200 -> 203) and stages 1-4 at
+# window 12 (Swin-B/L's: 200 -> 204, 100 -> 108, 50 -> 60, 25 -> 36, shift
+# 6); K4a: the window encoder's three levels with their pad + shift masks,
+# at window 8 and at window 16 (100 -> 112, 50 -> 64, 25 -> 32, shift 8).
 SHAPES = {"k4b 200 (stage 1)": (200, 3, 8, 4, None),
           "k4b 104 (stage 2)": (104, 6, 8, 4, None),
           "k4b 56 (stage 3)": (56, 12, 8, 4, None),
           "k4b 32 (stage 4)": (32, 24, 8, 4, None),
           "k4b ws7 203 (stage 1)": (203, 3, 7, 3, None),
+          "k4b ws12 204 (stage 1)": (204, 3, 12, 6, None),
+          "k4b ws12 108 (stage 2)": (108, 6, 12, 6, None),
+          "k4b ws12 60 (stage 3)": (60, 12, 12, 6, None),
+          "k4b ws12 36 (stage 4)": (36, 24, 12, 6, None),
           "k4a 100->104": (104, 8, 8, 4, 100),
           "k4a 50->56": (56, 8, 8, 4, 50),
           "k4a 25->32": (32, 8, 8, 4, 25),

@@ -1,8 +1,9 @@
 """Time versions of the 256-token window-attention body
 (``kernels/csrc/window_attn_mma256.cu``) against each other on one NVIDIA
 GPU: K5 split at the window-16 encoder's finest level (8, 112, 112, 256),
-shifted by 8 with pad labels and unshifted, and K4a at (392, 8, 256, 32)
-with its pad + shift mask, head dim 32.
+shifted by 8 with pad labels and unshifted, K4a at (392, 8, 256, 32) with
+its pad + shift mask, and K4b at Swin window 12's stage 1 (2312, 3, 144,
+32; 204 x 204, shift 6), head dim 32.
 
     python3 scripts/bench_mma256_variants.py VARIANT [VARIANT ...]
 
@@ -80,6 +81,10 @@ def main(argv) -> int:
     tq = [torch.randn(B * NW, NH, 256, HD, device="cuda",
                       generator=gen).bfloat16() for _ in range(3)]
     mask = WA.window_mask(112, 112, 16, 8, (100, 100), "cuda")
+    t12 = [torch.randn(B * 17 * 17, 3, 144, HD, device="cuda",
+                       generator=gen).bfloat16() for _ in range(3)]
+    rel12 = torch.randn(3, 144, 144, device="cuda", generator=gen)
+    geo12 = (204, 204, 12, 6)
 
     def k5(shift):
         return WA.window_attention_nhwc_split(
@@ -88,6 +93,12 @@ def main(argv) -> int:
     def k4():
         return WA.window_attention(*tq, rel, mask, HD ** -0.5, NW)
 
+    def k4b12():
+        return WA.window_attention(*t12, rel12, None, HD ** -0.5, 17 * 17,
+                                   geometry=geo12)
+
+    k4b12_plain = WA.window_attention_torch(*t12, rel12, None, HD ** -0.5,
+                                            17 * 17, geo12)
     k5_plain = WA.window_attention_nhwc_split_torch(
         *ops, rel, HD ** -0.5, (112, 112, 16, 8), pad_hw=(100, 100))
     k4_plain = WA.window_attention_torch(*tq, rel, mask, HD ** -0.5, NW)
@@ -98,10 +109,12 @@ def main(argv) -> int:
         t5 = cs.cuda_time_ms(lambda: k5(8), reps=50)
         t5u = cs.cuda_time_ms(lambda: k5(0), reps=50)
         t4 = cs.cuda_time_ms(k4, reps=50)
+        e4b = (k4b12().float() - k4b12_plain.float()).abs().max().item()
+        t4b = cs.cuda_time_ms(k4b12, reps=50)
         print(f"{name}: K5 split ws16 112 shift 8 {t5:.4f} ms (err "
               f"{e5:.3e}), shift 0 {t5u:.4f} ms; K4a ws16 112 {t4:.4f} ms "
-              f"(err {e4:.3e}) on {torch.cuda.get_device_name(0)}",
-              flush=True)
+              f"(err {e4:.3e}); K4b ws12 204 {t4b:.4f} ms (err {e4b:.3e}) "
+              f"on {torch.cuda.get_device_name(0)}", flush=True)
     return 0
 
 

@@ -230,10 +230,17 @@ WA_TOKEN_CASES = {            # (B, nW, nH, ws, hd, shift, geometry kernel)
     "geo-ws8": (1, 6, 3, 8, 32, 0, True),
     "geo-ws8-hd64-shift": (1, 6, 2, 8, 64, 4, True),
     "mask-ws7-hd48-shift": (1, 6, 2, 7, 48, 3, False),
-    # ... the SIMT body at 65-255 tokens or at a head dim of 8
+    # ... the SIMT body at a head dim of 8
     "geo-ws4-hd8": (2, 25, 2, 4, 8, 2, True),
+    # ... bf16 windows of 12 x 12 (Swin-B/L's) the 256-token tensor-core
+    # body, padded to 192 tokens (3 query blocks), shifted and not, head
+    # dims 16-64, K4b and K4a; fp32 the SIMT body
     "geo-ws12-shift": (1, 6, 3, 12, 32, 6, True),
+    "geo-ws12": (2, 4, 3, 12, 32, 0, True),
+    "geo-ws12-hd16-shift": (1, 9, 2, 12, 16, 6, True),
+    "geo-ws12-hd64-shift": (2, 4, 2, 12, 64, 6, True),
     "mask-ws12": (1, 6, 2, 12, 32, 0, False),
+    "mask-ws12-hd48-shift": (2, 6, 2, 12, 48, 6, False),
     # ... and bf16 windows of 16 x 16 the 256-token tensor-core body
     "mask-ws16-shift": (1, 6, 2, 16, 32, 8, False),
     "geo-ws16-hd64-shift": (1, 4, 2, 16, 64, 8, True),
@@ -273,7 +280,9 @@ WA_NHWC_BWD_CASES = [(c, d) for c, v in WA_NHWC_CASES.items()
 # the 256-token body's cases (windows of 16 x 16, head dim % 16 == 0)
 WA_NHWC_MMA256_CASES = [c for c, v in WA_NHWC_CASES.items()
                         if v[5] == 16 and v[4] % 16 == 0]
-WA_TOKEN_MMA256_CASES = [c for c, v in WA_TOKEN_CASES.items() if v[3] == 16]
+# ... and of K4 at windows of 16 x 16 and 12 x 12
+WA_TOKEN_MMA256_CASES = [c for c, v in WA_TOKEN_CASES.items()
+                         if v[3] in (12, 16) and v[4] % 16 == 0]
 # K4 at the flagship's serving shapes under USE_PALLAS_WINDOW_ATTN (batch
 # 8, 800 px): K4b at Swin stages 1-4 (window 8; stage 1 also window 7),
 # K4a at the window encoder's three levels: (windows, heads)
@@ -395,15 +404,16 @@ def test_nhwc_bwd_body_rule(dtype, hd, n, body):
 
 
 @pytest.mark.parametrize("hd", [8, 16, 32, 64])
-@pytest.mark.parametrize("n", [16, 49, 64, 144, 256])
+@pytest.mark.parametrize("n", [16, 49, 64, 100, 144, 196, 256])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_tokens_fwd_body_rule(dtype, n, hd):
-    """K4a / K4b: bf16 windows of up to 64 tokens or of 256 tokens with a
-    head dim that is a multiple of 16 run a tensor-core body; everything
-    else the SIMT body, which takes any head dim and window up to 256
-    tokens, as the JAX K4 takes them (so nothing within the envelope
-    raises)."""
-    want = "mma" if (dtype == "bfloat16" and (n <= 64 or n == 256)
+    """K4a / K4b: bf16 windows of up to 64 tokens, of 144 tokens (12 x 12)
+    or of 256 tokens with a head dim that is a multiple of 16 run a
+    tensor-core body; everything else (windows of 10 x 10 or 14 x 14, which
+    no config runs, and fp32) the SIMT body, which takes any head dim and
+    window up to 256 tokens, as the JAX K4 takes them (so nothing within
+    the envelope raises)."""
+    want = "mma" if (dtype == "bfloat16" and (n <= 64 or n in (144, 256))
                      and hd % 16 == 0) else "simt"
     assert WA.tokens_fwd_body(getattr(torch, dtype), hd, n) == want
 
@@ -437,18 +447,29 @@ def test_tokens_fwd_plan_covers_every_window_head_once(case):
 
 # The 256-token body at the window-16 encoder's levels (100 -> 112,
 # 50 -> 64, 25 -> 32) in serving (batch 8) and training (batch 2, 640 px:
-# 80, 40 -> 48, 20 -> 32): (windows, heads, runs); K5 and K4b take runs of
-# consecutive windows (runs 1), K4a one window place across the images
-# (runs = nW), and the card tests' ws-16 cases.
+# 80, 40 -> 48, 20 -> 32), K4b at Swin window 12's four stages in serving
+# (200 -> 204, 100 -> 108, 50 -> 60, 25 -> 36, heads 3-24): (windows,
+# heads, runs, tokens); K5 and K4b take runs of consecutive windows (runs
+# 1), K4a one window place across the images (runs = nW); and the card
+# tests' ws-16 and ws-12 cases.
 MMA256_PLAN_CASES = {
-    "k5 112 serving": (8 * 49, 8, 1), "k5 64 serving": (8 * 16, 8, 1),
-    "k5 32 serving": (8 * 4, 8, 1), "k5 80 training": (2 * 25, 8, 1),
-    "k5 48 training": (2 * 9, 8, 1), "k5 32 training": (2 * 4, 8, 1),
-    "k4a 112 serving": (8 * 49, 8, 49), "k4a 64 serving": (8 * 16, 8, 16),
-    "k4a 32 serving": (8 * 4, 8, 4), "k4a 80 training": (2 * 25, 8, 25),
-    **{c: (v[0] * v[1], v[2], 1 if v[6] else v[1])
+    "k5 112 serving": (8 * 49, 8, 1, 256),
+    "k5 64 serving": (8 * 16, 8, 1, 256),
+    "k5 32 serving": (8 * 4, 8, 1, 256),
+    "k5 80 training": (2 * 25, 8, 1, 256),
+    "k5 48 training": (2 * 9, 8, 1, 256),
+    "k5 32 training": (2 * 4, 8, 1, 256),
+    "k4a 112 serving": (8 * 49, 8, 49, 256),
+    "k4a 64 serving": (8 * 16, 8, 16, 256),
+    "k4a 32 serving": (8 * 4, 8, 4, 256),
+    "k4a 80 training": (2 * 25, 8, 25, 256),
+    "k4b ws12 204 serving": (8 * 17 ** 2, 3, 1, 144),
+    "k4b ws12 108 serving": (8 * 9 ** 2, 6, 1, 144),
+    "k4b ws12 60 serving": (8 * 5 ** 2, 12, 1, 144),
+    "k4b ws12 36 serving": (8 * 3 ** 2, 24, 1, 144),
+    **{c: (v[0] * v[1], v[2], 1 if v[6] else v[1], v[3] ** 2)
        for c, v in WA_TOKEN_CASES.items() if c in WA_TOKEN_MMA256_CASES},
-    **{c: (v[0] * -(-v[1] // 16) * -(-v[2] // 16), v[3], 1)
+    **{c: (v[0] * -(-v[1] // 16) * -(-v[2] // 16), v[3], 1, 256)
        for c, v in WA_NHWC_CASES.items() if c in WA_NHWC_MMA256_CASES}}
 
 
@@ -456,24 +477,27 @@ MMA256_PLAN_CASES = {
 def test_mma256_plan_covers_every_window_head_query_block_once(case):
     """The 256-token body's grid (``mma256_plan``, and the kernel's own
     CTA -> work arithmetic): every (window, head, query block) exactly
-    once; the query blocks of one (head, run) on neighbouring CTAs,
-    then the heads; a K4a run holds one window place only (its CTAs fold
-    that place's mask into their bias once); at least two waves of CTAs on
-    an H100 (1 CTA per SM) where there are enough window-heads."""
-    windows, heads, runs = MMA256_PLAN_CASES[case]
-    wpc, ctas = WA.mma256_plan(windows, heads, H100_SMS, runs)
+    once, with 4 query blocks at 256 tokens and 3 at 144 (padded to 192);
+    the query blocks of one (head, run) on neighbouring CTAs, then the
+    heads; a K4a run holds one window place only (its CTAs fold that
+    place's mask into their bias once); at least two waves of CTAs on an
+    H100 (1 CTA per SM) where there are enough window-heads."""
+    windows, heads, runs, n = MMA256_PLAN_CASES[case]
+    wpc, ctas = WA.mma256_plan(windows, heads, H100_SMS, runs, n)
     assert 1 <= wpc <= min(WA.MMA_MAX_WINDOWS_PER_CTA, windows // runs)
-    blocks = WA.MMA256_QUERY_BLOCKS
+    blocks = WA.mma256_query_blocks(n)
+    assert blocks == {144: 3, 256: 4}[n]
     assert ctas >= min(2 * H100_SMS, windows * heads * blocks)
     seen = np.zeros((windows, heads, blocks), np.int64)
     for cta in range(ctas):
-        qb, head, wins = WA.mma256_cta_work(cta, heads, wpc, windows, runs)
+        qb, head, wins = WA.mma256_cta_work(cta, heads, wpc, windows, runs,
+                                            n)
         assert 1 <= len(wins) <= wpc and qb == cta % blocks
         assert head == (cta // blocks) % heads
         assert len({w % runs for w in wins}) == 1
         if qb:
             assert WA.mma256_cta_work(cta - 1, heads, wpc, windows,
-                                      runs)[1:] == (head, wins)
+                                      runs, n)[1:] == (head, wins)
         for w in wins:
             seen[w, head, qb] += 1
     assert (seen == 1).all()
@@ -618,6 +642,40 @@ def test_window_token_kernel_matches_plain_on_cuda(case, dtype):
     assert got.dtype == want.dtype == dtype
     assert (got.float() - want.float()).abs().max().item() <= _wa_tol(v,
                                                                        dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [c for c, v in WA_TOKEN_CASES.items()
+                                  if v[3] == 12 and v[4] % 16 == 0])
+def test_window_token_kernel_reads_nothing_past_the_tensor_on_cuda(case):
+    """bf16 K4 at 12 x 12 windows (the 256-token body, padded to 192
+    tokens) with q, k and v at the start of buffers whose tail is NaN: the
+    padded rows of the last window-head's blocks lie past the tensor's end,
+    so the copies must zero-fill them from a clamped address (a stale or
+    NaN V row would make 0 * NaN = NaN); the output stays finite and within
+    the bf16 bound of the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    q, k, v, rel, mask, nw, geo = _wa_token_inputs(case, torch.bfloat16)
+    n, hd = q.shape[2:]
+    tail = (WA.mma256_query_blocks(n) * 64 - n) * hd
+
+    def at_end(t):
+        buf = torch.full((t.numel() + tail,), float("nan"), device="cuda",
+                         dtype=t.dtype)
+        buf[:t.numel()] = t.reshape(-1)
+        return buf[:t.numel()].view(t.shape)
+
+    kind = "k4b" if geo else "k4a"
+    mma = WA.LAUNCHES[kind + "_mma"]
+    got = WA.window_attention(*map(at_end, (q, k, v)), rel, mask,
+                              hd ** -0.5, nw, geometry=geo)
+    torch.cuda.synchronize()
+    assert WA.LAUNCHES[kind + "_mma"] == mma + 1
+    want = WA.window_attention_torch(q, k, v, rel, mask, hd ** -0.5, nw, geo)
+    assert bool(torch.isfinite(got).all())
+    assert (got.float() - want.float()).abs().max().item() <= _wa_tol(
+        v, torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -791,11 +849,15 @@ def _online_body_emulation(q, k, v, bias, scale, bits):
     """The 256-token tensor-core body's arithmetic in torch on windowed
     (..., N, hd) operands and a broadcastable (..., N, N) bias (-inf where
     excluded): fp32 logits (q . k scaled afterwards) plus the bias; key
-    blocks of 64 with an fp32 running max and sum; p = exp(s - running
-    max), unnormalized, rounded to ``bits`` mantissa bits per block before
-    p . v; the sum from fp32 p; o rescaled when the max moves and scaled
-    by 1 / sum at the end (fp32 result)."""
+    blocks of 64 (the last one padded, at N = 144, with zero keys and
+    values whose logits are -inf) with an fp32 running max and sum; p =
+    exp(s - running max), unnormalized, rounded to ``bits`` mantissa bits
+    per block before p . v; the sum from fp32 p; o rescaled when the max
+    moves and scaled by 1 / sum at the end (fp32 result)."""
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale + bias
+    pad = -s.shape[-1] % WA.MMA_TOKENS
+    s = torch.nn.functional.pad(s, (0, pad), value=float("-inf"))
+    v = torch.nn.functional.pad(v.float(), (0, 0, 0, pad))
     m = torch.full(s.shape[:-1], float("-inf"))
     total, o = torch.zeros(s.shape[:-1]), 0.0
     for kb in range(0, s.shape[-1], WA.MMA_TOKENS):
@@ -822,7 +884,8 @@ def test_mma256_bf16_bound_holds_the_body_rounding(case, bits, passes):
     256-token body's rounding (``_online_body_emulation``: unnormalized p
     in bf16 per 64-key block, fp32 running max and sum, o scaled by 1 /
     sum at the end) at its K4a-mask, K4b-label and K5-label cases at
-    ws 16, and a body that rounded p to 2 mantissa bits would leave it."""
+    ws 16 and its K4a and K4b cases at ws 12 (the last key block padded),
+    and a body that rounded p to 2 mantissa bits would leave it."""
     if case in WA_TOKEN_CASES:
         b, nw, nh, ws, hd, shift, geo = WA_TOKEN_CASES[case]
         n = ws * ws
@@ -832,7 +895,8 @@ def test_mma256_bf16_bound_holds_the_body_rounding(case, bits, passes):
             for _ in range(3))
         rel = torch.from_numpy(rng.standard_normal((nh, n, n)).astype(
             np.float32))
-        geometry = (2 * ws, nw // 2 * ws, ws, shift)
+        wh = {4: 2, 6: 2, 9: 3}[nw]
+        geometry = (wh * ws, nw // wh * ws, ws, shift)
         mask = WA.window_mask(*geometry, None, torch.device("cpu"))
         geometry = geometry if geo else None
         want = WA.window_attention_torch(q, k, v, rel, mask, hd ** -0.5, nw,

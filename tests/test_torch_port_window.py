@@ -353,10 +353,12 @@ SWIN_FLAGS = {
 
 @pytest.mark.parametrize("ws,shift,flag", [
     (8, 0, "plain"), (8, 4, "plain"), (8, 0, "nhwc"), (8, 4, "nhwc"),
-    (8, 4, "pallas"), (7, 3, "pallas"), (7, 3, "nhwc")])
+    (8, 4, "pallas"), (7, 3, "pallas"), (7, 3, "nhwc"), (12, 6, "pallas"),
+    (12, 0, "pallas")])
 def test_swin_block_matches_jax(ws, shift, flag):
     """SwinBlock with each kernel flag (ws 7 under NHWC: the plain path, the
-    JAX model's ws % 8 rule) on a map that pads (20 -> 24 / 21) and shifts."""
+    JAX model's ws % 8 rule) on a map that pads (20 -> 24 / 21) and shifts;
+    at window 12 (Swin-B/L's) the JAX K4b pads its 144 tokens to 192."""
     jfn, tfn = SWIN_FLAGS[flag]
     kw = dict(dim=32, num_heads=2, window_size=ws, shift_size=shift)
     jblock = jswin.SwinBlock(attn_fn=jfn, **kw)

@@ -1,20 +1,37 @@
-// Window attention forward over windows of 16 x 16 (N = 256 tokens) on the
-// tensor cores (Hopper, sm_90a), bf16 only: the 256-token calls of
+// Window attention forward over windows of 16 x 16 (N = 256 tokens) and
+// 12 x 12 (N = 144) on the tensor cores (Hopper, sm_90a), bf16 only: the
+// 144- and 256-token calls of
 // vision_instance_seg_tpu/kernels/window_attention.py
 //   K4a _fused_window_attention_impl (:162)  token-major, additive (nW, N, N)
 //                                            mask (the window-16 encoder
-//                                            under USE_PALLAS_WINDOW_ATTN);
+//                                            under USE_PALLAS_WINDOW_ATTN;
+//                                            windows of 16 or 12);
 //   K4b _fused_wa_geo_impl (:220)            token-major, region labels of
-//                                            (Hp, Wp, 16, shift);
+//                                            (Hp, Wp, ws, shift), ws 16 or
+//                                            12 (Swin window 12: Swin-B/L's);
 //   K5  _wa_nhwc_impl (:531)                 NHWC maps, fused or split, with
 //                                            region and pad labels (the
 //                                            window-16 encoder under
-//                                            WINDOW_ATTN_NHWC).
+//                                            WINDOW_ATTN_NHWC), ws 16 only.
 // Per (window, head): out = softmax(q . k^T * scale + rel[h] + mask) . v,
 // head dim HD a multiple of 16 up to 64. fp32 calls and other head dims
 // take the SIMT body of window_attn_fwd.cu; windows of up to 64 tokens the
 // 64-token bodies (window_attn_tokens_mma.cu, window_attn_nhwc_mma.cu)
 // (kernels/window_attention.py `tokens_fwd_body`, `nhwc_fwd_body`).
+//
+// Windows of 12 x 12 are padded to kPad = 192 tokens in shared memory only,
+// as the TPU kernel pads N to a multiple of 64: 3 query blocks and 3 key
+// blocks. Rows at token >= N are zero-filled by the copies (their source
+// address clamped to the block's first row, so that nothing past the
+// window, or past the tensor, is read); the bias slice holds -inf in
+// columns >= N and 0 in rows >= N, so that padded keys get p = 0 and
+// padded query rows stay finite; their labels are -1, which no token
+// takes; their rows are not stored. Warps 1-3 of the last query block
+// hold only padding at N = 144 and run their products all the same:
+// skipping them measured no faster (scripts/bench_mma256_variants.py at
+// Swin stage 1, H100 80GB HBM3, 700 W), since the copies set the pace.
+// Every padding branch is `if constexpr (kN != kPad)`: the 256-token
+// instantiations are unchanged.
 //
 // Bound. K5 split at the window-16 encoder's finest level in serving
 // ((8, 112, 112, 256) x 3, 8 heads x 32): q, k, v 154.1 MB, out 51.4 MB,
@@ -67,7 +84,10 @@
 //   only in windows that hold more than one.
 // Shared memory per CTA: bias 67,584 B, labels 512 B, a stage 3 x 64 rows
 // of HD * 2 + 16 bytes: HD 16 95,744 B, 32 114,176 B (2 CTAs per SM), 48
-// 111,104 B (2), 64 123,392 B (1 CTA per SM).
+// 111,104 B (2), 64 123,392 B (1 CTA per SM). At 12 x 12 the bias rows are
+// kPad + 8 = 200 floats (51,200 B; 200, like 264, is 8 mod 32, so the
+// float2 reads stay conflict-free) and the labels 384 B: HD 32 97,664 B (2
+// CTAs per SM).
 //
 // Numerics against the plain version: the logit is (q . k + bias / scale)
 // * scale (the plain version: q * scale . k + bias), the fp32 sum taken in
@@ -87,34 +107,42 @@
 namespace {
 
 constexpr int kThreads = 128;          // 4 warps x 16 query rows
-constexpr int kN = 256;                // tokens per window (16 x 16)
-constexpr int kWs = 16;
 constexpr int kBlock = 64;             // query rows per CTA; keys per step
-constexpr int kBlocks = kN / kBlock;   // query blocks, key blocks
-constexpr int kBiasPitch = kN + 8;     // floats per bias row
 constexpr float kLog2e = 1.4426950408889634f;
 
 enum Mask256 { MASK_TENSOR = 0, MASK_LABELS = 1 };
 
-template <int HD>
+// windows of WS x WS (16 or 12), padded to kPad tokens in shared memory
+template <int WS>
+struct Win {
+  static_assert(WS == 16 || WS == 12, "windows of 16 x 16 or 12 x 12");
+  static constexpr int kN = WS * WS;                       // tokens
+  static constexpr int kPad = (kN + kBlock - 1) / kBlock * kBlock;
+  static constexpr int kBlocks = kPad / kBlock;  // query blocks, key blocks
+  static constexpr int kBiasPitch = kPad + 8;    // floats per bias row
+};
+
+template <int WS, int HD>
 struct Tile {
   static constexpr int kChunks = HD / 8;               // 16-byte pieces per row
   static constexpr int kPitch = HD * 2 + 16;           // staged row, bytes
   static constexpr int kTileBytes = kBlock * kPitch;   // 64 rows
   static constexpr int kStageBytes = 3 * kTileBytes;   // Q, K block, V block
   static constexpr int kStages = HD <= 32 ? 3 : 2;
-  static constexpr int kBiasBytes = kBlock * kBiasPitch * 4;
-  static constexpr int kSmem = kBiasBytes + kStages * kStageBytes + 2 * kN;
+  static constexpr int kBiasBytes = kBlock * Win<WS>::kBiasPitch * 4;
+  static constexpr int kSmem =
+      kBiasBytes + kStages * kStageBytes + 2 * Win<WS>::kPad;
 };
 
-// Grid: 4 * nH * runs * ceil(total_windows / runs / windows_per_cta) CTAs.
-// CTA x takes query block x % 4, head (x / 4) % nH and, with
-// grp = x / (4 nH), the windows (first + i) * runs + grp % runs for i <
-// windows_per_cta, first = (grp / runs) * windows_per_cta, cut at
-// total_windows / runs. runs = nW for K4a (one window place across the
-// images), 1 otherwise (consecutive windows). kernels/window_attention.py
-// `mma256_cta_work` repeats this for the CPU tests.
-template <int HD, class Layout, int MASK>
+// Grid: kBlocks * nH * runs * ceil(total_windows / runs / windows_per_cta)
+// CTAs (kBlocks = 4 at 16 x 16, 3 at 12 x 12). CTA x takes query block
+// x % kBlocks, head (x / kBlocks) % nH and, with grp = x / (kBlocks nH),
+// the windows (first + i) * runs + grp % runs for i < windows_per_cta,
+// first = (grp / runs) * windows_per_cta, cut at total_windows / runs.
+// runs = nW for K4a (one window place across the images), 1 otherwise
+// (consecutive windows). kernels/window_attention.py `mma256_cta_work`
+// repeats this for the CPU tests.
+template <int WS, int HD, class Layout, int MASK>
 __global__ void __launch_bounds__(kThreads, 2)
     wa_mma256_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -123,7 +151,10 @@ __global__ void __launch_bounds__(kThreads, 2)
                      const float* __restrict__ mask,
                      __nv_bfloat16* __restrict__ out, WaGeometry g, Layout lay,
                      int total_windows, int runs, int windows_per_cta) {
-  using T = Tile<HD>;
+  using W = Win<WS>;
+  using T = Tile<WS, HD>;
+  constexpr int kN = W::kN, kBlocks = W::kBlocks;
+  constexpr bool kPadded = W::kN != W::kPad;
   extern __shared__ __align__(16) unsigned char smem[];
   float* bias = reinterpret_cast<float*>(smem);
   unsigned char* stages = smem + T::kBiasBytes;
@@ -148,16 +179,20 @@ __global__ void __launch_bounds__(kThreads, 2)
   // t0 + t of a block starting at token t0 (a multiple of 16) sits
   // lay.in(g, 0, 0, t) elements past token t0 in both layouts.
   int64_t goff[HD / 16];
-  int soff[HD / 16];
+  int soff[HD / 16], trow[HD / 16];
 #pragma unroll
   for (int it = 0; it < HD / 16; ++it) {
     const int c = tid + it * kThreads;
     const int t = c / T::kChunks, ch = c % T::kChunks;
     goff[it] = lay.in(g, 0, 0, t) + ch * 8;
     soff[it] = t * T::kPitch + ch * 16;
+    trow[it] = t;
   }
-  // step s = (window s / 4, key block s % 4) into stage s % kStages: the
-  // key block's K and V rows and, in a window's first step, its Q rows
+  // step s = (window s / kBlocks, key block s % kBlocks) into stage
+  // s % kStages: the key block's K and V rows and, in a window's first
+  // step, its Q rows; rows at token >= kN are zeros, copied from nowhere
+  // (the source clamped to the block's first row, a real one: past the
+  // window's last row lie the next head's rows, or the tensor's end)
   int64_t load_org = 0;
   auto load = [&](int s) {
     const int kb = s % kBlocks;
@@ -167,12 +202,19 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int part = 0; part < 3; ++part) {
       if (part == 0 && kb != 0) continue;
+      const int t0 = part == 0 ? q0 : kb * kBlock;
       const __nv_bfloat16* src =
-          (part == 0 ? q : part == 1 ? k : v) +
-          lay.in(g, load_org, h, part == 0 ? q0 : kb * kBlock);
+          (part == 0 ? q : part == 1 ? k : v) + lay.in(g, load_org, h, t0);
 #pragma unroll
-      for (int it = 0; it < HD / 16; ++it)
-        cp_async16(st + part * T::kTileBytes + soff[it], src + goff[it]);
+      for (int it = 0; it < HD / 16; ++it) {
+        const uint32_t dst = st + part * T::kTileBytes + soff[it];
+        if constexpr (kPadded) {
+          const bool real = t0 + trow[it] < kN;
+          cp_async16_zfill(dst, real ? src + goff[it] : src, real ? 16 : 0);
+        } else {
+          cp_async16(dst, src + goff[it]);
+        }
+      }
     }
   };
 #pragma unroll
@@ -183,7 +225,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   // the bias slice, rows q0 .. q0 + 63, in units of the raw q . k sum:
   // (rel[h] (+ mask[place])) / scale; the logit in base 2 is
-  // (q . k + bias) * sl
+  // (q . k + bias) * sl. rel and the mask have rows of kN floats; padded
+  // columns get -inf (p = 0), padded rows 0 (finite, never stored).
   {
     const float* rh = rel + ((int64_t)h * kN + q0) * kN;
     const float* mw = MASK == MASK_TENSOR
@@ -191,16 +234,21 @@ __global__ void __launch_bounds__(kThreads, 2)
                           : nullptr;
     const float inv = 1.f / g.scale;
 #pragma unroll 16
-    for (int c = tid; c < kBlock * kN / 2; c += kThreads) {
-      const int r = c / (kN / 2), c2 = (c - r * (kN / 2)) * 2;
-      float2 b = *reinterpret_cast<const float2*>(rh + r * kN + c2);
-      if (MASK == MASK_TENSOR) {
-        const float2 m = *reinterpret_cast<const float2*>(mw + r * kN + c2);
-        b.x += m.x;
-        b.y += m.y;
+    for (int c = tid; c < kBlock * W::kPad / 2; c += kThreads) {
+      const int r = c / (W::kPad / 2), c2 = (c - r * (W::kPad / 2)) * 2;
+      float2 b;
+      if (!kPadded || (q0 + r < kN && c2 < kN)) {
+        b = *reinterpret_cast<const float2*>(rh + r * kN + c2);
+        if (MASK == MASK_TENSOR) {
+          const float2 m = *reinterpret_cast<const float2*>(mw + r * kN + c2);
+          b.x += m.x;
+          b.y += m.y;
+        }
+        b = make_float2(b.x * inv, b.y * inv);
+      } else {
+        b.x = b.y = q0 + r < kN ? -INFINITY : 0.f;
       }
-      *reinterpret_cast<float2*>(bias + r * kBiasPitch + c2) =
-          make_float2(b.x * inv, b.y * inv);
+      *reinterpret_cast<float2*>(bias + r * W::kBiasPitch + c2) = b;
     }
   }
 
@@ -211,19 +259,23 @@ __global__ void __launch_bounds__(kThreads, 2)
   int uniform = 1, la = 0, lb = 0;
   for (int s = 0; s < nsteps; ++s) {
     const int i = s / kBlocks, kb = s % kBlocks;
-    signed char* lw = labs + (i & 1) * kN;
+    signed char* lw = labs + (i & 1) * W::kPad;
     int same = 1;
     if (MASK == MASK_LABELS && kb == 0) {
       // window i's labels (window i - 1's, in the other half, may still be
-      // read by a warp that is one step behind)
-      const int wl = window(i) % g.nW, ww = g.Wp / kWs;
-      const int y0 = (wl / ww) * kWs, x0 = (wl % ww) * kWs;
+      // read by a warp that is one step behind); -1 at padded tokens, and
+      // `same` over the real ones
+      const int wl = window(i) % g.nW, ww = g.Wp / WS;
+      const int y0 = (wl / ww) * WS, x0 = (wl % ww) * WS;
       const int lab0 = wa_label_at(g, y0, x0);
 #pragma unroll
-      for (int t = tid; t < kN; t += kThreads) {
-        const int lab = wa_label_at(g, y0 + (t >> 4), x0 + (t & 15));
+      for (int t = tid; t < W::kPad; t += kThreads) {
+        int lab = -1;
+        if (!kPadded || t < kN) {
+          lab = wa_label_at(g, y0 + t / WS, x0 + t % WS);
+          same &= lab == lab0;
+        }
         lw[t] = static_cast<signed char>(lab);
-        same &= lab == lab0;
       }
     }
     cp_async_wait<T::kStages - 2>();  // step s has landed (this thread's)
@@ -255,8 +307,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     // accumulators start at the bias where the labels agree and at -inf
     // (p = 0) where they differ; the diagonal always agrees
     float sc[8][4];
-    const float* b0 = bias + r0 * kBiasPitch + kb * kBlock + cb;
-    const float* b1 = bias + r1 * kBiasPitch + kb * kBlock + cb;
+    const float* b0 = bias + r0 * W::kBiasPitch + kb * kBlock + cb;
+    const float* b1 = bias + r1 * W::kBiasPitch + kb * kBlock + cb;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float2 a = *reinterpret_cast<const float2*>(b0 + 8 * j);
@@ -284,34 +336,39 @@ __global__ void __launch_bounds__(kThreads, 2)
 
     if (kb == kBlocks - 1) {
       // rows q0 + r0 and q0 + r1 of the output head slice, as bf16 pairs
+      // (the real rows only)
       const float i0 = 1.f / quad_sum(l0), i1 = 1.f / quad_sum(l1);
       const int64_t org = lay.origin(g, window(i));
       __nv_bfloat16* d0 = out + lay.out(g, org, h, q0 + r0) + cb;
       __nv_bfloat16* d1 = out + lay.out(g, org, h, q0 + r1) + cb;
+      const bool w0 = !kPadded || q0 + r0 < kN;
+      const bool w1 = !kPadded || q0 + r1 < kN;
 #pragma unroll
       for (int dn = 0; dn < HD / 8; ++dn) {
-        *reinterpret_cast<uint32_t*>(d0 + dn * 8) =
-            pack_bf16(o[dn][0] * i0, o[dn][1] * i0);
-        *reinterpret_cast<uint32_t*>(d1 + dn * 8) =
-            pack_bf16(o[dn][2] * i1, o[dn][3] * i1);
+        if (w0)
+          *reinterpret_cast<uint32_t*>(d0 + dn * 8) =
+              pack_bf16(o[dn][0] * i0, o[dn][1] * i0);
+        if (w1)
+          *reinterpret_cast<uint32_t*>(d1 + dn * 8) =
+              pack_bf16(o[dn][2] * i1, o[dn][3] * i1);
       }
     }
   }
 }
 
-template <int HD, class Layout, int MASK>
+template <int WS, int HD, class Layout, int MASK>
 int launch_hd(const void* q, const void* k, const void* v, const float* rel,
               const float* mask, void* out, const WaGeometry& g,
               const Layout& lay, int total_windows, int runs,
               int windows_per_cta, cudaStream_t stream) {
-  auto kern = wa_mma256_kernel<HD, Layout, MASK>;
-  const int smem = Tile<HD>::kSmem;
+  auto kern = wa_mma256_kernel<WS, HD, Layout, MASK>;
+  const int smem = Tile<WS, HD>::kSmem;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const int per_run = total_windows / runs;
   const int groups = runs * ((per_run + windows_per_cta - 1) / windows_per_cta);
-  kern<<<groups * g.nH * kBlocks, kThreads, smem, stream>>>(
+  kern<<<groups * g.nH * Win<WS>::kBlocks, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), rel, mask,
@@ -320,11 +377,11 @@ int launch_hd(const void* q, const void* k, const void* v, const float* rel,
   return (int)cudaGetLastError();
 }
 
-template <class Layout, int MASK>
+template <int WS, class Layout, int MASK>
 int launch(const void* q, const void* k, const void* v, const void* rel,
            const void* mask, void* out, const WaGeometry& g, const Layout& lay,
            int total_windows, int runs, int windows_per_cta, void* stream) {
-  if (g.N != kN || g.nH < 1 || g.nW < 1 || total_windows < 1 ||
+  if (g.N != Win<WS>::kN || g.nH < 1 || g.nW < 1 || total_windows < 1 ||
       total_windows % g.nW || windows_per_cta < 1 || runs < 1 ||
       total_windows % runs)
     return (int)cudaErrorInvalidValue;
@@ -336,21 +393,21 @@ int launch(const void* q, const void* k, const void* v, const void* rel,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (g.hd) {
     case 16:
-      return launch_hd<16, Layout, MASK>(q, k, v, r, m, out, g, lay,
-                                         total_windows, runs,
-                                         windows_per_cta, st);
+      return launch_hd<WS, 16, Layout, MASK>(q, k, v, r, m, out, g, lay,
+                                             total_windows, runs,
+                                             windows_per_cta, st);
     case 32:
-      return launch_hd<32, Layout, MASK>(q, k, v, r, m, out, g, lay,
-                                         total_windows, runs,
-                                         windows_per_cta, st);
+      return launch_hd<WS, 32, Layout, MASK>(q, k, v, r, m, out, g, lay,
+                                             total_windows, runs,
+                                             windows_per_cta, st);
     case 48:
-      return launch_hd<48, Layout, MASK>(q, k, v, r, m, out, g, lay,
-                                         total_windows, runs,
-                                         windows_per_cta, st);
+      return launch_hd<WS, 48, Layout, MASK>(q, k, v, r, m, out, g, lay,
+                                             total_windows, runs,
+                                             windows_per_cta, st);
     case 64:
-      return launch_hd<64, Layout, MASK>(q, k, v, r, m, out, g, lay,
-                                         total_windows, runs,
-                                         windows_per_cta, st);
+      return launch_hd<WS, 64, Layout, MASK>(q, k, v, r, m, out, g, lay,
+                                             total_windows, runs,
+                                             windows_per_cta, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -360,12 +417,13 @@ int launch(const void* q, const void* k, const void* v, const void* rel,
 
 extern "C" {
 
-// K4a in bf16 at 256 tokens: q/k/v/out (total_windows, nH, 256, hd); mask
-// (nW, 256, 256) fp32 added to window w's logits at w % nW; rel (nH, 256,
-// 256) fp32. hd 16, 32, 48 or 64; q, k, v 16-byte, rel, mask and out
-// 8-byte aligned. The arguments are those of window_attn_tokens_mma_mask
-// (N must be 256); windows_per_cta from the wrapper's plan (at most
-// total_windows / nW). Returns cudaGetLastError() (0 = launched).
+// K4a in bf16 at 256 or 144 tokens: q/k/v/out (total_windows, nH, N, hd);
+// mask (nW, N, N) fp32 added to window w's logits at w % nW; rel (nH, N,
+// N) fp32. hd 16, 32, 48 or 64; q, k, v 16-byte, rel, mask and out 8-byte
+// aligned. The arguments are those of window_attn_tokens_mma_mask (N must
+// be 256 or 144: windows of 16 x 16 or 12 x 12); windows_per_cta from the
+// wrapper's plan (at most total_windows / nW). Returns cudaGetLastError()
+// (0 = launched).
 int window_attn_tokens_mma256_mask(const void* q, const void* k,
                                    const void* v, const void* rel,
                                    const void* mask, void* out,
@@ -373,28 +431,39 @@ int window_attn_tokens_mma256_mask(const void* q, const void* k,
                                    int hd, int windows_per_cta, float scale,
                                    void* stream) {
   const WaGeometry g = {nW, nH, N, hd, nH * hd, 0, 0, 1, 0, 0, 0, scale};
-  return launch<TokensLayout, MASK_TENSOR>(q, k, v, rel, mask, out, g,
-                                           TokensLayout{}, total_windows, nW,
-                                           windows_per_cta, stream);
+  if (N == Win<16>::kN)
+    return launch<16, TokensLayout, MASK_TENSOR>(
+        q, k, v, rel, mask, out, g, TokensLayout{}, total_windows, nW,
+        windows_per_cta, stream);
+  if (N == Win<12>::kN)
+    return launch<12, TokensLayout, MASK_TENSOR>(
+        q, k, v, rel, mask, out, g, TokensLayout{}, total_windows, nW,
+        windows_per_cta, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
-// K4b in bf16 at 256 tokens: as K4a with the region labels of the
-// (Hp, Wp, 16, shift) geometry instead of a mask tensor (the arguments of
-// window_attn_tokens_mma_geo; ws must be 16).
+// K4b in bf16 at 256 or 144 tokens: as K4a with the region labels of the
+// (Hp, Wp, ws, shift) geometry instead of a mask tensor (the arguments of
+// window_attn_tokens_mma_geo; ws must be 16 or 12).
 int window_attn_tokens_mma256_geo(const void* q, const void* k, const void* v,
                                   const void* rel, void* out,
                                   int total_windows, int nH, int hd, int Hp,
                                   int Wp, int ws, int shift,
                                   int windows_per_cta, float scale,
                                   void* stream) {
-  if (ws != kWs || Hp % ws || Wp % ws || shift < 0 || shift >= ws)
+  if ((ws != 16 && ws != 12) || Hp % ws || Wp % ws || shift < 0 ||
+      shift >= ws)
     return (int)cudaErrorInvalidValue;
   const int nW = (Hp / ws) * (Wp / ws);
-  const WaGeometry g = {nW, nH, kN, hd, nH * hd, Hp, Wp, ws, shift,
+  const WaGeometry g = {nW, nH, ws * ws, hd, nH * hd, Hp, Wp, ws, shift,
                         0, 0, scale};
-  return launch<TokensLayout, MASK_LABELS>(q, k, v, rel, nullptr, out, g,
-                                           TokensLayout{}, total_windows, 1,
-                                           windows_per_cta, stream);
+  if (ws == 16)
+    return launch<16, TokensLayout, MASK_LABELS>(
+        q, k, v, rel, nullptr, out, g, TokensLayout{}, total_windows, 1,
+        windows_per_cta, stream);
+  return launch<12, TokensLayout, MASK_LABELS>(
+      q, k, v, rel, nullptr, out, g, TokensLayout{}, total_windows, 1,
+      windows_per_cta, stream);
 }
 
 // K5 in bf16 at windows of 16 x 16: fused (q = the (B, Hp, Wp, 3C) qkv map;
@@ -406,11 +475,12 @@ int window_attn_nhwc_mma256(const void* q, const void* k, const void* v,
                             int nH, int C, int Hp, int Wp, int shift,
                             int pad_h, int pad_w, int windows_per_cta,
                             float scale, void* stream) {
+  constexpr int kWs = 16;
   if (B < 1 || nH < 1 || C % nH || shift < 0 || shift >= kWs || Hp < kWs ||
       Wp < kWs)
     return (int)cudaErrorInvalidValue;
   const int nW = (Hp / kWs) * (Wp / kWs);
-  const WaGeometry g = {nW, nH, kN, C / nH, C, Hp, Wp, kWs, shift,
+  const WaGeometry g = {nW, nH, Win<kWs>::kN, C / nH, C, Hp, Wp, kWs, shift,
                         pad_h, pad_w, scale};
   if (const int e = wa_check(g, WA_NHWC_SPLIT)) return e;
   const char* qb = static_cast<const char*>(q);
@@ -418,7 +488,7 @@ int window_attn_nhwc_mma256(const void* q, const void* k, const void* v,
   const void* vp = fused ? qb + (size_t)C * 4 : v;
   const NhwcWindowLayout<kWs> lay = {fused ? 3 * (int64_t)C : (int64_t)C,
                                      (int64_t)C};
-  return launch<NhwcWindowLayout<kWs>, MASK_LABELS>(
+  return launch<kWs, NhwcWindowLayout<kWs>, MASK_LABELS>(
       q, kp, vp, rel, nullptr, out, g, lay, B * nW, 1, windows_per_cta,
       stream);
 }
@@ -429,15 +499,26 @@ const char* window_attn_mma256_error_string(int err) {
 
 }  // extern "C"
 
-extern "C" int window_attn_mma256_occupancy(int which) {
+namespace {
+
+template <int WS, class Layout, int MASK>
+int occupancy() {
+  auto kern = wa_mma256_kernel<WS, 32, Layout, MASK>;
+  const int smem = Tile<WS, 32>::kSmem;
   int n = -1;
-  if (which == 0)
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, wa_mma256_kernel<32, TokensLayout, MASK_TENSOR>, kThreads,
-        Tile<32>::kSmem);
-  else
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, wa_mma256_kernel<32, NhwcWindowLayout<16>, MASK_LABELS>, kThreads,
-        Tile<32>::kSmem);
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) == cudaSuccess)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, kThreads, smem);
   return n;
+}
+
+}  // namespace
+
+// CTAs per SM of three instantiations at head dim 32 (-1 if the query
+// fails): 0 = K4a at 16 x 16, 1 = K5 at 16 x 16, 2 = K4b at 12 x 12
+extern "C" int window_attn_mma256_occupancy(int which) {
+  if (which == 0) return occupancy<16, TokensLayout, MASK_TENSOR>();
+  if (which == 1) return occupancy<16, NhwcWindowLayout<16>, MASK_LABELS>();
+  if (which == 2) return occupancy<12, TokensLayout, MASK_LABELS>();
+  return -1;
 }

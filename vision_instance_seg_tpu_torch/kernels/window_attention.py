@@ -20,9 +20,10 @@ a rule on dtype and shape, chosen before the launch; it is not a fallback:
 - K4a and K4b (``tokens_fwd_body``): bf16 windows of up to 64 tokens with a
   head dim that is a multiple of 16 run ``csrc/window_attn_tokens_mma.cu``
   (the 64-token tensor-core body, windows padded to 64 tokens in shared
-  memory), bf16 windows of 256 tokens (16 x 16) with such a head dim
-  ``csrc/window_attn_mma256.cu`` (64-key blocks, online softmax); fp32,
-  windows of 65-255 tokens and other head dims run the SIMT body of
+  memory), bf16 windows of 256 tokens (16 x 16) and of 144 tokens (12 x
+  12, Swin-B/L's window, padded to 192 in shared memory) with such a head
+  dim ``csrc/window_attn_mma256.cu`` (64-key blocks, online softmax); fp32,
+  the other windows past 64 tokens and other head dims run the SIMT body of
   ``csrc/window_attn_fwd.cu``.
 - K5 (``nhwc_fwd_body``): bf16 windows of 64 tokens run
   ``csrc/window_attn_nhwc_mma.cu`` (head dim a multiple of 16; anything
@@ -46,7 +47,8 @@ the plain versions. The envelope on the card: K4a and K4b take any window
 up to 256 tokens (16 x 16; JAX's K4 takes any), K5 and K6 any ws % 8 == 0
 up to 256 tokens (ws 8 and 16), every head dim up to 64; the tensor-core
 forwards and K6 take bf16 windows of up to 64 tokens (K5 and K6: exactly
-64) and of 256 tokens at head dims 16, 32, 48 and 64; the SIMT K6 holds a
+64) and of 256 tokens at head dims 16, 32, 48 and 64, K4 also of 144
+tokens at those head dims; the SIMT K6 holds a
 window in shared memory and so takes, at 256 tokens, fp32 head dims up to
 50 (``simt_bwd_max_head_dim``). Past the envelope the wrappers raise and
 name the limit.
@@ -70,8 +72,8 @@ package's recompute backward in torch ops, since JAX wrote that backward in
 jnp) and ``WindowAttentionNHWCFunction`` (K5 forward, K6 backward on CUDA,
 the written-out plain backward on the CPU). ``LAUNCHES`` counts the kernel
 launches by name: k4a, k4b, k5_fused, k5_split, k6_fused, k6_split, and the
-launches that ran a tensor-core body (of 64 or 256 tokens) once more under
-k4a_mma, k4b_mma, k5_fused_mma, k5_split_mma, k6_fused_mma and
+launches that ran a tensor-core body (of 64, 144 or 256 tokens) once more
+under k4a_mma, k4b_mma, k5_fused_mma, k5_split_mma, k6_fused_mma and
 k6_split_mma.
 """
 
@@ -91,6 +93,7 @@ MAX_SMEM = 232448            # csrc WA_MAX_SMEM: a block's shared memory
 MMA_TOKENS = 64              # the tensor-core bodies' (padded) windows
 MMA256_TOKENS = 256          # ... and the 16 x 16 windows of the 256-token body
 MMA256_QUERY_BLOCKS = 4      # its CTAs: 64 query rows each
+MMA144_TOKENS = 144          # K4's 12 x 12 windows on that body (3 blocks)
 MMA_MAX_WINDOWS_PER_CTA = 16
 MMA_BWD_MIN_WINDOWS_PER_CTA = 3   # K6: d(rel) partials under 1/5 of bytes
 LAUNCHES: collections.Counter = collections.Counter()
@@ -432,37 +435,50 @@ def tokens_fwd_body(dtype: torch.dtype, hd: int, n: int) -> str:
     """Which K4a / K4b body runs: "mma" (bf16, head dim a multiple of 16:
     windows of up to 64 tokens on the tensor-core body of
     ``csrc/window_attn_tokens_mma.cu``, padded to 64 tokens in shared
-    memory; windows of 256 tokens on ``csrc/window_attn_mma256.cu``) or
-    "simt" (fp32, windows of 65-255 tokens or other head dims: the body of
+    memory; windows of 256 and of 144 tokens on
+    ``csrc/window_attn_mma256.cu``, 144 padded to 192) or "simt" (fp32,
+    the other windows past 64 tokens or other head dims: the body of
     ``csrc/window_attn_fwd.cu``, which takes them as the JAX K4 does)."""
     if dtype == torch.bfloat16 and hd % 16 == 0 and (
-            n <= MMA_TOKENS or n == MMA256_TOKENS):
+            n <= MMA_TOKENS or n in (MMA144_TOKENS, MMA256_TOKENS)):
         return "mma"
     return "simt"
 
 
-def mma256_plan(total_windows: int, heads: int, sms: int, runs: int = 1
-                ) -> Tuple[int, int]:
+def mma256_query_blocks(n: int) -> int:
+    """Query blocks (and key blocks) of 64 rows of the 256-token body at
+    windows of ``n`` tokens: 4 at 256, 3 at 144 (padded to 192)."""
+    return -(-n // MMA_TOKENS)
+
+
+def mma256_plan(total_windows: int, heads: int, sms: int, runs: int = 1,
+                n: int = MMA256_TOKENS) -> Tuple[int, int]:
     """(windows per CTA, CTAs) of the 256-token tensor-core body
-    (``csrc/window_attn_mma256.cu``): 4 query-block CTAs per (head, run of
-    windows), runs long enough that the grid is about 8 CTAs per SM (four
-    waves at the 2 CTAs per SM its shared memory allows), at most 16
-    windows, so that each CTA's 64 KB bias slice serves many windows.
-    ``runs`` = nW for K4a, whose runs are one window place across the
-    images (they share the mask), so a run is at most total / nW long; 1
-    for K4b and K5 (runs of consecutive windows)."""
+    (``csrc/window_attn_mma256.cu``) at windows of ``n`` tokens (256 or
+    144): one CTA per query block (``mma256_query_blocks``), head and run
+    of windows; runs long enough that the grid is about 8 CTAs per SM
+    (four waves at the 2 CTAs per SM its shared memory allows), at most 16
+    windows, so that each CTA's bias slice (64 KB at 256 tokens, 50 KB at
+    144) serves many windows. ``runs`` = nW for K4a, whose runs are one
+    window place across the images (they share the mask), so a run is at
+    most total / nW long; 1 for K4b and K5 (runs of consecutive
+    windows)."""
+    blocks = mma256_query_blocks(n)
     per_run = total_windows // runs
-    wpc = -(-total_windows * heads * MMA256_QUERY_BLOCKS // (8 * sms))
+    wpc = -(-total_windows * heads * blocks // (8 * sms))
     wpc = max(1, min(MMA_MAX_WINDOWS_PER_CTA, per_run, wpc))
-    return wpc, MMA256_QUERY_BLOCKS * heads * runs * -(-per_run // wpc)
+    return wpc, blocks * heads * runs * -(-per_run // wpc)
 
 
 def mma256_cta_work(cta: int, heads: int, windows_per_cta: int,
-                    total_windows: int, runs: int = 1
+                    total_windows: int, runs: int = 1,
+                    n: int = MMA256_TOKENS
                     ) -> Tuple[int, int, Tuple[int, ...]]:
-    """(query block, head, windows) of CTA ``cta`` of the 256-token body:
-    the kernel's own arithmetic (``wa_mma256_kernel``), for the tests."""
-    qb, rest = cta % MMA256_QUERY_BLOCKS, cta // MMA256_QUERY_BLOCKS
+    """(query block, head, windows) of CTA ``cta`` of the 256-token body
+    at windows of ``n`` tokens: the kernel's own arithmetic
+    (``wa_mma256_kernel``), for the tests."""
+    blocks = mma256_query_blocks(n)
+    qb, rest = cta % blocks, cta // blocks
     head, grp = rest % heads, rest // heads
     first = (grp // runs) * windows_per_cta
     n = min(windows_per_cta, total_windows // runs - first)
@@ -644,6 +660,8 @@ def _mma256_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.window_attn_mma256_error_string.argtypes = [_I]
     lib.window_attn_mma256_error_string.restype = ctypes.c_char_p
+    lib.window_attn_mma256_occupancy.argtypes = [_I]
+    lib.window_attn_mma256_occupancy.restype = ctypes.c_int
     return lib
 
 
@@ -696,7 +714,7 @@ def _run(lib, fn, err_fn, kind: str, dev: torch.device, *args) -> None:
 def _launch_tokens(q, k, v, rel_bias, shift_mask, scale: float,
                    num_windows: int, geometry: Optional[Geometry]):
     """K4b when ``geometry`` is given, else K4a with ``shift_mask``: a
-    tensor-core body (of 64 or of 256 tokens) or the SIMT body by
+    tensor-core body (of 64 tokens, or of 144 and 256) or the SIMT body by
     ``tokens_fwd_body``; all count under k4a / k4b, the tensor-core
     launches also under k4a_mma / k4b_mma."""
     nwt, nh, n, hd = q.shape
@@ -707,18 +725,18 @@ def _launch_tokens(q, k, v, rel_bias, shift_mask, scale: float,
             raise ValueError("the tensor-core K4 copies 16 bytes at a time: "
                              "q, k, v and out must start 16-byte aligned")
         sms = _sm_count(q.device)
-        if n == MMA256_TOKENS:
+        if n in (MMA144_TOKENS, MMA256_TOKENS):
             if any(t.data_ptr() % 8 for t in (rel_bias, shift_mask)
                    if t is not None):
-                raise ValueError("the 256-token K4 reads rel and the mask "
-                                 "8 bytes at a time: they must start "
-                                 "8-byte aligned")
+                raise ValueError("the 144- and 256-token K4 reads rel and "
+                                 "the mask 8 bytes at a time: they must "
+                                 "start 8-byte aligned")
             lib = _mma256_library()
             fn_mask, fn_geo = (lib.window_attn_tokens_mma256_mask,
                                lib.window_attn_tokens_mma256_geo)
             err = lib.window_attn_mma256_error_string
             wpc, _ = mma256_plan(nwt, nh, sms,
-                                 num_windows if geometry is None else 1)
+                                 num_windows if geometry is None else 1, n)
         else:
             lib = _tokens_mma_library()
             fn_mask, fn_geo = (lib.window_attn_tokens_mma_mask,
