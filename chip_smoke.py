@@ -5,8 +5,11 @@
 Builds every CUDA kernel of the port from the sources in this checkout (one
 ``nvcc`` per source, all started together) and holds each against its plain
 PyTorch version at the shapes its path gives it: K1 (sampling forward) at
-the serving shapes, the sampling backward (the TPU's K2, K3a and K3b) at the
-training shapes with 8 heads of 32 channels and at head dims 64 and 24, and
+the serving shapes, and at the training shapes, with 4 heads of 64 and of
+24 channels and on a decoder's free queries (fp32 and bf16 values, the
+vector width it chose printed for each), the sampling backward (the TPU's
+K2, K3a and K3b) at the training shapes with 8 heads of 32 channels and at
+head dims 64 and 24, and
 the window kernels: K4b at Swin stages 1-4 with windows of 8 and of 12, at
 stage 1 with windows of 7, K4a at the window encoder's three levels and at
 window 16, K5 at all seven shapes of the flagship's serving path (fused at
@@ -112,11 +115,11 @@ def cuda_time_ms(fn, reps: int, warmup: int = 3) -> float:
 # ----------------------------------------------------------------- kernel K1
 def sampling_inputs(value_dtype: torch.dtype, gen: torch.Generator,
                     b: int = BATCH, levels=LEVELS, nh: int = HEADS,
-                    hd: int = HEAD_DIM):
+                    hd: int = HEAD_DIM, offset_px: float = 12.0):
     """Encoder-shaped sampling inputs on the card: grid queries at their
-    pixel centers, offsets up to 12 px (twice the 6 px halo the JAX kernel
-    needs) and 5% of the queries' coarsest-level samples pushed off the
-    map."""
+    pixel centers, offsets up to ``offset_px`` (12: twice the 6 px halo the
+    JAX kernel needs) and 5% of the queries' coarsest-level samples pushed
+    off the map."""
     dev = "cuda"
     p, nl = POINTS, len(levels)
     q = sum(h * w for h, w in levels)
@@ -129,7 +132,7 @@ def sampling_inputs(value_dtype: torch.dtype, gen: torch.Generator,
         refs.append(torch.stack([gx.reshape(-1), gy.reshape(-1)], -1))
     ref = torch.cat(refs)[None, :, None, None, None, :]
     off = (torch.rand(b, q, nh, nl, p, 2, device=dev, generator=gen)
-           * 2 - 1) * 12.0
+           * 2 - 1) * offset_px
     wh = torch.tensor([[w, h] for h, w in levels], device=dev,
                       dtype=torch.float32)
     loc = ref + off / wh[:, None, :]
@@ -140,6 +143,39 @@ def sampling_inputs(value_dtype: torch.dtype, gen: torch.Generator,
     aw = torch.randn(b, q, nh, nl * p, device=dev, generator=gen)
     aw = aw.softmax(-1).view(b, q, nh, nl, p)
     return value.to(value_dtype), loc.contiguous(), aw.contiguous()
+
+
+# a decoder's free queries (MaskDINO's 4 scales at 800 px: /64 to /8)
+FREE_QUERIES = 300
+FREE_LEVELS = [(13, 13), (25, 25), (50, 50), (100, 100)]
+
+
+def free_query_inputs(value_dtype: torch.dtype, gen: torch.Generator,
+                      b: int = BATCH, q: int = FREE_QUERIES,
+                      levels=FREE_LEVELS, nh: int = HEADS,
+                      hd: int = HEAD_DIM):
+    """A decoder's free queries on the card: locations uniform in [-0.1,
+    1.1] on every level (samples off the map included), softmaxed weights."""
+    dev, p, nl = "cuda", POINTS, len(levels)
+    s = sum(h * w for h, w in levels)
+    value = torch.randn(b, s, nh, hd, device=dev, generator=gen)
+    loc = torch.rand(b, q, nh, nl, p, 2, device=dev, generator=gen) \
+        * 1.2 - 0.1
+    aw = torch.randn(b, q, nh, nl * p, device=dev, generator=gen)
+    aw = aw.softmax(-1).view(b, q, nh, nl, p)
+    return value.to(value_dtype), loc, aw.contiguous()
+
+
+# K1's checked shapes: name -> (levels, inputs(dtype, gen))
+K1_SHAPES = {
+    "serving": (LEVELS, sampling_inputs),
+    "training": (TRAIN_LEVELS, lambda dt, gen: sampling_inputs(
+        dt, gen, TRAIN_BATCH, TRAIN_LEVELS)),
+    "4 x 64": (LEVELS, lambda dt, gen: sampling_inputs(dt, gen, nh=4,
+                                                       hd=64)),
+    "4 x 24": (LEVELS, lambda dt, gen: sampling_inputs(dt, gen, nh=4,
+                                                       hd=24)),
+    "free queries": (FREE_LEVELS, free_query_inputs)}
 
 
 def grid_sample_core(value, shapes, loc, aw):
@@ -161,43 +197,83 @@ def grid_sample_core(value, shapes, loc, aw):
     return out.view(b, nh * hd, q).transpose(1, 2)
 
 
-def k1_bound_ms(value, loc, aw) -> tuple:
-    """Least time for the work on this card: each input read once, the fp32
-    output written once; 10 flops per (query, head, channel, level, point)
-    (4 corner multiply-adds and one weighted accumulate)."""
+def k1_rows_read(value, shapes, loc) -> int:
+    """The (image, token, head) rows of ``value`` that this run's sampling
+    reads: those under some corner on the map (every row at the encoder's
+    grid queries, fewer at a decoder's free queries)."""
+    b, _, nh, _ = value.shape
+    read = torch.zeros(value.shape[:3], dtype=torch.bool,
+                       device=value.device)
+    bi = torch.arange(b, device=value.device)[:, None, None, None]
+    hi = torch.arange(nh, device=value.device)[None, None, :, None]
+    start = 0
+    for lvl, (h, w) in enumerate(shapes):
+        x = loc[:, :, :, lvl, :, 0] * w - 0.5                # (B, Q, nH, P)
+        y = loc[:, :, :, lvl, :, 1] * h - 0.5
+        x0 = torch.floor(x).clamp(-2, w).long()
+        y0 = torch.floor(y).clamp(-2, h).long()
+        for dy in (0, 1):
+            for dx in (0, 1):
+                yi, xi = y0 + dy, x0 + dx
+                on = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+                tok = start + yi * w + xi
+                read[bi.expand_as(tok)[on], tok[on],
+                     hi.expand_as(tok)[on]] = True
+        start += h * w
+    return int(read.sum())
+
+
+def k1_bound_ms(value, shapes, loc, aw) -> tuple:
+    """Least time for the work on this card: each value row the sampling
+    reads (``k1_rows_read``), loc and aw read once, the fp32 output written
+    once; 10 flops per (query, head, channel, level, point) (4 corner
+    multiply-adds and one weighted accumulate)."""
     b, q, nh, nl, p, _ = loc.shape
     hd = value.shape[-1]
-    nbytes = (value.numel() * value.element_size() + loc.numel() * 4
-              + aw.numel() * 4 + b * q * nh * hd * 4)
+    nbytes = (k1_rows_read(value, shapes, loc) * hd * value.element_size()
+              + loc.numel() * 4 + aw.numel() * 4 + b * q * nh * hd * 4)
     flops = 10 * b * q * nh * hd * nl * p
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def k1_check(K, shape: str, dtype: torch.dtype, gen) -> tuple:
+    """K1 against its plain version at one of ``K1_SHAPES``; returns
+    (levels, value, loc, aw, max |kernel - plain|)."""
+    levels, inputs = K1_SHAPES[shape]
+    value, loc, aw = inputs(dtype, gen)
+    got = K.ms_deform_attn(value, levels, loc, aw)
+    torch.cuda.synchronize()
+    want = K.ms_deform_attn_core_torch(value, levels, loc, aw)
+    err = (got - want).abs().max().item()
+    # both versions read the same (bf16 or fp32) values and accumulate the
+    # products of each output in fp32; only the order of the sums differs,
+    # which bounds the difference by ~1e-6 of the magnitude
+    tol = 1e-5 * value.float().abs().max().item()
+    name = str(dtype).replace("torch.", "")
+    vec = K.fwd_vector_width(dtype, value.shape[-1], value.data_ptr())
+    print(f"K1 {shape} {tuple(value.shape)} {name} value, {vec} channels "
+          f"a lane: max |kernel - plain| = {err:.3e} (tolerance {tol:.3e} "
+          f"= 1e-5 * max|value|: same inputs, fp32 accumulation in both, "
+          f"only the summation order differs)", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"K1 {shape} {name} disagrees with its plain "
+                             f"version: {err} > {tol}")
+    return levels, value, loc, aw, err
+
+
 def kernel_phase(K, smi: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     result = {}
     max_err = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        value, loc, aw = sampling_inputs(dtype, gen)
-        got = K.ms_deform_attn(value, LEVELS, loc, aw)
-        torch.cuda.synchronize()
-        want = K.ms_deform_attn_core_torch(value, LEVELS, loc, aw)
-        err = (got - want).abs().max().item()
-        # both versions read the same (bf16 or fp32) values and accumulate
-        # 48 products per output in fp32; only the order of the sums
-        # differs, which bounds the difference by ~1e-6 of the magnitude
-        tol = 1e-5 * value.float().abs().max().item()
-        name = str(dtype).replace("torch.", "")
-        print(f"K1 {name} value: max |kernel - plain| = {err:.3e} "
-              f"(tolerance {tol:.3e} = 1e-5 * max|value|: same inputs, "
-              f"fp32 accumulation in both, only the summation order "
-              f"differs)", flush=True)
-        if not err <= tol:
-            raise AssertionError(f"K1 {name} disagrees with its plain "
-                                 f"version: {err} > {tol}")
+    for shape, dtype in [(s, d) for s in K1_SHAPES
+                         for d in (torch.float32, torch.bfloat16)]:
+        _, value, loc, aw, err = k1_check(K, shape, dtype, gen)
         max_err = max(max_err, err)
+        if shape != "serving":       # timed at the serving shape only
+            continue
+        name = str(dtype).replace("torch.", "")
         ms = cuda_time_ms(lambda: K.ms_deform_attn(value, LEVELS, loc, aw),
                           reps=20)
         plain_ms = cuda_time_ms(
@@ -205,7 +281,7 @@ def kernel_phase(K, smi: str) -> dict:
             reps=5, warmup=1)
         lib_ms = cuda_time_ms(
             lambda: grid_sample_core(value, LEVELS, loc, aw), reps=10)
-        bound, bound_by = k1_bound_ms(value, loc, aw)
+        bound, bound_by = k1_bound_ms(value, LEVELS, loc, aw)
         print(f"K1 {name} value at B={BATCH}, levels {LEVELS}: kernel "
               f"{ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
               f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}) on {smi}",

@@ -20,6 +20,9 @@ also allows one bf16 rounding step (2^-7 relative at most), since the two fp32 s
 may round to neighbouring bf16 values.
 """
 
+import pathlib
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -128,6 +131,249 @@ def test_k1_rejects_what_it_does_not_take():
         K.ms_deform_attn(value, shapes, loc.transpose(1, 2), aw)
     with pytest.raises(ValueError):
         K.ms_deform_attn(value, shapes[:2], loc, aw)
+
+
+# ------------------------------------------------ K1's vector width and plan
+ALIGNED = 0x7F0000000000      # a 16-byte aligned address
+
+
+@pytest.mark.parametrize("dtype,hd,offset,vec", [
+    ("bfloat16", 32, 0, 8), ("bfloat16", 64, 0, 8), ("bfloat16", 24, 0, 8),
+    ("bfloat16", 128, 0, 8), ("bfloat16", 12, 0, 4), ("bfloat16", 6, 0, 2),
+    ("bfloat16", 3, 0, 1), ("bfloat16", 32, 8, 4), ("bfloat16", 32, 4, 2),
+    ("bfloat16", 32, 2, 1), ("bfloat16", 12, 8, 4), ("float32", 32, 0, 4),
+    ("float32", 64, 0, 4), ("float32", 24, 0, 4), ("float32", 12, 0, 4),
+    ("float32", 6, 0, 2), ("float32", 5, 0, 1), ("float32", 32, 8, 2),
+    ("float32", 32, 4, 1), ("float32", 32, 12, 1)])
+def test_fwd_vector_width_rule(dtype, hd, offset, vec):
+    """K1's channels per lane: the widest of 16, 8, 4, 2 bytes of channels
+    that divides the head dim and the value's address (8 bf16 or 4 fp32
+    channels when both allow)."""
+    assert K.fwd_vector_width(getattr(torch, dtype), hd,
+                              ALIGNED + offset) == vec
+
+
+@pytest.mark.parametrize("dtype,offset,error", [
+    ("bfloat16", 1, ValueError), ("float32", 2, ValueError),
+    ("float16", 0, TypeError)])
+def test_fwd_vector_width_refuses(dtype, offset, error):
+    """An address that is not aligned to the value's elements, or a dtype
+    the kernel does not take, raises rather than picking a width."""
+    with pytest.raises(error):
+        K.fwd_vector_width(getattr(torch, dtype), 32, ALIGNED + offset)
+
+
+@pytest.mark.parametrize("dtype,elems,vec", [
+    ("bfloat16", 0, 8), ("bfloat16", 1, 1), ("bfloat16", 2, 2),
+    ("bfloat16", 4, 4), ("float32", 1, 1), ("float32", 2, 2),
+    ("float32", 4, 4)])
+def test_fwd_vector_width_of_a_view(dtype, elems, vec):
+    """A value that starts ``elems`` elements into its storage takes the
+    width its address allows."""
+    base = torch.zeros(2 * 5 * 2 * 32 + 8, dtype=getattr(torch, dtype))
+    view = base[elems:elems + 2 * 5 * 2 * 32].view(2, 5, 2, 32)
+    assert K.fwd_vector_width(view.dtype, 32, view.data_ptr()) == vec
+
+
+# name -> (B, Q, heads, head dim, dtype, address offset in bytes, queries
+# per CTA): the serving shape, ragged Q, head dims 12, 24, 64, 128, heads x
+# head dim up to 1024 (more items than threads), an unaligned value
+PLAN_K1 = {
+    "serving 8x32 bf16": (2, 13125, 8, 32, "bfloat16", 0, 8),
+    "serving 8x32 fp32": (2, 13125, 8, 32, "float32", 0, 8),
+    "ragged Q 8x32 bf16": (3, 1001, 8, 32, "bfloat16", 0, 8),
+    "free queries 8x32 bf16": (8, 300, 8, 32, "bfloat16", 0, 8),
+    "hd12 bf16": (2, 37, 8, 12, "bfloat16", 0, 8),
+    "hd12 fp32": (2, 37, 8, 12, "float32", 0, 8),
+    "hd24 4 heads bf16": (2, 103, 4, 24, "bfloat16", 0, 8),
+    "hd64 4 heads fp32": (2, 103, 4, 64, "float32", 0, 8),
+    "8x128 bf16 (1024 channels)": (2, 29, 8, 128, "bfloat16", 0, 8),
+    "16x64 fp32 (1024 channels)": (1, 29, 16, 64, "float32", 0, 8),
+    "1x1024 bf16": (1, 11, 1, 1024, "bfloat16", 0, 8),
+    "unaligned bf16 (2 channels a lane)": (2, 77, 8, 32, "bfloat16", 4, 8),
+    "unaligned fp32 (1 channel a lane)": (2, 77, 8, 32, "float32", 4, 8),
+    "4 queries per CTA": (2, 1001, 8, 32, "bfloat16", 0, 4),
+    "16 queries per CTA": (2, 1001, 8, 32, "bfloat16", 0, 16),
+    "32 queries per CTA": (2, 1001, 8, 32, "bfloat16", 0, 32)}
+
+
+@pytest.mark.parametrize("case", list(PLAN_K1))
+def test_fwd_plan_covers_every_channel_once(case):
+    """K1's grid and CTA size (``fwd_launch_plan``, which the wrapper
+    passes to the kernel) and its item mapping (``fwd_item``, which states
+    the kernel loop's; the card tests hold the kernel itself) give every
+    (b, q, head, channel) to exactly one lane, in CTAs of at most
+    ``FWD_MAX_THREADS`` threads that each hold consecutive queries of one
+    image."""
+    b, q, nh, hd, dtype, offset, qpc = PLAN_K1[case]
+    vec = K.fwd_vector_width(getattr(torch, dtype), hd, ALIGNED + offset)
+    assert hd % vec == 0
+    g = hd // vec
+    (ctas, images), threads = K.fwd_launch_plan(b, q, nh, hd, vec, qpc)
+    assert images == b and (ctas - 1) * qpc < q <= ctas * qpc
+    assert 1 <= threads <= K.FWD_MAX_THREADS
+    seen = np.zeros((b, q, nh, hd), np.int64)
+    for x in range(ctas):
+        nq = min(qpc, q - x * qpc)
+        item = np.arange(nq * nh * g)          # thread = item % threads
+        ql, h, lane = K.fwd_item(item, nq, nh, g)
+        assert ((0 <= ql) & (ql < nq) & (0 <= h) & (h < nh)).all()
+        ch = lane[:, None] * vec + np.arange(vec)
+        for img in range(b):
+            np.add.at(seen[img], (x * qpc + ql[:, None], h[:, None], ch), 1)
+    assert (seen == 1).all()
+
+
+def test_fwd_max_threads_is_the_kernels_launch_bound():
+    """The wrapper's CTA cap is the one the kernel is compiled for (its
+    ``__launch_bounds__``), past which the C entry refuses a launch."""
+    src = (pathlib.Path(K.__file__).parent / "csrc"
+           / "msdeform_attn_fwd.cu").read_text()
+    bound = re.search(r"constexpr int kFwdMaxThreads = (\d+);", src)
+    assert bound and int(bound.group(1)) == K.FWD_MAX_THREADS
+    assert "__launch_bounds__(kFwdMaxThreads," in src
+
+
+@pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-0.2, 1.2)])
+def test_k1_bound_counts_the_value_rows_read(lo, hi):
+    """K1's bound counts each (image, token, head) row of value under some
+    corner on the map once (``chip_smoke.k1_rows_read``): a brute-force
+    count over every sample's four corners."""
+    import chip_smoke
+
+    shapes = [(5, 7), (3, 2)]
+    rng = np.random.default_rng(17)
+    b, q, nh, p = 2, 6, 3, 3
+    value = torch.zeros(b, sum(h * w for h, w in shapes), nh, 4)
+    loc = rng.uniform(lo, hi, (b, q, nh, len(shapes), p, 2)).astype(
+        np.float32)
+    want = set()
+    for i, j, h, lvl, k in np.ndindex(b, q, nh, len(shapes), p):
+        hh, ww = shapes[lvl]
+        start = sum(y * x for y, x in shapes[:lvl])
+        x = np.float32(loc[i, j, h, lvl, k, 0]) * np.float32(ww) \
+            - np.float32(0.5)
+        y = np.float32(loc[i, j, h, lvl, k, 1]) * np.float32(hh) \
+            - np.float32(0.5)
+        x0 = int(min(max(np.floor(x), -2), ww))
+        y0 = int(min(max(np.floor(y), -2), hh))
+        for yi in (y0, y0 + 1):
+            for xi in (x0, x0 + 1):
+                if 0 <= yi < hh and 0 <= xi < ww:
+                    want.add((i, start + yi * ww + xi, h))
+    assert chip_smoke.k1_rows_read(value, shapes,
+                                   torch.from_numpy(loc)) == len(want)
+
+
+def test_fwd_item_warp_holds_one_querys_heads():
+    """At the serving shape (8 heads x 32 bf16 channels: 4 lanes a head) a
+    warp holds the 8 heads of one query, so its lanes read that query's
+    contiguous loc and aw rows and write its contiguous output row."""
+    ql, h, lane = K.fwd_item(np.arange(64), 8, 8, 4)
+    assert (ql == np.repeat([0, 1], 32)).all()
+    assert (h[:32] == np.repeat(np.arange(8), 4)).all()
+    assert (lane[:32] == np.tile(np.arange(4), 8)).all()
+
+
+def free_query_inputs(seed, shapes, q, b=2, nh=8, hd=32, p=4):
+    """A decoder's free queries: locations uniform in [-0.1, 1.1] on every
+    level (samples off the map included), softmaxed weights (numpy)."""
+    rng = np.random.default_rng(seed)
+    nl = len(shapes)
+    s = sum(h * w for h, w in shapes)
+    value = rng.standard_normal((b, s, nh, hd)).astype(np.float32)
+    loc = rng.uniform(-0.1, 1.1, (b, q, nh, nl, p, 2)).astype(np.float32)
+    logits = rng.standard_normal((b, q, nh, nl * p))
+    aw = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    return value, loc, aw.reshape(b, q, nh, nl, p).astype(np.float32)
+
+
+FREE_SHAPES = [(13, 13), (25, 25), (50, 50), (100, 100)]
+# K1 only (the backward takes what the TPU kernels take, so these stay out
+# of CASES): free queries, 8 points over 4 levels, head dims 12 and 128,
+# heads x head dim 1024
+K1_CASES = {
+    "free-queries": lambda: (FREE_SHAPES,
+                             free_query_inputs(12, FREE_SHAPES, 300)),
+    "p8-l4": lambda: ([(3, 3), (8, 8), (4, 4), (2, 2)], off_map(
+        *sampling_inputs(13, [(3, 3), (8, 8), (4, 4), (2, 2)],
+                         offset_px=4.0, nh=8, hd=32, p=8))),
+    "hd12": lambda: (SHAPES, off_map(*sampling_inputs(
+        14, offset_px=3.0, nh=8, hd=12, p=4))),
+    "8x128": lambda: (SHAPES, off_map(*sampling_inputs(
+        15, offset_px=3.0, nh=8, hd=128, p=2))),
+    "16x64": lambda: (SHAPES, off_map(*sampling_inputs(
+        16, offset_px=3.0, nh=16, hd=64, p=2))),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(K1_CASES))
+def test_k1_more_shapes_match_plain_on_cuda(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    shapes, arrays = K1_CASES[case]()
+    value, loc, aw = (torch.from_numpy(a).cuda() for a in arrays)
+    value = value.to(getattr(torch, dtype))
+    before = K.ms_deform_attn.launches
+    got = K.ms_deform_attn(value, shapes, loc, aw)
+    torch.cuda.synchronize()
+    assert K.ms_deform_attn.launches == before + 1
+    want = K.ms_deform_attn_core_torch(value, shapes, loc, aw)
+    tol = 1e-5 * value.float().abs().max().item()
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,elems", [
+    ("float32", 1), ("float32", 2), ("bfloat16", 1), ("bfloat16", 2),
+    ("bfloat16", 4)])
+def test_k1_width_leaves_the_sums_unchanged_on_cuda(dtype, elems):
+    """A value that starts ``elems`` elements into its storage takes a
+    narrower vector width; every channel sums in the same order whatever the
+    width, so the output is the same bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    shapes, (value, loc, aw) = CASES["wide-heads"]()
+    value, loc, aw = (torch.from_numpy(a).cuda() for a in (value, loc, aw))
+    value = value.to(getattr(torch, dtype))
+    base = torch.empty(value.numel() + elems, dtype=value.dtype,
+                       device="cuda")
+    shifted = base[elems:].view(value.shape)
+    shifted.copy_(value)
+    wide = K.fwd_vector_width(value.dtype, 32, value.data_ptr())
+    narrow = K.fwd_vector_width(value.dtype, 32, shifted.data_ptr())
+    assert narrow < wide
+    got = K.ms_deform_attn(shifted, shapes, loc, aw)
+    want = K.ms_deform_attn(value, shapes, loc, aw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    plain = K.ms_deform_attn_core_torch(value, shapes, loc, aw)
+    assert (got - plain).abs().max().item() <= \
+        1e-5 * value.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ctas_less,threads", [(0, K.FWD_MAX_THREADS + 32),
+                                               (1, 128), (0, 0)])
+def test_k1_entry_refuses_a_plan_it_cannot_run_on_cuda(ctas_less, threads):
+    """The C entry refuses a grid that leaves queries out and a CTA past its
+    launch bound, rather than launching it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    shapes, arrays = CASES["wide-heads"]()
+    value, loc, aw = (torch.from_numpy(a).cuda() for a in arrays)
+    b, s, nh, hd = value.shape
+    q, p = loc.shape[1], loc.shape[4]
+    out = torch.empty(b, q, nh * hd, device="cuda")
+    (ctas, _), _ = K.fwd_launch_plan(b, q, nh, hd, 4)
+    err = K._library().msdeform_attn_fwd(
+        value.data_ptr(), 0, loc.data_ptr(), aw.data_ptr(), out.data_ptr(),
+        b, s, q, nh, hd, len(shapes), p, K._level_array(shapes), 4,
+        K.FWD_QUERIES_PER_CTA, ctas - ctas_less, threads,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0
 
 
 def cotangent(seed, value, loc):

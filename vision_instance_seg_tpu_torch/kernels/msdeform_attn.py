@@ -38,7 +38,9 @@ import torch
 # (models/deform_attn.MSDeformAttn), so both packages compute one function.
 DEFAULT_HALO = 6
 MAX_LEVELS = 8               # csrc MSDA_MAX_LEVELS
-QUERIES_PER_BLOCK = 8       # consecutive queries share a block (L1 reuse)
+QUERIES_PER_BLOCK = 8       # backward: consecutive queries share a block
+FWD_QUERIES_PER_CTA = 8     # K1: consecutive queries of one image per CTA
+FWD_MAX_THREADS = 256       # K1: largest CTA (csrc refuses more)
 
 
 def ms_deform_attn_core_torch(value: torch.Tensor,
@@ -179,11 +181,17 @@ def _check_inputs(value, spatial_shapes, locations, weights):
 def _library() -> ctypes.CDLL:
     from vision_instance_seg_tpu_torch.kernels.build import load_library
 
-    lib = load_library("msdeform_attn_fwd")
+    return bind_fwd(load_library("msdeform_attn_fwd"))
+
+
+def bind_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares K1's C entry points on a library built from
+    ``csrc/msdeform_attn_fwd.cu`` (or a version of it)."""
     lib.msdeform_attn_fwd.argtypes = (
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_void_p] + [ctypes.c_int] * 7
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4
+        + [ctypes.c_void_p])
     lib.msdeform_attn_fwd.restype = ctypes.c_int
     lib.msdeform_attn_error_string.argtypes = [ctypes.c_int]
     lib.msdeform_attn_error_string.restype = ctypes.c_char_p
@@ -210,19 +218,62 @@ def _level_array(spatial_shapes):
         *[int(d) for hw in spatial_shapes for d in hw])
 
 
+def fwd_vector_width(dtype: torch.dtype, hd: int, data_ptr: int) -> int:
+    """Channels per lane of K1 (csrc ``msdeform_attn_fwd``'s ``vec``): the
+    widest of 16, 8, 4 or 2 bytes of value channels (8, 4, 2, 1 in bf16; 4,
+    2, 1 in fp32) that divides the head dim and the value's address, so that
+    every corner row a lane reads is one aligned vector load."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"value dtype {dtype}: float32 or bfloat16")
+    elem = 2 if dtype == torch.bfloat16 else 4
+    if data_ptr % elem:
+        raise ValueError(f"value at {data_ptr:#x} is not aligned to its "
+                         f"{elem}-byte elements")
+    vec = 16 // elem
+    while vec > 1 and (hd % vec or data_ptr % (vec * elem)):
+        vec //= 2
+    return vec
+
+
+def fwd_launch_plan(b: int, q: int, nh: int, hd: int, vec: int,
+                    queries_per_cta: int = FWD_QUERIES_PER_CTA
+                    ) -> Tuple[Tuple[int, int], int]:
+    """K1's grid and CTA size, as ``_launch_cuda`` passes them to the
+    kernel: ((ceil(Q / qpc), B) CTAs, threads). A CTA takes
+    ``queries_per_cta`` consecutive queries of one image, images on the
+    slow grid axis; its items are (query, head, lane) with hd / vec lanes
+    per (query, head), at most ``FWD_MAX_THREADS`` threads, each taking
+    items t, t + threads, ... (``fwd_item``)."""
+    per_cta = queries_per_cta * nh * (hd // vec)
+    return ((q + queries_per_cta - 1) // queries_per_cta, b), \
+        min(per_cta, FWD_MAX_THREADS)
+
+
+def fwd_item(i, nq: int, nh: int, g: int):
+    """Item ``i`` of a K1 CTA that holds ``nq`` queries -> (query in the CTA,
+    head, lane): the mapping the kernel's loop computes for itself
+    (query-major: a warp holds the heads of neighbouring queries), stated
+    here for the CPU tests; lane l takes channels [l * vec, l * vec + vec)
+    of the head. Works on ints and on numpy arrays."""
+    return i // (nh * g), i // g % nh, i % g
+
+
 def _launch_cuda(value, spatial_shapes, locations, weights):
     lib = _library()
     b, s, nh, hd = value.shape
     q, nl, p = locations.shape[1], len(spatial_shapes), locations.shape[4]
     out = torch.empty((b, q, nh * hd), dtype=torch.float32,
                       device=value.device)
+    vec = fwd_vector_width(value.dtype, hd, value.data_ptr())
+    qpc = FWD_QUERIES_PER_CTA
+    (ctas, _), threads = fwd_launch_plan(b, q, nh, hd, vec, qpc)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream(value.device).cuda_stream
         err = lib.msdeform_attn_fwd(
             value.data_ptr(), int(value.dtype == torch.bfloat16),
             locations.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            b, s, q, nh, hd, nl, p, _level_array(spatial_shapes),
-            QUERIES_PER_BLOCK, stream)
+            b, s, q, nh, hd, nl, p, _level_array(spatial_shapes), vec,
+            qpc, ctas, threads, stream)
     if err:
         msg = lib.msdeform_attn_error_string(err).decode()
         raise RuntimeError(f"msdeform_attn_fwd launch failed: {msg} ({err})")
