@@ -316,11 +316,43 @@ def bwd_bound_ms(value, loc, aw) -> tuple:
 BWD_HEADS = {"8 x 32": (8, 32), "4 x 64": (4, 64), "4 x 24": (4, 24)}
 
 
+def bwd_close(got, want, dtype, label: str) -> float:
+    """Holds a backward's (d_value, d_loc, d_aw) against the plain
+    version's, prints each output's largest difference and raises past
+    the tolerance; returns the largest difference."""
+    max_err = 0.0
+    for out, a, b in zip(("d_value", "d_loc", "d_aw"), got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"backward {out}: {a.dtype} "
+                                 f"{tuple(a.shape)}, plain {b.dtype} "
+                                 f"{tuple(b.shape)}")
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        # same inputs and fp32 sums in both, in another order (and with
+        # atomics for d(value)); a bf16 d(value) may also round to the
+        # neighbouring bf16 value (one step is at most 2^-7 relative)
+        rtol = 2.0 ** -7 if (out == "d_value"
+                             and dtype == torch.bfloat16) else 1e-5
+        tol = 1e-5 * b.abs().max().item() + rtol * b.abs()
+        ok = bool((err <= tol).all())
+        print(f"backward {label}, {out}: max |kernel - plain| = "
+              f"{err.max().item():.3e} (tolerance 1e-5 * max|plain| "
+              f"{1e-5 * b.abs().max().item():.3e} + {rtol:.3g} * |plain| "
+              f"per element)", flush=True)
+        if not ok:
+            raise AssertionError(f"backward {out} ({label}) disagrees with "
+                                 "its plain version")
+        max_err = max(max_err, err.max().item())
+    return max_err
+
+
 def bwd_kernel_phase(K, smi: str) -> dict:
     """The backward kernel against its plain version at the training
     shapes, fp32 and bf16 values, for each head configuration of
-    ``BWD_HEADS``; in bf16 the kernel, plain, library (autograd through
-    grid_sample_core) and bound times."""
+    ``BWD_HEADS``, with its vector width and lanes per (query, head), and
+    d(loc) and d(aw) of a second call equal to the first's bit for bit; in
+    bf16 the kernel, plain, library (autograd through grid_sample_core)
+    and bound times."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     result, max_err = {}, 0.0
     for heads, (nh, hd) in BWD_HEADS.items():
@@ -331,35 +363,28 @@ def bwd_kernel_phase(K, smi: str) -> dict:
                             device="cuda", generator=gen)
             before = K.ms_deform_attn_bwd.launches
             got = K.ms_deform_attn_bwd(value, TRAIN_LEVELS, loc, aw, g)
+            again = K.ms_deform_attn_bwd(value, TRAIN_LEVELS, loc, aw, g)
             torch.cuda.synchronize()
-            if K.ms_deform_attn_bwd.launches != before + 1:
+            if K.ms_deform_attn_bwd.launches != before + 2:
                 raise AssertionError(f"backward {heads}: no kernel launch")
+            name = str(dtype).replace("torch.", "")
+            vec = K.bwd_vector_width(dtype, hd, value.data_ptr())
+            _, _, lanes, chunks = K.bwd_launch_plan(
+                TRAIN_BATCH, loc.shape[1], nh, hd, vec)
+            repeat = all(torch.equal(a, b) for a, b in zip(got[1:],
+                                                           again[1:]))
+            print(f"backward {heads} heads, {name} value: {vec} channels a "
+                  f"vector, {lanes} lanes a (query, head), {chunks} "
+                  f"vector(s) a lane; d_loc and d_aw of a second call "
+                  f"{'equal' if repeat else 'NOT equal'} bit for bit",
+                  flush=True)
+            if not repeat:
+                raise AssertionError(f"backward {heads} {name}: d(loc) or "
+                                     "d(aw) changed between two calls")
             want = K.ms_deform_attn_bwd_torch(value, TRAIN_LEVELS, loc, aw,
                                               g)
-            name = str(dtype).replace("torch.", "")
-            for out, a, b in zip(("d_value", "d_loc", "d_aw"), got, want):
-                if a.dtype != b.dtype or a.shape != b.shape:
-                    raise AssertionError(f"backward {out}: {a.dtype} "
-                                         f"{tuple(a.shape)}, plain {b.dtype} "
-                                         f"{tuple(b.shape)}")
-                a, b = a.float(), b.float()
-                err = (a - b).abs()
-                # same inputs and fp32 sums in both, in another order (and
-                # with atomics for d(value)); a bf16 d(value) may also round
-                # to the neighbouring bf16 value (one step is at most 2^-7
-                # relative)
-                rtol = 2.0 ** -7 if (out == "d_value"
-                                     and dtype == torch.bfloat16) else 1e-5
-                tol = 1e-5 * b.abs().max().item() + rtol * b.abs()
-                ok = bool((err <= tol).all())
-                print(f"backward {heads} heads, {name} value, {out}: max "
-                      f"|kernel - plain| = {err.max().item():.3e} (tolerance "
-                      f"1e-5 * max|plain| {1e-5 * b.abs().max().item():.3e} "
-                      f"+ {rtol:.3g} * |plain| per element)", flush=True)
-                if not ok:
-                    raise AssertionError(f"backward {out} ({heads}, {name}) "
-                                         "disagrees with its plain version")
-                max_err = max(max_err, err.max().item())
+            max_err = max(max_err, bwd_close(got, want, dtype,
+                                             f"{heads} heads, {name} value"))
             if dtype != torch.bfloat16:
                 continue
             ms = cuda_time_ms(
@@ -368,12 +393,7 @@ def bwd_kernel_phase(K, smi: str) -> dict:
             plain_ms = cuda_time_ms(
                 lambda: K.ms_deform_attn_bwd_torch(value, TRAIN_LEVELS, loc,
                                                    aw, g), reps=5, warmup=1)
-            leaves = [t.clone().requires_grad_() for t in (value, loc, aw)]
-            lib_out = grid_sample_core(leaves[0], TRAIN_LEVELS, leaves[1],
-                                       leaves[2])
-            gl = g.to(lib_out.dtype)
-            lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
-                lib_out, leaves, gl, retain_graph=True), reps=10)
+            lib_ms = grid_sample_bwd_ms(value, loc, aw, g, reps=10)
             bound, bound_by = bwd_bound_ms(value, loc, aw)
             print(f"backward {heads} heads, bf16 value at B={TRAIN_BATCH}, "
                   f"levels {TRAIN_LEVELS}: kernel {ms:.4f} ms, plain "
@@ -385,6 +405,16 @@ def bwd_kernel_phase(K, smi: str) -> dict:
     # the train step samples bf16 values (TPU.COMPUTE_DTYPE bfloat16) at
     # the default 8 x 32 heads
     return dict(result["8 x 32"], max_abs_err=max_err)
+
+
+def grid_sample_bwd_ms(value, loc, aw, g, reps: int) -> float:
+    """Device ms of autograd's backward through ``grid_sample_core`` at the
+    training levels (the library yardstick of the backward)."""
+    leaves = [t.clone().requires_grad_() for t in (value, loc, aw)]
+    out = grid_sample_core(leaves[0], TRAIN_LEVELS, leaves[1], leaves[2])
+    gl = g.to(out.dtype)
+    return cuda_time_ms(lambda: torch.autograd.grad(
+        out, leaves, gl, retain_graph=True), reps=reps)
 
 
 # ------------------------------------------- window kernels K4a, K4b, K5, K6

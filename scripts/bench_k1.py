@@ -10,8 +10,8 @@ Each ROOT (default: this checkout) is a directory that holds
 ``vision_instance_seg_tpu_torch``. Each runs in a process of its own (its
 kernels build under ROOT/build/kernels), in the order given, so that
 ``A B B A`` compares two trees on one card (a parent goes into ``_chip/``
-with ``git archive``); the measuring code and the inputs are this
-checkout's for every ROOT. Shapes (``SHAPES``; 8 heads x 32, 4 points,
+with ``git archive``; ``bench_roots.main_over_roots``); the measuring code
+and the inputs are this checkout's for every ROOT. Shapes (``SHAPES``; 8 heads x 32, 4 points,
 bf16 values unless named): the serving shape (batch 8, levels 25², 50²,
 100²) with sampling offsets up to 12, 6 (the clamp under
 ``TPU.USE_PALLAS_DEFORM_ATTN``) and 4 px (the compass init); the training
@@ -34,9 +34,10 @@ modified copy of ``msdeform_attn_fwd.cu`` beside the header it includes
 (made for the study under ``_chip/``, which git ignores), followed by
 macros to define for that copy (``:NAME`` or ``:NAME=VALUE``) and by
 ``@N`` for N queries per CTA (default the package's). Each source and
-macro set is built once with the package's nvcc flags; all are timed in
-one process, in the order given (``A B B A``), through the package's
-wrapper with the library swapped, at the serving shape (offsets 12 and 4
+macro set is built once with the package's nvcc flags
+(``bench_roots.build_variants``); all are timed in one process, in the
+order given (``A B B A``), through the package's launcher
+(``_launch_cuda``) given that library and plan, at the serving shape (offsets 12 and 4
 px, and fp32 values), the training shape, 4 x 24 and on free queries;
 each line gives the largest difference from the plain version, which a
 variant with parts compiled out does not meet.
@@ -44,14 +45,12 @@ variant with parts compiled out does not meet.
 
 from __future__ import annotations
 
-import ctypes
 import hashlib
-import json
 import os
-import subprocess
 import sys
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from bench_roots import REPO, build_variants, main_over_roots
+
 # name -> (inputs from chip_smoke: function name and keyword arguments,
 # value dtype)
 SHAPES = {
@@ -83,8 +82,9 @@ def _inputs(cs, name: str):
     return levels, value, loc, aw
 
 
-def _check(K, levels, value, loc, aw, name: str, strict=True) -> tuple:
-    got = K.ms_deform_attn(value, levels, loc, aw)
+def _check(K, levels, value, loc, aw, name: str, strict=True,
+           kernel=None) -> tuple:
+    got = (kernel or K.ms_deform_attn)(value, levels, loc, aw)
     want = K.ms_deform_attn_core_torch(value, levels, loc, aw)
     err = (got - want).abs().max().item()
     if strict and not err <= 1e-5 * value.float().abs().max().item():
@@ -124,32 +124,6 @@ def measure(root: str) -> dict:
     return out
 
 
-def build_variants(sources, build, K) -> dict:
-    """One nvcc per source and macro set, all started together."""
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for src in dict.fromkeys(sources):
-        where, *macros = src.split(":")
-        path = (build.CSRC / "msdeform_attn_fwd.cu" if where == "cur"
-                else os.path.join(where, "msdeform_attn_fwd.cu"))
-        out = build.BUILD_DIR / ("k1_variant_" + "".join(
-            c if c.isalnum() else "_" for c in src) + ".so")
-        procs[src] = (out, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS,
-             *[f"-D{m}" for m in macros], "-o", str(out), str(path)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for src, (out, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"{src}: nvcc exit {proc.returncode}\n{log}")
-        regs = sorted({x.strip() for x in log.splitlines()
-                       if "registers" in x})
-        print(f"{src}: built; {regs}", flush=True)
-        libs[src] = K.bind_fwd(ctypes.CDLL(str(out)))
-    return libs
-
-
 def variants(argv) -> int:
     import torch
     sys.path.insert(0, REPO)
@@ -159,60 +133,29 @@ def variants(argv) -> int:
 
     specs = [(v.split("@")[0], int(v.split("@")[1]) if "@" in v
               else K.FWD_QUERIES_PER_CTA) for v in argv]
-    libs = build_variants([src for src, _ in specs], build, K)
+    libs = build_variants([src for src, _ in specs], build,
+                          "msdeform_attn_fwd.cu", K.bind_fwd)
     inputs = {name: _inputs(cs, name) for name in VARIANT_SHAPES}
-    qpc0 = K.FWD_QUERIES_PER_CTA
     for (src, qpc), spec in zip(specs, argv):
-        K._library = lambda src=src: libs[src]
-        K.FWD_QUERIES_PER_CTA = qpc
+        def kernel(value, levels, loc, aw, lib=libs[src], qpc=qpc):
+            return K._launch_cuda(value, levels, loc, aw, lib=lib,
+                                  queries_per_cta=qpc)
+
         parts = []
         for name, (levels, value, loc, aw) in inputs.items():
             # a variant with parts compiled out times what is left
-            err, sha = _check(K, levels, value, loc, aw, name, strict=False)
-            ms = cs.cuda_time_ms(
-                lambda: K.ms_deform_attn(value, levels, loc, aw), reps=50)
+            err, sha = _check(K, levels, value, loc, aw, name, strict=False,
+                              kernel=kernel)
+            ms = cs.cuda_time_ms(lambda: kernel(value, levels, loc, aw),
+                                 reps=50)
             parts.append(f"{name} {ms:.4f} ms (err {err:.2e}, sha {sha})")
         print(f"{spec}: " + "; ".join(parts) + " on "
               f"{torch.cuda.get_device_name(0)}", flush=True)
-    K.FWD_QUERIES_PER_CTA = qpc0
     return 0
 
 
 def main(argv) -> int:
-    import torch
-    if argv[:1] == ["--child"]:
-        shapes = measure(os.path.abspath(argv[1]))
-        print(json.dumps({"root": argv[1],
-                          "device": torch.cuda.get_device_name(0),
-                          "shapes": shapes}), flush=True)
-        return 0
-    if not torch.cuda.is_available():
-        print("bench_k1: CUDA is not available", file=sys.stderr)
-        return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi, flush=True)
-    if argv[:1] == ["--variants"]:
-        return variants(argv[1:])
-    runs = []
-    for root in argv or [REPO]:
-        res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--child", root], capture_output=True,
-                             text=True)
-        print(res.stdout, end="", flush=True)
-        if res.returncode:
-            print(res.stderr, file=sys.stderr, flush=True)
-            return res.returncode
-        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
-    first = runs[0]
-    for run in runs[1:]:
-        same = [n for n in SHAPES if run["shapes"][n]["sha"]
-                == first["shapes"][n]["sha"]]
-        print(f"{run['root']} vs {first['root']}: the same output bits at "
-              f"{len(same)} of {len(SHAPES)} shapes "
-              f"({', '.join(same) or 'none'})", flush=True)
-    return 0
+    return main_over_roots(__file__, argv, measure, variants)
 
 
 if __name__ == "__main__":

@@ -22,12 +22,9 @@ root, one JSON line {"root": ..., "device": ..., "shapes": {name: {"ms",
 
 from __future__ import annotations
 
-import json
-import os
-import subprocess
 import sys
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from bench_roots import REPO, main_over_roots
 # name -> (Hp = Wp, heads, window, shift, pad extent or None for K4b);
 # head dim 32. K4b: Swin stages 1-4 (800 / 4 = 200, then 100 -> 104,
 # 50 -> 56, 25 -> 32), stage 1 at window 7 (200 -> 203) and stages 1-4 at
@@ -100,24 +97,7 @@ def measure(root: str) -> dict:
 
 
 def main(argv) -> int:
-    import torch
-    if argv[:1] == ["--child"]:
-        shapes = measure(os.path.abspath(argv[1]))
-        print(json.dumps({"root": argv[1],
-                          "device": torch.cuda.get_device_name(0),
-                          "shapes": shapes}), flush=True)
-        return 0
-    if not torch.cuda.is_available():
-        print("bench_k4: CUDA is not available", file=sys.stderr)
-        return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi, flush=True)
-    for root in argv or [REPO]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
-                        root], check=True)
-    return 0
+    return main_over_roots(__file__, argv, measure)
 
 
 if __name__ == "__main__":

@@ -20,12 +20,9 @@ and, per root, one JSON line {"root": ..., "device": ..., "shapes": {name:
 
 from __future__ import annotations
 
-import json
-import os
-import subprocess
 import sys
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from bench_roots import REPO, main_over_roots
 # name -> (Hp, nH, pad extent or None, split, window, shift); head dim 32.
 # Windows of 8 shifted by 4 (the flagship), then the window-16 encoder's
 # levels 100 -> 112, 50 -> 64 and 25 -> 32, shifted by 8.
@@ -95,24 +92,7 @@ def measure(root: str) -> dict:
 
 
 def main(argv) -> int:
-    import torch
-    if argv[:1] == ["--child"]:
-        shapes = measure(os.path.abspath(argv[1]))
-        print(json.dumps({"root": argv[1],
-                          "device": torch.cuda.get_device_name(0),
-                          "shapes": shapes}), flush=True)
-        return 0
-    if not torch.cuda.is_available():
-        print("bench_k5: CUDA is not available", file=sys.stderr)
-        return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(smi, flush=True)
-    for root in argv or [REPO]:
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
-                        root], check=True)
-    return 0
+    return main_over_roots(__file__, argv, measure)
 
 
 if __name__ == "__main__":

@@ -454,6 +454,204 @@ def test_bwd_kernel_rejects_what_it_does_not_take():
         K.ms_deform_attn_bwd(value, SHAPES, loc, aw, g.double())
 
 
+# ------------------------------------------ the backward's lane groups and plan
+@pytest.mark.parametrize("dtype,hd,offset,fwd,bwd", [
+    ("bfloat16", 32, 0, 8, 4), ("bfloat16", 24, 0, 8, 4),
+    ("bfloat16", 128, 0, 8, 4), ("bfloat16", 64, 8, 4, 4),
+    ("bfloat16", 12, 0, 4, 4), ("bfloat16", 32, 4, 2, 2),
+    ("bfloat16", 32, 2, 1, 1), ("float32", 32, 0, 4, 4),
+    ("float32", 6, 0, 2, 2), ("float32", 32, 4, 1, 1)])
+def test_bwd_vector_width_rule(dtype, hd, offset, fwd, bwd):
+    """The backward's channels a vector: K1's width, at most 4, so that a
+    lane's add into a d(value) row is one 16-byte fp32 vector atomic (K1
+    reads 8 bf16 channels a lane where the backward takes 4)."""
+    dt = getattr(torch, dtype)
+    assert K.fwd_vector_width(dt, hd, ALIGNED + offset) == fwd
+    assert K.bwd_vector_width(dt, hd, ALIGNED + offset) == bwd
+
+
+@pytest.mark.parametrize("hd,vec,lanes,chunks", [
+    (16, 4, 4, 1), (64, 2, 32, 1), (32, 4, 8, 1), (64, 4, 16, 1),
+    (24, 4, 8, 1), (12, 4, 4, 1), (5, 1, 8, 1), (3, 1, 4, 1), (1, 1, 1, 1),
+    (96, 4, 32, 1), (128, 4, 32, 1), (128, 2, 32, 2), (128, 1, 32, 4),
+    (96, 1, 32, 3), (24, 2, 16, 1), (24, 1, 32, 1), (33, 1, 32, 2)])
+def test_bwd_group_rule(hd, vec, lanes, chunks):
+    """The backward's lanes per (query, head): the head's hd / vec vectors
+    rounded up to a power of two, at most 32 (one warp); past 32 vectors
+    each lane takes several."""
+    assert K.bwd_group(hd, vec) == (lanes, chunks)
+
+
+# name -> (B, Q, heads, head dim, dtype, address offset in bytes, queries
+# per CTA): the backward's head configurations (8 x 32 and 4 x 64 in bf16
+# and fp32, 4 x 24), hd 12, an odd hd with nH * hd <= 128, 8 x 128, heads
+# x head dim 1024, a ragged Q, unaligned values (2 and 1 channels a vector:
+# groups of 16 and 32 lanes, and of several vectors a lane at hd 128)
+PLAN_BWD = {
+    "training 8x32 bf16": (2, 8400, 8, 32, "bfloat16", 0, 8),
+    "training 8x32 fp32": (2, 8400, 8, 32, "float32", 0, 8),
+    "4x64 bf16": (2, 1001, 4, 64, "bfloat16", 0, 8),
+    "4x64 fp32": (2, 1001, 4, 64, "float32", 0, 8),
+    "4x24 bf16 (6 vectors on 8 lanes)": (2, 103, 4, 24, "bfloat16", 0, 8),
+    "4x24 fp32": (2, 103, 4, 24, "float32", 0, 8),
+    "hd12 (3 vectors on 4 lanes)": (2, 37, 8, 12, "bfloat16", 0, 8),
+    "hd12 fp32": (2, 37, 8, 12, "float32", 0, 8),
+    "odd hd 7, 3 heads": (2, 53, 3, 7, "bfloat16", 0, 8),
+    "odd hd 127, 1 head": (1, 19, 1, 127, "float32", 0, 8),
+    "8x128 bf16": (2, 29, 8, 128, "bfloat16", 0, 8),
+    "8x128 fp32": (2, 29, 8, 128, "float32", 0, 8),
+    "16x64 fp32 (1024 channels)": (1, 29, 16, 64, "float32", 0, 8),
+    "ragged Q 8x32 bf16": (3, 1001, 8, 32, "bfloat16", 0, 8),
+    "unaligned bf16 (2 channels a vector)": (2, 77, 8, 32, "bfloat16", 4, 8),
+    "unaligned bf16 (1 channel a vector)": (2, 77, 8, 32, "bfloat16", 2, 8),
+    "unaligned fp32 hd 128 (4 vectors a lane)": (2, 29, 8, 128, "float32",
+                                                 4, 8),
+    "unaligned bf16 hd 128 (2 vectors a lane)": (2, 29, 8, 128, "bfloat16",
+                                                 4, 8),
+    "unaligned bf16 hd 128 (4 vectors a lane)": (2, 29, 8, 128, "bfloat16",
+                                                 2, 8),
+    "4 queries per CTA": (2, 1001, 8, 32, "bfloat16", 0, 4),
+    "16 queries per CTA": (2, 1001, 8, 32, "bfloat16", 0, 16)}
+
+
+@pytest.mark.parametrize("case", list(PLAN_BWD))
+def test_bwd_plan_covers_every_channel_once(case):
+    """The backward's grid, CTA size and lane groups (``bwd_launch_plan``,
+    which the wrapper passes to the kernel) with its item and channel
+    mappings (``bwd_item``, ``bwd_lane_channels``, which state the kernel
+    loop's) give every (b, q, head, channel) to exactly one lane; each
+    (query, head)'s lanes are a power of two, aligned within one warp and
+    the same for every iteration of the CTA's loop, so that its xor
+    shuffles never reach another group; CTAs stay within
+    ``BWD_MAX_THREADS`` threads and use no shared memory."""
+    b, q, nh, hd, dtype, offset, qpc = PLAN_BWD[case]
+    vec = K.bwd_vector_width(getattr(torch, dtype), hd, ALIGNED + offset)
+    (ctas, images), threads, lanes, chunks = K.bwd_launch_plan(
+        b, q, nh, hd, vec, qpc)
+    assert images == b and (ctas - 1) * qpc < q <= ctas * qpc
+    assert 1 <= threads <= K.BWD_MAX_THREADS and threads % lanes == 0
+    assert lanes <= 32 and lanes & (lanes - 1) == 0
+    assert chunks <= 4 // vec             # csrc max_chunks
+    assert lanes * chunks * vec >= hd
+    channels = [np.array(K.bwd_lane_channels(lane, lanes, chunks, hd, vec),
+                         np.int64) for lane in range(lanes)]
+    seen = np.zeros((b, q, nh, hd), np.int64)
+    for x in range(ctas):
+        nq = min(qpc, q - x * qpc)
+        item = np.arange(nq * nh * lanes)
+        thread = item % threads
+        ql, h, lane = K.bwd_item(item, nq, nh, lanes)
+        assert ((0 <= ql) & (ql < nq) & (0 <= h) & (h < nh)).all()
+        # a group: `lanes` consecutive threads of one warp, from a multiple
+        # of `lanes`, all in the same loop iteration
+        first = item - lane
+        assert (first % lanes == 0).all()
+        assert (thread - lane == first % threads).all()
+        assert ((first % threads) // 32 == (first % threads + lanes - 1)
+                // 32).all()
+        for i in range(len(item)):
+            ch = channels[lane[i]]
+            for img in range(b):
+                seen[img, x * qpc + ql[i], h[i], ch] += 1
+    assert (seen == 1).all()
+
+
+def test_bwd_max_threads_is_the_kernels_launch_bound():
+    """The wrapper's CTA cap is the one the backward is compiled for (its
+    ``__launch_bounds__``), past which the C entry refuses a launch."""
+    src = (pathlib.Path(K.__file__).parent / "csrc"
+           / "msdeform_attn_bwd.cu").read_text()
+    bound = re.search(r"constexpr int kBwdMaxThreads = (\d+);", src)
+    assert bound and int(bound.group(1)) == K.BWD_MAX_THREADS
+    assert "__launch_bounds__(kBwdMaxThreads," in src
+
+
+def test_bwd_max_vector_is_the_kernels_limit():
+    """The wrapper's widest vector is the one the C entry takes (a wider
+    one is refused) and the one the aligned training shape gets, in bf16
+    and fp32."""
+    src = (pathlib.Path(K.__file__).parent / "csrc"
+           / "msdeform_attn_bwd.cu").read_text()
+    limit = re.search(r"constexpr int kBwdMaxVector = (\d+);", src)
+    assert limit and int(limit.group(1)) == K.BWD_MAX_VECTOR
+    assert "vec > kBwdMaxVector" in src
+    for dtype in (torch.bfloat16, torch.float32):
+        assert K.bwd_vector_width(dtype, 32, ALIGNED) == K.BWD_MAX_VECTOR
+
+
+def test_bwd_wrapper_takes_plain_version_on_cpu():
+    value, loc, aw = (torch.from_numpy(a) for a in sampling_inputs(5))
+    g = torch.from_numpy(cotangent(5, value, loc))
+    before = K.ms_deform_attn_bwd.launches
+    got = K.ms_deform_attn_bwd(value, SHAPES, loc, aw, g)
+    assert K.ms_deform_attn_bwd.launches == before
+    want = K.ms_deform_attn_bwd_torch(value, SHAPES, loc, aw, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# the backward beyond CASES: K1's further cases (free queries, 8 points
+# over 4 levels, hd 12, 8 x 128, 16 x 64) and an odd head dim
+BWD_CASES = dict(K1_CASES, **{
+    "odd-hd7": lambda: (SHAPES, off_map(*sampling_inputs(
+        17, offset_px=3.0, nh=3, hd=7, p=3)))})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_bwd_more_shapes_match_plain_on_cuda(case, dtype):
+    """The backward at more lane groups (3 vectors on 4 lanes at hd 12, 16
+    and 32 lanes at hd 128, 1 channel a vector at hd 7), with d(loc) and
+    d(aw) of a second call equal to the first's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    shapes, arrays = BWD_CASES[case]()
+    value, loc, aw = (torch.from_numpy(a).cuda() for a in arrays)
+    value = value.to(getattr(torch, dtype))
+    g = torch.from_numpy(cotangent(18, value, loc)).cuda()
+    before = K.ms_deform_attn_bwd.launches
+    got = K.ms_deform_attn_bwd(value, shapes, loc, aw, g)
+    again = K.ms_deform_attn_bwd(value, shapes, loc, aw, g)
+    torch.cuda.synchronize()
+    assert K.ms_deform_attn_bwd.launches == before + 2
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    want = K.ms_deform_attn_bwd_torch(value, shapes, loc, aw, g)
+    assert_bwd_close(got, want, value.dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype,elems", [
+    ("wide-heads", "float32", 1), ("wide-heads", "float32", 2),
+    ("wide-heads", "bfloat16", 1), ("wide-heads", "bfloat16", 2),
+    ("hd64", "float32", 1), ("hd64", "bfloat16", 2),
+    ("hd24", "bfloat16", 1), ("8x128", "float32", 1),
+    ("8x128", "bfloat16", 1)])
+def test_bwd_unaligned_value_on_cuda(case, dtype, elems):
+    """A value that starts ``elems`` elements into its storage takes a
+    narrower vector (2 or 1 channels at 8 x 32: groups of 16 and 32 lanes;
+    several vectors a lane at hd 128); the backward still matches the plain
+    version, and d(loc) and d(aw) repeat bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    shapes, (value, loc, aw) = {**CASES, **BWD_CASES}[case]()
+    value, loc, aw = (torch.from_numpy(a).cuda() for a in (value, loc, aw))
+    value = value.to(getattr(torch, dtype))
+    hd = value.shape[-1]
+    base = torch.empty(value.numel() + elems, dtype=value.dtype,
+                       device="cuda")
+    shifted = base[elems:].view(value.shape)
+    shifted.copy_(value)
+    assert K.bwd_vector_width(value.dtype, hd, shifted.data_ptr()) < \
+        K.bwd_vector_width(value.dtype, hd, value.data_ptr())
+    g = torch.from_numpy(cotangent(19, value, loc)).cuda()
+    got = K.ms_deform_attn_bwd(shifted, shapes, loc, aw, g)
+    again = K.ms_deform_attn_bwd(shifted, shapes, loc, aw, g)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    want = K.ms_deform_attn_bwd_torch(value, shapes, loc, aw, g)
+    assert_bwd_close(got, want, value.dtype)
+
+
 # ------------------------------------------ window attention: K4a, K4b, K5, K6
 # Both versions compute the logits and softmax in fp32 from the same inputs;
 # the sums run in another order (and the kernel's exp is CUDA's expf), so an

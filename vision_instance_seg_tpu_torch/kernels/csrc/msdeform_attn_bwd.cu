@@ -29,45 +29,72 @@
 // (Q = S = 8,400, nH = 8, hd = 32, L = 3, P = 4) must read value (8.6 MB
 // bf16), loc (12.9 MB), aw (6.45 MB), g (17.2 MB) and write d(value)
 // (8.6 MB), d(loc) (12.9 MB) and d(aw) (6.45 MB): 73.1 MB, 22 us at
-// 3.35 TB/s, against ~0.83 GFLOP (12 us at the fp32 rate). The simple design
-// below also issues 1.61 M samples x 4 corners x 32 channels = 206 M fp32
-// atomic adds into d(value), which are likely to set its time.
+// 3.35 TB/s, against ~0.83 GFLOP (12 us at the fp32 rate). What the card
+// moves is larger: every (query, head, point) reads four corner rows of the
+// head's channels, as the forward does, and adds into the same four rows of
+// the fp32 accumulator: 1.61 M samples x 4 corners x 128 bytes = 825 MB of
+// atomic adds at that shape, served by L2, where one image's accumulator
+// (8.6 MB) stays while its queries run.
 //
-// Design. A block takes a few consecutive queries of one image. Phase 1:
-// one (query, head, level, point) per thread turns loc into corner indices
-// and fractional offsets in shared memory (coalesced reads of loc and aw).
-// Phase 2: each head takes `lanes` threads, the next power of two >= hd and
-// at most 32, so that a head's lanes sit in one warp; lane i takes channels
-// i, i + lanes, ... below hd (at most 4: hd <= 128). For every point each
-// lane reads its channels of the four corner rows and of g, sums its own
-// channels' terms of d(aw), d(lx) and d(ly), reduces the three sums across
-// the head's lanes with xor shuffles, and atomically adds aw * w_corner * g
-// into the fp32 d(value) rows, one atomic per channel and corner. The
-// head's lane 0 parks d(loc) and d(aw) in shared memory. Phase 3 writes them
-// coalesced. The atomics make d(value)'s summation order, and so its last
-// bits, vary from run to run. Head dims: those the TPU kernels take, any hd
-// when nH * hd <= 128, else one that divides 128 (their channel chunking).
+// Design (the forward's, csrc/msdeform_attn_fwd.cu, plus the scatter):
+// - Lane groups: each (query, head) takes `lanes` lanes of one warp, each
+//   lane V channels of a corner row in one vector load: V = 4 (8 bytes
+//   bf16, 16 fp32), narrower where the head dim or the value's address
+//   needs it (the wrapper's `bwd_vector_width`). Four channels, not the
+//   forward's 8 bf16: a lane's add into a d(value) row is then one 16-byte
+//   fp32 vector atomic, and the group's lanes add into one contiguous run
+//   of the row. At 8 bf16 channels a lane its two atomics land 16 bytes
+//   apart, in twice as many 32-byte sectors of L2: 0.42 ms a call at the
+//   training shape against 0.24 (scripts/bench_msdeform_bwd.py --variants,
+//   NVIDIA H100 80GB HBM3 at 700 W). The head's hd / V vectors are
+//   rounded up to a power of two lanes, at most 32, so that a group never
+//   straddles a warp and its xor shuffles never reach another group's
+//   lanes; lanes past the head's vectors idle (hd 12: 3 vectors on 4
+//   lanes), and a head of more than 32 vectors gives each lane `chunks` of
+//   them, vector lane + k * lanes (an unaligned value at hd 128: 4 a
+//   lane). The wrapper's `bwd_launch_plan` computes lanes and chunks.
+// - Each lane keeps its channels of g in registers for the whole (query,
+//   head), and computes each point's corners in registers
+//   (`corner_geometry`; no shared memory). The levels' loop is unrolled, so
+//   that each level's shape is a constant of the launch, not a select over
+//   every field of `Levels`.
+// - Per point and vector: the four corner loads go out first; then the
+//   d(value) adds, aw * w_corner * g, which need no value: one vector
+//   atomic (red.global.add.v4.f32) per 4 channels and corner; then each
+//   lane's partial g . v of each corner. The four partials are summed
+//   across the group by xor shuffles (4 x log2(lanes)), which leave every
+//   lane the same four sums, from which each lane forms d(aw), d(loc_x),
+//   d(loc_y) in the plain version's order.
+// - Lane p mod lanes keeps point p's d(loc) and d(aw); after every `lanes`
+//   points the group stores them as one contiguous run.
+// - A CTA takes `qpc` consecutive queries of one image (4: 256 threads at
+//   8 x 32), images on the slow grid axis, items query-major as in the
+//   forward (`bwd_item`). One point in flight a lane.
+// - Time goes to the instructions around each point more than to the
+//   atomics: without them the call takes 0.19 ms of 0.24 at the training
+//   shape (same script and card).
+// - d(loc) and d(aw) of a point come from one group in a fixed order, so
+//   they repeat bit for bit from run to run. d(value) sums with atomics in
+//   an order that changes from run to run, and so do its last bits.
+// Head dims: those the TPU kernels take, any hd when nH * hd <= 128, else
+// one that divides 128 (their channel chunking); hd <= 128 in both.
 
 #include "msdeform_attn_common.cuh"
 
-// one sampling point: corner token indices (-1 = off the map), the
-// fractional offsets and the attention weight
-struct __align__(16) BwdPoint {
-  int4 idx;
-  float4 f;  // lx, ly, aw, unused
-};
-
-// bytes of shared memory per (query, head, level, point)
-#define MSDA_BWD_POINT_BYTES ((int)sizeof(BwdPoint) + 3 * (int)sizeof(float))
-// channels of one head a lane takes: hd <= 128 over 32 lanes
-#define MSDA_BWD_MAX_CHANNELS_PER_LANE 4
-
-// threads per head: the next power of two >= hd, at most 32
-__host__ __device__ __forceinline__ int msda_bwd_lanes(int hd) {
-  int lanes = 1;
-  while (lanes < hd && lanes < 32) lanes <<= 1;
-  return lanes;
+// The largest CTA (the wrapper's BWD_MAX_THREADS; a larger one is
+// refused), the most channels a vector (the wrapper's BWD_MAX_VECTOR; a
+// wider one is refused) and the CTAs per SM its registers leave room for:
+// 3 (80 registers) at kBwdMaxVector channels a vector; 2 (128) at 2 or 1,
+// whose lanes take up to 4 vectors each and spill at 80.
+constexpr int kBwdMaxThreads = 256;
+constexpr int kBwdMaxVector = 4;
+__host__ __device__ constexpr int min_blocks(int vec) {
+  return vec == kBwdMaxVector ? 3 : 2;
 }
+
+// vectors of `vec` (4, 2 or 1) channels a lane takes at most: hd <= 128
+// over 32 lanes
+__host__ __device__ constexpr int max_chunks(int vec) { return 4 / vec; }
 
 // the head dims the TPU kernels take: any when nH * hd <= 128 (one lane
 // chunk), else one that divides 128 (channel chunks of 128)
@@ -75,112 +102,149 @@ static inline bool msda_bwd_takes(int nH, int hd) {
   return hd >= 1 && hd <= 128 && (nH * hd <= 128 || 128 % hd == 0);
 }
 
-template <typename T>
-__global__ void msdeform_attn_bwd_kernel(
-    const T* __restrict__ value, const float* __restrict__ loc,
-    const float* __restrict__ aw, const float* __restrict__ grad,
-    float* __restrict__ dvalue, float* __restrict__ dloc,
-    float* __restrict__ daw, int Q, int S, int nH, int hd, int L, int P,
-    int queries_per_block, Levels lv) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int b = blockIdx.y;
-  const int t = threadIdx.x;
+// dst[0 .. V) += w * g[0 .. V) as one vector atomic
+template <int V>
+__device__ __forceinline__ void scatter_add(float* dst, float w,
+                                            const float* g) {
+  if constexpr (V == 4) {
+    atomicAdd(reinterpret_cast<float4*>(dst),
+              make_float4(w * g[0], w * g[1], w * g[2], w * g[3]));
+  } else if constexpr (V == 2) {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(w * g[0], w * g[1]));
+  } else {
+    atomicAdd(dst, w * g[0]);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ float dot(const float* g, const Chunk<T, V>& v) {
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < V; ++j) s += g[j] * v.get(j);
+  return s;
+}
+
+template <typename T, int V>
+__global__ void __launch_bounds__(kBwdMaxThreads, min_blocks(V))
+    msdeform_attn_bwd_kernel(const T* __restrict__ value,
+                             const float* __restrict__ loc,
+                             const float* __restrict__ aw,
+                             const float* __restrict__ grad,
+                             float* __restrict__ dvalue,
+                             float* __restrict__ dloc,
+                             float* __restrict__ daw, int Q, int S, int nH,
+                             int hd, int L, int P, int lanes, int chunks,
+                             int qpc, Levels lv) {
+  constexpr int KMAX = max_chunks(V);
+  const int G = hd / V;  // vectors of a head
   const int C = nH * hd;
   const int LP = L * P;
-  const int q_begin = blockIdx.x * queries_per_block;
-  const int nq = min(queries_per_block, Q - q_begin);
-  const int64_t bq0 = (int64_t)b * Q + q_begin;
-  const int n_points = nq * nH * LP;
-  BwdPoint* table = reinterpret_cast<BwdPoint*>(smem);
-  float2* res_loc =
-      reinterpret_cast<float2*>(table + queries_per_block * nH * LP);
-  float* res_aw = reinterpret_cast<float*>(res_loc + queries_per_block * nH * LP);
+  const int b = blockIdx.y;
+  const int q_begin = blockIdx.x * qpc;
+  const int nq = min(qpc, Q - q_begin);
+  const int items = nq * nH * lanes;
+  // a group is `lanes` consecutive lanes of one warp, aligned to `lanes`
+  const unsigned group =
+      lanes == 32 ? 0xffffffffu
+                  : ((1u << lanes) - 1u) << (threadIdx.x & 31 & -lanes);
+  const float2* loc2 = reinterpret_cast<const float2*>(loc);
+  float2* dloc2 = reinterpret_cast<float2*>(dloc);
+  for (int i = threadIdx.x; i < items; i += blockDim.x) {
+    const int q = i / (nH * lanes);
+    const int h = i / lanes % nH;
+    const int lane = i % lanes;
+    const int64_t bqh = ((int64_t)b * Q + q_begin + q) * nH + h;
+    const float2* lp = loc2 + bqh * LP;
+    const float* ap = aw + bqh * LP;
+    // value[b, s, h, c] and d(value)[b, s, h, c] at head + s * C + c
+    const int64_t head = (int64_t)b * S * C + h * hd;
 
-  // phase 1: one (query, head, level, point) per thread, coalesced reads
-  const float2* loc2 = reinterpret_cast<const float2*>(loc) + bq0 * nH * LP;
-  const float* awq = aw + bq0 * nH * LP;
-  for (int i = t; i < n_points; i += blockDim.x) {
-    const float2 xy = loc2[i];
-    BwdPoint pt;
-    pt.idx = corner_geometry(xy.x, xy.y, lv, (i % LP) / P, &pt.f.x, &pt.f.y);
-    pt.f.z = awq[i];
-    pt.f.w = 0.f;
-    table[i] = pt;
-  }
-  __syncthreads();
-
-  // phase 2: `lanes` threads per head; value[b, s, h, c] at vb + s * C + c
-  const int lanes = msda_bwd_lanes(hd);
-  const int h = t / lanes;
-  const int li = t - h * lanes;
-  const int warp_lanes = min(32, (int)blockDim.x - (t & ~31));
-  const unsigned mask =
-      warp_lanes == 32 ? 0xffffffffu : ((1u << warp_lanes) - 1u);
-  const T* vb = value + (int64_t)b * S * C + h * hd;
-  float* dvb = dvalue + (int64_t)b * S * C + h * hd;
-  for (int qi = 0; qi < nq; ++qi) {
-    float g[MSDA_BWD_MAX_CHANNELS_PER_LANE];  // this lane's channels of g
+    // this lane's vectors k: channels [off[k], off[k] + V) of the head
+    float g[KMAX][V];
+    int off[KMAX];
+    bool has[KMAX];
 #pragma unroll
-    for (int k = 0; k < MSDA_BWD_MAX_CHANNELS_PER_LANE; ++k) {
-      const int c = li + k * lanes;
-      g[k] = c < hd ? grad[(bq0 + qi) * C + h * hd + c] : 0.f;
+    for (int k = 0; k < KMAX; ++k) {
+      const int c = lane + k * lanes;
+      has[k] = k < chunks && c < G;
+      off[k] = c * V;
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        g[k][j] = has[k] ? __ldg(grad + bqh * hd + off[k] + j) : 0.f;
     }
-    const int row = (qi * nH + h) * LP;
-    for (int p = 0; p < LP; ++p) {
-      const BwdPoint pt = table[row + p];
-      const float lx = pt.f.x, ly = pt.f.y, a = pt.f.z;
-      const float w00 = (1.f - ly) * (1.f - lx), w01 = (1.f - ly) * lx;
-      const float w10 = ly * (1.f - lx), w11 = ly * lx;
-      float s_aw = 0.f, s_x = 0.f, s_y = 0.f;
+
+    float2 keep_loc = make_float2(0.f, 0.f);
+    float keep_aw = 0.f;
+    float2 xy = __ldg(lp);
+    float a = __ldg(ap);
+    // levels unrolled: their shapes are constants of the launch
 #pragma unroll
-      for (int k = 0; k < MSDA_BWD_MAX_CHANNELS_PER_LANE; ++k) {
-        const int c = li + k * lanes;
-        if (c >= hd) break;
-        const float ag = a * g[k];
+    for (int l = 0; l < MSDA_MAX_LEVELS; ++l) {
+      if (l >= L) break;
+      for (int pp = 0; pp < P; ++pp) {
+        const int p = l * P + pp;
+        float lx, ly;
+        const int4 idx = corner_geometry(xy.x, xy.y, lv, l, &lx, &ly);
+        const float pa = a;
+        // the next point's loc and aw, ahead of this point's work
+        if (p + 1 < LP) {
+          xy = __ldg(lp + p + 1);
+          a = __ldg(ap + p + 1);
+        }
+        const float w00 = (1.f - ly) * (1.f - lx), w01 = (1.f - ly) * lx;
+        const float w10 = ly * (1.f - lx), w11 = ly * lx;
+        const int64_t r00 = (int64_t)idx.x * C, r01 = (int64_t)idx.y * C;
+        const int64_t r10 = (int64_t)idx.z * C, r11 = (int64_t)idx.w * C;
+        // a vector at a time: its four corner loads go out first, then its
+        // d(value) adds, which need no value, then its part of g . v (0 off
+        // the map)
         float gv00 = 0.f, gv01 = 0.f, gv10 = 0.f, gv11 = 0.f;
-        if (pt.idx.x >= 0) {
-          gv00 = g[k] * to_float(vb[(int64_t)pt.idx.x * C + c]);
-          atomicAdd(dvb + (int64_t)pt.idx.x * C + c, ag * w00);
+#pragma unroll
+        for (int k = 0; k < KMAX; ++k) {
+          if (!has[k]) continue;
+          const T* vb = value + head + off[k];
+          float* db = dvalue + head + off[k];
+          Chunk<T, V> v00, v01, v10, v11;
+          if (idx.x >= 0) v00.load(vb + r00);
+          if (idx.y >= 0) v01.load(vb + r01);
+          if (idx.z >= 0) v10.load(vb + r10);
+          if (idx.w >= 0) v11.load(vb + r11);
+          if (idx.x >= 0) scatter_add<V>(db + r00, pa * w00, g[k]);
+          if (idx.y >= 0) scatter_add<V>(db + r01, pa * w01, g[k]);
+          if (idx.z >= 0) scatter_add<V>(db + r10, pa * w10, g[k]);
+          if (idx.w >= 0) scatter_add<V>(db + r11, pa * w11, g[k]);
+          if (idx.x >= 0) gv00 += dot(g[k], v00);
+          if (idx.y >= 0) gv01 += dot(g[k], v01);
+          if (idx.z >= 0) gv10 += dot(g[k], v10);
+          if (idx.w >= 0) gv11 += dot(g[k], v11);
         }
-        if (pt.idx.y >= 0) {
-          gv01 = g[k] * to_float(vb[(int64_t)pt.idx.y * C + c]);
-          atomicAdd(dvb + (int64_t)pt.idx.y * C + c, ag * w01);
+        // the group's sums
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          if (o >= lanes) continue;
+          gv00 += __shfl_xor_sync(group, gv00, o);
+          gv01 += __shfl_xor_sync(group, gv01, o);
+          gv10 += __shfl_xor_sync(group, gv10, o);
+          gv11 += __shfl_xor_sync(group, gv11, o);
         }
-        if (pt.idx.z >= 0) {
-          gv10 = g[k] * to_float(vb[(int64_t)pt.idx.z * C + c]);
-          atomicAdd(dvb + (int64_t)pt.idx.z * C + c, ag * w10);
+        const int slot = p & (lanes - 1);
+        if (slot == lane) {
+          const float d_lx = (1.f - ly) * (gv01 - gv00) + ly * (gv11 - gv10);
+          const float d_ly = (1.f - lx) * (gv10 - gv00) + lx * (gv11 - gv01);
+          keep_loc = make_float2((float)lv.w[l] * pa * d_lx,
+                                 (float)lv.h[l] * pa * d_ly);
+          keep_aw = w00 * gv00 + w01 * gv01 + w10 * gv10 + w11 * gv11;
         }
-        if (pt.idx.w >= 0) {
-          gv11 = g[k] * to_float(vb[(int64_t)pt.idx.w * C + c]);
-          atomicAdd(dvb + (int64_t)pt.idx.w * C + c, ag * w11);
+        // after every `lanes` points (and the last), one contiguous run
+        if (slot == lanes - 1 || p == LP - 1) {
+          const int64_t at = bqh * LP + (p - slot) + lane;
+          if (lane <= slot) {
+            dloc2[at] = keep_loc;
+            daw[at] = keep_aw;
+          }
         }
-        s_aw += w00 * gv00 + w01 * gv01 + w10 * gv10 + w11 * gv11;
-        s_x += (1.f - ly) * (gv01 - gv00) + ly * (gv11 - gv10);
-        s_y += (1.f - lx) * (gv10 - gv00) + lx * (gv11 - gv01);
-      }
-      // the head's lanes are aligned within one warp: xor offsets below
-      // `lanes` never leave them
-      for (int off = lanes >> 1; off > 0; off >>= 1) {
-        s_aw += __shfl_xor_sync(mask, s_aw, off);
-        s_x += __shfl_xor_sync(mask, s_x, off);
-        s_y += __shfl_xor_sync(mask, s_y, off);
-      }
-      if (li == 0) {
-        const int l = p / P;
-        res_loc[row + p] = make_float2((float)lv.w[l] * a * s_x,
-                                       (float)lv.h[l] * a * s_y);
-        res_aw[row + p] = s_aw;
       }
     }
-  }
-  __syncthreads();
-
-  // phase 3: this block's d(loc) and d(aw) are contiguous; write coalesced
-  float2* dloc2 = reinterpret_cast<float2*>(dloc) + bq0 * nH * LP;
-  float* dawq = daw + bq0 * nH * LP;
-  for (int i = t; i < n_points; i += blockDim.x) {
-    dloc2[i] = res_loc[i];
-    dawq[i] = res_aw[i];
   }
 }
 
@@ -192,53 +256,89 @@ __global__ void f32_to_bf16_kernel(const float* __restrict__ src,
     dst[i] = __float2bfloat16(src[i]);
 }
 
+template <typename T, int V>
+static cudaError_t launch(const void* value, const void* loc, const void* aw,
+                          const void* grad, float* acc, void* dloc, void* daw,
+                          int B, int S, int Q, int nH, int hd, int L, int P,
+                          int lanes, int chunks, int qpc, int ctas,
+                          int threads, const Levels& lv, cudaStream_t st) {
+  auto kernel = msdeform_attn_bwd_kernel<T, V>;
+  // once per instantiation: the unified L1 / shared memory all as L1
+  static const cudaError_t carveout = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxL1);
+  if (carveout != cudaSuccess) return carveout;
+  kernel<<<dim3(ctas, B), threads, 0, st>>>(
+      static_cast<const T*>(value), static_cast<const float*>(loc),
+      static_cast<const float*>(aw), static_cast<const float*>(grad), acc,
+      static_cast<float*>(dloc), static_cast<float*>(daw), Q, S, nH, hd, L,
+      P, lanes, chunks, qpc, lv);
+  return cudaGetLastError();
+}
+
 extern "C" {
 
 // Zeroes dvalue_acc, launches the backward and, for bf16 values, the cast of
 // the accumulator into dvalue_out, all on `stream`. Returns the first CUDA
-// error (0 = ok). dvalue_acc is fp32 (B, S, nH, hd); dvalue_out is ignored
-// for fp32 values. hw holds L (height, width) pairs in the value's order.
+// error (0 = ok). dvalue_acc is fp32 (B, S, nH, hd), 16-byte aligned;
+// dvalue_out is ignored for fp32 values. hw holds L (height, width) pairs
+// in the value's order. The plan is the wrapper's bwd_launch_plan: `vec`
+// channels a vector (4, 2 or 1; it must divide hd, and its bytes the
+// value's address), `lanes` (a power of two,
+// at most 32) lanes a (query, head) taking `chunks` vectors each, which
+// must cover hd; `queries_per_cta` consecutive queries of one image a CTA,
+// `ctas` x B CTAs of `threads` threads (a multiple of `lanes`, at most
+// kBwdMaxThreads), which must cover Q.
 int msdeform_attn_bwd(const void* value, int value_is_bf16, const void* loc,
                       const void* aw, const void* grad, void* dvalue_acc,
                       void* dvalue_out, void* dloc, void* daw, int B, int S,
                       int Q, int nH, int hd, int L, int P, const int* hw,
-                      int queries_per_block, void* stream) {
-  const int point_bytes = nH * L * P * MSDA_BWD_POINT_BYTES;
+                      int vec, int lanes, int chunks, int queries_per_cta,
+                      int ctas, int threads, void* stream) {
+  const int elem = value_is_bf16 ? 2 : 4;
   if (L < 1 || L > MSDA_MAX_LEVELS || P < 1 || !msda_bwd_takes(nH, hd) ||
-      nH * hd > 1024 || point_bytes > MSDA_MAX_SMEM)
+      nH * hd > 1024 || vec < 1 || (vec & (vec - 1)) ||
+      vec > kBwdMaxVector || hd % vec || lanes < 1 || lanes > 32 ||
+      (lanes & (lanes - 1)) ||
+      chunks < 1 || chunks > max_chunks(vec) || lanes * chunks * vec < hd ||
+      queries_per_cta < 1 || threads < 1 || threads > kBwdMaxThreads ||
+      threads % lanes || (int64_t)ctas * queries_per_cta < Q ||
+      reinterpret_cast<uintptr_t>(value) % (vec * elem) ||
+      reinterpret_cast<uintptr_t>(dvalue_acc) % 16 ||
+      reinterpret_cast<uintptr_t>(loc) % 8 ||
+      reinterpret_cast<uintptr_t>(dloc) % 8)
     return (int)cudaErrorInvalidValue;
   Levels lv;
   if (fill_levels(&lv, hw, L) != S) return (int)cudaErrorInvalidValue;
-  int qpb = queries_per_block < 1 ? 1 : queries_per_block;
-  if (qpb * point_bytes > MSDA_MAX_SMEM) qpb = MSDA_MAX_SMEM / point_bytes;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int64_t n_value = (int64_t)B * S * nH * hd;
   cudaError_t err =
       cudaMemsetAsync(dvalue_acc, 0, (size_t)n_value * sizeof(float), st);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Q + qpb - 1) / qpb, B);
-  dim3 block(nH * msda_bwd_lanes(hd));
-  const size_t smem = (size_t)qpb * point_bytes;
   float* acc = static_cast<float*>(dvalue_acc);
+  const int qpc = queries_per_cta;
+#define MSDA_BWD_LAUNCH(T, V)                                               \
+  err = launch<T, V>(value, loc, aw, grad, acc, dloc, daw, B, S, Q, nH, hd, \
+                     L, P, lanes, chunks, qpc, ctas, threads, lv, st);      \
+  break
   if (value_is_bf16) {
-    msdeform_attn_bwd_kernel<__nv_bfloat16><<<grid, block, smem, st>>>(
-        static_cast<const __nv_bfloat16*>(value),
-        static_cast<const float*>(loc), static_cast<const float*>(aw),
-        static_cast<const float*>(grad), acc, static_cast<float*>(dloc),
-        static_cast<float*>(daw), Q, S, nH, hd, L, P, qpb, lv);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const int64_t blocks = (n_value + 255) / 256;
-    f32_to_bf16_kernel<<<(int)(blocks < 65535 ? blocks : 65535), 256, 0,
-                         st>>>(acc, static_cast<__nv_bfloat16*>(dvalue_out),
-                               n_value);
+    switch (vec) {
+      case 4: MSDA_BWD_LAUNCH(__nv_bfloat16, 4);
+      case 2: MSDA_BWD_LAUNCH(__nv_bfloat16, 2);
+      default: MSDA_BWD_LAUNCH(__nv_bfloat16, 1);
+    }
   } else {
-    msdeform_attn_bwd_kernel<float><<<grid, block, smem, st>>>(
-        static_cast<const float*>(value), static_cast<const float*>(loc),
-        static_cast<const float*>(aw), static_cast<const float*>(grad), acc,
-        static_cast<float*>(dloc), static_cast<float*>(daw), Q, S, nH, hd,
-        L, P, qpb, lv);
+    switch (vec) {
+      case 4: MSDA_BWD_LAUNCH(float, 4);
+      case 2: MSDA_BWD_LAUNCH(float, 2);
+      default: MSDA_BWD_LAUNCH(float, 1);
+    }
   }
+#undef MSDA_BWD_LAUNCH
+  if (err != cudaSuccess || !value_is_bf16) return (int)err;
+  const int64_t blocks = (n_value + 255) / 256;
+  f32_to_bf16_kernel<<<(int)(blocks < 65535 ? blocks : 65535), 256, 0, st>>>(
+      acc, static_cast<__nv_bfloat16*>(dvalue_out), n_value);
   return (int)cudaGetLastError();
 }
 

@@ -12,9 +12,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 #define MSDA_MAX_LEVELS 8
-#define MSDA_MAX_SMEM 49152
 
 struct Levels {
   int h[MSDA_MAX_LEVELS];
@@ -26,6 +26,40 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+
+template <int BYTES>
+struct RawOf;
+template <>
+struct RawOf<16> {
+  using type = uint4;
+};
+template <>
+struct RawOf<8> {
+  using type = uint2;
+};
+template <>
+struct RawOf<4> {
+  using type = unsigned int;
+};
+template <>
+struct RawOf<2> {
+  using type = unsigned short;
+};
+
+// V consecutive channels of one value row, read as one vector load
+template <typename T, int V>
+struct Chunk {
+  using Raw = typename RawOf<V * (int)sizeof(T)>::type;
+  Raw raw;
+  __device__ __forceinline__ void load(const T* p) {
+    raw = __ldg(reinterpret_cast<const Raw*>(p));
+  }
+  __device__ __forceinline__ float get(int j) const {
+    T e[V];
+    memcpy(e, &raw, sizeof(raw));
+    return to_float(e[j]);
+  }
+};
 
 // Corner indices (idx.x = (y0, x0), .y = (y0, x0 + 1), .z = (y0 + 1, x0),
 // .w = (y0 + 1, x0 + 1)) and the fractional offsets lx, ly of one sample.

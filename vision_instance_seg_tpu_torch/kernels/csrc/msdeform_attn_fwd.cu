@@ -63,48 +63,12 @@
 // - A lane's V fp32 sums leave as 16-byte stores (8 bytes at V = 2), the
 //   group's row contiguous.
 
-#include <string.h>
-
 #include "msdeform_attn_common.cuh"
 
 // The largest CTA (the wrapper's FWD_MAX_THREADS; a larger one is
 // refused) and the CTAs per SM its registers leave room for.
 constexpr int kFwdMaxThreads = 256;
 constexpr int kFwdMinBlocks = 4;
-
-template <int BYTES>
-struct RawOf;
-template <>
-struct RawOf<16> {
-  using type = uint4;
-};
-template <>
-struct RawOf<8> {
-  using type = uint2;
-};
-template <>
-struct RawOf<4> {
-  using type = unsigned int;
-};
-template <>
-struct RawOf<2> {
-  using type = unsigned short;
-};
-
-// V consecutive channels of one value row, read as one vector load
-template <typename T, int V>
-struct Chunk {
-  using Raw = typename RawOf<V * (int)sizeof(T)>::type;
-  Raw raw;
-  __device__ __forceinline__ void load(const T* p) {
-    raw = __ldg(reinterpret_cast<const Raw*>(p));
-  }
-  __device__ __forceinline__ float get(int j) const {
-    T e[V];
-    memcpy(e, &raw, sizeof(raw));
-    return to_float(e[j]);
-  }
-};
 
 template <int V>
 __device__ __forceinline__ void store_row(float* dst, const float* acc) {

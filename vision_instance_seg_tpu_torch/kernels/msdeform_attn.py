@@ -38,9 +38,12 @@ import torch
 # (models/deform_attn.MSDeformAttn), so both packages compute one function.
 DEFAULT_HALO = 6
 MAX_LEVELS = 8               # csrc MSDA_MAX_LEVELS
-QUERIES_PER_BLOCK = 8       # backward: consecutive queries share a block
 FWD_QUERIES_PER_CTA = 8     # K1: consecutive queries of one image per CTA
 FWD_MAX_THREADS = 256       # K1: largest CTA (csrc refuses more)
+BWD_QUERIES_PER_CTA = 4     # backward: the same, for its CTAs
+BWD_MAX_THREADS = 256       # backward: largest CTA (csrc refuses more)
+BWD_MAX_VECTOR = 4          # backward: channels a vector at most (csrc
+                            # kBwdMaxVector; it refuses more)
 
 
 def ms_deform_attn_core_torch(value: torch.Tensor,
@@ -202,11 +205,17 @@ def bind_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     from vision_instance_seg_tpu_torch.kernels.build import load_library
 
-    lib = load_library("msdeform_attn_bwd")
+    return bind_bwd(load_library("msdeform_attn_bwd"))
+
+
+def bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the backward's C entry points on a library built from
+    ``csrc/msdeform_attn_bwd.cu`` (or a version of it)."""
     lib.msdeform_attn_bwd.argtypes = (
         [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 7
         + [ctypes.c_int] * 7
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 6
+        + [ctypes.c_void_p])
     lib.msdeform_attn_bwd.restype = ctypes.c_int
     lib.msdeform_attn_bwd_error_string.argtypes = [ctypes.c_int]
     lib.msdeform_attn_bwd_error_string.restype = ctypes.c_char_p
@@ -258,14 +267,18 @@ def fwd_item(i, nq: int, nh: int, g: int):
     return i // (nh * g), i // g % nh, i % g
 
 
-def _launch_cuda(value, spatial_shapes, locations, weights):
-    lib = _library()
+def _launch_cuda(value, spatial_shapes, locations, weights, lib=None,
+                 queries_per_cta: int = FWD_QUERIES_PER_CTA):
+    """Launches K1 with ``fwd_launch_plan``'s plan (``lib`` and
+    ``queries_per_cta`` let a bench time a version of the source or
+    another plan)."""
+    lib = lib or _library()
     b, s, nh, hd = value.shape
     q, nl, p = locations.shape[1], len(spatial_shapes), locations.shape[4]
     out = torch.empty((b, q, nh * hd), dtype=torch.float32,
                       device=value.device)
     vec = fwd_vector_width(value.dtype, hd, value.data_ptr())
-    qpc = FWD_QUERIES_PER_CTA
+    qpc = queries_per_cta
     (ctas, _), threads = fwd_launch_plan(b, q, nh, hd, vec, qpc)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream(value.device).cuda_stream
@@ -305,9 +318,70 @@ def bwd_takes_head_dim(nh: int, hd: int) -> bool:
     return 1 <= hd <= 128 and (nh * hd <= 128 or 128 % hd == 0)
 
 
-def _launch_cuda_bwd(value, spatial_shapes, locations, weights, grad_out):
+def bwd_vector_width(dtype: torch.dtype, hd: int, data_ptr: int,
+                     max_vector: int = BWD_MAX_VECTOR) -> int:
+    """Channels a vector of the backward (csrc ``msdeform_attn_bwd``'s
+    ``vec``): K1's width, at most ``max_vector`` (``BWD_MAX_VECTOR``, 4;
+    a bench may ask for fewer). A lane's add into a d(value) row is then
+    one 16-byte fp32 vector atomic, and a group's lanes add into one
+    contiguous run of the row: 8 bf16 channels a lane put each lane's two
+    atomics 16 bytes apart, in twice as many 32-byte sectors of L2."""
+    return min(fwd_vector_width(dtype, hd, data_ptr), max_vector)
+
+
+def bwd_group(hd: int, vec: int) -> Tuple[int, int]:
+    """Lanes of one (query, head) in the backward and vectors a lane takes:
+    the head's hd / vec vectors rounded up to a power of two lanes, at most
+    32, so that a group lies in one warp and its xor shuffles stay inside
+    it (lanes past the head's vectors idle); a head of more than 32 vectors
+    gives each lane ceil(vectors / 32), vectors lane, lane + 32, ...
+    (``bwd_lane_channels``)."""
+    vectors = hd // vec
+    lanes = 1
+    while lanes < min(vectors, 32):
+        lanes *= 2
+    return lanes, -(-vectors // lanes)
+
+
+def bwd_launch_plan(b: int, q: int, nh: int, hd: int, vec: int,
+                    queries_per_cta: int = BWD_QUERIES_PER_CTA
+                    ) -> Tuple[Tuple[int, int], int, int, int]:
+    """The backward's grid, CTA size and lane groups, as
+    ``_launch_cuda_bwd`` passes them to the kernel: ((ceil(Q / qpc), B)
+    CTAs, threads, lanes, chunks). A CTA takes ``queries_per_cta``
+    consecutive queries of one image, images on the slow grid axis; its
+    items are (query, head, lane) with ``bwd_group``'s lanes per (query,
+    head), at most ``BWD_MAX_THREADS`` threads (a multiple of the lanes),
+    each taking items t, t + threads, ... (``bwd_item``, K1's mapping). No
+    shared memory."""
+    lanes, chunks = bwd_group(hd, vec)
+    per_cta = queries_per_cta * nh * lanes
+    return ((q + queries_per_cta - 1) // queries_per_cta, b), \
+        min(per_cta, BWD_MAX_THREADS), lanes, chunks
+
+
+# the backward's items map as K1's, with its group's lanes for K1's hd / vec
+bwd_item = fwd_item
+
+
+def bwd_lane_channels(lane: int, lanes: int, chunks: int, hd: int,
+                      vec: int) -> list:
+    """The head's channels that ``lane`` of a backward group takes: vectors
+    lane + k * lanes (k < chunks) below hd / vec, vec channels each; none
+    for an idle lane."""
+    return [c * vec + j for k in range(chunks)
+            for c in [lane + k * lanes] if c < hd // vec
+            for j in range(vec)]
+
+
+def _launch_cuda_bwd(value, spatial_shapes, locations, weights, grad_out,
+                     lib=None, queries_per_cta: int = BWD_QUERIES_PER_CTA,
+                     max_vector: int = BWD_MAX_VECTOR):
+    """Launches the backward with ``bwd_launch_plan``'s plan (``lib``,
+    ``queries_per_cta`` and ``max_vector`` let a bench time a version of
+    the source or another plan)."""
     _check_grad(value, locations, grad_out)
-    lib = _bwd_library()
+    lib = lib or _bwd_library()
     b, s, nh, hd = value.shape
     q, nl, p = locations.shape[1], len(spatial_shapes), locations.shape[4]
     acc = torch.empty((b, s, nh, hd), dtype=torch.float32,
@@ -315,6 +389,9 @@ def _launch_cuda_bwd(value, spatial_shapes, locations, weights, grad_out):
     d_value = acc if value.dtype == torch.float32 else torch.empty_like(value)
     d_loc = torch.empty_like(locations)
     d_aw = torch.empty_like(weights)
+    vec = bwd_vector_width(value.dtype, hd, value.data_ptr(), max_vector)
+    qpc = queries_per_cta
+    (ctas, _), threads, lanes, chunks = bwd_launch_plan(b, q, nh, hd, vec, qpc)
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream(value.device).cuda_stream
         err = lib.msdeform_attn_bwd(
@@ -322,7 +399,8 @@ def _launch_cuda_bwd(value, spatial_shapes, locations, weights, grad_out):
             locations.data_ptr(), weights.data_ptr(), grad_out.data_ptr(),
             acc.data_ptr(), d_value.data_ptr(), d_loc.data_ptr(),
             d_aw.data_ptr(), b, s, q, nh, hd, nl, p,
-            _level_array(spatial_shapes), QUERIES_PER_BLOCK, stream)
+            _level_array(spatial_shapes), vec, lanes, chunks, qpc, ctas,
+            threads, stream)
     if err:
         msg = lib.msdeform_attn_bwd_error_string(err).decode()
         raise RuntimeError(f"msdeform_attn_bwd launch failed: {msg} ({err})")
