@@ -6,10 +6,11 @@ Builds every CUDA kernel of the port from the sources in this checkout (one
 ``nvcc`` per source, all started together) and holds each against its plain
 PyTorch version at the shapes its path gives it: K1 (sampling forward) at
 the serving shapes, and at the training shapes, with 4 heads of 64 and of
-24 channels and on a decoder's free queries (fp32 and bf16 values, the
-vector width it chose printed for each), the sampling backward (the TPU's
-K2, K3a and K3b) at the training shapes with 8 heads of 32 channels and at
-head dims 64 and 24, and
+24 channels, on a decoder's free queries and at MaskDINO R-50 4-scale's
+shapes (its encoder's 4 levels and its decoder's 100 box queries, timed
+beside the serving shape) (fp32 and bf16 values, the vector width it chose
+printed for each), the sampling backward (the TPU's K2, K3a and K3b) at the
+training shapes with 8 heads of 32 channels and at head dims 64 and 24, and
 the window kernels: K4b at Swin stages 1-4 with windows of 8 and of 12, at
 stage 1 with windows of 7, K4a at the window encoder's three levels and at
 window 16, K5 at all seven shapes of the flagship's serving path (fused at
@@ -27,6 +28,13 @@ paths with weights drawn from a fixed seed, through ``build_model`` ->
   at the JAX defaults (batch 2, 640 px, 100 GT slots, bf16, hungarian
   matcher, random points), with the training CLIs' settings, and with 4
   sampling heads (head dim 64);
+- MaskDINO R-50 4-scale, the reference's own trained configuration
+  (ResNet-50 with FrozenBN, res3-res5 and a stride-2 /64 level through the
+  6-layer deformable encoder, the two-stage MaskDINO decoder with 100
+  queries and 9 layers of box-referenced deformable cross-attention):
+  serving batches of 8 at 800x800, 15 K1 per forward, the contract's boxes
+  checked; an fp32 forward through K1 against its plain version, the
+  two-stage selection first;
 - the window-attention flagship (the same model with Swin window 8 and the
   6-layer window encoder): serving batches of 8 at 800x800 under
   ``TPU.WINDOW_ATTN_NHWC`` (12 fused + 18 split K5 per forward) and under
@@ -166,7 +174,36 @@ def free_query_inputs(value_dtype: torch.dtype, gen: torch.Generator,
     return value.to(value_dtype), loc, aw.contiguous()
 
 
-# K1's checked shapes: name -> (levels, inputs(dtype, gen))
+# MaskDINO's decoder queries: 100 boxes, each layer's locations made from
+# them as MSDeformAttn makes them
+BOX_QUERIES = 100
+
+
+def box_query_inputs(value_dtype: torch.dtype, gen: torch.Generator,
+                     b: int = BATCH, q: int = BOX_QUERIES,
+                     levels=FREE_LEVELS, nh: int = HEADS,
+                     hd: int = HEAD_DIM):
+    """A MaskDINO decoder layer's box-referenced queries on the card: boxes
+    (cx, cy) in [0.05, 0.95], (w, h) in [0.02, 0.6]; locations = center +
+    offset / P * (w, h) / 2 with N(0, 2) offsets (some off the map), as
+    ``MSDeformAttn``'s box branch computes them; softmaxed weights."""
+    dev, p, nl = "cuda", POINTS, len(levels)
+    s = sum(h * w for h, w in levels)
+    value = torch.randn(b, s, nh, hd, device=dev, generator=gen)
+    boxes = torch.cat([
+        torch.rand(b, q, 2, device=dev, generator=gen) * 0.9 + 0.05,
+        torch.rand(b, q, 2, device=dev, generator=gen) * 0.58 + 0.02], -1)
+    off = torch.randn(b, q, nh, nl, p, 2, device=dev, generator=gen) * 2.0
+    loc = (boxes[:, :, None, None, None, :2]
+           + off / p * boxes[:, :, None, None, None, 2:] * 0.5)
+    aw = torch.randn(b, q, nh, nl * p, device=dev, generator=gen)
+    aw = aw.softmax(-1).view(b, q, nh, nl, p)
+    return value.to(value_dtype), loc.contiguous(), aw.contiguous()
+
+
+# K1's checked shapes: name -> (levels, inputs(dtype, gen)); the MaskDINO
+# R-50 4-scale ones (its encoder's grid queries over /64 to /8 and its
+# decoder's box queries, batch 8 at 800 px) are timed beside serving
 K1_SHAPES = {
     "serving": (LEVELS, sampling_inputs),
     "training": (TRAIN_LEVELS, lambda dt, gen: sampling_inputs(
@@ -175,7 +212,11 @@ K1_SHAPES = {
                                                        hd=64)),
     "4 x 24": (LEVELS, lambda dt, gen: sampling_inputs(dt, gen, nh=4,
                                                        hd=24)),
-    "free queries": (FREE_LEVELS, free_query_inputs)}
+    "free queries": (FREE_LEVELS, free_query_inputs),
+    "maskdino encoder": (FREE_LEVELS, lambda dt, gen: sampling_inputs(
+        dt, gen, levels=FREE_LEVELS)),
+    "maskdino decoder": (FREE_LEVELS, box_query_inputs)}
+K1_TIMED = ("serving", "maskdino encoder", "maskdino decoder")
 
 
 def grid_sample_core(value, shapes, loc, aw):
@@ -269,27 +310,30 @@ def kernel_phase(K, smi: str) -> dict:
     max_err = 0.0
     for shape, dtype in [(s, d) for s in K1_SHAPES
                          for d in (torch.float32, torch.bfloat16)]:
-        _, value, loc, aw, err = k1_check(K, shape, dtype, gen)
+        levels, value, loc, aw, err = k1_check(K, shape, dtype, gen)
         max_err = max(max_err, err)
-        if shape != "serving":       # timed at the serving shape only
+        if shape not in K1_TIMED:
             continue
         name = str(dtype).replace("torch.", "")
-        ms = cuda_time_ms(lambda: K.ms_deform_attn(value, LEVELS, loc, aw),
+        ms = cuda_time_ms(lambda: K.ms_deform_attn(value, levels, loc, aw),
                           reps=20)
         plain_ms = cuda_time_ms(
-            lambda: K.ms_deform_attn_core_torch(value, LEVELS, loc, aw),
+            lambda: K.ms_deform_attn_core_torch(value, levels, loc, aw),
             reps=5, warmup=1)
         lib_ms = cuda_time_ms(
-            lambda: grid_sample_core(value, LEVELS, loc, aw), reps=10)
-        bound, bound_by = k1_bound_ms(value, LEVELS, loc, aw)
-        print(f"K1 {name} value at B={BATCH}, levels {LEVELS}: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, grid_sample "
-              f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}) on {smi}",
-              flush=True)
-        result[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                            bound_ms=bound, bound_by=bound_by)
-    # the main path samples bf16 values (TPU.COMPUTE_DTYPE bfloat16)
-    return dict(result["bfloat16"], max_abs_err=max_err)
+            lambda: grid_sample_core(value, levels, loc, aw), reps=10)
+        bound, bound_by = k1_bound_ms(value, levels, loc, aw)
+        print(f"K1 {shape} {name} value at B={loc.shape[0]}, "
+              f"{loc.shape[1]} queries, levels {levels}: kernel {ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, grid_sample {lib_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({bound_by}), {bound / ms:.1%} of the "
+              f"bound, on {smi}", flush=True)
+        result[shape, name] = dict(ms=ms, plain_ms=plain_ms,
+                                   library_ms=lib_ms, bound_ms=bound,
+                                   bound_by=bound_by)
+    # the kernels line's row: the default serving path's bf16 values
+    # (TPU.COMPUTE_DTYPE bfloat16)
+    return dict(result["serving", "bfloat16"], max_abs_err=max_err)
 
 
 # ------------------------------------------------- backward kernel (K2, K3)
@@ -836,6 +880,40 @@ def check_contract(res: dict, cfg) -> None:
     boxes = res["mask_boxes"]
     if not bool(((boxes >= 0) & (boxes <= hm)).all()):
         raise AssertionError("mask boxes out of the map")
+    if "boxes" in res:                      # MaskDINO
+        check_boxes(res["boxes"], (b, k, 4))
+
+
+def check_boxes(boxes: torch.Tensor, shape) -> None:
+    """MaskDINO's boxes, xyxy fp32 of sigmoid (cx, cy, w, h): finite,
+    center and size in [0, 1], x0 <= x1 and y0 <= y1. (A corner may leave
+    the canvas by up to half the box, as upstream's before its host
+    postprocess clips it.)"""
+    if tuple(boxes.shape) != shape or boxes.dtype != torch.float32:
+        raise AssertionError(f"boxes: {tuple(boxes.shape)} {boxes.dtype}, "
+                             f"want {shape} float32")
+    if not bool(torch.isfinite(boxes).all()):
+        raise AssertionError("non-finite boxes")
+    x0, y0, x1, y1 = boxes.unbind(-1)
+    cwh = torch.stack([(x0 + x1) / 2, (y0 + y1) / 2, x1 - x0, y1 - y0], -1)
+    # 1e-6: (x0 + x1) / 2 rounds once more than the sigmoid's center
+    if not bool(((cwh >= -1e-6) & (cwh <= 1 + 1e-6)).all()):
+        raise AssertionError("box centers or sizes outside [0, 1]")
+
+
+def maskdino_cfg(cfg):
+    """MaskDINO R-50 4-scale, the reference's own trained configuration,
+    with the keys serving reads set as training/maskdino/common.py's
+    ``setup_cfg`` sets them: ResNet-50 (FrozenBN), res3-res5 plus one
+    stride-2 /64 level, 6 deformable encoder layers, the two-stage MaskDINO
+    decoder (100 queries, 9 layers, deformable cross-attention), bf16."""
+    cfg = cfg.clone()
+    cfg.MODEL.MASK_DINO.ENABLED = True
+    cfg.MODEL.BACKBONE.NAME = "resnet"
+    cfg.MODEL.SEM_SEG_HEAD.TOTAL_NUM_FEATURE_LEVELS = 4
+    cfg.MODEL.MASK_DINO.CROSS_ATTENTION = "deformable"
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16"
+    return cfg
 
 
 def flagship_cfg(cfg, flag: str):
@@ -985,6 +1063,94 @@ def fp32_parity_phase(cfg, counts: Counts, build_model, normalize_image,
           f"2e-3), mask {worst_m:.3e} (tolerance 4e-3)", flush=True)
     if not (worst_c < 2e-3 and worst_m < 4e-3 and n_ok >= total // 2):
         raise AssertionError("gated decoder layers diverge")
+
+
+def _proposal_order(logits: torch.Tensor, num_queries: int,
+                    num_classes: int):
+    """The MaskDINO decoder's two-stage selection from its
+    ``enc_class_embed`` output (B, S, C) at 800 px: per image the top-k
+    token indices with every border-ring token as -1 (their rows are one
+    and the same), sorted, and the query order that sorts them."""
+    from vision_instance_seg_tpu_torch.models.maskdino_decoder import (
+        proposal_anchors)
+    valid, _ = proposal_anchors(tuple(FREE_LEVELS), logits.device)
+    idx = logits[..., :num_classes].amax(-1).topk(
+        num_queries, dim=1, sorted=True).indices
+    return torch.where(valid[idx], idx, -1).sort(dim=-1, stable=True)
+
+
+def _in_order(t: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """Stacked queries t (L, B, Q, ...) taken in ``order`` (B, Q)."""
+    idx = order.reshape((1,) + order.shape + (1,) * (t.dim() - 3))
+    return torch.gather(t, 2, idx.expand_as(t))
+
+
+def maskdino_parity_phase(cfg, counts: Counts, build_model, normalize_image,
+                          K, per_forward: dict) -> None:
+    """One fp32 MaskDINO forward (batch 8, 800 px, TF32 off) through K1 and
+    the same on its plain version. First the two-stage top-k of each
+    image: two proposal scores within float noise may swap across the
+    top-k boundary, a flip and not a fault, so such images are reported
+    and left out (they must be fewer than half). Then, with the queries in
+    one order, enc_boxes, every layer's pred_logits and pred_boxes and the
+    last layer's pred_masks, at tests/test_torch_parity.py's tolerances."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg.clone()
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    images = torch.from_numpy(np.random.default_rng(SEED + 13).integers(
+        0, 256, (BATCH, CANVAS, CANVAS, 3), dtype=np.uint8)).cuda()
+    runs = {}
+    for tag, kw, want in (("kernel", {}, per_forward),
+                          ("plain", {"deform_core_fn":
+                                     K.ms_deform_attn_core_torch}, {})):
+        model = build_model(cfg, seed=SEED, **kw)
+        pred = model.sem_seg_head.predictor
+        # the box heads' last layers start at zero, which leaves every box
+        # at its proposal's anchor; drawn here (the same in both runs), the
+        # boxes depend on the encoder and the decoder, so on K1
+        gen = torch.Generator().manual_seed(SEED + 14)
+        with torch.no_grad():
+            for head in (pred.enc_box_embed, pred.decoder.bbox_embed[0]):
+                w = head.layers[-1].weight
+                w.copy_(torch.randn(w.shape, generator=gen) * 0.02)
+        captured = []
+        pred.enc_class_embed.register_forward_hook(
+            lambda mod, args, out: captured.append(out))
+        counts.reset()
+        with torch.inference_mode():
+            out = model(normalize_image(images, cfg), aux_masks=False)
+        torch.cuda.synchronize()
+        counts.check(counts.read(), want, f"fp32 MaskDINO forward {tag}")
+        runs[tag] = (out, *_proposal_order(captured[0], pred.num_queries,
+                                           pred.num_classes))
+        del model, pred, captured
+    (a, keys_a, order_a), (b, keys_b, order_b) = runs["kernel"], \
+        runs["plain"]
+    same = (keys_a == keys_b).all(-1)
+    n_same = int(same.sum())
+    print(f"fp32 MaskDINO forward: the two-stage top-{keys_a.shape[1]} "
+          f"selection equal in {n_same} of {BATCH} images (the others "
+          f"flipped: two proposal scores within float noise swapped "
+          f"across the boundary)", flush=True)
+    if 2 * n_same <= BATCH:
+        raise AssertionError("MaskDINO's selection differs in half the "
+                             "images")
+    order_a, order_b = order_a[same], order_b[same]
+    for key, atol in (("enc_boxes", 1e-4), ("pred_logits", 2e-3),
+                      ("pred_boxes", 1e-3), ("pred_masks", 4e-3)):
+        # enc_boxes (B, Q, 4) as one layer; the rest stack the layers
+        ta, tb = ((t if t.dim() > 3 else t[None])[:, same]
+                  for t in (a[key], b[key]))
+        x, y = _in_order(ta, order_a), _in_order(tb, order_b)
+        err = (x - y).abs()
+        ok = bool((err <= atol + 1e-3 * y.abs()).all())
+        print(f"fp32 MaskDINO forward, {key} {tuple(x.shape)}: max "
+              f"|kernel - plain| = {err.max().item():.3e} (tolerance "
+              f"{atol:g} + 1e-3 * |plain|: K1's sums in another order "
+              f"through 6 encoder and 9 decoder layers)", flush=True)
+        if not ok:
+            raise AssertionError(f"fp32 MaskDINO {key} diverges")
 
 
 # ------------------------------------------------------------ train phases
@@ -1500,9 +1666,16 @@ def main() -> int:
     heads4.MODEL.SEM_SEG_HEAD.DEFORM_NUM_HEADS = 4
     sampling = {"msdeform_attn_fwd": enc, "msdeform_attn_bwd": enc}
 
+    # MaskDINO R-50 4-scale: K1 in its 6 encoder layers (4 levels) and in
+    # each of its 9 decoder layers' box-referenced cross-attention
+    mdino = maskdino_cfg(cfg)
+    dino_k1 = {"msdeform_attn_fwd":
+               enc + mdino.MODEL.MASK_FORMER.DEC_LAYERS - 1}
     served = [
         (serve_phase(cfg, counts, build_model, make_inference_fn,
                      {"msdeform_attn_fwd": enc}, 3, "default"), {}),
+        (serve_phase(mdino, counts, build_model, make_inference_fn,
+                     dino_k1, 3, "MaskDINO R-50 4-scale"), {}),
         (serve_phase(default_pallas, counts, build_model, make_inference_fn,
                      {"msdeform_attn_fwd": enc, "window_attn_k4b": blocks,
                       "window_attn_k4b_mma": blocks}, 1,
@@ -1523,6 +1696,8 @@ def main() -> int:
     fp32_parity_phase(cfg, counts, build_model, normalize_image,
                       {"deform_core_fn": K.ms_deform_attn_core_torch},
                       {"msdeform_attn_fwd": enc}, "default")
+    maskdino_parity_phase(mdino, counts, build_model, normalize_image, K,
+                          dino_k1)
     fp32_parity_phase(nhwc, counts, build_model, normalize_image,
                       {"window_attn_fn": (WA.window_attention_nhwc_torch,
                                           WA.window_attention_nhwc_split_torch)},

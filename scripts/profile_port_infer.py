@@ -8,13 +8,17 @@ Builds the default ``get_cfg()`` model of ``vision_instance_seg_tpu_torch``
 seed) on CUDA, with trailing ``KEY VALUE`` config overrides as ``bench.py``
 takes them (the window-attention flagship:
 ``MODEL.SEM_SEG_HEAD.ENCODER_ATTENTION window MODEL.SWIN.WINDOW_SIZE 8
-TPU.WINDOW_ATTN_NHWC True``), serves one warm-up batch and ``--iters`` timed
-batches of random uint8 images through ``make_inference_fn``, and prints:
+TPU.WINDOW_ATTN_NHWC True``; MaskDINO R-50 4-scale:
+``MODEL.MASK_DINO.ENABLED True MODEL.BACKBONE.NAME resnet
+MODEL.SEM_SEG_HEAD.TOTAL_NUM_FEATURE_LEVELS 4``), serves one warm-up batch
+and ``--iters`` timed batches of random uint8 images through
+``make_inference_fn``, and prints:
 
 - images/s and per-batch ms (host clock around synchronized batches);
 - device ms per stage per batch (backbone, pixel decoder, of which the
   encoder layers and, in the deformable encoder, their deformable
-  attention, decoder; the remainder of the batch is normalization and
+  attention, decoder, of which, in MaskDINO's, the deformable
+  cross-attention; the remainder of the batch is normalization and
   instance post-processing), from CUDA events that forward hooks record
   around the stage modules;
 - the top kernels by device time over one profiled batch (torch.profiler),
@@ -94,12 +98,17 @@ def main() -> int:
     model = build_model(cfg, seed=0)
     infer = make_inference_fn(model, cfg)
     pd = model.sem_seg_head.pixel_decoder
+    pred = model.sem_seg_head.predictor
     layers = list(pd.transformer.encoder.layers)
+    dec_layers = list(pred.decoder.layers) if hasattr(pred, "decoder") \
+        else []
     stages = {"backbone": [model.backbone], "pixel_decoder": [pd],
               "encoder_layers": layers,
               "deform_attn": [layer.self_attn for layer in layers
                               if hasattr(layer, "self_attn")],
-              "decoder": [model.sem_seg_head.predictor]}
+              "decoder": [pred],
+              "decoder_deform_attn": [layer.cross_attn
+                                      for layer in dec_layers]}
     timer = StageTimer({k: v for k, v in stages.items() if v})
     rng = np.random.default_rng(0)
     batches = [rng.integers(0, 256, (args.batch, args.size, args.size, 3),

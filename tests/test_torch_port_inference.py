@@ -28,6 +28,8 @@ from vision_instance_seg_tpu.config import get_cfg as jax_get_cfg
 from vision_instance_seg_tpu.models import make_inference_fn as jax_infer_fn
 from vision_instance_seg_tpu.utils.weights import import_full_model_weights
 from vision_instance_seg_tpu_torch.config import get_cfg
+from vision_instance_seg_tpu_torch.engine import (create_train_state,
+                                                  make_train_step)
 from vision_instance_seg_tpu_torch.models import build_model, make_inference_fn
 from vision_instance_seg_tpu_torch.utils.weights import state_dict_from_jax
 
@@ -121,15 +123,22 @@ def test_default_device_needs_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("opts", [
-    ["MODEL.BACKBONE.NAME", "resnet"],
+    ["MODEL.MASK_DINO.ENABLED", "True",
+     "MODEL.MASK_DINO.CROSS_ATTENTION", "dense"],
     ["MODEL.MASK_DINO.ENABLED", "True"],
     ["MODEL.SEM_SEG_HEAD.ENCODER_ATTENTION", "full"],
-], ids=["resnet", "maskdino", "full-encoder"])
+], ids=["maskdino-dense-cross-attention", "maskdino-train-step",
+        "full-encoder"])
 def test_unported_options_raise(opts):
+    """MaskDINO's dense cross-attention and its train step (the denoising
+    queries and its criterion) are not ported; the full-attention encoder
+    neither."""
     cfg = tiny_cfg(get_cfg())
     cfg.merge_from_list(opts)
     with pytest.raises(NotImplementedError):
-        build_model(cfg, device="cpu")
+        model = build_model(cfg, device="cpu")
+        state = create_train_state(cfg, model)
+        make_train_step(cfg, model, state.optimizer)
 
 
 def test_config_tree_matches_jax():

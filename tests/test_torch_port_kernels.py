@@ -288,13 +288,39 @@ def free_query_inputs(seed, shapes, q, b=2, nh=8, hd=32, p=4):
     return value, loc, aw.reshape(b, q, nh, nl, p).astype(np.float32)
 
 
+def box_query_inputs(seed, shapes, q, b=2, nh=8, hd=32, p=4):
+    """A MaskDINO decoder layer's box-referenced queries, located as
+    ``MSDeformAttn`` locates them: box centers plus offsets over P, scaled
+    by half the box's width and height (boxes cxcywh in (0, 1), offsets
+    N(0, 2) so that some samples leave the map) (numpy)."""
+    rng = np.random.default_rng(seed)
+    nl = len(shapes)
+    s = sum(h * w for h, w in shapes)
+    value = rng.standard_normal((b, s, nh, hd)).astype(np.float32)
+    boxes = np.concatenate([rng.uniform(0.05, 0.95, (b, q, 2)),
+                            rng.uniform(0.02, 0.6, (b, q, 2))], -1)
+    off = rng.normal(0.0, 2.0, (b, q, nh, nl, p, 2))
+    loc = (boxes[:, :, None, None, None, :2]
+           + off / p * boxes[:, :, None, None, None, 2:] * 0.5)
+    logits = rng.standard_normal((b, q, nh, nl * p))
+    aw = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    return (value, loc.astype(np.float32),
+            aw.reshape(b, q, nh, nl, p).astype(np.float32))
+
+
 FREE_SHAPES = [(13, 13), (25, 25), (50, 50), (100, 100)]
 # K1 only (the backward takes what the TPU kernels take, so these stay out
 # of CASES): free queries, 8 points over 4 levels, head dims 12 and 128,
-# heads x head dim 1024
+# heads x head dim 1024; MaskDINO R-50 4-scale at 800 px (levels /64 to
+# /8): its encoder's grid queries over 4 levels, 12 px offsets, and its
+# decoder's 100 box-referenced queries
 K1_CASES = {
     "free-queries": lambda: (FREE_SHAPES,
                              free_query_inputs(12, FREE_SHAPES, 300)),
+    "maskdino-encoder": lambda: (FREE_SHAPES, off_map(*sampling_inputs(
+        17, FREE_SHAPES, offset_px=12.0, nh=8, hd=32, p=4))),
+    "maskdino-box-queries": lambda: (FREE_SHAPES, box_query_inputs(
+        18, FREE_SHAPES, 100)),
     "p8-l4": lambda: ([(3, 3), (8, 8), (4, 4), (2, 2)], off_map(
         *sampling_inputs(13, [(3, 3), (8, 8), (4, 4), (2, 2)],
                          offset_px=4.0, nh=8, hd=32, p=8))),
@@ -590,7 +616,8 @@ def test_bwd_wrapper_takes_plain_version_on_cpu():
 
 
 # the backward beyond CASES: K1's further cases (free queries, 8 points
-# over 4 levels, hd 12, 8 x 128, 16 x 64) and an odd head dim
+# over 4 levels, hd 12, 8 x 128, 16 x 64, MaskDINO's encoder and box
+# queries) and an odd head dim
 BWD_CASES = dict(K1_CASES, **{
     "odd-hd7": lambda: (SHAPES, off_map(*sampling_inputs(
         17, offset_px=3.0, nh=3, hd=7, p=3)))})

@@ -25,6 +25,12 @@ Keys validated here rather than consumed elsewhere:
   configs; stochastic depth (DROP_PATH_RATE) is implemented separately.
 - TPU.PARAM_DTYPE: parameters are fp32 by design (CLAUDE.md conventions);
   compute precision is TPU.COMPUTE_DTYPE.
+
+The port also rejects what its model build does not run: MaskDINO's dense
+cross-attention (``MASK_DINO.CROSS_ATTENTION dense``) and a ResNet norm
+other than FrozenBN (the JAX ResNet builds FrozenBN whatever
+``RESNETS.NORM`` says). MaskDINO's denoising queries take GT, which the
+serving path never passes; the port's MaskDINO decoder refuses GT.
 """
 
 from __future__ import annotations
@@ -93,6 +99,27 @@ def validate_cfg(cfg) -> None:
             and float(cfg.SOLVER.CLIP_GRADIENTS.NORM_TYPE) != 2.0,
             "CLIP_GRADIENTS.NORM_TYPE: only the L2 global norm is "
             "implemented")
+
+    md = cfg.MODEL.MASK_DINO
+    if md.CROSS_ATTENTION not in ("deformable", "dense"):
+        raise ValueError(f"MASK_DINO.CROSS_ATTENTION {md.CROSS_ATTENTION!r} "
+                         "(deformable or dense)")
+    if md.INITIALIZE_BOX_TYPE not in ("no", "bitmask", "mask2box"):
+        raise ValueError(f"MASK_DINO.INITIALIZE_BOX_TYPE "
+                         f"{md.INITIALIZE_BOX_TYPE!r} (no, bitmask or "
+                         "mask2box)")
+    dino = cfg.MODEL.META_ARCHITECTURE == "MaskDINO" or md.ENABLED
+    _reject(dino and md.CROSS_ATTENTION == "dense",
+            "MASK_DINO.CROSS_ATTENTION dense: the dense cross-attention is "
+            "not ported yet (deformable is)")
+
+    if cfg.MODEL.BACKBONE.NAME == "resnet":
+        r = cfg.MODEL.RESNETS
+        if int(r.DEPTH) not in (50, 101, 152):
+            raise ValueError(f"RESNETS.DEPTH {r.DEPTH} (50, 101 or 152)")
+        _reject(r.NORM != "FrozenBN",
+                f"RESNETS.NORM {r.NORM!r}: the ResNet is built with "
+                "FrozenBN only")
 
     fa = int(cfg.MODEL.BACKBONE.FREEZE_AT)
     if fa and cfg.MODEL.BACKBONE.NAME != "resnet":

@@ -1,5 +1,6 @@
-"""Swin-T Mask2Former with the deformable pixel decoder."""
+"""Mask2Former (Swin or ResNet) and MaskDINO with the deformable pixel
+decoder."""
 
 from vision_instance_seg_tpu_torch.models.meta_arch import (  # noqa: F401
-    MaskFormer, build_model, instance_inference, make_inference_fn,
-    normalize_image)
+    MaskDINO, MaskFormer, build_model, instance_inference, make_inference_fn,
+    maskdino_instance_inference, normalize_image)

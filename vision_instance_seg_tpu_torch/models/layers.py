@@ -1,4 +1,5 @@
-"""Shared building blocks: fp32 norms, Mlp, DropPath, sine positions, resize.
+"""Shared building blocks: fp32 norms, FrozenBatchNorm, detectron2's
+conv-with-norm, Mlp, DropPath, sine positions, resize, inverse sigmoid.
 
 PyTorch counterparts of ``vision_instance_seg_tpu/models/layers.py``. The
 dtype policy is the JAX package's: parameters stay fp32, matmuls run in the
@@ -39,6 +40,40 @@ class GroupNorm(nn.GroupNorm):
         y = F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
                          self.eps)
         return y.to(x.dtype)
+
+
+class FrozenBatchNorm(nn.Module):
+    """BatchNorm with frozen statistics (the R-50 backbone's norm):
+    detectron2's ``FrozenBatchNorm2d``, four buffers ``weight``, ``bias``,
+    ``running_mean``, ``running_var`` (identity at init), eps 1e-5, over
+    NCHW. As in the JAX package, the per-channel multiply and add are
+    computed in fp32 and cast to the input's dtype before they apply."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.register_buffer("weight", torch.ones(channels))
+        self.register_buffer("bias", torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rs = torch.rsqrt(self.running_var + self.eps)
+        mul = self.weight * rs
+        add = self.bias - self.running_mean * self.weight * rs
+        return (x * mul.to(x.dtype)[:, None, None]
+                + add.to(x.dtype)[:, None, None])
+
+
+class Conv2dNorm(nn.Conv2d):
+    """detectron2's Conv2d: no bias, "same" padding for odd kernels, and the
+    norm as an attribute (``<name>.norm.*``) that the caller applies."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, norm: nn.Module,
+                 stride: int = 1):
+        super().__init__(cin, cout, kernel, stride=stride,
+                         padding=kernel // 2, bias=False)
+        self.norm = norm
 
 
 class DropPath(nn.Module):
@@ -121,3 +156,10 @@ def resize_bilinear_2tap(x: torch.Tensor, h_out: int,
         return x
     return F.interpolate(x, size=(h_out, w_out), mode="bilinear",
                          align_corners=False, antialias=False)
+
+
+def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """log(x / (1 - x)) with x clipped to [eps, 1 - eps] (the JAX
+    package's form; its MaskDINO call sites pass eps 1e-3)."""
+    x = x.clamp(eps, 1 - eps)
+    return torch.log(x / (1 - x))

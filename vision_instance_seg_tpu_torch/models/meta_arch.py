@@ -1,12 +1,15 @@
-"""MaskFormer meta-architecture, model build and the serving entry point.
+"""MaskFormer / MaskDINO meta-architectures, model build and the serving
+entry point.
 
-PyTorch counterpart of ``vision_instance_seg_tpu/models/meta_arch.py`` for
-Mask2Former: backbone -> pixel decoder -> masked decoder, then Mask2Former
-instance inference. ``build_model`` returns an eval-mode module on the
-device (CUDA unless the caller passes ``device="cpu"``; training calls
-``model.train()`` on it, see ``engine/trainer.py``), with the upstream
-detectron2 state-dict layout (``backbone.*``, ``sem_seg_head.pixel_decoder.*``,
-``sem_seg_head.predictor.*``). ``make_inference_fn`` returns the serving
+PyTorch counterpart of ``vision_instance_seg_tpu/models/meta_arch.py``:
+backbone (Swin or ResNet) -> pixel decoder -> Mask2Former masked decoder or
+MaskDINO decoder, then instance inference (Mask2Former's, or MaskDINO's
+with sigmoid scores and boxes). ``build_model`` returns an eval-mode
+module on the device (CUDA unless the caller passes ``device="cpu"``;
+training calls ``model.train()`` on it, see ``engine/trainer.py``), with
+the upstream detectron2 state-dict layout (``backbone.*``,
+``sem_seg_head.pixel_decoder.*``, ``sem_seg_head.predictor.*``).
+``make_inference_fn`` returns the serving
 callable ``infer(images) -> dict`` with the JAX package's output contract.
 """
 
@@ -21,9 +24,14 @@ from torch import nn
 from vision_instance_seg_tpu_torch.config.validate import validate_cfg
 from vision_instance_seg_tpu_torch.kernels import window_attention as wa
 from vision_instance_seg_tpu_torch.kernels.msdeform_attn import DEFAULT_HALO
+from vision_instance_seg_tpu_torch.models.box_ops import box_cxcywh_to_xyxy
 from vision_instance_seg_tpu_torch.models.deform_attn import DeformCoreFn
+from vision_instance_seg_tpu_torch.models.maskdino_decoder import (
+    MaskDINODecoder, build_maskdino_decoder)
 from vision_instance_seg_tpu_torch.models.pixel_decoder import (
     build_pixel_decoder)
+from vision_instance_seg_tpu_torch.models.resnet import (
+    build_resnet, resnet_output_channels)
 from vision_instance_seg_tpu_torch.models.swin import build_swin
 from vision_instance_seg_tpu_torch.models.transformer_decoder import (
     build_transformer_decoder)
@@ -57,6 +65,13 @@ class MaskFormer(nn.Module):
             mask_features, multi_scale = head.pixel_decoder(feats)
             return head.predictor(multi_scale, mask_features,
                                   aux_masks=aux_masks)
+
+
+class MaskDINO(MaskFormer):
+    """MaskDINO meta-architecture (``MODEL.MASK_DINO.ENABLED``): the
+    predictor is the MaskDINO decoder, and the forward returns its dict
+    (``pred_logits``, ``pred_masks``, ``pred_boxes``, ``enc_*``). Serving
+    only: the denoising queries of training are not ported yet."""
 
 
 def resolve_device(device=None) -> torch.device:
@@ -97,24 +112,31 @@ def build_model(cfg, device=None,
     plain versions.
     """
     validate_cfg(cfg)
-    if is_maskdino(cfg):
-        raise NotImplementedError("MaskDINO is not ported yet")
-    if cfg.MODEL.BACKBONE.NAME != "swin":
-        raise NotImplementedError(
-            f"backbone {cfg.MODEL.BACKBONE.NAME!r}: only Swin is ported")
     device = resolve_device(device)
     swin_attn_fn, wenc_attn_fn = window_attention_fns(cfg, window_attn_fn)
-    backbone = build_swin(cfg, swin_attn_fn)
-    channels = {f"res{i + 2}": cfg.MODEL.SWIN.EMBED_DIM * 2 ** i
-                for i in range(4)}
+    name = cfg.MODEL.BACKBONE.NAME
+    if name == "swin":
+        backbone = build_swin(cfg, swin_attn_fn)
+        channels = {f"res{i + 2}": cfg.MODEL.SWIN.EMBED_DIM * 2 ** i
+                    for i in range(4)}
+    elif name == "resnet":
+        backbone = build_resnet(cfg)
+        channels = resnet_output_channels()
+    else:
+        raise ValueError(f"unknown backbone {name!r}")
     clamp = float(DEFAULT_HALO) if cfg.TPU.USE_PALLAS_DEFORM_ATTN else None
     pixel_decoder = build_pixel_decoder(cfg, channels, core_fn=deform_core_fn,
                                         offset_clamp=clamp,
                                         window_attn_fn=wenc_attn_fn)
-    predictor = build_transformer_decoder(cfg,
-                                          cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM)
-    model = MaskFormer(backbone, pixel_decoder, predictor,
-                       _DTYPES[cfg.TPU.COMPUTE_DTYPE])
+    if is_maskdino(cfg):
+        arch = MaskDINO
+        predictor = build_maskdino_decoder(cfg, core_fn=deform_core_fn)
+    else:
+        arch = MaskFormer
+        predictor = build_transformer_decoder(
+            cfg, cfg.MODEL.SEM_SEG_HEAD.CONVS_DIM)
+    model = arch(backbone, pixel_decoder, predictor,
+                 _DTYPES[cfg.TPU.COMPUTE_DTYPE])
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()
 
@@ -124,20 +146,26 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Draw every parameter from ``generator`` (the JAX package's init
     families): trunc-normal(0.02) matrices, zero biases, unit norm scales,
     N(0, 1) embeddings; the deformable layers keep their deterministic
-    Deformable-DETR offset / attention-weight init."""
+    Deformable-DETR offset / attention-weight init, the MaskDINO heads
+    their prior biases and zero last box layers (``reset_heads``), and the
+    FrozenBN buffers their identity."""
     for name, p in model.named_parameters():
         if ".sampling_offsets." in name or ".attention_weights." in name:
             continue
         if name.endswith("bias"):
             p.zero_()
         elif "level_embed" in name or name.endswith(
-                ("query_feat.weight", "query_embed.weight")):
+                ("query_feat.weight", "query_embed.weight",
+                 "label_enc.weight", "refpoint_embed.weight")):
             nn.init.normal_(p, 0.0, 1.0, generator=generator)
         elif p.dim() == 1:
             p.fill_(1.0)
         else:
             nn.init.trunc_normal_(p, std=0.02, a=-0.04, b=0.04,
                                   generator=generator)
+    for m in model.modules():
+        if isinstance(m, MaskDINODecoder):
+            m.reset_heads()
 
 
 def is_maskdino(cfg) -> bool:
@@ -166,7 +194,33 @@ def instance_inference(cls_logits: torch.Tensor, mask_logits: torch.Tensor,
     cls_logits (B, Q, C+1); mask_logits (B, Q, Hm, Wm). Returns scores
     (B, K), labels (B, K), mask_probs (B, K, Hm, Wm) fp32.
     """
-    scores = cls_logits.float().softmax(-1)[..., :-1]
+    return _top_instances(cls_logits.float().softmax(-1)[..., :-1],
+                          mask_logits, num_classes, topk)[0]
+
+
+def maskdino_instance_inference(cls_logits: torch.Tensor,
+                                mask_logits: torch.Tensor,
+                                boxes: torch.Tensor, num_classes: int,
+                                topk: int = 100) -> Dict[str, torch.Tensor]:
+    """MaskDINO instance inference, batched over images (final layer):
+    sigmoid scores over (B, Q, C) logits, or softmax with the no-object
+    channel dropped over (B, Q, C+1) (``MASK_DINO.SEMANTIC_CE_LOSS``);
+    boxes (B, Q, 4) cxcywh. Returns instance_inference's keys and boxes
+    (B, K, 4) xyxy fp32."""
+    logits = cls_logits.float()
+    scores = (logits.softmax(-1)[..., :-1]
+              if logits.shape[-1] == num_classes + 1 else logits.sigmoid())
+    res, query_idx = _top_instances(scores, mask_logits, num_classes, topk)
+    res["boxes"] = box_cxcywh_to_xyxy(torch.gather(
+        boxes.float(), 1, query_idx[..., None].expand(-1, -1, 4)))
+    return res
+
+
+def _top_instances(scores: torch.Tensor, mask_logits: torch.Tensor,
+                   num_classes: int, topk: int):
+    """Top-K over (query, class) scores (B, Q, C), the chosen queries'
+    mask probabilities and the Mask2Former calibration (score *= mean
+    probability inside the mask). Returns (dict, query index (B, K))."""
     flat = scores.flatten(1)                                 # (B, Q*C)
     k = min(topk, flat.shape[1])
     top_scores, top_idx = flat.topk(k, dim=1)
@@ -180,7 +234,7 @@ def instance_inference(cls_logits: torch.Tensor, mask_logits: torch.Tensor,
     # mask-probability calibration (Mask2Former: score *= mean prob in mask)
     mask_score = (probs * binm).sum((2, 3)) / (binm.sum((2, 3)) + 1e-6)
     return {"scores": top_scores * mask_score, "labels": labels,
-            "mask_probs": probs}
+            "mask_probs": probs}, query_idx
 
 
 def _mask_support_boxes(mask_probs: torch.Tensor) -> torch.Tensor:
@@ -229,7 +283,9 @@ def make_inference_fn(model: MaskFormer, cfg):
     """Serving entry: ``infer(images)`` with images (B, H, W, 3) RGB 0-255
     (uint8 or float, tensor or numpy) -> dict of per-image top-K instances:
     scores (B, K) sorted descending, labels (B, K), mask_probs (B, K, Hm, Wm)
-    uint8 (x255, round half to even), mask_boxes (B, K, 4) int32 and, when
+    uint8 (x255, round half to even), mask_boxes (B, K, 4) int32, for
+    MaskDINO boxes (B, K, 4) xyxy fp32 in fractions of the canvas (a corner
+    may pass the edge by up to half the box) and, when
     TEST.PATCH_POSTPROCESS, patch_origin (B, K, 2) / mask_patches
     (B, K, P, P) uint8."""
     num_classes = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
@@ -238,20 +294,29 @@ def make_inference_fn(model: MaskFormer, cfg):
                   if cfg.TEST.PATCH_POSTPROCESS and cfg.TEST.FAST_POSTPROCESS
                   else 0)
     device = next(model.parameters()).device
+    dino = isinstance(model, MaskDINO)
 
     @torch.inference_mode()
     def infer(images) -> Dict[str, torch.Tensor]:
         if isinstance(images, np.ndarray):
             images = torch.from_numpy(images)
         images = normalize_image(images.to(device), cfg)
-        cls_layers, mask_layers = model(images, aux_masks=False)
-        res = instance_inference(cls_layers[-1], mask_layers[-1],
-                                 num_classes, topk)
+        out = model(images, aux_masks=False)
+        if dino:
+            res = maskdino_instance_inference(
+                out["pred_logits"][-1], out["pred_masks"][-1],
+                out["pred_boxes"][-1], num_classes, topk)
+        else:
+            res = instance_inference(out[0][-1], out[1][-1], num_classes,
+                                     topk)
         # calibrated scores lose the top-k order: re-sort, stable descending
         scores, order = res["scores"].sort(dim=-1, descending=True,
                                            stable=True)
         res["scores"] = scores
         res["labels"] = torch.gather(res["labels"], 1, order)
+        if dino:
+            res["boxes"] = torch.gather(res["boxes"], 1,
+                                        order[..., None].expand(-1, -1, 4))
         probs = torch.gather(res["mask_probs"], 1, order[:, :, None, None]
                              .expand(-1, -1, *res["mask_probs"].shape[2:]))
         res["mask_boxes"] = _mask_support_boxes(probs)

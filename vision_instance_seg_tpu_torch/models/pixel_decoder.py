@@ -33,7 +33,7 @@ from vision_instance_seg_tpu_torch.kernels.window_attention import (
 from vision_instance_seg_tpu_torch.models.deform_attn import (
     DeformCoreFn, MSDeformAttn)
 from vision_instance_seg_tpu_torch.models.layers import (
-    GroupNorm, LayerNorm, position_embedding_sine)
+    Conv2dNorm, GroupNorm, LayerNorm, position_embedding_sine)
 from vision_instance_seg_tpu_torch.models.swin import (
     _relative_position_index, gather_rel_bias, wants_nhwc,
     window_attention_default, window_partition, window_unpartition)
@@ -51,14 +51,6 @@ def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 
 def group_norm_nhwc(norm: GroupNorm, x: torch.Tensor) -> torch.Tensor:
     return norm(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
-
-
-class Conv2dNorm(nn.Conv2d):
-    """detectron2's Conv2d: the norm is an attribute (``<name>.norm.*``)."""
-
-    def __init__(self, cin: int, cout: int, kernel: int, norm: nn.Module):
-        super().__init__(cin, cout, kernel, padding=kernel // 2, bias=False)
-        self.norm = norm
 
 
 class DeformableEncoderLayer(nn.Module):
@@ -224,6 +216,13 @@ class MSDeformAttnPixelDecoder(nn.Module):
 
     mask_features: (B, H/4, W/4, mask_dim). multi_scale_features: the
     encoder's output maps, lowest resolution first.
+
+    ``total_num_feature_levels`` above the backbone scales adds MaskDINO's
+    extra levels (its "4s_dowsample1" config): a 3x3 stride-2 conv with
+    padding 1 and a bias, then GroupNorm(32), off the raw coarsest backbone
+    feature for the first and off the previous extra level for the next.
+    They are the encoder's lowest levels and the last ``input_proj``
+    entries (upstream's list: [res5, res4, res3, ds0, ...]).
     """
 
     def __init__(self, in_channels: Dict[str, int], conv_dim: int = 256,
@@ -232,6 +231,7 @@ class MSDeformAttnPixelDecoder(nn.Module):
                                                            "res5"),
                  num_encoder_layers: int = 6, num_heads: int = 8,
                  num_points: int = 4, ffn_dim: int = 1024,
+                 total_num_feature_levels: int = 3,
                  fpn_fusion: str = "last",
                  core_fn: Optional[DeformCoreFn] = None,
                  offset_clamp: Optional[float] = None,
@@ -244,10 +244,16 @@ class MSDeformAttnPixelDecoder(nn.Module):
         self.fpn_fusion = fpn_fusion
         # level 0 = lowest resolution, as the upstream input_proj list
         tf_names = self.transformer_in_features[::-1]
-        nl = len(tf_names)
-        self.input_proj = nn.ModuleList(
-            nn.ModuleList([nn.Conv2d(in_channels[n], conv_dim, 1),
-                           GroupNorm(conv_dim)]) for n in tf_names)
+        nl = max(total_num_feature_levels, len(tf_names))
+        num_extra = nl - len(tf_names)
+        projs = [nn.ModuleList([nn.Conv2d(in_channels[n], conv_dim, 1),
+                                GroupNorm(conv_dim)]) for n in tf_names]
+        for k in range(num_extra):
+            cin = in_channels[tf_names[0]] if k == 0 else conv_dim
+            projs.append(nn.ModuleList([
+                nn.Conv2d(cin, conv_dim, 3, stride=2, padding=1),
+                GroupNorm(conv_dim)]))
+        self.input_proj = nn.ModuleList(projs)
         if encoder_attention == "window":
             layers = [WindowEncoderLayer(conv_dim, num_heads, ffn_dim,
                                          encoder_window_size, bool(li % 2),
@@ -272,14 +278,21 @@ class MSDeformAttnPixelDecoder(nn.Module):
 
     def forward(self, features: Dict[str, torch.Tensor]):
         tf_feats = [features[f] for f in self.transformer_in_features][::-1]
-        b = tf_feats[0].shape[0]
+        n_tf = len(tf_feats)
+        projected = [group_norm_nhwc(norm, conv1x1(conv, f))
+                     for f, (conv, norm) in zip(tf_feats,
+                                                self.input_proj[:n_tf])]
+        extra, prev = [], tf_feats[0]
+        for conv, norm in self.input_proj[n_tf:]:
+            prev = group_norm_nhwc(norm, conv_nhwc(conv, prev))
+            extra.insert(0, prev)
+        maps = extra + projected                 # lowest resolution first
+        b = maps[0].shape[0]
         c = self.conv_dim
         srcs, poss, shapes = [], [], []
-        for i, f in enumerate(tf_feats):
-            h, w = f.shape[1], f.shape[2]
-            conv, norm = self.input_proj[i]
-            x = group_norm_nhwc(norm, conv1x1(conv, f))
-            pos = position_embedding_sine(h, w, c, f.device)
+        for i, x in enumerate(maps):
+            h, w = x.shape[1], x.shape[2]
+            pos = position_embedding_sine(h, w, c, x.device)
             srcs.append(x.reshape(b, h * w, c))
             poss.append(pos + self.transformer.level_embed[i])
             shapes.append((h, w))
@@ -334,16 +347,13 @@ def build_pixel_decoder(cfg, in_channels: Dict[str, int],
         raise NotImplementedError(
             f"SEM_SEG_HEAD.ENCODER_ATTENTION={s.ENCODER_ATTENTION!r}: the "
             "deformable and window encoders are ported")
-    tf_in = tuple(s.DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES)
-    if s.TOTAL_NUM_FEATURE_LEVELS > len(tf_in):
-        raise NotImplementedError(
-            "SEM_SEG_HEAD.TOTAL_NUM_FEATURE_LEVELS above the backbone scales "
-            "(MaskDINO's extra stride-2 levels) is not ported yet")
     return MSDeformAttnPixelDecoder(
         in_channels, conv_dim=s.CONVS_DIM, mask_dim=s.MASK_DIM,
-        transformer_in_features=tf_in,
+        transformer_in_features=tuple(
+            s.DEFORMABLE_TRANSFORMER_ENCODER_IN_FEATURES),
         num_encoder_layers=s.TRANSFORMER_ENC_LAYERS,
         num_heads=s.DEFORM_NUM_HEADS, num_points=s.DEFORM_NUM_POINTS,
+        total_num_feature_levels=int(s.TOTAL_NUM_FEATURE_LEVELS),
         fpn_fusion=str(s.FPN_FUSION), core_fn=core_fn,
         offset_clamp=offset_clamp, remat=bool(cfg.TPU.REMAT_ENCODER),
         encoder_attention=str(s.ENCODER_ATTENTION),

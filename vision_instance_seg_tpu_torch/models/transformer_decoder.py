@@ -101,9 +101,19 @@ class _FFNLayer(nn.Module):
         return self.norm(x + self.linear2(F.relu(self.linear1(x))))
 
 
-def _fp32_linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+def fp32_call(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``module(x)`` in fp32 whatever the autocast state (the JAX package's
+    fp32 heads)."""
     with torch.autocast(x.device.type, enabled=False):
-        return F.linear(x.float(), layer.weight, layer.bias)
+        return module(x.float())
+
+
+def mask_from_embed(membed: torch.Tensor,
+                    mask_features: torch.Tensor) -> torch.Tensor:
+    """fp32 (B, Q, Hm, Wm) mask logits; mask_features NHWC."""
+    with torch.autocast(membed.device.type, enabled=False):
+        return torch.einsum("bqc,bhwc->bqhw", membed.float(),
+                            mask_features.float())
 
 
 class MaskedTransformerDecoder(nn.Module):
@@ -138,14 +148,7 @@ class MaskedTransformerDecoder(nn.Module):
     def _embed(self, x):
         """x (B, Q, C) -> (class logits fp32, mask embedding)."""
         y = self.decoder_norm(x)
-        return _fp32_linear(self.class_embed, y), self.mask_embed(y)
-
-    @staticmethod
-    def _mask_from_embed(membed, mask_features):
-        """fp32 (B, Q, Hm, Wm) mask logits; mask_features NHWC."""
-        with torch.autocast(membed.device.type, enabled=False):
-            return torch.einsum("bqc,bhwc->bqhw", membed.float(),
-                                mask_features.float())
+        return fp32_call(self.class_embed, y), self.mask_embed(y)
 
     @staticmethod
     def _bias_from_level_logits(m):
@@ -190,7 +193,7 @@ class MaskedTransformerDecoder(nn.Module):
         cls_logits, membed = self._embed(x)
         cls_out.append(cls_logits)
         if aux_masks:
-            mask_logits = self._mask_from_embed(membed, mask_features)
+            mask_logits = mask_from_embed(membed, mask_features)
             mask_out.append(mask_logits)
 
         for li in range(len(self.transformer_ffn_layers)):
@@ -212,11 +215,11 @@ class MaskedTransformerDecoder(nn.Module):
             cls_logits, membed = self._embed(x)
             cls_out.append(cls_logits)
             if aux_masks:
-                mask_logits = self._mask_from_embed(membed, mask_features)
+                mask_logits = mask_from_embed(membed, mask_features)
                 mask_out.append(mask_logits)
 
         if not aux_masks:
-            mask_out.append(self._mask_from_embed(membed, mask_features))
+            mask_out.append(mask_from_embed(membed, mask_features))
         return torch.stack(cls_out), torch.stack(mask_out)
 
 
