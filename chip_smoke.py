@@ -16,8 +16,11 @@ stage 1 with windows of 7, K4a at the window encoder's three levels and at
 window 16, K5 at all seven shapes of the flagship's serving path (fused at
 Swin stages 1-4, split at the window encoder's three levels) and split at
 window 16, K6 at all seven shapes of the flagship's training path and split
-at window 16. bf16 windows of up to 64 tokens, of 144 (K4) and of 256 run
-the tensor-core bodies, fp32 the SIMT bodies. Then it drives the port's main
+at window 16, and K8 (the full-attention encoder's flash-attention forward)
+at its serving and training shapes, with 4 heads of 64, on a ragged short
+sequence and on sharp logits. bf16 windows of up to 64 tokens, of 144 (K4)
+and of 256 and bf16 K8 run the tensor-core bodies, fp32 the SIMT bodies.
+Then it drives the port's main
 paths with weights drawn from a fixed seed, through ``build_model`` ->
 ``make_inference_fn`` and ``create_train_state`` -> ``make_train_step``:
 
@@ -44,12 +47,17 @@ paths with weights drawn from a fixed seed, through ``build_model`` ->
   at 256 tokens), and with Swin window 12 and the window-16 encoder under
   ``USE_PALLAS_WINDOW_ATTN`` (serving: K4b at 144 tokens, K4a at 256, both
   on the tensor cores);
+- the full-attention encoder (the default model with
+  ``SEM_SEG_HEAD.ENCODER_ATTENTION full``: 6 layers of dense
+  self-attention over all 13,125 tokens at 800 px): serving batches of 8 at
+  800x800, 6 K8 a forward;
 - checks: fp32 forwards through the kernels against the same forwards on
   the plain versions (TF32 off), bf16 backbone + pixel decoder forwards
   through the tensor-core bodies against the plain versions (relative L2
   error: the NHWC flagship and window-16 encoder through K5, Swin window
-  12 with the window-16 encoder through K4b and K4a), an fp32
-  pixel-decoder gradient through the
+  12 with the window-16 encoder through K4b and K4a, the full-attention
+  encoder through K8), an fp32 forward of the full-attention encoder
+  through K8 at batch 1, an fp32 pixel-decoder gradient through the
   sampling kernels, an fp32 backbone + window-encoder gradient through
   K5 / K6 against the plain versions and the same gradient in bf16
   through the tensor-core K5 / K6 (relative L2 error, against the plain
@@ -850,6 +858,111 @@ def window_bwd_kernel_phase(WA, smi: str) -> dict:
     return results
 
 
+# ------------------------------------------- K8, full self-attention forward
+# the exponent unit: 16 ex2 a clock per SM, 132 SMs at the H100's ~1.98 GHz
+# boost clock (the arithmetic throughput table of NVIDIA's CUDA
+# documentation)
+EX2_PER_S = 16 * 132 * 1.98e9
+ENC_TOKENS = sum(h * w for h, w in LEVELS)                  # 13,125 at 800 px
+TRAIN_TOKENS = sum(h * w for h, w in TRAIN_LEVELS)          # 8,400 at 640 px
+# name -> (B, nH, S, hd, dtype, sd of q and k). The serving shape (the
+# kernels line's row), the training shape (640 px, batch 2), 4 heads of 64,
+# a short ragged S, sharp logits in bf16 (sd 3: N(0, 81), the running max
+# moves often over 206 key blocks) and fp32 at batch 1. fp32 on such sharp
+# logits is not held to 1e-5: a logit of magnitude ~60 (base 2) carries an
+# fp32 rounding of ~4e-6 in each version, so p, and an output that mixes a
+# few keys, move by ~1e-5 relative (1.25e-5 x max|plain| on the card).
+K8_CASES = {
+    "serving": (BATCH, HEADS, ENC_TOKENS, HEAD_DIM, torch.bfloat16, 1.0),
+    "training": (TRAIN_BATCH, HEADS, TRAIN_TOKENS, HEAD_DIM, torch.bfloat16,
+                 1.0),
+    "4 x 64": (BATCH, 4, ENC_TOKENS, 64, torch.bfloat16, 1.0),
+    "ragged 77": (BATCH, HEADS, 77, HEAD_DIM, torch.bfloat16, 1.0),
+    "sharp": (1, HEADS, ENC_TOKENS, HEAD_DIM, torch.bfloat16, 3.0),
+    "fp32": (1, HEADS, ENC_TOKENS, HEAD_DIM, torch.float32, 1.0),
+}
+
+
+def k8_bound_ms(b: int, nh: int, s: int, hd: int, dtype) -> tuple:
+    """Least time of K8's work on this card: q, k, v read and out written
+    once over HBM bandwidth; 4 S^2 hd products a head over the peak of the
+    type; S^2 ex2 a head over the exponent unit's rate. The larger of the
+    bytes' time and the operations' (the slower of products and ex2)."""
+    nbytes = 4 * b * nh * s * hd * (2 if dtype == torch.bfloat16 else 4)
+    t_mma = _bound(0, 4.0 * s * s * hd * b * nh, dtype)[0]
+    t_ex2 = s * s * b * nh / EX2_PER_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = max(t_mma, t_ex2)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    what = "bytes" if by == "bytes" else ("ex2" if t_ex2 >= t_mma
+                                          else "products")
+    return max(t_bytes, t_ops), by, (
+        f"{nbytes / 1e6:.1f} MB {t_bytes:.4f} ms, products {t_mma:.4f} ms, "
+        f"ex2 {t_ex2:.4f} ms: {what}")
+
+
+def flash_kernel_phase(FA, smi: str) -> dict:
+    """K8 at every shape of ``K8_CASES`` against its plain version (in bf16
+    on q as the plain version rounds q * scale, with scale 1: the plain
+    version's output at the real scale, bit for bit, since K8 scales in
+    fp32 and that rounding of the logits is the plain version's own);
+    kernel, plain, SDPA (timed here only) and bound times. The kernels
+    line's row: the serving shape in bf16."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    row, max_err = None, 0.0
+    for name, (b, nh, s, hd, dtype, sd) in K8_CASES.items():
+        q, k, v = (torch.randn((b, nh, s, hd), generator=gen, device="cuda")
+                   for _ in range(3))
+        q, k, v = (sd * q).to(dtype), (sd * k).to(dtype), v.to(dtype)
+        scale = hd ** -0.5
+        if dtype == torch.bfloat16:
+            q, scale = q * float(torch.tensor(scale, dtype=dtype)), 1.0
+        before = FA.LAUNCHES["flash_attn_fwd"]
+        got = FA.full_attention(q, k, v, scale)
+        torch.cuda.synchronize()
+        if FA.LAUNCHES["flash_attn_fwd"] != before + 1:
+            raise AssertionError(f"K8 {name} did not launch")
+        want = FA.full_attention_torch(q, k, v, scale)
+        err_t = (got.float() - want.float()).abs()
+        ref = want.float().abs()
+        err = err_t.max().item()
+        if dtype == torch.bfloat16:
+            why = "2^-7 |plain| + 2^-8 max|plain| per element"
+            ok = bool((err_t <= 2.0 ** -7 * ref + 2.0 ** -8 * ref.max())
+                      .all())
+        else:
+            why = "1e-5 max|plain|"
+            ok = err <= 1e-5 * ref.max().item()
+        dn = str(dtype).replace("torch.", "")
+        print(f"K8 {name} {dn} {(b, nh, s, hd)}: max |kernel - plain| = "
+              f"{err:.3e}, max|plain| {ref.max().item():.3e} (tolerance "
+              f"{why}): {ok}", flush=True)
+        if not (ok and got.dtype == want.dtype == dtype):
+            raise AssertionError(f"K8 {name} ({dn}) disagrees with its "
+                                 f"plain version")
+        max_err = max(max_err, err)
+        del got, want, err_t, ref
+        if sd != 1.0:
+            continue
+        ms = cuda_time_ms(lambda: FA.full_attention(q, k, v, scale), reps=10)
+        plain_ms = cuda_time_ms(
+            lambda: FA.full_attention_torch(q, k, v, scale), reps=2,
+            warmup=1)
+        lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, scale=scale), reps=10)
+        bound, bound_by, detail = k8_bound_ms(b, nh, s, hd, dtype)
+        print(f"K8 {name} {dn} {(b, nh, s, hd)}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound:.4f} "
+              f"ms ({bound_by}; {detail}), {bound / ms:.1%} of the bound, "
+              f"{lib_ms / ms:.2f}x SDPA's speed, on {smi}", flush=True)
+        if name == "serving":
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bound, bound_by=bound_by)
+        del q, k, v
+    torch.cuda.empty_cache()
+    return {"flash_attn_fwd": dict(row, max_abs_err=max_err)}
+
+
 # -------------------------------------------------------------- model phase
 def check_contract(res: dict, cfg) -> None:
     b, k = BATCH, min(cfg.TEST.DETECTIONS_PER_IMAGE,
@@ -934,6 +1047,7 @@ class Counts:
     (``..._mma``)."""
 
     NAMES = {"msdeform_attn_fwd": None, "msdeform_attn_bwd": None,
+             "flash_attn_fwd": None,
              "window_attn_k4a": "k4a", "window_attn_k4b": "k4b",
              "window_attn_k4a_mma": "k4a_mma",
              "window_attn_k4b_mma": "k4b_mma",
@@ -946,19 +1060,21 @@ class Counts:
              "window_attn_k6_fused_mma": "k6_fused_mma",
              "window_attn_k6_split_mma": "k6_split_mma"}
 
-    def __init__(self, K, WA):
-        self.K, self.WA = K, WA
+    def __init__(self, K, WA, FA):
+        self.K, self.WA, self.FA = K, WA, FA
 
     def reset(self) -> None:
         self.K.ms_deform_attn.launches = 0
         self.K.ms_deform_attn_bwd.launches = 0
         self.WA.LAUNCHES.clear()
+        self.FA.LAUNCHES.clear()
 
     def read(self) -> dict:
         out = {name: self.WA.LAUNCHES[kind] for name, kind in
                self.NAMES.items() if kind}
         out["msdeform_attn_fwd"] = self.K.ms_deform_attn.launches
         out["msdeform_attn_bwd"] = self.K.ms_deform_attn_bwd.launches
+        out["flash_attn_fwd"] = self.FA.LAUNCHES["flash_attn_fwd"]
         return out
 
     @staticmethod
@@ -1009,18 +1125,20 @@ def _gate_bits(masks, hw):
 
 
 def fp32_parity_phase(cfg, counts: Counts, build_model, normalize_image,
-                      plain: dict, per_forward: dict, label: str) -> None:
-    """One fp32 forward through the kernels against the same forward on
-    their plain versions (``plain``: build_model's arguments that hand them
-    in), TF32 off: layer 0 is gate-free and must agree tightly; gated
-    layers compare only queries whose incoming gates agree bitwise, since
-    a logit within float noise of 0 legitimately flips one gate."""
+                      plain: dict, per_forward: dict, label: str,
+                      batch: int = BATCH) -> None:
+    """One fp32 forward of ``batch`` images through the kernels against the
+    same forward on their plain versions (``plain``: build_model's
+    arguments that hand them in), TF32 off: layer 0 is gate-free and must
+    agree tightly; gated layers compare only queries whose incoming gates
+    agree bitwise, since a logit within float noise of 0 legitimately flips
+    one gate."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = cfg.clone()
     cfg.TPU.COMPUTE_DTYPE = "float32"
     images = torch.from_numpy(np.random.default_rng(SEED + 1).integers(
-        0, 256, (BATCH, CANVAS, CANVAS, 3), dtype=np.uint8)).cuda()
+        0, 256, (batch, CANVAS, CANVAS, 3), dtype=np.uint8)).cuda()
     outs = {}
     for tag, kw, want in (("kernel", {}, per_forward),
                           ("plain", plain, {})):
@@ -1372,10 +1490,11 @@ def bf16_window_parity_phase(cfg, counts: Counts, build_model,
                              label: str) -> None:
     """A window config's (``cfg``: the NHWC flagship at window 8, or with
     the window-16 encoder; Swin window 12 with the window-16 encoder under
-    the Pallas flag) backbone and pixel decoder at batch 8, 800x800,
-    same seeded weights and images, three times: in bf16 through the
-    kernels (the tensor-core K5, or K4b and K4a), in bf16 through the plain
-    versions (``plain``: build_model's arguments that hand them in), and
+    the Pallas flag) or the full-attention encoder's backbone and pixel
+    decoder at batch 8, 800x800, same seeded weights and images, three
+    times: in bf16 through the kernels (the tensor-core K5, or K4b and K4a,
+    or K8), in bf16 through the plain versions (``plain``: build_model's
+    arguments that hand them in), and
     in fp32 through the plain versions (TF32 off). For res2-res5,
     mask_features and the multi-scale outputs it prints the relative L2
     error ||a - b|| / ||b|| of kernel against plain and of each bf16 run
@@ -1383,7 +1502,9 @@ def bf16_window_parity_phase(cfg, counts: Counts, build_model,
     than bf16 itself does: ||kernel - plain|| <= ||plain - fp32||. (The
     tensor cores sum q . k in another order, so a few p and outputs round
     one bf16 step apart; random weights carry such steps through 12 blocks
-    and 6 encoder layers as bf16 carries its own rounding.)"""
+    and 6 encoder layers as bf16 carries its own rounding. K8 also scales
+    the logits in fp32 where the plain version rounds q * scale to
+    bf16.)"""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     images = torch.from_numpy(np.random.default_rng(SEED + 9).integers(
@@ -1577,6 +1698,13 @@ KERNEL_ROWS = {   # kernels line name -> (source, the TPU function it replaces)
     # ... and windows of 12 x 12, padded to 192 tokens
     "window_attn_k4b_ws12": ("window_attn_mma256.cu",
                              "window_attention.py:220"),
+    # the full-attention encoder's TPU flash-attention forward, JAX's own
+    # kernel, reached from the pixel decoder rather than kernels/
+    "flash_attn_fwd": ("flash_attn_fwd.cu",
+                       "vision_instance_seg_tpu/models/pixel_decoder.py:120 "
+                       "(_flash_or_dense_attention -> jax/experimental/"
+                       "pallas/ops/tpu/flash_attention.py:589 "
+                       "_flash_attention_impl, pallas_call :758)"),
 }
 
 
@@ -1598,6 +1726,7 @@ def main() -> int:
     from vision_instance_seg_tpu_torch import engine
     from vision_instance_seg_tpu_torch.config import get_cfg
     from vision_instance_seg_tpu_torch.kernels import build
+    from vision_instance_seg_tpu_torch.kernels import flash_attention as FA
     from vision_instance_seg_tpu_torch.kernels import msdeform_attn as K
     from vision_instance_seg_tpu_torch.kernels import window_attention as WA
     from vision_instance_seg_tpu_torch.models import (
@@ -1619,12 +1748,13 @@ def main() -> int:
     occ = WA._mma256_library().window_attn_mma256_occupancy
     print("window_attn_mma256.cu CTAs per SM at head dim 32: K4a ws 16 "
           f"{occ(0)}, K5 ws 16 {occ(1)}, K4b ws 12 {occ(2)}", flush=True)
-    counts = Counts(K, WA)
+    counts = Counts(K, WA, FA)
 
     numbers = {"msdeform_attn_fwd": kernel_phase(K, smi),
                "msdeform_attn_bwd": bwd_kernel_phase(K, smi)}
     numbers.update(window_kernel_phase(WA, smi))
     numbers.update(window_bwd_kernel_phase(WA, smi))
+    numbers.update(flash_kernel_phase(FA, smi))
 
     cfg = get_cfg()
     enc = cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS        # 6
@@ -1671,6 +1801,11 @@ def main() -> int:
     mdino = maskdino_cfg(cfg)
     dino_k1 = {"msdeform_attn_fwd":
                enc + mdino.MODEL.MASK_FORMER.DEC_LAYERS - 1}
+    # the full-attention encoder: K8 in each of its 6 layers, over all
+    # 13,125 tokens at 800 px
+    full = cfg.clone()
+    full.MODEL.SEM_SEG_HEAD.ENCODER_ATTENTION = "full"
+    k8 = {"flash_attn_fwd": enc}
     served = [
         (serve_phase(cfg, counts, build_model, make_inference_fn,
                      {"msdeform_attn_fwd": enc}, 3, "default"), {}),
@@ -1692,7 +1827,9 @@ def main() -> int:
                      2, "flagship, SWIN.WINDOW_SIZE 12, ENCODER_WINDOW_SIZE "
                      "16, USE_PALLAS_WINDOW_ATTN"),
          {"window_attn_k4b": "window_attn_k4b_ws12",
-          "window_attn_k4a": "window_attn_k4a_ws16"})]
+          "window_attn_k4a": "window_attn_k4a_ws16"}),
+        (serve_phase(full, counts, build_model, make_inference_fn, k8, 3,
+                     "full-attention encoder"), {})]
     fp32_parity_phase(cfg, counts, build_model, normalize_image,
                       {"deform_core_fn": K.ms_deform_attn_core_torch},
                       {"msdeform_attn_fwd": enc}, "default")
@@ -1705,6 +1842,9 @@ def main() -> int:
     fp32_parity_phase(pallas, counts, build_model, normalize_image,
                       {"window_attn_fn": WA.window_attention_torch}, k4,
                       "flagship USE_PALLAS_WINDOW_ATTN")
+    fp32_parity_phase(full, counts, build_model, normalize_image,
+                      {"full_attn_fn": FA.full_attention_torch}, k8,
+                      "full-attention encoder", batch=1)
     plain_nhwc = {"window_attn_fn": (WA.window_attention_nhwc_torch,
                                      WA.window_attention_nhwc_split_torch)}
     bf16_window_parity_phase(nhwc, counts, build_model, normalize_image,
@@ -1716,6 +1856,9 @@ def main() -> int:
                              {"window_attn_fn": WA.window_attention_torch},
                              k4_mma, "Swin window 12, window-16 encoder, "
                              "USE_PALLAS_WINDOW_ATTN")
+    bf16_window_parity_phase(full, counts, build_model, normalize_image,
+                             {"full_attn_fn": FA.full_attention_torch}, k8,
+                             "full-attention encoder")
     grad_check_phase(cfg, counts, build_model, K)
     window_grad_check_phase(cfg, counts, build_model, WA)
     bf16_window_grad_phase(nhwc, counts, build_model, WA, k56_mma,
@@ -1751,7 +1894,8 @@ def main() -> int:
         row = numbers[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES + src,
-            "replaces": TPU_KERNELS + replaces,
+            "replaces": (replaces if replaces.startswith(
+                "vision_instance_seg_tpu/") else TPU_KERNELS + replaces),
             "launches": launches[name], "max_abs_err": row["max_abs_err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],

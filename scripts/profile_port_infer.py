@@ -10,9 +10,10 @@ takes them (the window-attention flagship:
 ``MODEL.SEM_SEG_HEAD.ENCODER_ATTENTION window MODEL.SWIN.WINDOW_SIZE 8
 TPU.WINDOW_ATTN_NHWC True``; MaskDINO R-50 4-scale:
 ``MODEL.MASK_DINO.ENABLED True MODEL.BACKBONE.NAME resnet
-MODEL.SEM_SEG_HEAD.TOTAL_NUM_FEATURE_LEVELS 4``), serves one warm-up batch
-and ``--iters`` timed batches of random uint8 images through
-``make_inference_fn``, and prints:
+MODEL.SEM_SEG_HEAD.TOTAL_NUM_FEATURE_LEVELS 4``; the full-attention
+encoder, K8 in each layer: ``MODEL.SEM_SEG_HEAD.ENCODER_ATTENTION full``),
+serves one warm-up batch and ``--iters`` timed batches of random uint8
+images through ``make_inference_fn``, and prints:
 
 - images/s and per-batch ms (host clock around synchronized batches);
 - device ms per stage per batch (backbone, pixel decoder, of which the

@@ -132,7 +132,8 @@ def test_default_device_needs_cuda(monkeypatch):
 def test_unported_options_raise(opts):
     """MaskDINO's dense cross-attention and its train step (the denoising
     queries and its criterion) are not ported; the full-attention encoder
-    neither."""
+    builds and serves (K8), but its train step waits for the flash
+    backward (K9) and raises in ``make_train_step``."""
     cfg = tiny_cfg(get_cfg())
     cfg.merge_from_list(opts)
     with pytest.raises(NotImplementedError):

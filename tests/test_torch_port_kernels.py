@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (K1, the sampling backward and the window
-kernels K4a, K4b, K5, K6) against their plain PyTorch versions, and, on
+"""The port's CUDA kernels (K1, the sampling backward, the window kernels
+K4a, K4b, K5, K6 and the full-attention encoder's K8) against their plain
+PyTorch versions, and, on
 the CPU, the tensor-core K5's and K6's launch plans and dtype rules and the
 bf16 bound of K6's tensor-core body.
 
@@ -27,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+from vision_instance_seg_tpu_torch.kernels import flash_attention as FA
 from vision_instance_seg_tpu_torch.kernels import msdeform_attn as K
 from vision_instance_seg_tpu_torch.kernels import window_attention as WA
 
@@ -1533,3 +1535,96 @@ def test_window_kernels_reject_what_they_do_not_take():
     with pytest.raises(ValueError):
         WA.window_attention_nhwc_bwd(ok + [ok[0]], rel2, odd, 0.1,
                                      (8, 8, 8, 0))
+
+
+# ------------------------------------------------- K8, full self-attention
+# (B, nH, S, hd): the full encoder's serving (800 px) and training (640 px)
+# shapes, 4 heads of 64, a short ragged S, the smallest and largest head
+# dims K8 takes
+K8_SHAPES = {"serving": (8, 8, 13125, 32), "training": (2, 8, 8400, 32),
+             "4 x 64": (2, 4, 1300, 64), "ragged": (2, 8, 77, 32),
+             "hd 16": (1, 2, 130, 16), "hd 128": (1, 2, 200, 128)}
+
+
+def k8_inputs(shape, dtype, seed=0):
+    """q, k, v ~ N(0, 1) on the card, and the scale to call with. In bf16,
+    q comes as the plain version rounds q * scale (the scale rounded to
+    bf16, the product too) with scale 1: the plain version's output at the
+    real scale, bit for bit; K8 scales in fp32 and would otherwise differ
+    by that rounding of the logits, which K8's bound does not cover
+    (tests/test_torch_port_full_encoder.py pins the bound)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to("cuda", dtype) for _ in range(3))
+    scale = shape[-1] ** -0.5
+    if dtype == torch.bfloat16:
+        return q * float(torch.tensor(scale, dtype=dtype)), k, v, 1.0
+    return q, k, v, scale
+
+
+def k8_close(got, want) -> bool:
+    """fp32: 1e-5 max|plain| (sums in another order, ex2.approx); bf16:
+    2^-7 |plain| + 2^-8 max|plain| (p rounded before, not after, the
+    normalization; outputs one bf16 step apart)."""
+    err = (got.float() - want.float()).abs()
+    ref = want.float().abs()
+    if got.dtype == torch.float32:
+        return err.max().item() <= 1e-5 * ref.max().item()
+    return bool((err <= 2.0 ** -7 * ref + 2.0 ** -8 * ref.max()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(K8_SHAPES))
+def test_k8_matches_plain_on_cuda(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    q, k, v, scale = k8_inputs(K8_SHAPES[case], getattr(torch, dtype))
+    before = FA.LAUNCHES["flash_attn_fwd"]
+    got = FA.full_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert FA.LAUNCHES["flash_attn_fwd"] == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    assert k8_close(got, FA.full_attention_torch(q, k, v, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k8_takes_the_encoders_views_on_cuda(dtype):
+    """(B, S, nH, hd) projections seen as (B, nH, S, hd) go in without a
+    copy and give what contiguous operands give, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, scale = k8_inputs((2, 300, 8, 32), getattr(torch, dtype), 3)
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    got = FA.full_attention(*views, scale)
+    want = FA.full_attention(*(t.contiguous() for t in views), scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_k8_rejects_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    hd24 = torch.zeros(1, 2, 64, 24, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                    # head dim 24
+        FA.full_attention(hd24, hd24, hd24, 0.2)
+    hd32 = torch.zeros(1, 2, 64, 32, device="cuda")
+    with pytest.raises(ValueError):                    # fp16
+        FA.full_attention(*[hd32.half()] * 3, 0.2)
+    with pytest.raises(ValueError):                    # shapes differ
+        FA.full_attention(hd32, hd32[:, :, :32], hd32[:, :, :32], 0.2)
+    flat = torch.zeros(2 * 64 * 32 + 1, device="cuda", dtype=torch.bfloat16)
+    odd = flat[1:].view(1, 2, 64, 32)                  # 2 bytes off
+    ok = torch.zeros_like(odd)
+    with pytest.raises(ValueError):
+        FA.full_attention(odd, ok, ok, 0.2)
+    sq = torch.zeros(1, 2, 32, 32, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                    # head dim strided
+        FA.full_attention(sq.transpose(-1, -2), sq, sq, 0.2)
+    leaf = hd32.clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="K9"):  # no backward yet
+        FA.full_attention(leaf, hd32, hd32, 0.2)
+    with torch.no_grad():
+        FA.full_attention(leaf, hd32, hd32, 0.2)

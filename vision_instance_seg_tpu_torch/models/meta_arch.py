@@ -103,13 +103,16 @@ def window_attention_fns(cfg, window_attn_fn=None):
 
 def build_model(cfg, device=None,
                 deform_core_fn: Optional[DeformCoreFn] = None,
-                seed: int = 0, window_attn_fn=None) -> MaskFormer:
+                seed: int = 0, window_attn_fn=None,
+                full_attn_fn=None) -> MaskFormer:
     """Build the eval-mode model on ``device``, weights drawn from ``seed``.
 
     ``deform_core_fn`` replaces the sampling core (default: the CUDA kernel
     for CUDA tensors, its plain version for CPU tensors); ``window_attn_fn``
     the window attention (``window_attention_fns``), e.g. with the kernels'
-    plain versions.
+    plain versions; ``full_attn_fn`` the full-attention encoder's attention
+    (default ``kernels.flash_attention.full_attention``: K8 on CUDA), e.g.
+    with its plain version ``full_attention_torch``.
     """
     validate_cfg(cfg)
     device = resolve_device(device)
@@ -127,7 +130,8 @@ def build_model(cfg, device=None,
     clamp = float(DEFAULT_HALO) if cfg.TPU.USE_PALLAS_DEFORM_ATTN else None
     pixel_decoder = build_pixel_decoder(cfg, channels, core_fn=deform_core_fn,
                                         offset_clamp=clamp,
-                                        window_attn_fn=wenc_attn_fn)
+                                        window_attn_fn=wenc_attn_fn,
+                                        full_attn_fn=full_attn_fn)
     if is_maskdino(cfg):
         arch = MaskDINO
         predictor = build_maskdino_decoder(cfg, core_fn=deform_core_fn)

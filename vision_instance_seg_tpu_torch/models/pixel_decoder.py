@@ -1,8 +1,8 @@
-"""MSDeformAttn pixel decoder (Mask2Former/MaskDINO): deformable or window
-encoder.
+"""MSDeformAttn pixel decoder (Mask2Former/MaskDINO): deformable, window or
+full-attention encoder.
 
 PyTorch counterpart of ``vision_instance_seg_tpu/models/pixel_decoder.py``
-(its ``encoder_attention`` "deformable" and "window" paths), with the
+(its ``encoder_attention`` "deformable", "window" and "full" paths), with the
 upstream detectron2 state-dict layout: ``input_proj.{i}.{0,1}``,
 ``transformer.level_embed``, ``transformer.encoder.layers.{i}.*`` (one
 module per layer, where the JAX package scans stacked parameters),
@@ -11,7 +11,9 @@ attribute) and ``mask_features``. The window encoder has no upstream
 counterpart; its layers keep the JAX names under the same prefix
 (``q_proj``, ``k_proj``, ``v_proj``, ``out_proj``, ``mix{j}``,
 ``norm1``-``norm3``, ``linear1``, ``linear2``,
-``relative_position_bias_table``).
+``relative_position_bias_table``), as do the full-attention encoder's
+(``q_proj``, ``k_proj``, ``v_proj``, ``out_proj``, ``norm1``, ``linear1``,
+``linear2``, ``norm2``).
 
 Feature maps are NHWC at the module boundary, as in the JAX package; the
 3x3 convolutions run on channels-last NCHW views. ``remat``
@@ -28,6 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from vision_instance_seg_tpu_torch.kernels.flash_attention import (
+    full_attention)
 from vision_instance_seg_tpu_torch.kernels.window_attention import (
     window_mask)
 from vision_instance_seg_tpu_torch.models.deform_attn import (
@@ -70,6 +74,45 @@ class DeformableEncoderLayer(nn.Module):
     def forward(self, src, pos, reference_points, spatial_shapes):
         attn = self.self_attn(src + pos, reference_points, src,
                               spatial_shapes)
+        src = self.norm1(src + attn)
+        y = self.linear2(F.relu(self.linear1(src)))
+        return self.norm2(src + y)
+
+
+class FullAttentionEncoderLayer(nn.Module):
+    """Dense self-attention over all the encoder's tokens (the JAX
+    ``FullAttentionEncoderLayer``): q and k projected from src + pos, v
+    from src, heads split to (B, nH, S, hd) and attended by ``attn_fn``
+    (default ``full_attention``: K8 on CUDA, its plain version on the CPU),
+    merged, ``out_proj`` and ``norm1``; the FFN and ``norm2``."""
+
+    def __init__(self, dim: int, num_heads: int, ffn_dim: int,
+                 attn_fn=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.attn_fn = attn_fn or full_attention
+        self.q_proj = nn.Linear(dim, dim)
+        self.k_proj = nn.Linear(dim, dim)
+        self.v_proj = nn.Linear(dim, dim)
+        self.out_proj = nn.Linear(dim, dim)
+        self.norm1 = LayerNorm(dim)
+        self.linear1 = nn.Linear(dim, ffn_dim)
+        self.linear2 = nn.Linear(ffn_dim, dim)
+        self.norm2 = LayerNorm(dim)
+
+    def forward(self, src, pos, reference_points, spatial_shapes):
+        del reference_points, spatial_shapes
+        b, s, c = src.shape
+        nh = self.num_heads
+        hd = c // nh
+
+        def heads(t):                                 # (B, nH, S, hd) view
+            return t.view(b, s, nh, hd).transpose(1, 2)
+
+        qk = src + pos
+        out = self.attn_fn(heads(self.q_proj(qk)), heads(self.k_proj(qk)),
+                           heads(self.v_proj(src)), hd ** -0.5)
+        attn = self.out_proj(out.transpose(1, 2).reshape(b, s, c))
         src = self.norm1(src + attn)
         y = self.linear2(F.relu(self.linear1(src)))
         return self.norm2(src + y)
@@ -236,7 +279,8 @@ class MSDeformAttnPixelDecoder(nn.Module):
                  core_fn: Optional[DeformCoreFn] = None,
                  offset_clamp: Optional[float] = None,
                  remat: bool = False, encoder_attention: str = "deformable",
-                 encoder_window_size: int = 8, window_attn_fn=None):
+                 encoder_window_size: int = 8, window_attn_fn=None,
+                 full_attn_fn=None):
         super().__init__()
         self.conv_dim = conv_dim
         self.remat = remat
@@ -259,6 +303,10 @@ class MSDeformAttnPixelDecoder(nn.Module):
                                          encoder_window_size, bool(li % 2),
                                          nl, window_attn_fn)
                       for li in range(num_encoder_layers)]
+        elif encoder_attention == "full":
+            layers = [FullAttentionEncoderLayer(conv_dim, num_heads, ffn_dim,
+                                                full_attn_fn)
+                      for _ in range(num_encoder_layers)]
         else:
             layers = [DeformableEncoderLayer(conv_dim, num_heads, nl,
                                              num_points, ffn_dim, core_fn,
@@ -341,12 +389,13 @@ def _upsample_nhwc(x: torch.Tensor, hw) -> torch.Tensor:
 def build_pixel_decoder(cfg, in_channels: Dict[str, int],
                         core_fn: Optional[DeformCoreFn] = None,
                         offset_clamp: Optional[float] = None,
-                        window_attn_fn=None) -> MSDeformAttnPixelDecoder:
+                        window_attn_fn=None,
+                        full_attn_fn=None) -> MSDeformAttnPixelDecoder:
     s = cfg.MODEL.SEM_SEG_HEAD
-    if s.ENCODER_ATTENTION not in ("deformable", "window"):
+    if s.ENCODER_ATTENTION not in ("deformable", "window", "full"):
         raise NotImplementedError(
             f"SEM_SEG_HEAD.ENCODER_ATTENTION={s.ENCODER_ATTENTION!r}: the "
-            "deformable and window encoders are ported")
+            "deformable, window and full encoders are ported")
     return MSDeformAttnPixelDecoder(
         in_channels, conv_dim=s.CONVS_DIM, mask_dim=s.MASK_DIM,
         transformer_in_features=tuple(
@@ -358,4 +407,4 @@ def build_pixel_decoder(cfg, in_channels: Dict[str, int],
         offset_clamp=offset_clamp, remat=bool(cfg.TPU.REMAT_ENCODER),
         encoder_attention=str(s.ENCODER_ATTENTION),
         encoder_window_size=int(s.ENCODER_WINDOW_SIZE),
-        window_attn_fn=window_attn_fn)
+        window_attn_fn=window_attn_fn, full_attn_fn=full_attn_fn)
