@@ -16,10 +16,13 @@ stage 1 with windows of 7, K4a at the window encoder's three levels and at
 window 16, K5 at all seven shapes of the flagship's serving path (fused at
 Swin stages 1-4, split at the window encoder's three levels) and split at
 window 16, K6 at all seven shapes of the flagship's training path and split
-at window 16, and K8 (the full-attention encoder's flash-attention forward)
+at window 16, K8 (the full-attention encoder's flash-attention forward)
 at its serving and training shapes, with 4 heads of 64, on a ragged short
-sequence and on sharp logits. bf16 windows of up to 64 tokens, of 144 (K4)
-and of 256 and bf16 K8 run the tensor-core bodies, fp32 the SIMT bodies.
+sequence and on sharp logits (in fp32 against a float64 attention), and
+K9a / K9b (its backward: dK and dV, dQ) at the training shape, with 4
+heads of 64, on a ragged short sequence and at head dims 16, 48 and 128.
+bf16 windows of up to 64 tokens, of 144 (K4) and of 256 and bf16 K8 and
+K9 run the tensor-core bodies, fp32 the SIMT bodies.
 Then it drives the port's main
 paths with weights drawn from a fixed seed, through ``build_model`` ->
 ``make_inference_fn`` and ``create_train_state`` -> ``make_train_step``:
@@ -50,7 +53,8 @@ paths with weights drawn from a fixed seed, through ``build_model`` ->
 - the full-attention encoder (the default model with
   ``SEM_SEG_HEAD.ENCODER_ATTENTION full``: 6 layers of dense
   self-attention over all 13,125 tokens at 800 px): serving batches of 8 at
-  800x800, 6 K8 a forward;
+  800x800, 6 K8 a forward; train steps at batch 2, 640 px (8,400 tokens),
+  6 K8, 6 K9a and 6 K9b a step;
 - checks: fp32 forwards through the kernels against the same forwards on
   the plain versions (TF32 off), bf16 backbone + pixel decoder forwards
   through the tensor-core bodies against the plain versions (relative L2
@@ -61,8 +65,11 @@ paths with weights drawn from a fixed seed, through ``build_model`` ->
   sampling kernels, an fp32 backbone + window-encoder gradient through
   K5 / K6 against the plain versions and the same gradient in bf16
   through the tensor-core K5 / K6 (relative L2 error, against the plain
-  versions in bf16 and fp32), and 30 steps on one batch of each model that
-  must lower the loss.
+  versions in bf16 and fp32), the full-attention encoder's q/k/v/out
+  projection gradients through K8 + K9a / K9b at batch 1, 640 px, in fp32
+  against the plain versions and in bf16 (no further from the plain
+  versions than bf16 is from fp32), and 30 steps on one batch of each
+  model that must lower the loss.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path was launched as many
@@ -868,10 +875,12 @@ TRAIN_TOKENS = sum(h * w for h, w in TRAIN_LEVELS)          # 8,400 at 640 px
 # name -> (B, nH, S, hd, dtype, sd of q and k). The serving shape (the
 # kernels line's row), the training shape (640 px, batch 2), 4 heads of 64,
 # a short ragged S, sharp logits in bf16 (sd 3: N(0, 81), the running max
-# moves often over 206 key blocks) and fp32 at batch 1. fp32 on such sharp
-# logits is not held to 1e-5: a logit of magnitude ~60 (base 2) carries an
-# fp32 rounding of ~4e-6 in each version, so p, and an output that mixes a
-# few keys, move by ~1e-5 relative (1.25e-5 x max|plain| on the card).
+# moves often over 206 key blocks), fp32 at batch 1 and fp32 on sharp
+# logits. That last one is not held to 1e-5 of the plain version: a logit
+# of magnitude ~45 carries an fp32 rounding of ~4e-6 in each version, so
+# p, and an output that mixes a few keys, move by ~1e-5 relative. Both are
+# held instead to a float64 attention: K8's max error from it at most the
+# plain version's.
 K8_CASES = {
     "serving": (BATCH, HEADS, ENC_TOKENS, HEAD_DIM, torch.bfloat16, 1.0),
     "training": (TRAIN_BATCH, HEADS, TRAIN_TOKENS, HEAD_DIM, torch.bfloat16,
@@ -880,7 +889,16 @@ K8_CASES = {
     "ragged 77": (BATCH, HEADS, 77, HEAD_DIM, torch.bfloat16, 1.0),
     "sharp": (1, HEADS, ENC_TOKENS, HEAD_DIM, torch.bfloat16, 3.0),
     "fp32": (1, HEADS, ENC_TOKENS, HEAD_DIM, torch.float32, 1.0),
+    "sharp fp32": (1, HEADS, ENC_TOKENS, HEAD_DIM, torch.float32, 3.0),
 }
+
+
+def attention_f64(q, k, v, scale: float, rows: int = 512) -> torch.Tensor:
+    """softmax(q . k^T * scale) . v in float64, by chunks of query rows."""
+    kt, vd = k.double().transpose(-1, -2), v.double()
+    return torch.cat([torch.matmul(
+        (torch.matmul(q[:, :, r:r + rows].double(), kt) * scale).softmax(-1),
+        vd) for r in range(0, q.shape[2], rows)], 2)
 
 
 def k8_bound_ms(b: int, nh: int, s: int, hd: int, dtype) -> tuple:
@@ -930,9 +948,17 @@ def flash_kernel_phase(FA, smi: str) -> dict:
             why = "2^-7 |plain| + 2^-8 max|plain| per element"
             ok = bool((err_t <= 2.0 ** -7 * ref + 2.0 ** -8 * ref.max())
                       .all())
-        else:
+        elif sd == 1.0:
             why = "1e-5 max|plain|"
             ok = err <= 1e-5 * ref.max().item()
+        else:
+            f64 = attention_f64(q, k, v, scale)
+            ek = (got.double() - f64).abs().max().item()
+            ep = (want.double() - f64).abs().max().item()
+            why = (f"float64: max |kernel - f64| {ek:.3e} <= max |plain - "
+                   f"f64| {ep:.3e}, ratio {ek / ep:.3f}")
+            ok = ek <= ep
+            del f64
         dn = str(dtype).replace("torch.", "")
         print(f"K8 {name} {dn} {(b, nh, s, hd)}: max |kernel - plain| = "
               f"{err:.3e}, max|plain| {ref.max().item():.3e} (tolerance "
@@ -961,6 +987,147 @@ def flash_kernel_phase(FA, smi: str) -> dict:
         del q, k, v
     torch.cuda.empty_cache()
     return {"flash_attn_fwd": dict(row, max_abs_err=max_err)}
+
+
+# ------------------------------------- K9a, K9b: full self-attention backward
+# name -> (B, nH, S, hd): the training shape (the kernels line's rows), 4
+# heads of 64 over the same tokens, a short ragged S, and the smallest, an
+# odd and the largest head dim the kernels take
+K9_CASES = {"training": (TRAIN_BATCH, HEADS, TRAIN_TOKENS, HEAD_DIM),
+            "4 x 64": (TRAIN_BATCH, 4, TRAIN_TOKENS, 64),
+            "ragged 77": (TRAIN_BATCH, HEADS, 77, HEAD_DIM),
+            "hd 16": (1, 4, 1300, 16), "hd 48": (1, 4, 1300, 48),
+            "hd 128": (1, 4, 1300, 128)}
+# fp32 (the SIMT bodies): the plain version's arithmetic, sums over up to
+# S terms in another order, ex2.approx
+K9_FP32_TOL = 1e-5
+K9 = {"flash_attn_bwd_dkv": ("K9a", ("dk", "dv"), 4),
+      "flash_attn_bwd_dq": ("K9b", ("dq",), 3)}   # name, outputs, products
+
+
+def k9_bound_ms(b: int, nh: int, s: int, hd: int, name: str) -> tuple:
+    """Least time of K9a's or K9b's work on this card: each recomputes P,
+    S^2 ex2 a head over the exponent unit's rate; its products (K9a: S^T,
+    dP^T, dV, dK; K9b: S, dP, dQ), 2 S^2 hd each a head, over the bf16
+    peak; q, k, v, dO, lse and D read and its gradients written once over
+    HBM bandwidth. The larger of the bytes' time and the operations'."""
+    _, outs, n_prod = K9[name]
+    nbytes = (4 + len(outs)) * b * nh * s * hd * 2 + 2 * b * nh * s * 4
+    t_mma = _bound(0, 2.0 * n_prod * s * s * hd * b * nh,
+                   torch.bfloat16)[0]
+    t_ex2 = s * s * b * nh / EX2_PER_S * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = max(t_mma, t_ex2)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, t_mma, t_ex2, t_bytes
+
+
+def flash_bwd_kernel_phase(FA, smi: str) -> dict:
+    """K9a and K9b at every shape of ``K9_CASES``, bf16 and fp32, against
+    the plain backward on the same q, k, v, cotangent and K8's output and
+    row log-sum-exp: bf16 within 2^-7 |plain| + 2^-8 max|plain| per
+    gradient (P and dS rounded to bf16 before the products), fp32 within
+    ``K9_FP32_TOL`` max|plain|. At the training shape in bf16 (the kernels
+    line's rows): each kernel's time, the plain halves', SDPA's backward
+    (the pair's work; timed here only), the bounds and shares, and the
+    one-pass count of a fused backward (S^2 ex2 and five products a
+    head)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    rows, bad = {}, []
+    max_err = dict.fromkeys(K9, 0.0)
+    for case, (b, nh, s, hd) in K9_CASES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (torch.randn((b, nh, s, hd), generator=gen,
+                                       device="cuda").to(dtype)
+                           for _ in range(4))
+            scale = hd ** -0.5
+            o, lse = FA._launch(q, k, v, scale, with_lse=True)
+            before = dict(FA.LAUNCHES)
+            got = FA._launch_bwd(q, k, v, o, lse, do, scale)
+            torch.cuda.synchronize()
+            for name in K9:
+                if FA.LAUNCHES[name] != before.get(name, 0) + 1:
+                    raise AssertionError(f"{name} {case} did not launch")
+            want = FA.flash_attention_bwd_torch(q, k, v, o, lse, do, scale)
+            dn = str(dtype).replace("torch.", "")
+            msg, ok_all = [], True
+            for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+                err_t = (a.float() - w.float()).abs()
+                ref = w.float().abs()
+                mx = ref.max().item()
+                err = err_t.max().item()
+                if dtype == torch.bfloat16:
+                    ratio = (err_t / (2.0 ** -7 * ref + 2.0 ** -8 * mx)).max()
+                    ok = bool(ratio <= 1.0)
+                    msg.append(f"{gname} {err:.3e} (max|plain| {mx:.3e}, "
+                               f"{ratio.item():.3f} of the bound)")
+                else:
+                    ok = err <= K9_FP32_TOL * mx
+                    msg.append(f"{gname} {err:.3e} ({err / mx:.3e} of "
+                               f"max|plain| {mx:.3e})")
+                ok_all &= ok and a.dtype == w.dtype == dtype
+                kern = "flash_attn_bwd_dq" if gname == "dq" else \
+                    "flash_attn_bwd_dkv"
+                max_err[kern] = max(max_err[kern], err)
+            why = ("2^-7 |plain| + 2^-8 max|plain|" if dtype ==
+                   torch.bfloat16 else f"{K9_FP32_TOL} max|plain|")
+            print(f"K9 {case} {dn} {(b, nh, s, hd)}: max |kernel - plain| "
+                  f"{'; '.join(msg)} (tolerance {why}): {ok_all}",
+                  flush=True)
+            if not ok_all:
+                bad.append(f"{case} {dn}")
+            del got, want
+            if case == "training" and dtype == torch.bfloat16:
+                rows = k9_timing(FA, q, k, v, o, lse, do, scale, smi)
+            del q, k, v, do, o, lse
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"K9 disagrees with its plain version: {bad}")
+    return {name: dict(rows[name], max_abs_err=max_err[name]) for name in K9}
+
+
+def k9_timing(FA, q, k, v, o, lse, do, scale: float, smi: str) -> dict:
+    b, nh, s, hd = q.shape
+    g, lse_p, delta = FA._bwd_operands(q, k, v, o, lse, do)
+    outs = {"flash_attn_bwd_dkv": (FA._heads_view(k), FA._heads_view(v)),
+            "flash_attn_bwd_dq": (FA._heads_view(q),)}
+    plain = {"flash_attn_bwd_dkv": FA.flash_attention_bwd_dkv_torch,
+             "flash_attn_bwd_dq": FA.flash_attention_bwd_dq_torch}
+    qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
+    lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), do, retain_graph=True), reps=10)
+    rows, pair = {}, [0.0, 0.0]
+    for name, (label, _, n_prod) in K9.items():
+        ms = cuda_time_ms(lambda: FA._launch_bwd_kernel(
+            name, q, k, v, g, lse_p, delta, outs[name], scale), reps=10)
+        plain_ms = cuda_time_ms(lambda: plain[name](q, k, v, o, lse, do,
+                                                    scale), reps=2, warmup=1)
+        bound, by, t_mma, t_ex2, t_bytes = k9_bound_ms(b, nh, s, hd, name)
+        pair = [pair[0] + ms, pair[1] + bound]
+        print(f"{label} training bf16 {(b, nh, s, hd)}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}: ex2 "
+              f"{t_ex2:.4f}, {n_prod} products {t_mma:.4f}, bytes "
+              f"{t_bytes:.4f}), {bound / ms:.1%} of the bound, on {smi}",
+              flush=True)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=bound, bound_by=by)
+    logits = b * nh * s * s
+
+    def work_ms(n_ex2: int, n_prod: int) -> float:
+        return max(n_ex2 * logits / EX2_PER_S, 2.0 * n_prod * logits * hd
+                   / PEAK_BF16_FLOP_PER_S) * 1e3
+
+    print(f"K9 training bf16: K9a + K9b {pair[0]:.4f} ms; the pair's work "
+          f"(2 S^2 ex2, seven products a head) is bound at "
+          f"{work_ms(2, 7):.4f} ms ({work_ms(2, 7) / pair[0]:.1%}), the sum "
+          f"of the two kernels' own bounds {pair[1]:.4f} ms; K9a "
+          f"{rows['flash_attn_bwd_dkv']['ms'] / pair[0]:.1%} of the pair's "
+          f"time; SDPA backward {lib_ms:.4f} ms ({lib_ms / pair[0]:.2f}x "
+          f"the pair's speed); one pass (S^2 ex2, five products) would be "
+          f"bound at {work_ms(1, 5):.4f} ms", flush=True)
+    del out, qs, ks, vs
+    return rows
 
 
 # -------------------------------------------------------------- model phase
@@ -1047,7 +1214,8 @@ class Counts:
     (``..._mma``)."""
 
     NAMES = {"msdeform_attn_fwd": None, "msdeform_attn_bwd": None,
-             "flash_attn_fwd": None,
+             "flash_attn_fwd": None, "flash_attn_bwd_dkv": None,
+             "flash_attn_bwd_dq": None,
              "window_attn_k4a": "k4a", "window_attn_k4b": "k4b",
              "window_attn_k4a_mma": "k4a_mma",
              "window_attn_k4b_mma": "k4b_mma",
@@ -1074,7 +1242,9 @@ class Counts:
                self.NAMES.items() if kind}
         out["msdeform_attn_fwd"] = self.K.ms_deform_attn.launches
         out["msdeform_attn_bwd"] = self.K.ms_deform_attn_bwd.launches
-        out["flash_attn_fwd"] = self.FA.LAUNCHES["flash_attn_fwd"]
+        for name in ("flash_attn_fwd", "flash_attn_bwd_dkv",
+                     "flash_attn_bwd_dq"):
+            out[name] = self.FA.LAUNCHES[name]
         return out
 
     @staticmethod
@@ -1362,6 +1532,86 @@ def grad_check_phase(cfg, counts: Counts, build_model, K) -> None:
                                 "attention_weights")}
         del model, dec, mf, outs
     _compare_grads(grads, "fp32 pixel-decoder gradient (TF32 off)")
+
+
+def _full_encoder_params(model) -> dict:
+    """The full-attention encoder layers' q/k/v/out projections: the
+    weights behind K8 and K9a / K9b."""
+    layers = model.sem_seg_head.pixel_decoder.transformer.encoder.layers
+    return {f"encoder {i} {n}": getattr(layer, n).weight
+            for i, layer in enumerate(layers)
+            for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
+
+
+def _full_encoder_grads(cfg, counts: Counts, build_model, kw: dict,
+                        dtype: torch.dtype, want: dict, label: str) -> dict:
+    """The full-attention encoder's projection gradients for seeded
+    weights, backbone features (batch 1, 640 px) and cotangent on the pixel
+    decoder's outputs, under autocast when ``dtype`` is bf16."""
+    rng = np.random.default_rng(SEED + 15)
+    c, s = cfg.MODEL.SWIN.EMBED_DIM, TRAIN_CANVAS // 4
+    feats = {f"res{i + 2}": torch.from_numpy(rng.standard_normal(
+        (1, s >> i, s >> i, c << i)).astype(np.float32)).cuda()
+        for i in range(4)}
+    model = build_model(cfg, seed=SEED, **kw)
+    counts.reset()
+    with torch.autocast("cuda", dtype=torch.bfloat16,
+                        enabled=dtype == torch.bfloat16):
+        mf, outs = model.sem_seg_head.pixel_decoder(feats)
+    _cotangent_loss([mf] + outs, SEED + 16).backward()
+    torch.cuda.synchronize()
+    counts.check(counts.read(), want, label)
+    grads = {n: p.grad.float() for n, p in _full_encoder_params(model).items()}
+    del model, mf, outs, feats
+    torch.cuda.empty_cache()
+    return grads
+
+
+def full_grad_check_phase(cfg, counts: Counts, build_model, FA,
+                          want: dict) -> None:
+    """The full-attention encoder's q/k/v/out projection gradients at batch
+    1, 640 px (8,400 tokens): in fp32 (TF32 off) through K8 and K9a / K9b
+    against the plain versions (autograd of ``full_attention_torch``) as
+    ``grad_check_phase`` holds them; then in bf16 through the kernels, in
+    bf16 through the plain versions and in fp32 through the plain versions,
+    and the kernels must move each gradient less than bf16 itself does
+    (``bf16_window_grad_phase``'s test). Batch 1: the plain forward's
+    autograd keeps each layer's S x S tensors."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    plain = {"full_attn_fn": FA.full_attention_torch}
+    fp32 = cfg.clone()
+    fp32.TPU.COMPUTE_DTYPE = "float32"
+    grads = {tag: _full_encoder_grads(fp32, counts, build_model, kw,
+                                      torch.float32, w,
+                                      f"fp32 full-encoder gradient {tag}")
+             for tag, kw, w in (("kernel", {}, want), ("plain", plain, {}))}
+    _compare_grads(grads, "fp32 full-attention encoder gradient (batch 1, "
+                   "640 px, TF32 off)")
+    grads = {tag: _full_encoder_grads(cfg, counts, build_model, kw, dtype,
+                                      w, f"bf16 full-encoder gradient {tag}")
+             for tag, kw, dtype, w in (
+                 ("kernel", {}, torch.bfloat16, want),
+                 ("plain", plain, torch.bfloat16, {}),
+                 ("fp32", plain, torch.float32, {}))}
+    bad, worst = {}, 0.0
+    for name, ref in grads["fp32"].items():
+        kp = _rel_l2(grads["kernel"][name], grads["plain"][name])
+        pf = _rel_l2(grads["plain"][name], ref)
+        kf = _rel_l2(grads["kernel"][name], ref)
+        print(f"bf16 full-encoder gradient, {name}: relative L2 error "
+              f"kernel vs plain {kp:.3e}; against fp32: kernel {kf:.3e}, "
+              f"plain {pf:.3e}", flush=True)
+        worst = max(worst, kp / pf)
+        if not kp <= pf:
+            bad[name] = (kp, pf)
+    print(f"bf16 full-encoder gradient: K8 + K9a / K9b move every one of "
+          f"{len(grads['fp32'])} weight gradients less than bf16 rounding "
+          f"does (kernel vs plain <= plain vs fp32): {not bad}; largest "
+          f"ratio {worst:.3f}", flush=True)
+    if bad:
+        raise AssertionError(f"bf16 full-encoder gradient: the kernels move "
+                             f"these gradients more than bf16 does: {bad}")
 
 
 def _encoder_window_params(model) -> dict:
@@ -1705,6 +1955,19 @@ KERNEL_ROWS = {   # kernels line name -> (source, the TPU function it replaces)
                        "(_flash_or_dense_attention -> jax/experimental/"
                        "pallas/ops/tpu/flash_attention.py:589 "
                        "_flash_attention_impl, pallas_call :758)"),
+    # ... and the two kernels of its backward
+    "flash_attn_bwd_dkv": ("flash_attn_bwd.cu",
+                           "vision_instance_seg_tpu/models/pixel_decoder.py"
+                           ":120 (_flash_or_dense_attention -> jax/"
+                           "experimental/pallas/ops/tpu/flash_attention.py"
+                           ":941 _flash_attention_bwd_dkv, pallas_call "
+                           ":1121)"),
+    "flash_attn_bwd_dq": ("flash_attn_bwd.cu",
+                          "vision_instance_seg_tpu/models/pixel_decoder.py"
+                          ":120 (_flash_or_dense_attention -> jax/"
+                          "experimental/pallas/ops/tpu/flash_attention.py"
+                          ":1287 _flash_attention_bwd_dq, pallas_call "
+                          ":1456)"),
 }
 
 
@@ -1755,6 +2018,7 @@ def main() -> int:
     numbers.update(window_kernel_phase(WA, smi))
     numbers.update(window_bwd_kernel_phase(WA, smi))
     numbers.update(flash_kernel_phase(FA, smi))
+    numbers.update(flash_bwd_kernel_phase(FA, smi))
 
     cfg = get_cfg()
     enc = cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS        # 6
@@ -1806,6 +2070,8 @@ def main() -> int:
     full = cfg.clone()
     full.MODEL.SEM_SEG_HEAD.ENCODER_ATTENTION = "full"
     k8 = {"flash_attn_fwd": enc}
+    # ... and in training 6 K9a and 6 K9b a step, over 8,400 tokens
+    k89 = dict(k8, flash_attn_bwd_dkv=enc, flash_attn_bwd_dq=enc)
     served = [
         (serve_phase(cfg, counts, build_model, make_inference_fn,
                      {"msdeform_attn_fwd": enc}, 3, "default"), {}),
@@ -1865,6 +2131,7 @@ def main() -> int:
                            "window-8 flagship")
     bf16_window_grad_phase(nhwc16, counts, build_model, WA, k56_mma,
                            "window-16 encoder flagship")
+    full_grad_check_phase(full, counts, build_model, FA, k89)
     trained = [
         (train_phase(cfg, counts, build_model, engine, smi, sampling,
                      "default", 4, _default_grads, cli_settings=True), {}),
@@ -1879,7 +2146,9 @@ def main() -> int:
                      "WINDOW_ATTN_NHWC", 1, _encoder_window_params), ws16),
         (train_phase(pallas, counts, build_model, engine, smi, k4_mma,
                      "flagship, USE_PALLAS_WINDOW_ATTN", 3, _window_params),
-         {})]
+         {}),
+        (train_phase(full, counts, build_model, engine, smi, k89,
+                     "full-attention encoder", 3, _full_encoder_params), {})]
     overfit_phase(cfg, counts, build_model, engine, sampling, "default")
     overfit_phase(nhwc, counts, build_model, engine, k56_mma,
                   "flagship, WINDOW_ATTN_NHWC")

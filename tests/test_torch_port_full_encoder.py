@@ -109,9 +109,9 @@ def test_plain_chunks_change_nothing(dtype):
 
 
 def test_plain_is_differentiable_on_cpu():
-    """The CPU path stays differentiable by autograd (K8 has no backward
-    yet; the train step refuses the full encoder on every device): its
-    gradients equal those of JAX's dense path."""
+    """The CPU path stays differentiable by autograd (the card's takes
+    ``FlashAttentionFunction``, K8 then K9a / K9b): its gradients equal
+    those of JAX's dense path."""
     arrays = _qkv(8, 1, 2, 77, 16)
     g = _normal(np.random.default_rng(9), 1, 2, 77, 16)
     ts = [torch.from_numpy(a).requires_grad_() for a in arrays]

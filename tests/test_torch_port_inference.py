@@ -126,14 +126,13 @@ def test_default_device_needs_cuda(monkeypatch):
     ["MODEL.MASK_DINO.ENABLED", "True",
      "MODEL.MASK_DINO.CROSS_ATTENTION", "dense"],
     ["MODEL.MASK_DINO.ENABLED", "True"],
-    ["MODEL.SEM_SEG_HEAD.ENCODER_ATTENTION", "full"],
+    ["MODEL.SWIN.APE", "True"],
 ], ids=["maskdino-dense-cross-attention", "maskdino-train-step",
-        "full-encoder"])
+        "swin-ape"])
 def test_unported_options_raise(opts):
     """MaskDINO's dense cross-attention and its train step (the denoising
-    queries and its criterion) are not ported; the full-attention encoder
-    builds and serves (K8), but its train step waits for the flash
-    backward (K9) and raises in ``make_train_step``."""
+    queries and its criterion) are not ported, nor is Swin's absolute
+    position embedding (``build_model`` raises)."""
     cfg = tiny_cfg(get_cfg())
     cfg.merge_from_list(opts)
     with pytest.raises(NotImplementedError):

@@ -1,8 +1,8 @@
 """The port's CUDA kernels (K1, the sampling backward, the window kernels
-K4a, K4b, K5, K6 and the full-attention encoder's K8) against their plain
-PyTorch versions, and, on
-the CPU, the tensor-core K5's and K6's launch plans and dtype rules and the
-bf16 bound of K6's tensor-core body.
+K4a, K4b, K5, K6 and the full-attention encoder's K8, K9a and K9b) against
+their plain PyTorch versions, and, on the CPU, the tensor-core K5's and
+K6's launch plans and dtype rules and the bf16 bound of K6's tensor-core
+body.
 
 Imports only torch, numpy and the port, so it also runs on a machine
 without JAX. On the card (the repository's conftest imports JAX, so skip
@@ -1623,8 +1623,120 @@ def test_k8_rejects_what_it_does_not_take():
     sq = torch.zeros(1, 2, 32, 32, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError):                    # head dim strided
         FA.full_attention(sq.transpose(-1, -2), sq, sq, 0.2)
-    leaf = hd32.clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="K9"):  # no backward yet
-        FA.full_attention(leaf, hd32, hd32, 0.2)
-    with torch.no_grad():
-        FA.full_attention(leaf, hd32, hd32, 0.2)
+    leaf = hd24.clone().requires_grad_()
+    with pytest.raises(ValueError):                    # the training path
+        FA.full_attention(leaf, hd24, hd24, 0.2)
+
+
+# ------------------------------------- K9a, K9b: full self-attention backward
+# (B, nH, S, hd): the full encoder's training shape (640 px), 4 heads of 64
+# over its tokens, a short ragged S, and head dims 16, 48 and 128
+K9_SHAPES = {"training": (2, 8, 8400, 32), "4 x 64": (2, 4, 8400, 64),
+             "ragged": (2, 8, 77, 32), "hd 16": (1, 4, 1300, 16),
+             "hd 48": (1, 4, 1300, 48), "hd 128": (1, 4, 1300, 128)}
+
+
+def k9_inputs(shape, dtype, seed=0):
+    """q, k, v and a cotangent ~ N(0, 1) on the card, K8's output and row
+    log-sum-exp, and the scale."""
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to("cuda", dtype) for _ in range(4))
+    scale = shape[-1] ** -0.5
+    o, lse = FA._launch(q, k, v, scale, with_lse=True)
+    return q, k, v, o, lse, g, scale
+
+
+def k9_close(got, want) -> bool:
+    """fp32: 1e-5 max|plain| per gradient (sums over up to S terms in
+    another order, ex2.approx); bf16: 2^-7 |plain| + 2^-8 max|plain| (P
+    and dS rounded to bf16 before the products, as K6's tensor-core
+    bodies; tests/test_torch_port_full_encoder_train.py pins the bound)."""
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        err = (a.float() - w.float()).abs()
+        ref = w.float().abs()
+        if a.dtype == torch.float32:
+            ok = err.max().item() <= 1e-5 * ref.max().item()
+        else:
+            ok = bool((err <= 2.0 ** -7 * ref + 2.0 ** -8 * ref.max()).all())
+        if not ok:
+            return False
+    return True
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(K9_SHAPES))
+def test_k9_matches_plain_on_cuda(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    q, k, v, o, lse, g, scale = k9_inputs(K9_SHAPES[case],
+                                          getattr(torch, dtype))
+    before = dict(FA.LAUNCHES)
+    got = FA._launch_bwd(q, k, v, o, lse, g, scale)
+    torch.cuda.synchronize()
+    for name in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
+        assert FA.LAUNCHES[name] == before.get(name, 0) + 1
+    assert k9_close(got, FA.flash_attention_bwd_torch(q, k, v, o, lse, g,
+                                                      scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["training", "ragged", "hd 128"])
+def test_k8_lse_matches_logsumexp_on_cuda(case, dtype):
+    """K8's row log-sum-exp against torch.logsumexp of the fp32 logits:
+    within 1e-5 of the largest |lse| (fp32 sums in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, _, lse, _, scale = k9_inputs(K9_SHAPES[case],
+                                          getattr(torch, dtype), 1)
+    want = torch.logsumexp(torch.matmul(q.float(), k.float().transpose(
+        -1, -2)) * scale, -1)
+    assert lse.shape == want.shape and lse.dtype == torch.float32
+    err = (lse - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k9_takes_the_encoders_views_on_cuda(dtype):
+    """(B, S, nH, hd) projections and cotangent seen as (B, nH, S, hd) go
+    through the autograd Function (K8, K9a, K9b) without a copy and give
+    the gradients contiguous operands give, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(4)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((2, 300, 8, 32))
+                                   .astype(np.float32))
+                  .to("cuda", getattr(torch, dtype)).transpose(1, 2)
+                  for _ in range(4))
+    views = [t.clone().requires_grad_() for t in (q, k, v)]
+    FA.full_attention(*views, 0.2).backward(g)
+    flat = [t.contiguous().requires_grad_() for t in (q, k, v)]
+    FA.full_attention(*flat, 0.2).backward(g.contiguous())
+    torch.cuda.synchronize()
+    for a, b in zip(views, flat):
+        assert torch.equal(a.grad, b.grad)
+
+
+@pytest.mark.cuda
+def test_k9_rejects_what_it_does_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ok = torch.zeros(1, 2, 64, 32, device="cuda", dtype=torch.bfloat16)
+    lse = torch.zeros(1, 2, 64, device="cuda")
+    with pytest.raises(ValueError):                    # cotangent's dtype
+        FA._launch_bwd(ok, ok, ok, ok, lse, ok.float(), 0.2)
+    with pytest.raises(ValueError):                    # cotangent's shape
+        FA._launch_bwd(ok, ok, ok, ok, lse, ok[:, :, :32], 0.2)
+    with pytest.raises(ValueError):                    # lse's shape
+        FA._launch_bwd(ok, ok, ok, ok, lse[:, :, :32], ok, 0.2)
+    hd24 = torch.zeros(1, 2, 64, 24, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                    # head dim 24
+        FA._launch_bwd(hd24, hd24, hd24, hd24, lse, hd24, 0.2)
+    flat = torch.zeros(2 * 64 * 32 + 1, device="cuda", dtype=torch.bfloat16)
+    odd = flat[1:].view(1, 2, 64, 32)                  # 2 bytes off
+    with pytest.raises(ValueError):
+        FA._launch_bwd(odd, ok, ok, ok, lse, ok, 0.2)

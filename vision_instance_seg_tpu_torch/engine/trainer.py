@@ -3,7 +3,7 @@
 Counterpart of ``make_train_step`` / ``create_train_state`` in
 ``vision_instance_seg_tpu/engine/trainer.py``: forward in train mode under
 autocast, match and set criterion with deep supervision, backward (through
-the CUDA sampling kernels on the card), global-norm clip, and the AdamW or
+the CUDA kernels on the card), global-norm clip, and the AdamW or
 SGD update with the backbone multiplier and the warmup schedule. The JAX
 step is a pure jitted function over a donated state; here the step updates
 the model and optimizer in place and returns the same state object.
@@ -37,8 +37,6 @@ from vision_instance_seg_tpu_torch.models.criterion import (
     criterion_config_from_cfg, sample_points, set_criterion)
 from vision_instance_seg_tpu_torch.models.meta_arch import (
     MaskDINO, normalize_image)
-from vision_instance_seg_tpu_torch.models.pixel_decoder import (
-    FullAttentionEncoderLayer)
 
 
 @dataclass
@@ -70,15 +68,12 @@ def make_train_step(cfg, model: nn.Module, optimizer: torch.optim.Optimizer
     """Returns ``train_step(state, batch, seed) -> (state, logs)``. Logs
     (floats): ``loss_ce``, ``loss_mask``, ``loss_dice`` of the last layer,
     ``loss_aux``, ``loss_total``, ``grad_norm`` (before the clip) and the
-    step's base ``lr``. MaskDINO's step (its criterion and denoising
-    queries) is not ported yet and raises NotImplementedError, as does the
-    full-attention encoder's (K8 has no backward yet)."""
+    step's base ``lr``. The full-attention encoder trains through K8 and
+    the flash backward K9a / K9b on the card. MaskDINO's step (its
+    criterion and denoising queries) is not ported yet and raises
+    NotImplementedError."""
     if isinstance(model, MaskDINO):
         raise NotImplementedError("MaskDINO training is not ported yet")
-    if any(isinstance(m, FullAttentionEncoderLayer) for m in model.modules()):
-        raise NotImplementedError(
-            "training the full-attention encoder (ENCODER_ATTENTION full) "
-            "is not ported yet: the flash backward, K9, is the next slice")
     cc = criterion_config_from_cfg(cfg)
     schedule = make_lr_schedule(cfg)
     clip = cfg.SOLVER.CLIP_GRADIENTS

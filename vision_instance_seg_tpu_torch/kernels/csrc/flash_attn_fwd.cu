@@ -42,13 +42,28 @@
 //   encoder passes its (B, S, nH, hd) projections as (B, nH, S, hd) views
 //   without a copy, and writes the output (B, S, nH, hd), ready for the
 //   output projection. Rows must start 16-byte aligned.
+// - training asks for each row's log-sum-exp (a non-null `lse`): lse =
+//   m scale + ln(l), natural log, from the row's max m of the raw q . k
+//   and its sum l at the epilogue (JAX's `_flash_attention_fwd` :234 saves
+//   l and m; here they are folded into one fp32 number), for the real rows
+//   only, into (B nH) rows of `lse_row` floats. The backward (K9a, K9b in
+//   flash_attn_bwd.cu) recomputes P = exp(q . k scale - lse) from it.
+//   Serving passes null and runs an instance of the kernel without that
+//   store (a runtime test in the epilogue cost 4% at the serving shape).
 // No wgmma, TMA or warp specialisation yet.
 //
 // fp32: a SIMT body of the same loop, right rather than fast: 4 lanes a
 // query row (each holding hd / 4 of q and of the output, as float4s
 // interleaved so that a quad reads 64 contiguous bytes of a staged key),
 // 64 rows a CTA, K and V tiles of 64 keys in shared memory, the online
-// softmax over 8 keys at a time with exp2 (ex2.approx).
+// softmax over 8 keys at a time with exp2 (ex2.approx). The sums of p and
+// of p v run in two levels: each key block's from zero, then added to the
+// row's running sums, both rescaled when the max moves. One running fp32
+// sum over all 13,125 keys dropped the many small terms of sharp rows
+// (each under half a unit in the last place of a sum that one key
+// dominates): on sharp logits (sd 3) that put this body 3.0x further from
+// a float64 attention than the plain version (chip_smoke.py's "sharp
+// fp32" K8 case); the same sums in fp64 brought it to 0.37x.
 //
 // Numerics against the plain version (kernels/flash_attention.py
 // `full_attention_torch`, the JAX dense path): it rounds q * scale to bf16
@@ -69,6 +84,7 @@ constexpr int kThreads = 128;  // 4 warps x 16 query rows
 constexpr int kBlock = 64;     // query rows per CTA; keys per step
 constexpr int kSimtThreads = 256;  // fp32: 4 lanes x 64 query rows
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // element strides of (batch, head, token) for q, k, v and out; the head
 // dim is contiguous
@@ -76,6 +92,13 @@ struct FlashGeom {
   int B, nH, S, hd;
   int64_t q[3], k[3], v[3], o[3];
   float scale;
+};
+
+// training's row log-sum-exp: (B nH) rows of `row` floats, or p null
+// (serving)
+struct LseOut {
+  float* p;
+  int64_t row;
 };
 
 template <int HD>
@@ -87,12 +110,14 @@ struct Tile {
   static constexpr int kSmem = kTileBytes + kStages * 2 * kTileBytes;
 };
 
-template <int HD>
+// kLse: store each row's lse (serving's instance has no such code)
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v,
-                         __nv_bfloat16* __restrict__ out, FlashGeom g) {
+                         __nv_bfloat16* __restrict__ out, FlashGeom g,
+                         LseOut lse) {
   using T = Tile<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -184,6 +209,13 @@ __global__ void __launch_bounds__(kThreads)
   const float i0 = 1.f / quad_sum(l0), i1 = 1.f / quad_sum(l1);
   __nv_bfloat16* ob = out + b * g.o[0] + h * g.o[1] + cb;
   const int t0 = q0 + r0, t1 = t0 + 8;
+  if constexpr (kLse) {
+    if ((lane & 3) == 0) {
+      float* lr = lse.p + blockIdx.y * lse.row;
+      if (t0 < g.S) lr[t0] = fmaf(m0, g.scale, -logf(i0));
+      if (t1 < g.S) lr[t1] = fmaf(m1, g.scale, -logf(i1));
+    }
+  }
 #pragma unroll
   for (int dn = 0; dn < HD / 8; ++dn) {
     if (t0 < g.S)
@@ -199,6 +231,10 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
+__device__ __forceinline__ float4 scale4(float4 x, float a) {
+  return make_float4(x.x * a, x.y * a, x.z * a, x.w * a);
+}
+
 __device__ __forceinline__ float4 axpby4(float4 x, float a, float4 y,
                                          float p) {
   return make_float4(fmaf(x.x, a, y.x * p), fmaf(x.y, a, y.y * p),
@@ -212,7 +248,8 @@ __global__ void __launch_bounds__(kSimtThreads)
     flash_fwd_simt_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
-                          float* __restrict__ out, FlashGeom g) {
+                          float* __restrict__ out, FlashGeom g,
+                          LseOut lse) {
   constexpr int kVec = HD / 16;  // float4s a lane
   constexpr int kRow4 = HD / 4;  // float4s a row
   extern __shared__ float4 tiles[];
@@ -226,14 +263,15 @@ __global__ void __launch_bounds__(kSimtThreads)
   const float* vh = v + b * g.v[0] + h * g.v[1];
   const float4* qr = reinterpret_cast<const float4*>(
       q + b * g.q[0] + h * g.q[1] + (real_row ? t : 0) * g.q[2]);
-  float4 qv[kVec], ov[kVec];
+  // the row's running sums of p v and p, and the key block's
+  float4 qv[kVec], ov[kVec], ob[kVec];
 #pragma unroll
   for (int i = 0; i < kVec; ++i) {
     qv[i] = real_row ? qr[part + 4 * i] : make_float4(0.f, 0.f, 0.f, 0.f);
-    ov[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    ov[i] = ob[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   const float sl = g.scale * kLog2e;
-  float m = -INFINITY, l = 0.f;
+  float m = -INFINITY, l = 0.f, lb = 0.f;
   for (int j0 = 0; j0 < g.S; j0 += kBlock) {
     const int nk = min(kBlock, g.S - j0);
     __syncthreads();  // every row is done with the previous tiles
@@ -265,22 +303,33 @@ __global__ void __launch_bounds__(kSimtThreads)
       const float alpha = exp2_approx(m - mx);  // 0 on the first keys
       m = mx;
       l *= alpha;
+      lb *= alpha;
 #pragma unroll
-      for (int i = 0; i < kVec; ++i)
-        ov[i] = make_float4(ov[i].x * alpha, ov[i].y * alpha,
-                            ov[i].z * alpha, ov[i].w * alpha);
+      for (int i = 0; i < kVec; ++i) {
+        ov[i] = scale4(ov[i], alpha);
+        ob[i] = scale4(ob[i], alpha);
+      }
 #pragma unroll
       for (int u = 0; u < 8; ++u) {
         const float p = exp2_approx(s[u] - mx);
-        l += p;
+        lb += p;
         const float4* vr = vs + (u0 + u) * kRow4;
 #pragma unroll
         for (int i = 0; i < kVec; ++i)
-          ov[i] = axpby4(ov[i], 1.f, vr[part + 4 * i], p);
+          ob[i] = axpby4(ob[i], 1.f, vr[part + 4 * i], p);
       }
+    }
+    l += lb;  // the key block's sums into the row's
+    lb = 0.f;
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      ov[i] = axpby4(ov[i], 1.f, ob[i], 1.f);
+      ob[i] = make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
   if (real_row) {
+    if (lse.p != nullptr)  // m is in base-2 units
+      lse.p[blockIdx.y * lse.row + t] = fmaf(m, kLn2, logf(l));
     const float il = 1.f / l;
     float4* orow = reinterpret_cast<float4*>(out + b * g.o[0] + h * g.o[1] +
                                              t * g.o[2]);
@@ -293,10 +342,11 @@ __global__ void __launch_bounds__(kSimtThreads)
 
 template <int HD>
 int launch_hd(const void* q, const void* k, const void* v, void* out,
-              const FlashGeom& g, int bf16, cudaStream_t stream) {
+              const FlashGeom& g, LseOut lse, int bf16, cudaStream_t stream) {
   const dim3 grid((g.S + kBlock - 1) / kBlock, g.B * g.nH);
   if (bf16) {
-    auto kern = flash_fwd_mma_kernel<HD>;
+    auto kern = lse.p != nullptr ? flash_fwd_mma_kernel<HD, true>
+                                 : flash_fwd_mma_kernel<HD, false>;
     const int smem = Tile<HD>::kSmem;
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -305,7 +355,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* out,
         static_cast<const __nv_bfloat16*>(q),
         static_cast<const __nv_bfloat16*>(k),
         static_cast<const __nv_bfloat16*>(v),
-        static_cast<__nv_bfloat16*>(out), g);
+        static_cast<__nv_bfloat16*>(out), g, lse);
   } else {
     auto kern = flash_fwd_simt_kernel<HD>;
     const int smem = 2 * kBlock * HD * 4;
@@ -314,7 +364,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* out,
     if (e != cudaSuccess) return (int)e;
     kern<<<grid, kSimtThreads, smem, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), g);
+        static_cast<const float*>(v), static_cast<float*>(out), g, lse);
   }
   return (int)cudaGetLastError();
 }
@@ -328,14 +378,18 @@ extern "C" {
 // of q, k, v and out in that order, the head dim contiguous. bf16 = 1: bf16
 // operands on the tensor cores; 0: fp32 on the SIMT body. hd a multiple of
 // 16 up to 128; every pointer and every row 16-byte aligned; B nH at most
-// 65,535. Returns cudaGetLastError() (0 = launched).
+// 65,535. lse: null, or fp32 (B nH, lse_row) with lse_row >= S, which gets
+// each row's log-sum-exp (natural log) in its first S entries. Returns
+// cudaGetLastError() (0 = launched).
 int flash_attn_fwd(const void* q, const void* k, const void* v, void* out,
                    const long long* strides, int B, int nH, int S, int hd,
-                   int bf16, float scale, void* stream) {
+                   int bf16, float scale, float* lse, long long lse_row,
+                   void* stream) {
   if (B < 1 || nH < 1 || S < 1 || hd % 16 || hd < 16 || hd > 128 ||
-      (int64_t)B * nH > 65535)
+      (int64_t)B * nH > 65535 || (lse != nullptr && lse_row < S))
     return (int)cudaErrorInvalidValue;
   FlashGeom g = {B, nH, S, hd, {}, {}, {}, {}, scale};
+  const LseOut lo = {lse, lse_row};
   int64_t* dst[4] = {g.q, g.k, g.v, g.o};
   const int64_t elem = bf16 ? 2 : 4;
   uintptr_t align = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
@@ -347,14 +401,14 @@ int flash_attn_fwd(const void* q, const void* k, const void* v, void* out,
   if (align & 15) return (int)cudaErrorMisalignedAddress;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch_hd<16>(q, k, v, out, g, bf16, st);
-    case 32: return launch_hd<32>(q, k, v, out, g, bf16, st);
-    case 48: return launch_hd<48>(q, k, v, out, g, bf16, st);
-    case 64: return launch_hd<64>(q, k, v, out, g, bf16, st);
-    case 80: return launch_hd<80>(q, k, v, out, g, bf16, st);
-    case 96: return launch_hd<96>(q, k, v, out, g, bf16, st);
-    case 112: return launch_hd<112>(q, k, v, out, g, bf16, st);
-    case 128: return launch_hd<128>(q, k, v, out, g, bf16, st);
+    case 16: return launch_hd<16>(q, k, v, out, g, lo, bf16, st);
+    case 32: return launch_hd<32>(q, k, v, out, g, lo, bf16, st);
+    case 48: return launch_hd<48>(q, k, v, out, g, lo, bf16, st);
+    case 64: return launch_hd<64>(q, k, v, out, g, lo, bf16, st);
+    case 80: return launch_hd<80>(q, k, v, out, g, lo, bf16, st);
+    case 96: return launch_hd<96>(q, k, v, out, g, lo, bf16, st);
+    case 112: return launch_hd<112>(q, k, v, out, g, lo, bf16, st);
+    case 128: return launch_hd<128>(q, k, v, out, g, lo, bf16, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
