@@ -19,8 +19,9 @@ window 16, K6 at all seven shapes of the flagship's training path and split
 at window 16, K8 (the full-attention encoder's flash-attention forward)
 at its serving and training shapes, with 4 heads of 64, on a ragged short
 sequence and on sharp logits (in fp32 against a float64 attention), and
-K9a / K9b (its backward: dK and dV, dQ) at the training shape, with 4
-heads of 64, on a ragged short sequence and at head dims 16, 48 and 128.
+K9 (its backward: one fused wgmma kernel in bf16, K9a / K9b's SIMT
+bodies in fp32) at the training shape, with 4 heads of 64, on ragged
+short sequences (77 and 129 tokens) and at head dims 16, 48 and 128.
 bf16 windows of up to 64 tokens, of 144 (K4) and of 256 and bf16 K8 and
 K9 run the tensor-core bodies, fp32 the SIMT bodies.
 Then it drives the port's main
@@ -54,7 +55,7 @@ paths with weights drawn from a fixed seed, through ``build_model`` ->
   ``SEM_SEG_HEAD.ENCODER_ATTENTION full``: 6 layers of dense
   self-attention over all 13,125 tokens at 800 px): serving batches of 8 at
   800x800, 6 K8 a forward; train steps at batch 2, 640 px (8,400 tokens),
-  6 K8, 6 K9a and 6 K9b a step;
+  6 K8 and 6 K9 a step;
 - checks: fp32 forwards through the kernels against the same forwards on
   the plain versions (TF32 off), bf16 backbone + pixel decoder forwards
   through the tensor-core bodies against the plain versions (relative L2
@@ -66,7 +67,7 @@ paths with weights drawn from a fixed seed, through ``build_model`` ->
   K5 / K6 against the plain versions and the same gradient in bf16
   through the tensor-core K5 / K6 (relative L2 error, against the plain
   versions in bf16 and fp32), the full-attention encoder's q/k/v/out
-  projection gradients through K8 + K9a / K9b at batch 1, 640 px, in fp32
+  projection gradients through K8 + K9 at batch 1, 640 px, in fp32
   against the plain versions and in bf16 (no further from the plain
   versions than bf16 is from fp32), and 30 steps on one batch of each
   model that must lower the loss.
@@ -989,32 +990,34 @@ def flash_kernel_phase(FA, smi: str) -> dict:
     return {"flash_attn_fwd": dict(row, max_abs_err=max_err)}
 
 
-# ------------------------------------- K9a, K9b: full self-attention backward
-# name -> (B, nH, S, hd): the training shape (the kernels line's rows), 4
-# heads of 64 over the same tokens, a short ragged S, and the smallest, an
-# odd and the largest head dim the kernels take
+# ------------------------------------------ K9: full self-attention backward
+# name -> (B, nH, S, hd): the training shape (the kernels line's row), 4
+# heads of 64 over the same tokens, a short ragged S, S = 2 x 64 + 1 (one
+# real row in the last query block) and the smallest, an odd and the
+# largest head dim the kernels take
 K9_CASES = {"training": (TRAIN_BATCH, HEADS, TRAIN_TOKENS, HEAD_DIM),
             "4 x 64": (TRAIN_BATCH, 4, TRAIN_TOKENS, 64),
             "ragged 77": (TRAIN_BATCH, HEADS, 77, HEAD_DIM),
+            "129": (TRAIN_BATCH, HEADS, 129, HEAD_DIM),
             "hd 16": (1, 4, 1300, 16), "hd 48": (1, 4, 1300, 48),
             "hd 128": (1, 4, 1300, 128)}
 # fp32 (the SIMT bodies): the plain version's arithmetic, sums over up to
 # S terms in another order, ex2.approx
 K9_FP32_TOL = 1e-5
-K9 = {"flash_attn_bwd_dkv": ("K9a", ("dk", "dv"), 4),
-      "flash_attn_bwd_dq": ("K9b", ("dq",), 3)}   # name, outputs, products
+# the launches of one backward: bf16 the fused kernel, fp32 K9a and K9b
+K9_LAUNCHES = {torch.bfloat16: {"flash_attn_bwd": 1},
+               torch.float32: {"flash_attn_bwd_dkv": 1,
+                               "flash_attn_bwd_dq": 1}}
 
 
-def k9_bound_ms(b: int, nh: int, s: int, hd: int, name: str) -> tuple:
-    """Least time of K9a's or K9b's work on this card: each recomputes P,
-    S^2 ex2 a head over the exponent unit's rate; its products (K9a: S^T,
-    dP^T, dV, dK; K9b: S, dP, dQ), 2 S^2 hd each a head, over the bf16
-    peak; q, k, v, dO, lse and D read and its gradients written once over
-    HBM bandwidth. The larger of the bytes' time and the operations'."""
-    _, outs, n_prod = K9[name]
-    nbytes = (4 + len(outs)) * b * nh * s * hd * 2 + 2 * b * nh * s * 4
-    t_mma = _bound(0, 2.0 * n_prod * s * s * hd * b * nh,
-                   torch.bfloat16)[0]
+def k9_bound_ms(b: int, nh: int, s: int, hd: int) -> tuple:
+    """Least time of the backward's work on this card, in one pass: S^2
+    ex2 a head over the exponent unit's rate; five products (S^T, dP^T,
+    dV, dK, dQ), 2 S^2 hd each a head, over the bf16 peak; q, k, v, dO,
+    lse and D read and dQ, dK, dV written once over HBM bandwidth. The
+    larger of the bytes' time and the operations'."""
+    nbytes = 7 * b * nh * s * hd * 2 + 2 * b * nh * s * 4
+    t_mma = _bound(0, 2.0 * 5 * s * s * hd * b * nh, torch.bfloat16)[0]
     t_ex2 = s * s * b * nh / EX2_PER_S * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = max(t_mma, t_ex2)
@@ -1023,18 +1026,16 @@ def k9_bound_ms(b: int, nh: int, s: int, hd: int, name: str) -> tuple:
 
 
 def flash_bwd_kernel_phase(FA, smi: str) -> dict:
-    """K9a and K9b at every shape of ``K9_CASES``, bf16 and fp32, against
-    the plain backward on the same q, k, v, cotangent and K8's output and
-    row log-sum-exp: bf16 within 2^-7 |plain| + 2^-8 max|plain| per
-    gradient (P and dS rounded to bf16 before the products), fp32 within
-    ``K9_FP32_TOL`` max|plain|. At the training shape in bf16 (the kernels
-    line's rows): each kernel's time, the plain halves', SDPA's backward
-    (the pair's work; timed here only), the bounds and shares, and the
-    one-pass count of a fused backward (S^2 ex2 and five products a
-    head)."""
+    """K9 at every shape of ``K9_CASES``, bf16 (the fused kernel) and fp32
+    (K9a and K9b), against the plain backward on the same q, k, v,
+    cotangent and K8's output and row log-sum-exp: bf16 within 2^-7
+    |plain| + 2^-8 max|plain| per gradient (P and dS rounded to bf16
+    before the products, dQ summed over key blocks in fp32), dK and dV of
+    two calls equal bit for bit; fp32 within ``K9_FP32_TOL`` max|plain|.
+    At the training shape in bf16 (the kernels line's row): the timings of
+    ``k9_timing``."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
-    rows, bad = {}, []
-    max_err = dict.fromkeys(K9, 0.0)
+    row, bad, max_err = None, [], 0.0
     for case, (b, nh, s, hd) in K9_CASES.items():
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, do = (torch.randn((b, nh, s, hd), generator=gen,
@@ -1045,9 +1046,12 @@ def flash_bwd_kernel_phase(FA, smi: str) -> dict:
             before = dict(FA.LAUNCHES)
             got = FA._launch_bwd(q, k, v, o, lse, do, scale)
             torch.cuda.synchronize()
-            for name in K9:
-                if FA.LAUNCHES[name] != before.get(name, 0) + 1:
-                    raise AssertionError(f"{name} {case} did not launch")
+            launched = {n: FA.LAUNCHES[n] - before.get(n, 0)
+                        for n in FA.LAUNCH_NAMES if FA.LAUNCHES[n] !=
+                        before.get(n, 0)}
+            if launched != K9_LAUNCHES[dtype]:
+                raise AssertionError(f"K9 {case} {dtype}: launches "
+                                     f"{launched}")
             want = FA.flash_attention_bwd_torch(q, k, v, o, lse, do, scale)
             dn = str(dtype).replace("torch.", "")
             msg, ok_all = [], True
@@ -1061,14 +1065,19 @@ def flash_bwd_kernel_phase(FA, smi: str) -> dict:
                     ok = bool(ratio <= 1.0)
                     msg.append(f"{gname} {err:.3e} (max|plain| {mx:.3e}, "
                                f"{ratio.item():.3f} of the bound)")
+                    max_err = max(max_err, err)
                 else:
                     ok = err <= K9_FP32_TOL * mx
                     msg.append(f"{gname} {err:.3e} ({err / mx:.3e} of "
                                f"max|plain| {mx:.3e})")
                 ok_all &= ok and a.dtype == w.dtype == dtype
-                kern = "flash_attn_bwd_dq" if gname == "dq" else \
-                    "flash_attn_bwd_dkv"
-                max_err[kern] = max(max_err[kern], err)
+            if dtype == torch.bfloat16:
+                again = FA._launch_bwd(q, k, v, o, lse, do, scale)
+                same = all(torch.equal(x, y)
+                           for x, y in zip(got[1:], again[1:]))
+                msg.append(f"dK and dV of a second call bit for bit: {same}")
+                ok_all &= same
+                del again
             why = ("2^-7 |plain| + 2^-8 max|plain|" if dtype ==
                    torch.bfloat16 else f"{K9_FP32_TOL} max|plain|")
             print(f"K9 {case} {dn} {(b, nh, s, hd)}: max |kernel - plain| "
@@ -1078,56 +1087,50 @@ def flash_bwd_kernel_phase(FA, smi: str) -> dict:
                 bad.append(f"{case} {dn}")
             del got, want
             if case == "training" and dtype == torch.bfloat16:
-                rows = k9_timing(FA, q, k, v, o, lse, do, scale, smi)
+                row = k9_timing(FA, q, k, v, o, lse, do, scale, smi)
             del q, k, v, do, o, lse
     torch.cuda.empty_cache()
     if bad:
         raise AssertionError(f"K9 disagrees with its plain version: {bad}")
-    return {name: dict(rows[name], max_abs_err=max_err[name]) for name in K9}
+    return {"flash_attn_bwd": dict(row, max_abs_err=max_err)}
 
 
 def k9_timing(FA, q, k, v, o, lse, do, scale: float, smi: str) -> dict:
+    """The fused kernel alone, the whole backward (``_launch_bwd``: its two
+    helpers, the statistics and the zeroed dQ accumulator before it and
+    dQ's scaled cast after it), the plain backward and SDPA's backward (timed
+    here only), against the one-pass bound; the dQ adds' bytes and rate.
+    The kernels line's row: the whole backward, as SDPA's backward also
+    carries its own pre- and post-processing."""
     b, nh, s, hd = q.shape
-    g, lse_p, delta = FA._bwd_operands(q, k, v, o, lse, do)
-    outs = {"flash_attn_bwd_dkv": (FA._heads_view(k), FA._heads_view(v)),
-            "flash_attn_bwd_dq": (FA._heads_view(q),)}
-    plain = {"flash_attn_bwd_dkv": FA.flash_attention_bwd_dkv_torch,
-             "flash_attn_bwd_dq": FA.flash_attention_bwd_dq_torch}
+    g, o2, lse2 = FA._bwd_operands(q, k, v, o, lse, do)
+    stats, acc = FA._bwd_prep(q, o2, lse2, g)
+    dk, dv = FA._heads_view(k), FA._heads_view(v)
+    kern_ms = cuda_time_ms(lambda: FA._launch_bwd_kernel(
+        q, k, v, g, stats, acc, dk, dv, scale), reps=10)
+    ms = cuda_time_ms(lambda: FA._launch_bwd(q, k, v, o, lse, do, scale),
+                      reps=10)
+    plain_ms = cuda_time_ms(lambda: FA.flash_attention_bwd_torch(
+        q, k, v, o, lse, do, scale), reps=2, warmup=1)
     qs, ks, vs = (t.detach().clone().requires_grad_() for t in (q, k, v))
     out = F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
     lib_ms = cuda_time_ms(lambda: torch.autograd.grad(
         out, (qs, ks, vs), do, retain_graph=True), reps=10)
-    rows, pair = {}, [0.0, 0.0]
-    for name, (label, _, n_prod) in K9.items():
-        ms = cuda_time_ms(lambda: FA._launch_bwd_kernel(
-            name, q, k, v, g, lse_p, delta, outs[name], scale), reps=10)
-        plain_ms = cuda_time_ms(lambda: plain[name](q, k, v, o, lse, do,
-                                                    scale), reps=2, warmup=1)
-        bound, by, t_mma, t_ex2, t_bytes = k9_bound_ms(b, nh, s, hd, name)
-        pair = [pair[0] + ms, pair[1] + bound]
-        print(f"{label} training bf16 {(b, nh, s, hd)}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}: ex2 "
-              f"{t_ex2:.4f}, {n_prod} products {t_mma:.4f}, bytes "
-              f"{t_bytes:.4f}), {bound / ms:.1%} of the bound, on {smi}",
-              flush=True)
-        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=bound, bound_by=by)
-    logits = b * nh * s * s
-
-    def work_ms(n_ex2: int, n_prod: int) -> float:
-        return max(n_ex2 * logits / EX2_PER_S, 2.0 * n_prod * logits * hd
-                   / PEAK_BF16_FLOP_PER_S) * 1e3
-
-    print(f"K9 training bf16: K9a + K9b {pair[0]:.4f} ms; the pair's work "
-          f"(2 S^2 ex2, seven products a head) is bound at "
-          f"{work_ms(2, 7):.4f} ms ({work_ms(2, 7) / pair[0]:.1%}), the sum "
-          f"of the two kernels' own bounds {pair[1]:.4f} ms; K9a "
-          f"{rows['flash_attn_bwd_dkv']['ms'] / pair[0]:.1%} of the pair's "
-          f"time; SDPA backward {lib_ms:.4f} ms ({lib_ms / pair[0]:.2f}x "
-          f"the pair's speed); one pass (S^2 ex2, five products) would be "
-          f"bound at {work_ms(1, 5):.4f} ms", flush=True)
-    del out, qs, ks, vs
-    return rows
+    bound, by, t_mma, t_ex2, t_bytes = k9_bound_ms(b, nh, s, hd)
+    keys = FA._bwd_library().flash_attn_bwd_block_keys()
+    dq_bytes = b * nh * -(-s // keys) * stats.shape[-1] * hd * 4
+    print(f"K9 training bf16 {(b, nh, s, hd)}: backward {ms:.4f} ms (the "
+          f"fused kernel {kern_ms:.4f}), plain {plain_ms:.4f} ms, SDPA "
+          f"backward {lib_ms:.4f} ms ({lib_ms / ms:.2f}x the backward's "
+          f"speed), one-pass bound {bound:.4f} ms ({by}: ex2 {t_ex2:.4f}, "
+          f"five products {t_mma:.4f}, bytes {t_bytes:.4f}), "
+          f"{bound / ms:.1%} of the bound ({bound / kern_ms:.1%} for the "
+          f"kernel alone); dQ adds {dq_bytes / 1e9:.3f} GB into L2, "
+          f"{dq_bytes / kern_ms / 1e6:.0f} GB/s over the kernel's time; on "
+          f"{smi}", flush=True)
+    del out, qs, ks, vs, acc, stats
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                bound_by=by)
 
 
 # -------------------------------------------------------------- model phase
@@ -1214,8 +1217,8 @@ class Counts:
     (``..._mma``)."""
 
     NAMES = {"msdeform_attn_fwd": None, "msdeform_attn_bwd": None,
-             "flash_attn_fwd": None, "flash_attn_bwd_dkv": None,
-             "flash_attn_bwd_dq": None,
+             "flash_attn_fwd": None, "flash_attn_bwd": None,
+             "flash_attn_bwd_dkv": None, "flash_attn_bwd_dq": None,
              "window_attn_k4a": "k4a", "window_attn_k4b": "k4b",
              "window_attn_k4a_mma": "k4a_mma",
              "window_attn_k4b_mma": "k4b_mma",
@@ -1242,8 +1245,8 @@ class Counts:
                self.NAMES.items() if kind}
         out["msdeform_attn_fwd"] = self.K.ms_deform_attn.launches
         out["msdeform_attn_bwd"] = self.K.ms_deform_attn_bwd.launches
-        for name in ("flash_attn_fwd", "flash_attn_bwd_dkv",
-                     "flash_attn_bwd_dq"):
+        for name in ("flash_attn_fwd", "flash_attn_bwd",
+                     "flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
             out[name] = self.FA.LAUNCHES[name]
         return out
 
@@ -1536,7 +1539,7 @@ def grad_check_phase(cfg, counts: Counts, build_model, K) -> None:
 
 def _full_encoder_params(model) -> dict:
     """The full-attention encoder layers' q/k/v/out projections: the
-    weights behind K8 and K9a / K9b."""
+    weights behind K8 and K9."""
     layers = model.sem_seg_head.pixel_decoder.transformer.encoder.layers
     return {f"encoder {i} {n}": getattr(layer, n).weight
             for i, layer in enumerate(layers)
@@ -1568,15 +1571,16 @@ def _full_encoder_grads(cfg, counts: Counts, build_model, kw: dict,
 
 
 def full_grad_check_phase(cfg, counts: Counts, build_model, FA,
-                          want: dict) -> None:
+                          want_fp32: dict, want: dict) -> None:
     """The full-attention encoder's q/k/v/out projection gradients at batch
     1, 640 px (8,400 tokens): in fp32 (TF32 off) through K8 and K9a / K9b
-    against the plain versions (autograd of ``full_attention_torch``) as
-    ``grad_check_phase`` holds them; then in bf16 through the kernels, in
-    bf16 through the plain versions and in fp32 through the plain versions,
-    and the kernels must move each gradient less than bf16 itself does
-    (``bf16_window_grad_phase``'s test). Batch 1: the plain forward's
-    autograd keeps each layer's S x S tensors."""
+    (launches ``want_fp32``) against the plain versions (autograd of
+    ``full_attention_torch``) as ``grad_check_phase`` holds them; then in
+    bf16 through K8 and K9 (``want``), in bf16 through the plain versions
+    and in fp32 through the plain versions, and the kernels must move each
+    gradient less than bf16 itself does (``bf16_window_grad_phase``'s
+    test). Batch 1: the plain forward's autograd keeps each layer's S x S
+    tensors."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     plain = {"full_attn_fn": FA.full_attention_torch}
@@ -1585,7 +1589,8 @@ def full_grad_check_phase(cfg, counts: Counts, build_model, FA,
     grads = {tag: _full_encoder_grads(fp32, counts, build_model, kw,
                                       torch.float32, w,
                                       f"fp32 full-encoder gradient {tag}")
-             for tag, kw, w in (("kernel", {}, want), ("plain", plain, {}))}
+             for tag, kw, w in (("kernel", {}, want_fp32),
+                                ("plain", plain, {}))}
     _compare_grads(grads, "fp32 full-attention encoder gradient (batch 1, "
                    "640 px, TF32 off)")
     grads = {tag: _full_encoder_grads(cfg, counts, build_model, kw, dtype,
@@ -1605,7 +1610,7 @@ def full_grad_check_phase(cfg, counts: Counts, build_model, FA,
         worst = max(worst, kp / pf)
         if not kp <= pf:
             bad[name] = (kp, pf)
-    print(f"bf16 full-encoder gradient: K8 + K9a / K9b move every one of "
+    print(f"bf16 full-encoder gradient: K8 + K9 move every one of "
           f"{len(grads['fp32'])} weight gradients less than bf16 rounding "
           f"does (kernel vs plain <= plain vs fp32): {not bad}; largest "
           f"ratio {worst:.3f}", flush=True)
@@ -1955,19 +1960,14 @@ KERNEL_ROWS = {   # kernels line name -> (source, the TPU function it replaces)
                        "(_flash_or_dense_attention -> jax/experimental/"
                        "pallas/ops/tpu/flash_attention.py:589 "
                        "_flash_attention_impl, pallas_call :758)"),
-    # ... and the two kernels of its backward
-    "flash_attn_bwd_dkv": ("flash_attn_bwd.cu",
-                           "vision_instance_seg_tpu/models/pixel_decoder.py"
-                           ":120 (_flash_or_dense_attention -> jax/"
-                           "experimental/pallas/ops/tpu/flash_attention.py"
-                           ":941 _flash_attention_bwd_dkv, pallas_call "
-                           ":1121)"),
-    "flash_attn_bwd_dq": ("flash_attn_bwd.cu",
-                          "vision_instance_seg_tpu/models/pixel_decoder.py"
-                          ":120 (_flash_or_dense_attention -> jax/"
-                          "experimental/pallas/ops/tpu/flash_attention.py"
-                          ":1287 _flash_attention_bwd_dq, pallas_call "
-                          ":1456)"),
+    # ... and both kernels of its backward, in one fused kernel
+    "flash_attn_bwd": ("flash_attn_bwd.cu",
+                       "vision_instance_seg_tpu/models/pixel_decoder.py:120 "
+                       "(_flash_or_dense_attention -> jax/experimental/"
+                       "pallas/ops/tpu/flash_attention.py:941 "
+                       "_flash_attention_bwd_dkv, pallas_call :1121 (K9a); "
+                       ":1287 _flash_attention_bwd_dq, pallas_call :1456 "
+                       "(K9b))"),
 }
 
 
@@ -2070,8 +2070,10 @@ def main() -> int:
     full = cfg.clone()
     full.MODEL.SEM_SEG_HEAD.ENCODER_ATTENTION = "full"
     k8 = {"flash_attn_fwd": enc}
-    # ... and in training 6 K9a and 6 K9b a step, over 8,400 tokens
-    k89 = dict(k8, flash_attn_bwd_dkv=enc, flash_attn_bwd_dq=enc)
+    # ... and in training (bf16) 6 K9 a step, over 8,400 tokens; fp32
+    # gradients take K9a and K9b
+    k89 = dict(k8, flash_attn_bwd=enc)
+    k89_fp32 = dict(k8, flash_attn_bwd_dkv=enc, flash_attn_bwd_dq=enc)
     served = [
         (serve_phase(cfg, counts, build_model, make_inference_fn,
                      {"msdeform_attn_fwd": enc}, 3, "default"), {}),
@@ -2131,7 +2133,7 @@ def main() -> int:
                            "window-8 flagship")
     bf16_window_grad_phase(nhwc16, counts, build_model, WA, k56_mma,
                            "window-16 encoder flagship")
-    full_grad_check_phase(full, counts, build_model, FA, k89)
+    full_grad_check_phase(full, counts, build_model, FA, k89_fp32, k89)
     trained = [
         (train_phase(cfg, counts, build_model, engine, smi, sampling,
                      "default", 4, _default_grads, cli_settings=True), {}),

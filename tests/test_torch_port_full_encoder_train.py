@@ -1,11 +1,12 @@
 """Training the full-attention encoder (``SEM_SEG_HEAD.ENCODER_ATTENTION
 full``) in the port against the JAX package, on the CPU: the plain version
-of the flash backward (K9a, K9b) against JAX's own plain reference of the
+of the flash backward (K9) against JAX's own plain reference of the
 TPU backward (``mha_reference_bwd``) and against ``jax.grad`` of the dense
 path that the JAX model takes here; its chunks; ``FlashAttentionFunction``
 (the card's wiring: the row log-sum-exp forward, D, then the backward) on
 its plain versions; the bf16 bound of K9's checks against an emulation of
-its rounding at the training sequence length; and three train steps of the
+its rounding (and of the order in which the fused kernel sums dQ) at the
+training sequence length; and three train steps of the
 tiny full-encoder model through both packages' ``make_train_step``.
 
 Inputs are made with numpy from a seed and go through both packages.
@@ -15,15 +16,19 @@ Tolerances:
   logits, P, dP, dS and sums, in another order (JAX's reference divides by
   l after exp(logits - m); the port subtracts lse = m + log l).
 - bf16 (``bf16_tol``): 2^-7 x |plain| + 2^-8 x max|plain| per gradient,
-  K6's bound: K9's tensor-core bodies round P and dS to bf16 before the
-  products dV, dK and dQ (as FlashAttention-2 does), the plain version
-  keeps them in fp32. The emulation test below pins that this bound holds
-  that rounding and is not loose.
+  K6's bound: K9's tensor-core body rounds P and dS to bf16 before the
+  products dV, dK and dQ (as FlashAttention-2 does) and sums dQ over key
+  blocks of 128 in fp32; the plain version keeps P and dS in fp32. The
+  emulation test below pins that this bound holds that rounding, in both
+  orders of dQ's sum, and is not loose.
 - the train steps: as tests/test_torch_port_train.py (logs within 1e-4
   relative, every gradient within 1e-3 of the model's largest, three
   steps' losses within 1e-3), and every full-encoder weight's gradient
   within 1e-4 of its own largest entry.
 """
+
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -139,7 +144,7 @@ def test_plain_bwd_chunks_change_nothing(dtype):
 @pytest.mark.parametrize("s,hd", [(77, 16), (130, 32)])
 def test_function_matches_autograd_of_the_plain_forward(s, hd):
     """``FlashAttentionFunction`` on CPU tensors runs the card's steps on
-    the plain versions (the forward with its lse, D, the split backward):
+    the plain versions (the forward with its lse, D, the backward):
     fp32 gradients equal autograd's through ``full_attention_torch``; the
     wrapper itself keeps the CPU on autograd and launches nothing."""
     q, k, v, g = _arrays(s, 2, 3, s, hd)
@@ -158,13 +163,16 @@ def test_function_matches_autograd_of_the_plain_forward(s, hd):
 
 
 # -------------------------------------------- K9's bf16 bound, pinned here
-def k9_emulation(q, k, v, o, lse, do, scale, bits, rows=2048):
+def k9_emulation(q, k, v, o, lse, do, scale, bits, rows=2048,
+                 key_block=None):
     """K9's arithmetic in torch on (B, nH, S, hd) operands: the plain
     backward (fp32 logits, P from lse, dP, D, dS, fp32 sums) with P rounded
     to ``bits`` mantissa bits before dV = P^T dO and dS before dK = dS^T q
     and dQ = dS k (bf16 keeps 7), each gradient cast once to bf16. The
     tensor cores' products of bf16 operands are exact and summed in fp32,
-    as here (in another order)."""
+    as here (in another order). ``key_block``: dQ as the fused kernel sums
+    it, an fp32 sum of the partials dS_bf16 k of each block of that many
+    keys (None: one product over all keys, the split kernels' order)."""
     qf, kf, vf, gf = (t.float() for t in (q, k, v, do))
     delta = (o.float() * gf).sum(-1)
     dq, dk, dv = [], [], []
@@ -173,7 +181,15 @@ def k9_emulation(q, k, v, o, lse, do, scale, bits, rows=2048):
                       * scale - lse[:, :, r:r + rows, None])
         ds = p * (torch.matmul(gf[:, :, r:r + rows], vf.transpose(-1, -2))
                   - delta[:, :, r:r + rows, None])
-        dq.append(torch.matmul(_round_mantissa(ds, bits), kf) * scale)
+        dsr = _round_mantissa(ds, bits)
+        if key_block is None:
+            dq.append(torch.matmul(dsr, kf) * scale)
+            continue
+        part = torch.zeros_like(qf[:, :, r:r + rows])
+        for c in range(0, q.shape[2], key_block):
+            part += torch.matmul(dsr[..., c:c + key_block],
+                                 kf[:, :, c:c + key_block])
+        dq.append(part * scale)
     for c in range(0, q.shape[2], rows):
         pt = torch.exp(torch.matmul(kf[:, :, c:c + rows], qf.transpose(-1, -2))
                        * scale - lse[:, :, None, :])
@@ -189,12 +205,26 @@ def k9_emulation(q, k, v, o, lse, do, scale, bits, rows=2048):
 EMULATION_CASES = {"training": (8400, 32), "ragged": (77, 32)}
 
 
+# the keys a CTA of the fused kernel (flash_attn_bwd.cu Fused::kKeys): the
+# blocks whose dQ partials it sums in fp32
+FUSED_KEY_BLOCK = 128
+
+
+def test_fused_key_block_is_the_kernels():
+    src = (pathlib.Path(FA.__file__).parent / "csrc"
+           / "flash_attn_bwd.cu").read_text()
+    assert re.search(r"static constexpr int kKeys = (\d+);",
+                     src).group(1) == str(FUSED_KEY_BLOCK)
+
+
 # P and dS rounded to 7 bits (bf16) stay inside the bound (a CPU run of
 # this emulation: 0.30-0.53 of it); 5 bits leave it in both cases (dK and
-# dV 1.3-2.4x) and 4 bits in every gradient (1.8-3.7x)
+# dV 1.3-2.4x) and 4 bits in every gradient (1.8-3.7x); dQ summed by key
+# blocks (the fused kernel's order) or in one product (the split pair's)
+@pytest.mark.parametrize("order", ["fused", "split"])
 @pytest.mark.parametrize("bits,passes", [(7, True), (5, False)])
 @pytest.mark.parametrize("case", list(EMULATION_CASES))
-def test_k9_bf16_bound_holds_the_body_rounding(case, bits, passes):
+def test_k9_bf16_bound_holds_the_body_rounding(case, bits, passes, order):
     """One head in bf16, o and lse from the plain forward: the plain
     backward against K9's rounding. With bf16's 7 mantissa bits every
     gradient stays inside the bound; with 5 some leaves it."""
@@ -206,7 +236,8 @@ def test_k9_bf16_bound_holds_the_body_rounding(case, bits, passes):
     lse = FA.attention_lse_torch(q, k, scale, max_chunk_bytes=2 ** 26)
     want = FA.flash_attention_bwd_torch(q, k, v, o, lse, g, scale,
                                         max_chunk_bytes=2 ** 26)
-    got = k9_emulation(q, k, v, o, lse, g, scale, bits)
+    got = k9_emulation(q, k, v, o, lse, g, scale, bits,
+                       key_block=FUSED_KEY_BLOCK if order == "fused" else None)
     ok = [bool(((a.float() - w.float()).abs() <= bf16_tol(w)).all())
           for a, w in zip(got, want)]
     assert all(ok) == passes, ok
@@ -227,7 +258,7 @@ ENCODER = "sem_seg_head.pixel_decoder.transformer.encoder.layers."
 @pytest.fixture(scope="module")
 def three_full_steps():
     """Three steps of each package from one init on one batch; the port's
-    attention through ``FlashAttentionFunction`` (the card's split backward
+    attention through ``FlashAttentionFunction`` (the card's backward
     on its plain versions). The port's gradients of the first step; JAX's
     from value_and_grad of its loss."""
     jcfg = full_train_cfg(jax_get_cfg())

@@ -1,5 +1,5 @@
 """The port's CUDA kernels (K1, the sampling backward, the window kernels
-K4a, K4b, K5, K6 and the full-attention encoder's K8, K9a and K9b) against
+K4a, K4b, K5, K6 and the full-attention encoder's K8 and K9) against
 their plain PyTorch versions, and, on the CPU, the tensor-core K5's and
 K6's launch plans and dtype rules and the bf16 bound of K6's tensor-core
 body.
@@ -1628,12 +1628,18 @@ def test_k8_rejects_what_it_does_not_take():
         FA.full_attention(leaf, hd24, hd24, 0.2)
 
 
-# ------------------------------------- K9a, K9b: full self-attention backward
+# ------------------------------------------ K9: full self-attention backward
 # (B, nH, S, hd): the full encoder's training shape (640 px), 4 heads of 64
-# over its tokens, a short ragged S, and head dims 16, 48 and 128
+# over its tokens, a short ragged S, S = 2 x 64 + 1 (a query block of one
+# real row: the fused kernel's dQ accumulator past S), and head dims 16,
+# 48 and 128
 K9_SHAPES = {"training": (2, 8, 8400, 32), "4 x 64": (2, 4, 8400, 64),
-             "ragged": (2, 8, 77, 32), "hd 16": (1, 4, 1300, 16),
-             "hd 48": (1, 4, 1300, 48), "hd 128": (1, 4, 1300, 128)}
+             "ragged": (2, 8, 77, 32), "129": (2, 8, 129, 32),
+             "hd 16": (1, 4, 1300, 16), "hd 48": (1, 4, 1300, 48),
+             "hd 128": (1, 4, 1300, 128)}
+# the launches a backward counts: bf16 the fused kernel, fp32 K9a and K9b
+K9_LAUNCHES = {"bfloat16": ("flash_attn_bwd",),
+               "float32": ("flash_attn_bwd_dkv", "flash_attn_bwd_dq")}
 
 
 def k9_inputs(shape, dtype, seed=0):
@@ -1651,7 +1657,8 @@ def k9_close(got, want) -> bool:
     """fp32: 1e-5 max|plain| per gradient (sums over up to S terms in
     another order, ex2.approx); bf16: 2^-7 |plain| + 2^-8 max|plain| (P
     and dS rounded to bf16 before the products, as K6's tensor-core
-    bodies; tests/test_torch_port_full_encoder_train.py pins the bound)."""
+    bodies, and dQ summed over key blocks in fp32;
+    tests/test_torch_port_full_encoder_train.py pins the bound)."""
     for a, w in zip(got, want):
         assert a.dtype == w.dtype and a.shape == w.shape
         err = (a.float() - w.float()).abs()
@@ -1665,6 +1672,29 @@ def k9_close(got, want) -> bool:
     return True
 
 
+def _wgmma_widths(kind: str) -> set:
+    """The widths (n-tiles of 8 columns) csrc/wgmma.cuh defines ``kind``
+    ("ss" or "rs") at."""
+    src = (pathlib.Path(FA.__file__).parent / "csrc" / "wgmma.cuh"
+           ).read_text()
+    out = set()
+    for nt, body in re.findall(r"struct Wgmma<(\d+)> \{(.*?)\n\};", src,
+                               re.S):
+        if f" {kind}(float (&d)[{nt}][4]" in body:
+            out.add(int(nt))
+    return out
+
+
+@pytest.mark.parametrize("hd", range(16, 129, 16))
+def test_k9_wgmma_has_every_width_it_takes(hd):
+    """The fused kernel at head dim hd runs S^T and dP^T at 64 columns
+    (ss), dV and dK at hd (rs) and dQ at hd, in two parts past 64 (ss);
+    csrc/wgmma.cuh must define each, or the card's build fails."""
+    parts = 1 if hd <= 64 else 2
+    assert {8, hd // (8 * parts)} <= _wgmma_widths("ss")
+    assert hd // 8 in _wgmma_widths("rs")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", list(K9_SHAPES))
@@ -1676,10 +1706,28 @@ def test_k9_matches_plain_on_cuda(case, dtype):
     before = dict(FA.LAUNCHES)
     got = FA._launch_bwd(q, k, v, o, lse, g, scale)
     torch.cuda.synchronize()
-    for name in ("flash_attn_bwd_dkv", "flash_attn_bwd_dq"):
-        assert FA.LAUNCHES[name] == before.get(name, 0) + 1
+    want = {n: before.get(n, 0) + (n in K9_LAUNCHES[dtype])
+            for n in FA.LAUNCH_NAMES}
+    assert {n: FA.LAUNCHES[n] for n in FA.LAUNCH_NAMES} == want
     assert k9_close(got, FA.flash_attention_bwd_torch(q, k, v, o, lse, g,
                                                       scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["training", "129"])
+def test_k9_bf16_dk_dv_repeat_bit_for_bit_on_cuda(case):
+    """dK and dV sum in registers in a fixed order: two bf16 calls give
+    them bit for bit (dQ's key-block partials are added atomically, in an
+    order that changes from run to run)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, o, lse, g, scale = k9_inputs(K9_SHAPES[case], torch.bfloat16,
+                                          2)
+    first = FA._launch_bwd(q, k, v, o, lse, g, scale)
+    second = FA._launch_bwd(q, k, v, o, lse, g, scale)
+    torch.cuda.synchronize()
+    for a, b in zip(first[1:], second[1:]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -1703,8 +1751,10 @@ def test_k8_lse_matches_logsumexp_on_cuda(case, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k9_takes_the_encoders_views_on_cuda(dtype):
     """(B, S, nH, hd) projections and cotangent seen as (B, nH, S, hd) go
-    through the autograd Function (K8, K9a, K9b) without a copy and give
-    the gradients contiguous operands give, bit for bit."""
+    through the autograd Function (K8, K9) without a copy and give the
+    gradients contiguous operands give: bit for bit, but for bf16 dQ,
+    whose key-block partials are added in an order that changes from run
+    to run, held within the bf16 bound of the contiguous run's."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(4)
@@ -1717,8 +1767,11 @@ def test_k9_takes_the_encoders_views_on_cuda(dtype):
     flat = [t.contiguous().requires_grad_() for t in (q, k, v)]
     FA.full_attention(*flat, 0.2).backward(g.contiguous())
     torch.cuda.synchronize()
-    for a, b in zip(views, flat):
-        assert torch.equal(a.grad, b.grad)
+    for i, (a, b) in enumerate(zip(views, flat)):
+        if i == 0 and dtype == "bfloat16":
+            assert k9_close([a.grad], [b.grad])
+        else:
+            assert torch.equal(a.grad, b.grad)
 
 
 @pytest.mark.cuda

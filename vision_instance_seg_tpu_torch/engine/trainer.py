@@ -69,7 +69,7 @@ def make_train_step(cfg, model: nn.Module, optimizer: torch.optim.Optimizer
     (floats): ``loss_ce``, ``loss_mask``, ``loss_dice`` of the last layer,
     ``loss_aux``, ``loss_total``, ``grad_norm`` (before the clip) and the
     step's base ``lr``. The full-attention encoder trains through K8 and
-    the flash backward K9a / K9b on the card. MaskDINO's step (its
+    the flash backward K9 on the card. MaskDINO's step (its
     criterion and denoising queries) is not ported yet and raises
     NotImplementedError."""
     if isinstance(model, MaskDINO):

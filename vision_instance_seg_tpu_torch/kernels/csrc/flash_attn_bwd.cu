@@ -1,92 +1,117 @@
-// K9a and K9b: the full-attention encoder's self-attention backward
-// (Hopper, sm_90a), the gradients of out = softmax(q . k^T * scale) . v
-// over (B, nH, S, hd), no mask. They replace the two kernels of the
+// K9: the full-attention encoder's self-attention backward (Hopper,
+// sm_90a), the gradients of out = softmax(q . k^T * scale) . v over (B, nH,
+// S, hd), no mask, in one pass. It replaces both kernels of the
 // flash-attention backward that JAX runs under the custom_vjp of
 // jax/experimental/pallas/ops/tpu/flash_attention.py:204 when
 // vision_instance_seg_tpu/models/pixel_decoder.py:120
 // `_flash_or_dense_attention` is differentiated on a TPU:
 // `_flash_attention_bwd_dkv` (:941, pallas_call :1121) and
 // `_flash_attention_bwd_dq` (:1287, pallas_call :1456), which
-// `_flash_attention_bwd` (:254-311) runs one after the other. The split is
-// the TPU's (and FlashAttention-2's): from q, k, v, the cotangent g = dO,
-// each row's log-sum-exp from the forward (K8 writes it, flash_attn_fwd.cu)
-// and D = rowsum(o * dO) (a torch expression before both, as JAX's :273),
+// `_flash_attention_bwd` (:254-311) runs one after the other. From q, k, v,
+// the cotangent g = dO, each row's log-sum-exp from the forward (K8 writes
+// it, flash_attn_fwd.cu) and D = rowsum(o * dO) (JAX's :273):
 //   P = exp(q . k^T scale - lse),  dP = dO . v^T,  dS = P (dP - D),
-//   dV = P^T dO,  dK = dS^T q scale,  dQ = dS k scale;
-// K9a (`flash_bwd_dkv_*`) owns a block of 64 keys and loops over the query
-// blocks (dK and dV sum in registers); K9b (`flash_bwd_dq_*`) owns a block
-// of 64 queries and loops over the key blocks (dQ sums in registers). Both
-// recompute P and dP. Nothing is atomic.
+//   dV = P^T dO,  dK = dS^T q scale,  dQ = dS k scale.
 //
 // Bound, at the training shape (B 2, nH 8, S = 80^2 + 40^2 + 20^2 = 8,400,
-// hd 32, bf16): B nH S^2 = 1.13e9 logits. Each kernel recomputes P, one ex2
-// a logit: 2.26e9 ex2 at 16 a clock per SM (132 SMs, ~1.98 GHz, ~4.2e12 a
-// second) ~0.54 ms for the pair. The products: K9a S^T, dP^T, dV, dK; K9b
-// S, dP, dQ; seven of 2 S^2 hd a head, 0.51 ms at 989 TFLOP/s. q, k, v, dO
-// in and dQ, dK, dV out are 7 x 8.6 MB, ~0.02 ms at 3.35 TB/s. So the
-// exponent unit bounds the pair, the tensor cores nearly as much; a fused
-// one-kernel design (one ex2 a logit, five products, fp32 atomics for dQ)
-// would be bound at ~0.37 ms and is later work.
+// hd 32, bf16): B nH S^2 = 1.13e9 logits, one ex2 each at 16 a clock per SM
+// (132 SMs, ~1.98 GHz, ~4.2e12 a second): 0.27 ms. Five products (S^T,
+// dP^T, dV, dK, dQ) of 2 S^2 hd a head: 0.3653 ms at 989 TFLOP/s. q, k, v,
+// dO in and dQ, dK, dV out are 7 x 8.6 MB, ~0.02 ms at 3.35 TB/s. So the
+// tensor cores bound it, the exponent unit nearly as much. The split pair
+// this replaces did both twice (2 S^2 ex2, seven products: 0.54 ms). What
+// one pass adds is dQ's sum across key blocks: each CTA adds its partial of
+// each query block into an fp32 accumulator that L2 holds (8.6 MB at the
+// training shape), S / 128 x S x hd x 4 bytes a head: 1.14 GB in all.
 //
-// Design, bf16 (the training path's type), mma.sync m16n8k16 with the
-// building blocks of window_attn_mma.cuh, one CTA of 4 warps, each warp 16
-// rows of the CTA's block:
-// - K9a: grid (ceil(S / 64), B nH), one CTA per (64-key block, batch x
-//   head). The CTA's K and V rows stay in shared memory for the whole loop;
-//   a ring of stages (3 at hd <= 64, 2 above) brings each query block's Q
-//   and dO rows (16-byte cp.async) and its lse and D (512 bytes). A step:
-//   S^T = K Q^T and dP^T = V dO^T (K and V rows as A fragments, loaded
-//   from shared memory one k-step at a time so that the dK and dV
-//   accumulators have the registers at hd 128; Q and dO through ldmatrix),
-//   P^T = exp2((s scale - lse) log2 e), dS^T = P^T (dP^T - D), then
-//   dV += P^T dO and dK += dS^T Q with P^T and dS^T rounded to bf16 as A
-//   fragments from the accumulators and dO, Q through ldmatrix.trans.
-// - K9b: the same grid, one CTA per (64-query block, batch x head). Q and
-//   dO rows stay in shared memory, each row's lse and D in registers; the
-//   ring brings each key block's K and V rows. A step: S = Q K^T and
-//   dP = dO V^T, P and dS as above, dQ += dS K (dS rounded to bf16 as the
-//   A fragment, K through ldmatrix.trans).
-// - the ragged tail: 8,400 = 131 x 64 + 16 (13,125 = 205 x 64 + 5 at
-//   800 px). Rows past S of every staged block are zero-filled by the
-//   copies from a clamped address (the block's first row, a real one). K9a
-//   sets P to 0 in the columns of queries past S (their lse and D are
-//   whatever the padding holds), so those add nothing to dK or dV; K9b
-//   sets the logits of keys past S to -inf, so their P and dS are 0 and
-//   add nothing to dQ. Rows past S of the CTA's own block are computed and
-//   not stored. The row statistics are (B nH) rows of `stat_row` floats, a
-//   multiple of 64, so that a query block's 64 of them copy as 16-byte
-//   pieces.
+// Design, bf16 (the training path's type):
+// - One pass, on wgmma (m64nNk16). A CTA owns 128 keys of one (batch,
+//   head), two warpgroups of 64; its K and V rows stay in shared memory.
+//   It loops over the query blocks of 64: S^T = K Q^T and dP^T = V dO^T
+//   (both operands from shared memory, d the K dimension), then, while
+//   dP^T is still on the tensor cores, P^T = ex2(s c - lse2) with c =
+//   scale log2 e and lse2 = lse log2 e scaled once per row before the
+//   kernel (one FFMA and one ex2 a logit); dS^T = P^T (dP^T - D). P^T and
+//   dS^T are rounded to bf16 once, into registers that are at the same
+//   time the A operands of dV += P^T dO and dK += dS^T Q (wgmma's register
+//   A is mma.sync's A fragment of each warp's 16 rows, which is its
+//   accumulator layout; dO and Q are read transposed from the same tiles)
+//   and the stmatrix source of the step's dS^T tile. dK and dV stay in
+//   registers.
+// - dQ: after the step's one barrier, warpgroup i % 2 forms the query
+//   block's partial dS K over the CTA's 128 keys (dS read transposed from
+//   the dS^T tile, K from its resident tile; hd > 64 in two column parts)
+//   while the other warpgroup goes on to step i + 1, then adds it into the
+//   fp32 accumulator with one red.global.add.v4.f32 per lane and n-tile:
+//   a warp's instruction covers 512 contiguous bytes, as the accumulator
+//   is laid out in that fragment order, (B nH, stat_row / 64 query blocks,
+//   parts, 4 warps, n-tiles, 32 lanes, 4). Query blocks are taken from
+//   blockIdx.x on, wrapping, so that the CTAs of one head do not all add
+//   into one block at once.
+// - Two helpers: before K9, `flash_bwd_prep_kernel` writes lse2 and D
+//   (zero past S) and zeroes the accumulator; after it,
+//   `flash_bwd_dq_cast_kernel` writes dQ = accumulator * scale in bf16.
+// - Shared memory holds every tile as wgmma reads it without swizzle: 8 x
+//   16-byte core matrices, row r and 16-byte chunk c of a tile at (r / 8)
+//   (hd * 16) + c 128 + (r % 8) 16 (8 rows of 16 bytes contiguous). So one
+//   tile is both a K-major operand (d the K dimension: S^T, dP^T) and an
+//   MN-major one (keys or queries the K dimension: dV, dK, dQ), and the
+//   16-byte cp.async of 8 consecutive threads fill 128 contiguous bytes.
+// - Loads: a ring of stages (4 at hd <= 64, 3 above) brings each query
+//   block's Q and dO rows (16-byte cp.async) and its 64 lse2 and D. The one
+//   barrier a step publishes the next stage (fence.proxy.async first, as
+//   wgmma reads through the async proxy) and the step's dS^T, and frees
+//   the previous step's stage for the load issued after it. dS^T has two
+//   tiles, so that a warpgroup a step ahead stores into the other.
+// - The ragged tail: 8,400 = 131 x 64 + 16 (13,125 = 205 x 64 + 5 at 800
+//   px). Rows past S of every staged block are zero-filled by the copies
+//   from a clamped address (the block's first row, a real one), and lse2
+//   and D are zero past S: a query past S has s = 0, dP = 0, lse2 = D = 0,
+//   so P = 1 and dS = 0, and it adds dO = 0 to dV, 0 to dK and its dQ row
+//   lands in a padding row of the accumulator. No query is masked. Keys
+//   past S are masked (P = 0) only in the CTA whose block holds the last
+//   key; their dK and dV rows are not stored.
 // - operands and gradients are addressed by (batch, head, token) strides:
 //   the encoder passes its (B, S, nH, hd) projections and cotangent as
-//   (B, nH, S, hd) views and gets dQ, dK, dV back in that layout, without
-//   a transpose. Rows must start 16-byte aligned. Each warp writes its 16
-//   rows of a gradient through its own 16 rows of the CTA's resident block
-//   in shared memory (stmatrix, then 16-byte stores).
-// No wgmma, TMA or warp specialisation yet.
+//   (B, nH, S, hd) views and gets dQ, dK, dV back in that layout, without a
+//   transpose. Rows must start 16-byte aligned.
+// Measured (scripts/bench_k9.py --variants, NVIDIA H100 80GB HBM3 at 700
+// W), at the training shape, kernel alone: this body 1.09-1.11 ms; the same
+// pass on mma.sync m16n8k16 (8 warps of 16 key rows, B operands through
+// ldmatrix) 1.47-1.49 ms; dQ added by both warpgroups (half the columns
+// each) with red.v4 1.26-1.29 ms, staged in shared memory and added by
+// cp.reduce.async.bulk 1.17-1.22 ms; one warpgroup a CTA (64 keys) 1.47
+// ms; each step's adds deferred to the next step 1.46 ms (ptxas then
+// serializes the wgmmas). Without dQ's product and adds it takes 0.88 ms.
+// 126 registers at hd 32 (2 CTAs, 16 warps an SM), 195 at 64, 254 at 128,
+// no spills.
 //
-// fp32: SIMT bodies of the same loops, right rather than fast, as K8's:
-// 4 lanes a row of the CTA's block (each holding hd / 4 of its operands
-// and accumulators, as float4s interleaved so that a quad reads 64
-// contiguous bytes of a staged row), 64 rows a CTA, the other operand's
-// block of 64 rows in shared memory, one row of it at a time.
+// fp32: the split SIMT bodies, right rather than fast, as K8's: K9a
+// (`flash_bwd_dkv_simt_kernel`) owns 64 keys and loops over the query
+// blocks, K9b (`flash_bwd_dq_simt_kernel`) owns 64 queries and loops over
+// the key blocks; 4 lanes a row of the CTA's block (each holding hd / 4 of
+// its operands and accumulators, as float4s interleaved so that a quad
+// reads 64 contiguous bytes of a staged row), the other operand's block of
+// 64 rows in shared memory, one row of it at a time. Nothing is atomic.
 //
 // Numerics against the plain version (kernels/flash_attention.py
 // `flash_attention_bwd_torch`, JAX's `mha_reference_bwd` rounding for
 // rounding: fp32 P, dP, dS and sums, each gradient cast once): bf16 rounds
 // P and dS to bf16 before the products dV, dK and dQ, as K6 and
-// FlashAttention-2 do; the bound 2^-7 |plain| + 2^-8 max|plain| per
-// gradient is pinned on the CPU by a block-wise emulation of that rounding
-// (tests/test_torch_port_full_encoder_train.py). fp32 sums in another order
-// with ex2.approx.
+// FlashAttention-2 do, and sums dQ's partials of 128 keys in fp32, in an
+// order that changes from run to run; the bound 2^-7 |plain| + 2^-8
+// max|plain| per gradient is pinned on the CPU by a block-wise emulation
+// of that rounding and order (tests/test_torch_port_full_encoder_train.py).
+// dK and dV repeat bit for bit. fp32 sums in another order with ex2.approx.
 
 #include <stdint.h>
 
 #include "window_attn_mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;      // 4 warps x 16 rows
-constexpr int kBlock = 64;         // rows per CTA; rows per step
+constexpr int kBlock = 64;         // query rows a step
 constexpr int kSimtThreads = 256;  // fp32: 4 lanes x 64 rows
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -100,109 +125,50 @@ struct BwdGeom {
   float scale;
 };
 
+// The fused body's shared memory: kKeys resident K and V rows, then the
+// ring of stages (Q and dO rows of a query block, its lse2 and D), then two
+// dS^T tiles (kKeys keys x 64 queries), all in the core-matrix layout of
+// the header; dS^T's key row k and query chunk c at (k / 8) 1024 + c 128 +
+// (k % 8) 16 (dQ's MN-major A).
 template <int HD>
-struct Tile {
-  static constexpr int kChunks = HD / 8;              // 16-byte pieces a row
-  static constexpr int kPitch = HD * 2 + 16;          // staged row, bytes
-  static constexpr int kTileBytes = kBlock * kPitch;  // 64 rows
-  static constexpr int kStatBytes = 2 * kBlock * 4;   // lse, D of 64 rows
-  static constexpr int kStages = HD <= 64 ? 3 : 2;
-  // the CTA's two resident tiles, then the ring: two tiles a step, and in
-  // K9a the step's statistics
-  static constexpr int kStageDkv = 2 * kTileBytes + kStatBytes;
-  static constexpr int kStageDq = 2 * kTileBytes;
-  static constexpr int kSmemDkv = 2 * kTileBytes + kStages * kStageDkv;
-  static constexpr int kSmemDq = 2 * kTileBytes + kStages * kStageDq;
+struct Fused {
+  static constexpr int kThreads = 256;           // two warpgroups
+  static constexpr int kKeys = 128;              // 64 a warpgroup
+  static constexpr int kParts = HD <= 64 ? 1 : 2;  // dQ's column parts
+  static constexpr int kQt = HD / (8 * kParts);    // their n-tiles
+  static constexpr int kGroup = HD * 16;      // 8 rows, bytes
+  static constexpr int kKeyTile = kKeys * HD * 2;
+  static constexpr int kQTile = kBlock * HD * 2;
+  static constexpr int kStatBytes = 2 * kBlock * 4;  // lse2, D of 64 rows
+  static constexpr int kStages = HD <= 64 ? 4 : 3;
+  static constexpr int kStage = 2 * kQTile + kStatBytes;
+  static constexpr int kDsGroup = kBlock * 16;  // 8 keys of dS^T, bytes
+  static constexpr int kDsTile = kKeys * kBlock * 2;
+  static constexpr int kSmem = 2 * kKeyTile + kStages * kStage + 2 * kDsTile;
 };
 
-// The thread's 16-byte pieces of a 64-row tile: c = tid + 128 it, at row
-// c / (HD / 8), piece c % (HD / 8).
-template <int HD>
-struct TileCopy {
-  int trow[HD / 16], soff[HD / 16], gcol[HD / 16];
-
-  __device__ __forceinline__ explicit TileCopy(int tid) {
+// rows t0 .. t0 + ROWS - 1 of a head (token stride st) into a tile of the
+// header's core-matrix layout, by THREADS threads, 16 bytes a piece (8
+// consecutive threads: one chunk of 8 consecutive rows, 128 contiguous
+// bytes); rows >= S are zeros, copied from nowhere (the source clamped to
+// row t0, a real one)
+template <int HD, int ROWS, int THREADS>
+__device__ __forceinline__ void copy_tile(uint32_t dst,
+                                          const __nv_bfloat16* base,
+                                          int64_t st, int t0, int S,
+                                          int tid) {
+  constexpr int kChunks = HD / 8, kPieces = ROWS * kChunks;
 #pragma unroll
-    for (int it = 0; it < HD / 16; ++it) {
-      const int c = tid + it * kThreads;
-      trow[it] = c / Tile<HD>::kChunks;
-      soff[it] = trow[it] * Tile<HD>::kPitch + (c % Tile<HD>::kChunks) * 16;
-      gcol[it] = (c % Tile<HD>::kChunks) * 8;
-    }
-  }
-  // rows t0 .. t0 + 63 of a head (token stride st) into the tile at dst;
-  // rows >= S are zeros, copied from nowhere (the source clamped to row
-  // t0, a real one)
-  __device__ __forceinline__ void operator()(uint32_t dst,
-                                             const __nv_bfloat16* base,
-                                             int64_t st, int t0,
-                                             int S) const {
-#pragma unroll
-    for (int it = 0; it < HD / 16; ++it) {
-      const int t = t0 + trow[it];
-      const bool real = t < S;
-      cp_async16_zfill(dst + soff[it], base + (real ? t : t0) * st + gcol[it],
+  for (int it = 0; it < (kPieces + THREADS - 1) / THREADS; ++it) {
+    const int c = tid + it * THREADS;
+    if (kPieces % THREADS == 0 || c < kPieces) {
+      const int rest = c >> 3, ch = rest % kChunks;
+      const int r = (rest / kChunks) * 8 + (c & 7);
+      const bool real = t0 + r < S;
+      cp_async16_zfill(dst + (r >> 3) * (HD * 16) + ch * 128 + (c & 7) * 16,
+                       base + (real ? t0 + r : t0) * st + ch * 8,
                        real ? 16 : 0);
     }
-  }
-};
-
-// s += A B^T for the warp's 16 rows of A (staged at as) against the 64
-// rows of B (staged at bs): 8 n-tiles of 8 rows x HD / 16 k-steps, A's
-// fragment loaded per k-step (4 registers, not HD / 4), B through ldmatrix
-template <int HD>
-__device__ __forceinline__ void rows_x_block(float (&s)[8][4], uint32_t as,
-                                             uint32_t bs, int pitch,
-                                             int warp, int lane) {
-  const int mi = lane >> 3;
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(a, as + (warp * 16 + (mi & 1) * 8 + (lane & 7)) * pitch +
-                   (kk * 16 + (mi >> 1) * 8) * 2);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      uint32_t b0, b1;
-      ldsm_x2(b0, b1, bs + (8 * j + (lane & 7)) * pitch +
-                          (kk * 16 + (mi & 1) * 8) * 2);
-      mma_bf16(s[j], a, b0, b1);
-    }
-  }
-}
-
-// The warp's 16 rows of a gradient (a 16 x HD accumulator, times sc) to
-// tokens t0 .. t0 + 15 of a head (token stride st), the real ones only,
-// through `tile` (the warp's own 16 staged rows, which no other warp
-// reads): stmatrix, then 16-byte stores.
-template <int HD>
-__device__ __forceinline__ void store_warp_rows(const float (&o)[HD / 8][4],
-                                                float sc,
-                                                __nv_bfloat16* base,
-                                                int64_t st, int t0, int S,
-                                                unsigned char* tile,
-                                                int lane) {
-  constexpr int kPitch = Tile<HD>::kPitch, kChunks = HD / 8;
-  const int mi = lane >> 3;
-  const uint32_t ta = smem_addr(tile);
-  __syncwarp();  // every lane is done reading the tile's rows
-#pragma unroll
-  for (int dn = 0; dn < HD / 8; dn += 2) {
-    const uint32_t r[4] = {pack_bf16(o[dn][0] * sc, o[dn][1] * sc),
-                           pack_bf16(o[dn][2] * sc, o[dn][3] * sc),
-                           pack_bf16(o[dn + 1][0] * sc, o[dn + 1][1] * sc),
-                           pack_bf16(o[dn + 1][2] * sc, o[dn + 1][3] * sc)};
-    stsm_x4(ta + ((mi & 1) * 8 + (lane & 7)) * kPitch +
-                (dn * 8 + (mi >> 1) * 8) * 2,
-            r);
-  }
-  __syncwarp();
-#pragma unroll
-  for (int it = 0; it < HD / 16; ++it) {
-    const int c = lane + it * 32;
-    const int row = c / kChunks, ch = c % kChunks;
-    if (t0 + row < S)
-      *reinterpret_cast<uint4*>(base + (t0 + row) * st + ch * 8) =
-          *reinterpret_cast<const uint4*>(tile + row * kPitch + ch * 16);
   }
 }
 
@@ -214,215 +180,288 @@ __device__ __forceinline__ void zero(float (&a)[N][4]) {
     for (int e = 0; e < 4; ++e) a[j][e] = 0.f;
 }
 
-// K9a, bf16: dK and dV of one 64-key block.
+// The warp's 16 rows of a gradient (a 16 x HD accumulator, times sc) to
+// tokens t0 and t0 + 8 of a head (token stride st), the real ones only:
+// two bf16 a store
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                             const __nv_bfloat16* __restrict__ k,
-                             const __nv_bfloat16* __restrict__ v,
-                             const __nv_bfloat16* __restrict__ g,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             __nv_bfloat16* __restrict__ dk,
-                             __nv_bfloat16* __restrict__ dv, BwdGeom geo) {
-  using T = Tile<HD>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int k0 = blockIdx.x * kBlock;  // the CTA's first key token
-  const int b = blockIdx.y / geo.nH, h = blockIdx.y - b * geo.nH;
+__device__ __forceinline__ void store_rows(const float (&o)[HD / 8][4],
+                                           float sc, __nv_bfloat16* base,
+                                           int64_t st, int t0, int S) {
+#pragma unroll
+  for (int dn = 0; dn < HD / 8; ++dn) {
+    if (t0 < S)
+      *reinterpret_cast<uint32_t*>(base + t0 * st + dn * 8) =
+          pack_bf16(o[dn][0] * sc, o[dn][1] * sc);
+    if (t0 + 8 < S)
+      *reinterpret_cast<uint32_t*>(base + (t0 + 8) * st + dn * 8) =
+          pack_bf16(o[dn][2] * sc, o[dn][3] * sc);
+  }
+}
+
+// K9, bf16: dK and dV of one block of kKeys keys, and its partials of dQ
+// added into dq_acc (fp32, the header's layout).
+template <int HD>
+__global__ void __launch_bounds__(Fused<HD>::kThreads, HD <= 32 ? 2 : 1)
+    flash_bwd_fused_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ g,
+                           const float* __restrict__ lse2,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq_acc,
+                           __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, BwdGeom geo) {
+  using F = Fused<HD>;
+  constexpr int kNt = HD / 8;  // n-tiles of dV, dK
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wg = tid >> 7, wi = (tid >> 5) & 3;  // warpgroup, its warp
+  const int k0 = blockIdx.x * F::kKeys;  // the CTA's first key token
+  const int bh = blockIdx.y;
+  const int b = bh / geo.nH, h = bh - b * geo.nH;
   const int nqb = (geo.S + kBlock - 1) / kBlock;
+  const int first = blockIdx.x % nqb;  // the query block of step 0
   const __nv_bfloat16* qh = q + b * geo.q[0] + h * geo.q[1];
   const __nv_bfloat16* gh = g + b * geo.g[0] + h * geo.g[1];
-  const float* lh = lse + blockIdx.y * geo.stat_row;
-  const float* dh = delta + blockIdx.y * geo.stat_row;
+  const float* lh = lse2 + bh * geo.stat_row;
+  const float* dh = delta + bh * geo.stat_row;
 
-  const TileCopy<HD> copy(tid);
-  unsigned char* ktile = smem;  // the CTA's K rows, then its V rows
-  unsigned char* vtile = smem + T::kTileBytes;
-  const uint32_t ks = smem_addr(ktile), vs = smem_addr(vtile);
-  auto stage = [&](int j) {
-    return smem + 2 * T::kTileBytes + (j % T::kStages) * T::kStageDkv;
+  const uint32_t ks = smem_addr(smem), vs = ks + F::kKeyTile;
+  unsigned char* ring = smem + 2 * F::kKeyTile;
+  const uint32_t dts = smem_addr(ring + F::kStages * F::kStage);
+  auto block_of = [&](int i) {  // step i's query block
+    const int x = first + i;
+    return x >= nqb ? x - nqb : x;
   };
-  // query block j's Q and dO rows and its 64 lse and D into its stage
-  auto load = [&](int j) {
-    const uint32_t st = smem_addr(stage(j));
-    copy(st, qh, geo.q[2], j * kBlock, geo.S);
-    copy(st + T::kTileBytes, gh, geo.g[2], j * kBlock, geo.S);
+  auto load = [&](int i) {  // step i's Q and dO rows, lse2 and D
+    const uint32_t st = smem_addr(ring + (i % F::kStages) * F::kStage);
+    const int t0 = block_of(i) * kBlock;
+    copy_tile<HD, kBlock, F::kThreads>(st, qh, geo.q[2], t0, geo.S, tid);
+    copy_tile<HD, kBlock, F::kThreads>(st + F::kQTile, gh, geo.g[2], t0,
+                                       geo.S, tid);
     if (tid < 32)
-      cp_async16(st + 2 * T::kTileBytes + tid * 16,
-                 (tid < 16 ? lh : dh) + j * kBlock + (tid & 15) * 4);
+      cp_async16(st + 2 * F::kQTile + tid * 16,
+                 (tid < 16 ? lh : dh) + t0 + (tid & 15) * 4);
   };
-  // in the first group, with query block 0
-  copy(ks, k + b * geo.k[0] + h * geo.k[1], geo.k[2], k0, geo.S);
-  copy(vs, v + b * geo.v[0] + h * geo.v[1], geo.v[2], k0, geo.S);
+  // in the first group, with step 0's block
+  copy_tile<HD, F::kKeys, F::kThreads>(ks, k + b * geo.k[0] + h * geo.k[1],
+                                       geo.k[2], k0, geo.S, tid);
+  copy_tile<HD, F::kKeys, F::kThreads>(vs, v + b * geo.v[0] + h * geo.v[1],
+                                       geo.v[2], k0, geo.S, tid);
 #pragma unroll
-  for (int j = 0; j < T::kStages - 1; ++j) {
-    if (j < nqb) load(j);
+  for (int i = 0; i < F::kStages - 1; ++i) {
+    if (i < nqb) load(i);
     cp_async_commit();
   }
+  cp_async_wait<F::kStages - 2>();
+  fence_proxy_async();
+  __syncthreads();
 
   // the thread's S^T fragment: key rows r0, r0 + 8 of the CTA's block;
   // query columns 8 jj + cb, + 1 of the step's block
-  const int cb = (lane & 3) * 2;
-  float adk[HD / 8][4], adv[HD / 8][4];
+  const int mi = lane >> 3, cb = (lane & 3) * 2;
+  const int r0 = 64 * wg + 16 * wi + (lane >> 2);
+  const bool tail = k0 + F::kKeys > geo.S;  // keys past S in this block
+  const bool kr0 = k0 + r0 < geo.S, kr1 = k0 + r0 + 8 < geo.S;
+  const float c2 = geo.scale * kLog2e;
+  // the warpgroup's 64 K and V rows (S^T's and dP^T's A)
+  const uint32_t kw = ks + wg * 8 * F::kGroup, vw = vs + wg * 8 * F::kGroup;
+  // its rows of dS^T's tile (stmatrix: matrix mi, row lane % 8)
+  const uint32_t dsw = ((64 * wg + 16 * wi + 8 * (mi & 1)) / 8) * F::kDsGroup +
+                       (mi >> 1) * 128 + (lane & 7) * 16;
+  float adk[kNt][4], adv[kNt][4];
   zero(adk);
   zero(adv);
-  for (int j = 0; j < nqb; ++j) {
-    cp_async_wait<T::kStages - 2>();  // query block j has landed (this
-    __syncthreads();  // thread's; now everyone's), and every warp is past
-                      // step j - 1, whose stage the next load reuses
-    if (j + T::kStages - 1 < nqb) load(j + T::kStages - 1);
-    cp_async_commit();  // possibly empty: keeps the wait count exact
-    const unsigned char* sp = stage(j);
-    const uint32_t qs = smem_addr(sp), gs = qs + T::kTileBytes;
-    const float* ls = reinterpret_cast<const float*>(sp + 2 * T::kTileBytes);
+  for (int i = 0; i < nqb; ++i) {
+    const unsigned char* sp = ring + (i % F::kStages) * F::kStage;
+    const uint32_t qs = smem_addr(sp), gs = qs + F::kQTile;
+    const float* ls = reinterpret_cast<const float*>(sp + 2 * F::kQTile);
     const float* ds = ls + kBlock;
+    const uint32_t dst = dts + (i & 1) * F::kDsTile;
 
+    // S^T = K Q^T and dP^T = V dO^T: K-major A and B, d the K dimension
     float st[8][4], dpt[8][4];
-    zero(st);
-    zero(dpt);
-    rows_x_block<HD>(st, ks, qs, T::kPitch, warp, lane);   // S^T = K Q^T
-    rows_x_block<HD>(dpt, vs, gs, T::kPitch, warp, lane);  // dP^T = V dO^T
-    const int real = geo.S - j * kBlock;  // real queries in this block
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      Wgmma<8>::ss<0, 0>(st, gmma_desc(kw + kk * 256, 128, F::kGroup),
+                         gmma_desc(qs + kk * 256, 128, F::kGroup), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      Wgmma<8>::ss<0, 0>(dpt, gmma_desc(vw + kk * 256, 128, F::kGroup),
+                         gmma_desc(gs + kk * 256, 128, F::kGroup), kk > 0);
+    wgmma_commit();
+    // P^T = ex2(s c - lse2) while dP^T is on the tensor cores
+    wgmma_wait<1>();
+    wgmma_fence_operand(st);
+    uint32_t pa[4][4], da[4][4];  // n-tiles 2 kk, 2 kk + 1: k-step kk's A
 #pragma unroll
     for (int jj = 0; jj < 8; ++jj) {
-      const int c = 8 * jj + cb;
-      const float2 e = *reinterpret_cast<const float2*>(ls + c);
-      const float2 d = *reinterpret_cast<const float2*>(ds + c);
-      float p0 = exp2_approx(fmaf(st[jj][0], geo.scale, -e.x) * kLog2e);
-      float p1 = exp2_approx(fmaf(st[jj][1], geo.scale, -e.y) * kLog2e);
-      float p2 = exp2_approx(fmaf(st[jj][2], geo.scale, -e.x) * kLog2e);
-      float p3 = exp2_approx(fmaf(st[jj][3], geo.scale, -e.y) * kLog2e);
-      if (c >= real) p0 = p2 = 0.f;
-      if (c + 1 >= real) p1 = p3 = 0.f;
-      st[jj][0] = p0;
-      st[jj][1] = p1;
-      st[jj][2] = p2;
-      st[jj][3] = p3;
-      dpt[jj][0] = p0 * (dpt[jj][0] - d.x);
-      dpt[jj][1] = p1 * (dpt[jj][1] - d.y);
-      dpt[jj][2] = p2 * (dpt[jj][2] - d.x);
-      dpt[jj][3] = p3 * (dpt[jj][3] - d.y);
+      const float2 e = *reinterpret_cast<const float2*>(ls + 8 * jj + cb);
+      st[jj][0] = exp2_approx(fmaf(st[jj][0], c2, -e.x));
+      st[jj][1] = exp2_approx(fmaf(st[jj][1], c2, -e.y));
+      st[jj][2] = exp2_approx(fmaf(st[jj][2], c2, -e.x));
+      st[jj][3] = exp2_approx(fmaf(st[jj][3], c2, -e.y));
+      if (tail) {
+        if (!kr0) st[jj][0] = st[jj][1] = 0.f;
+        if (!kr1) st[jj][2] = st[jj][3] = 0.f;
+      }
+      pa[jj >> 1][2 * (jj & 1)] = pack_bf16(st[jj][0], st[jj][1]);
+      pa[jj >> 1][2 * (jj & 1) + 1] = pack_bf16(st[jj][2], st[jj][3]);
     }
-    // dV += P^T dO, dK += dS^T Q (bf16 A fragments from the accumulators)
-    wa_pv_block<HD>(adv, st, 1.f, 1.f, gs, T::kPitch, lane);
-    wa_pv_block<HD>(adk, dpt, 1.f, 1.f, qs, T::kPitch, lane);
+    // dS^T = P^T (dP^T - D)
+    wgmma_wait<0>();
+    wgmma_fence_operand(dpt);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const float2 d = *reinterpret_cast<const float2*>(ds + 8 * jj + cb);
+      da[jj >> 1][2 * (jj & 1)] = pack_bf16(st[jj][0] * (dpt[jj][0] - d.x),
+                                            st[jj][1] * (dpt[jj][1] - d.y));
+      da[jj >> 1][2 * (jj & 1) + 1] =
+          pack_bf16(st[jj][2] * (dpt[jj][2] - d.x),
+                    st[jj][3] * (dpt[jj][3] - d.y));
+    }
+    // dV += P^T dO, dK += dS^T Q: A from registers, dO and Q MN-major B
+    // (queries the K dimension)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<kNt>::template rs<1>(
+          adv, pa[kk], gmma_desc(gs + kk * 2 * F::kGroup, F::kGroup, 128), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      Wgmma<kNt>::template rs<1>(
+          adk, da[kk], gmma_desc(qs + kk * 2 * F::kGroup, F::kGroup, 128), 1);
+    wgmma_commit();
+    // dS^T to its tile, 8 x 8 blocks
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) stsm_x4(dst + dsw + kk * 256, da[kk]);
+    cp_async_wait<F::kStages - 3>();  // step i + 1's block has landed (this
+    fence_proxy_async();  // thread's pieces), for wgmma as its dS^T stores
+    __syncthreads();  // ... everyone's, and every dS^T row of step i; every
+                      // wgmma of step i - 1 is done with its stage
+    if (i + F::kStages - 1 < nqb) load(i + F::kStages - 1);
+    cp_async_commit();  // possibly empty: keeps the wait count exact
+
+    // the dQ partial of the query block, by warpgroup i % 2 while the other
+    // goes on to step i + 1: dS (MN-major A, keys the K dimension) times K
+    // (MN-major B), over the CTA's keys, in kParts column parts, each added
+    // into the accumulator's run for this query block (fragment order: a
+    // warp's red.v4 covers 512 contiguous bytes)
+    if ((i & 1) == wg) {
+      float* acc = dq_acc + (bh * (geo.stat_row / kBlock) + block_of(i)) *
+                                (kBlock * HD) +
+                   lane * 4;
+#pragma unroll
+      for (int part = 0; part < F::kParts; ++part) {
+        float adq[F::kQt][4];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < F::kKeys / 16; ++kk)
+          Wgmma<F::kQt>::template ss<1, 1>(
+              adq, gmma_desc(dst + kk * 2 * F::kDsGroup, F::kDsGroup, 128),
+              gmma_desc(ks + kk * 2 * F::kGroup + part * F::kQt * 128,
+                        F::kGroup, 128),
+              kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_fence_operand(adq);
+        wgmma_fence_operand(adk);
+        wgmma_fence_operand(adv);
+#pragma unroll
+        for (int dn = 0; dn < F::kQt; ++dn)
+          atomicAdd(reinterpret_cast<float4*>(
+                        acc + ((part * 4 + wi) * F::kQt + dn) * 128),
+                    make_float4(adq[dn][0], adq[dn][1], adq[dn][2],
+                                adq[dn][3]));
+      }
+    } else {
+      wgmma_wait<0>();  // dV, dK
+      wgmma_fence_operand(adk);
+      wgmma_fence_operand(adv);
+    }
   }
 
-  const int t0 = k0 + warp * 16;
-  store_warp_rows<HD>(adk, geo.scale, dk + b * geo.dk[0] + h * geo.dk[1],
-                      geo.dk[2], t0, geo.S, ktile + warp * 16 * T::kPitch,
-                      lane);
-  store_warp_rows<HD>(adv, 1.f, dv + b * geo.dv[0] + h * geo.dv[1],
-                      geo.dv[2], t0, geo.S, vtile + warp * 16 * T::kPitch,
-                      lane);
+  const int t0 = k0 + r0;
+  store_rows<HD>(adk, geo.scale, dk + b * geo.dk[0] + h * geo.dk[1] + cb,
+                 geo.dk[2], t0, geo.S);
+  store_rows<HD>(adv, 1.f, dv + b * geo.dv[0] + h * geo.dv[1] + cb,
+                 geo.dv[2], t0, geo.S);
 }
 
-// K9b, bf16: dQ of one 64-query block.
+// Before K9, bf16: thread (row t of head bh) writes lse2 = lse log2 e and
+// D = rowsum(o * dO) (fp32 products of the bf16 pairs, summed in fp32) of
+// its row, zeros past S, and zeroes the row of the dQ accumulator.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
-                            const __nv_bfloat16* __restrict__ v,
-                            const __nv_bfloat16* __restrict__ g,
-                            const float* __restrict__ lse,
-                            const float* __restrict__ delta,
-                            __nv_bfloat16* __restrict__ dq, BwdGeom geo) {
-  using T = Tile<HD>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * kBlock;  // the CTA's first query token
-  const int b = blockIdx.y / geo.nH, h = blockIdx.y - b * geo.nH;
-  const int nkb = (geo.S + kBlock - 1) / kBlock;
-  const __nv_bfloat16* kh = k + b * geo.k[0] + h * geo.k[1];
-  const __nv_bfloat16* vh = v + b * geo.v[0] + h * geo.v[1];
-
-  const TileCopy<HD> copy(tid);
-  unsigned char* qtile = smem;  // the CTA's Q rows, then its dO rows
-  const uint32_t qs = smem_addr(qtile), gs = qs + T::kTileBytes;
-  auto stage = [&](int j) {
-    return smem_addr(smem) + 2 * T::kTileBytes + (j % T::kStages) *
-                                                     T::kStageDq;
-  };
-  auto load = [&](int j) {
-    const uint32_t st = stage(j);
-    copy(st, kh, geo.k[2], j * kBlock, geo.S);
-    copy(st + T::kTileBytes, vh, geo.v[2], j * kBlock, geo.S);
-  };
-  copy(qs, q + b * geo.q[0] + h * geo.q[1], geo.q[2], q0, geo.S);
-  copy(gs, g + b * geo.g[0] + h * geo.g[1], geo.g[2], q0, geo.S);
+__global__ void __launch_bounds__(256)
+    flash_bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
+                          const __nv_bfloat16* __restrict__ g,
+                          const float* __restrict__ lse, int64_t lse_b,
+                          int64_t lse_h, float* __restrict__ lse2,
+                          float* __restrict__ delta,
+                          float* __restrict__ dq_acc, BwdGeom geo) {
+  const int64_t rows = (int64_t)geo.B * geo.nH * geo.stat_row;
+  const int64_t x = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= rows) return;
+  const int bh = (int)(x / geo.stat_row), t = (int)(x % geo.stat_row);
+  const int b = bh / geo.nH, h = bh - b * geo.nH;
+  float e = 0.f, d = 0.f;
+  if (t < geo.S) {
+    const uint4* orow = reinterpret_cast<const uint4*>(
+        o + b * geo.q[0] + h * geo.q[1] + t * geo.q[2]);
+    const uint4* grow = reinterpret_cast<const uint4*>(
+        g + b * geo.g[0] + h * geo.g[1] + t * geo.g[2]);
 #pragma unroll
-  for (int j = 0; j < T::kStages - 1; ++j) {
-    if (j < nkb) load(j);
-    cp_async_commit();
-  }
-
-  // the thread's S fragment: query rows r0, r0 + 8 of the CTA's block;
-  // key columns 8 jj + cb, + 1 of the step's block. Their lse and D (0 for
-  // rows past S, which are not stored).
-  const int r0 = warp * 16 + (lane >> 2), cb = (lane & 3) * 2;
-  const int mi = lane >> 3;
-  const int t0 = q0 + r0, t1 = t0 + 8;
-  const float* lh = lse + blockIdx.y * geo.stat_row;
-  const float* dh = delta + blockIdx.y * geo.stat_row;
-  const float e0 = t0 < geo.S ? lh[t0] : 0.f, e1 = t1 < geo.S ? lh[t1] : 0.f;
-  const float d0 = t0 < geo.S ? dh[t0] : 0.f, d1 = t1 < geo.S ? dh[t1] : 0.f;
-  float adq[HD / 8][4];
-  zero(adq);
-  for (int j = 0; j < nkb; ++j) {
-    cp_async_wait<T::kStages - 2>();
-    __syncthreads();
-    if (j + T::kStages - 1 < nkb) load(j + T::kStages - 1);
-    cp_async_commit();
-    const uint32_t ks = stage(j), vs = ks + T::kTileBytes;
-
-    float sc[8][4], dp[8][4];
-    zero(sc);
-    zero(dp);
-    rows_x_block<HD>(sc, qs, ks, T::kPitch, warp, lane);  // S = Q K^T
-    rows_x_block<HD>(dp, gs, vs, T::kPitch, warp, lane);  // dP = dO V^T
-    const int real = geo.S - j * kBlock;  // real keys in this block
-    if (real < kBlock) {
+    for (int c = 0; c < HD / 8; ++c) {
+      const uint4 ov = orow[c], gv = grow[c];
+      const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&ov);
+      const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&gv);
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        if (8 * jj + cb >= real) sc[jj][0] = sc[jj][2] = -INFINITY;
-        if (8 * jj + cb + 1 >= real) sc[jj][1] = sc[jj][3] = -INFINITY;
+      for (int j = 0; j < 4; ++j) {
+        const float2 of = __bfloat1622float2(op[j]),
+                     gf = __bfloat1622float2(gp[j]);
+        d = fmaf(of.x, gf.x, d);
+        d = fmaf(of.y, gf.y, d);
       }
     }
-    // dS = P (dP - D) in bf16 as A fragments (n-tiles 2 kk, 2 kk + 1 make
-    // k-step kk)
-    uint32_t da[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int jj = 2 * kk + half;
-        const float p0 = exp2_approx(fmaf(sc[jj][0], geo.scale, -e0) * kLog2e);
-        const float p1 = exp2_approx(fmaf(sc[jj][1], geo.scale, -e0) * kLog2e);
-        const float p2 = exp2_approx(fmaf(sc[jj][2], geo.scale, -e1) * kLog2e);
-        const float p3 = exp2_approx(fmaf(sc[jj][3], geo.scale, -e1) * kLog2e);
-        da[kk][2 * half] =
-            pack_bf16(p0 * (dp[jj][0] - d0), p1 * (dp[jj][1] - d0));
-        da[kk][2 * half + 1] =
-            pack_bf16(p2 * (dp[jj][2] - d1), p3 * (dp[jj][3] - d1));
-      }
-    // dQ += dS K: K [key][d] through .trans
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int dn = 0; dn < HD / 8; dn += 2) {
-        uint32_t kf[4];
-        ldsm_x4_trans(kf, ks + (kk * 16 + (mi & 1) * 8 + (lane & 7)) *
-                                   T::kPitch +
-                              (dn * 8 + (mi >> 1) * 8) * 2);
-        mma_bf16(adq[dn], da[kk], kf[0], kf[1]);
-        mma_bf16(adq[dn + 1], da[kk], kf[2], kf[3]);
-      }
+    e = lse[b * lse_b + h * lse_h + t] * kLog2e;
   }
+  lse2[x] = e;
+  delta[x] = d;
+  float4* arow = reinterpret_cast<float4*>(dq_acc + x * HD);
+#pragma unroll
+  for (int c = 0; c < HD / 4; ++c) arow[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
 
-  store_warp_rows<HD>(adq, geo.scale, dq + b * geo.dq[0] + h * geo.dq[1],
-                      geo.dq[2], q0 + warp * 16, geo.S,
-                      qtile + warp * 16 * T::kPitch, lane);
+// After K9, bf16: dQ = the accumulator times scale, cast to bf16, into the
+// (batch, head, token) strided gradient; thread x takes the accumulator's
+// float4 number x (one lane's n-tile: rows r, r + 8, columns c, c + 1).
+template <int HD>
+__global__ void __launch_bounds__(256)
+    flash_bwd_dq_cast_kernel(const float* __restrict__ dq_acc,
+                             __nv_bfloat16* __restrict__ dq, BwdGeom geo) {
+  using F = Fused<HD>;
+  constexpr int kPart = 4 * F::kQt * 32;  // float4s of a column part
+  const int64_t per_head = geo.stat_row * HD / 4;
+  const int64_t x = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (x >= geo.B * geo.nH * per_head) return;
+  const int bh = (int)(x / per_head);
+  const int f = (int)(x % per_head);
+  const int blk = f / (16 * HD), y = f % (16 * HD);
+  const int part = y / kPart, z = y % kPart;
+  const int wi = z / (F::kQt * 32), dn = (z / 32) % F::kQt, lane = z % 32;
+  const int t = blk * kBlock + wi * 16 + (lane >> 2);
+  const int col = part * (HD / F::kParts) + dn * 8 + (lane & 3) * 2;
+  const float4 a = reinterpret_cast<const float4*>(dq_acc)[x];
+  const int b = bh / geo.nH, h = bh - b * geo.nH;
+  __nv_bfloat16* base = dq + b * geo.dq[0] + h * geo.dq[1] + col;
+  if (t < geo.S)
+    *reinterpret_cast<uint32_t*>(base + t * geo.dq[2]) =
+        pack_bf16(a.x * geo.scale, a.y * geo.scale);
+  if (t + 8 < geo.S)
+    *reinterpret_cast<uint32_t*>(base + (t + 8) * geo.dq[2]) =
+        pack_bf16(a.z * geo.scale, a.w * geo.scale);
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b) {
@@ -611,15 +650,17 @@ __global__ void __launch_bounds__(kSimtThreads)
   }
 }
 
-enum Which { kDkv = 0, kDq = 1 };
-
-// the operands, the row statistics and the gradients (K9a: dk, dv; K9b:
-// dq twice)
+// the operands, the row statistics and the outputs (bf16: dq_acc, dk, dv;
+// fp32 K9a: dk, dv; fp32 K9b: dq; prep: q is o, lse and delta are lse2
+// and D, d0 dq_acc, d1 the forward's lse; cast: d0 dq_acc, d1 dq)
 struct BwdPtrs {
   const void *q, *k, *v, *g;
   const float *lse, *delta;
-  void *d0, *d1;
+  void *d0, *d1, *d2;
+  int64_t lse_b, lse_h;  // prep: the forward lse's strides
 };
+
+enum Which { kFused = 0, kDkv = 1, kDq = 2, kPrep = 3, kCast = 4 };
 
 template <class Kern>
 cudaError_t allow_smem(Kern kern, int smem) {
@@ -628,31 +669,36 @@ cudaError_t allow_smem(Kern kern, int smem) {
 }
 
 template <int HD>
-int launch_hd(Which which, const BwdPtrs& a, const BwdGeom& geo, int bf16,
+int launch_hd(Which which, const BwdPtrs& a, const BwdGeom& geo,
               cudaStream_t stream) {
   using B16 = __nv_bfloat16;
-  const dim3 grid((geo.S + kBlock - 1) / kBlock, geo.B * geo.nH);
   cudaError_t e = cudaSuccess;
-  if (bf16) {
-    const B16 *q = static_cast<const B16*>(a.q),
-              *k = static_cast<const B16*>(a.k),
-              *v = static_cast<const B16*>(a.v),
-              *g = static_cast<const B16*>(a.g);
-    if (which == kDkv) {
-      auto kern = flash_bwd_dkv_mma_kernel<HD>;
-      const int smem = Tile<HD>::kSmemDkv;
-      if ((e = allow_smem(kern, smem)) == cudaSuccess)
-        kern<<<grid, kThreads, smem, stream>>>(
-            q, k, v, g, a.lse, a.delta, static_cast<B16*>(a.d0),
-            static_cast<B16*>(a.d1), geo);
-    } else {
-      auto kern = flash_bwd_dq_mma_kernel<HD>;
-      const int smem = Tile<HD>::kSmemDq;
-      if ((e = allow_smem(kern, smem)) == cudaSuccess)
-        kern<<<grid, kThreads, smem, stream>>>(
-            q, k, v, g, a.lse, a.delta, static_cast<B16*>(a.d0), geo);
-    }
+  if (which == kPrep || which == kCast) {
+    const int64_t n = which == kPrep
+                          ? (int64_t)geo.B * geo.nH * geo.stat_row
+                          : (int64_t)geo.B * geo.nH * geo.stat_row * HD / 4;
+    const dim3 grid((unsigned)((n + 255) / 256));
+    if (which == kPrep)
+      flash_bwd_prep_kernel<HD><<<grid, 256, 0, stream>>>(
+          static_cast<const B16*>(a.q), static_cast<const B16*>(a.g),
+          static_cast<const float*>(a.d1), a.lse_b, a.lse_h,
+          const_cast<float*>(a.lse), const_cast<float*>(a.delta),
+          static_cast<float*>(a.d0), geo);
+    else
+      flash_bwd_dq_cast_kernel<HD><<<grid, 256, 0, stream>>>(
+          static_cast<const float*>(a.d0), static_cast<B16*>(a.d1), geo);
+  } else if (which == kFused) {
+    using F = Fused<HD>;
+    const dim3 grid((geo.S + F::kKeys - 1) / F::kKeys, geo.B * geo.nH);
+    auto kern = flash_bwd_fused_kernel<HD>;
+    if ((e = allow_smem(kern, F::kSmem)) == cudaSuccess)
+      kern<<<grid, F::kThreads, F::kSmem, stream>>>(
+          static_cast<const B16*>(a.q), static_cast<const B16*>(a.k),
+          static_cast<const B16*>(a.v), static_cast<const B16*>(a.g), a.lse,
+          a.delta, static_cast<float*>(a.d0), static_cast<B16*>(a.d1),
+          static_cast<B16*>(a.d2), geo);
   } else {
+    const dim3 grid((geo.S + kBlock - 1) / kBlock, geo.B * geo.nH);
     const float *q = static_cast<const float*>(a.q),
                 *k = static_cast<const float*>(a.k),
                 *v = static_cast<const float*>(a.v),
@@ -677,17 +723,17 @@ int launch_hd(Which which, const BwdPtrs& a, const BwdGeom& geo, int bf16,
 }
 
 int launch(Which which, const BwdPtrs& a, const long long* strides, int B,
-           int nH, int S, int hd, long long stat_row, int bf16, float scale,
+           int nH, int S, int hd, long long stat_row, float scale,
            void* stream) {
   if (B < 1 || nH < 1 || S < 1 || hd % 16 || hd < 16 || hd > 128 ||
       (int64_t)B * nH > 65535 || stat_row < S || stat_row % kBlock)
     return (int)cudaErrorInvalidValue;
   BwdGeom geo = {B, nH, S, hd, {}, {}, {}, {}, {}, {}, {}, stat_row, scale};
   int64_t* dst[7] = {geo.q, geo.k, geo.v, geo.g, geo.dq, geo.dk, geo.dv};
-  const int64_t elem = bf16 ? 2 : 4;
+  const int64_t elem = which == kDkv || which == kDq ? 4 : 2;
   uintptr_t align = (uintptr_t)a.q | (uintptr_t)a.k | (uintptr_t)a.v |
                     (uintptr_t)a.g | (uintptr_t)a.lse | (uintptr_t)a.delta |
-                    (uintptr_t)a.d0 | (uintptr_t)a.d1;
+                    (uintptr_t)a.d0 | (uintptr_t)a.d1 | (uintptr_t)a.d2;
   for (int i = 0; i < 21; ++i) {
     dst[i / 3][i % 3] = strides[i];
     align |= (uintptr_t)(strides[i] * elem);
@@ -695,14 +741,14 @@ int launch(Which which, const BwdPtrs& a, const long long* strides, int B,
   if (align & 15) return (int)cudaErrorMisalignedAddress;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch_hd<16>(which, a, geo, bf16, st);
-    case 32: return launch_hd<32>(which, a, geo, bf16, st);
-    case 48: return launch_hd<48>(which, a, geo, bf16, st);
-    case 64: return launch_hd<64>(which, a, geo, bf16, st);
-    case 80: return launch_hd<80>(which, a, geo, bf16, st);
-    case 96: return launch_hd<96>(which, a, geo, bf16, st);
-    case 112: return launch_hd<112>(which, a, geo, bf16, st);
-    case 128: return launch_hd<128>(which, a, geo, bf16, st);
+    case 16: return launch_hd<16>(which, a, geo, st);
+    case 32: return launch_hd<32>(which, a, geo, st);
+    case 48: return launch_hd<48>(which, a, geo, st);
+    case 64: return launch_hd<64>(which, a, geo, st);
+    case 80: return launch_hd<80>(which, a, geo, st);
+    case 96: return launch_hd<96>(which, a, geo, st);
+    case 112: return launch_hd<112>(which, a, geo, st);
+    case 128: return launch_hd<128>(which, a, geo, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -711,34 +757,74 @@ int launch(Which which, const BwdPtrs& a, const long long* strides, int B,
 
 extern "C" {
 
-// K9a: dk, dv of softmax(q . k^T * scale) . v for the cotangent g, all of
-// shape (B, nH, S, hd), addressed by `strides`: 21 element strides,
+// K9, bf16: dk, dv of softmax(q . k^T * scale) . v for the cotangent g, all
+// of shape (B, nH, S, hd), addressed by `strides`: 21 element strides,
 // (batch, head, token) of q, k, v, g, dq, dk, dv in that order (dq's are
-// read and not used), the head dim contiguous. lse (each row's log-sum-exp,
-// natural log) and delta (rowsum(o * g)): fp32 (B nH, stat_row), stat_row a
-// multiple of 64 and >= S, the first S entries of a row used. bf16 = 1:
-// bf16 operands and gradients on the tensor cores; 0: fp32 on the SIMT
-// body. hd a multiple of 16 up to 128; every pointer and every row 16-byte
-// aligned; B nH at most 65,535. Returns cudaGetLastError() (0 = launched).
+// read and not used), the head dim contiguous; and dQ / scale added into
+// dq_acc, fp32 (B nH, stat_row, hd) zeroed by the caller, in the fragment
+// order of the header. lse2 (each row's log-sum-exp times log2 e) and delta
+// (rowsum(o * g)): fp32 (B nH, stat_row), stat_row a multiple of 64 and >=
+// S, zero past S. hd a multiple of 16 up to 128; every pointer and every
+// row 16-byte aligned; B nH at most 65,535. Returns cudaGetLastError() (0 =
+// launched).
+int flash_attn_bwd(const void* q, const void* k, const void* v,
+                   const void* g, const float* lse2, const float* delta,
+                   float* dq_acc, void* dk, void* dv,
+                   const long long* strides, int B, int nH, int S, int hd,
+                   long long stat_row, float scale, void* stream) {
+  return launch(kFused, {q, k, v, g, lse2, delta, dq_acc, dk, dv}, strides,
+                B, nH, S, hd, stat_row, scale, stream);
+}
+
+// Before flash_attn_bwd: from o (q's strides) and the cotangent g, both
+// bf16, and the forward's lse (fp32, element strides lse_b, lse_h of batch
+// and head, tokens contiguous) write lse2 and delta ((B nH, stat_row) fp32,
+// zero past S) and zero dq_acc.
+int flash_attn_bwd_prep(const void* o, const void* g, const float* lse,
+                        long long lse_b, long long lse_h, float* lse2,
+                        float* delta, float* dq_acc,
+                        const long long* strides, int B, int nH, int S,
+                        int hd, long long stat_row, void* stream) {
+  BwdPtrs a = {o, nullptr, nullptr, g, lse2, delta, dq_acc,
+               const_cast<float*>(lse), nullptr, lse_b, lse_h};
+  return launch(kPrep, a, strides, B, nH, S, hd, stat_row, 1.f, stream);
+}
+
+// After flash_attn_bwd: dq (bf16, dq's strides) = dq_acc * scale.
+int flash_attn_bwd_dq_cast(const float* dq_acc, void* dq,
+                           const long long* strides, int B, int nH, int S,
+                           int hd, long long stat_row, float scale,
+                           void* stream) {
+  BwdPtrs a = {dq, dq, dq, dq, dq_acc, dq_acc, const_cast<float*>(dq_acc),
+               dq, nullptr, 0, 0};
+  return launch(kCast, a, strides, B, nH, S, hd, stat_row, scale, stream);
+}
+
+// K9a, fp32: dk, dv with flash_attn_bwd's arguments, but fp32 operands and
+// gradients and lse the natural log-sum-exp (padding not read).
 int flash_attn_bwd_dkv(const void* q, const void* k, const void* v,
                        const void* g, const float* lse, const float* delta,
                        void* dk, void* dv, const long long* strides, int B,
-                       int nH, int S, int hd, long long stat_row, int bf16,
-                       float scale, void* stream) {
-  return launch(kDkv, {q, k, v, g, lse, delta, dk, dv}, strides, B, nH, S,
-                hd, stat_row, bf16, scale, stream);
+                       int nH, int S, int hd, long long stat_row, float scale,
+                       void* stream) {
+  return launch(kDkv, {q, k, v, g, lse, delta, dk, dv, dv}, strides, B, nH,
+                S, hd, stat_row, scale, stream);
 }
 
-// K9b: dq, with flash_attn_bwd_dkv's arguments (dk's and dv's strides read
-// and not used).
+// K9b, fp32: dq, with flash_attn_bwd_dkv's arguments (dk's and dv's strides
+// read and not used).
 int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
                       const void* g, const float* lse, const float* delta,
                       void* dq, const long long* strides, int B, int nH,
-                      int S, int hd, long long stat_row, int bf16,
-                      float scale, void* stream) {
-  return launch(kDq, {q, k, v, g, lse, delta, dq, dq}, strides, B, nH, S,
-                hd, stat_row, bf16, scale, stream);
+                      int S, int hd, long long stat_row, float scale,
+                      void* stream) {
+  return launch(kDq, {q, k, v, g, lse, delta, dq, dq, dq}, strides, B, nH, S,
+                hd, stat_row, scale, stream);
 }
+
+// The keys a CTA of flash_attn_bwd (each adds one partial of every query
+// block into dq_acc).
+int flash_attn_bwd_block_keys() { return Fused<32>::kKeys; }
 
 const char* flash_attn_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

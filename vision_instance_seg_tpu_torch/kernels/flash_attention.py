@@ -1,5 +1,5 @@
 """Full self-attention of the full-attention encoder: the CUDA kernels K8
-(forward), K9a and K9b (backward) and their plain versions.
+(forward) and K9 (backward) and their plain versions.
 
 ``softmax(q . k^T * scale) . v`` over (B, nH, S, hd), no mask, every query
 against all S keys: what ``vision_instance_seg_tpu/models/pixel_decoder.py``
@@ -9,23 +9,27 @@ jnp path elsewhere. K8 (``csrc/flash_attn_fwd.cu``) replaces the TPU
 kernel: bf16 on the tensor cores (one pass of an online softmax over
 64-key blocks), fp32 on a SIMT body of the same loop.
 
-The backward is JAX's flash-attention backward, split as JAX splits it
-(``_flash_attention_bwd``: ``_flash_attention_bwd_dkv`` and
-``_flash_attention_bwd_dq``, the TPU kernels that K9a and K9b of
-``csrc/flash_attn_bwd.cu`` replace): P recomputed from q, k and each row's
-log-sum-exp, which K8 writes when asked; D = rowsum(o * dO) in torch
-before both kernels; K9a gives dK and dV by key blocks, K9b dQ by query
-blocks.
+The backward replaces JAX's flash-attention backward
+(``_flash_attention_bwd``: the TPU kernels ``_flash_attention_bwd_dkv`` and
+``_flash_attention_bwd_dq``): P recomputed from q, k and each row's
+log-sum-exp, which K8 writes when asked, and D = rowsum(o * dO). In bf16
+one fused kernel (``csrc/flash_attn_bwd.cu``
+``flash_attn_bwd``) gives dK and dV by key blocks and adds each key block's
+partial of dQ into an fp32 accumulator, between two helper kernels (the
+row statistics and the zeroed accumulator before it, dQ's scaled cast
+after it); in fp32 D in torch, then two SIMT kernels that split the work
+as JAX does, K9a (dK and dV by key blocks) and K9b (dQ by query blocks).
 
 ``full_attention`` is the entry point the encoder calls: a CPU tensor takes
 the plain forward (differentiable by autograd); a CUDA tensor that requires
 grad (with grad enabled) ``FlashAttentionFunction``, K8 with the row
-log-sum-exp forward and D, K9a and K9b backward; any other CUDA tensor K8
+log-sum-exp forward and D and K9 backward; any other CUDA tensor K8
 alone. The kernels raise on what they do not take (a head dim that is not
 a multiple of 16 or is above 128, a type other than bf16 or fp32, rows that
 are not 16-byte aligned). Nothing falls back.
-``LAUNCHES["flash_attn_fwd"]``, ``["flash_attn_bwd_dkv"]`` and
-``["flash_attn_bwd_dq"]`` count the launches.
+``LAUNCHES["flash_attn_fwd"]``, ``["flash_attn_bwd"]`` (bf16) and
+``["flash_attn_bwd_dkv"]``, ``["flash_attn_bwd_dq"]`` (fp32) count the
+launches.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ MAX_HEAD_DIM = 128           # csrc: head dims 16, 32, ..., 128
 MAX_HEADS_TIMES_BATCH = 65535    # the grid's second dimension
 MAX_CHUNK_BYTES = 2 ** 31    # the plain version's fp32 logits per chunk
 STAT_BLOCK = 64              # csrc: the row statistics' rows are padded to
-                             # a multiple of this (K9a's query block)
+                             # a multiple of this (K9's query block)
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -179,19 +183,27 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_library() -> ctypes.CDLL:
-    from vision_instance_seg_tpu_torch.kernels.build import load_library
-    lib = load_library("flash_attn_bwd")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_attn_bwd_dkv.argtypes = ([p] * 9 + [i] * 4 +
-                                       [ll, i, ctypes.c_float, p])
-    lib.flash_attn_bwd_dq.argtypes = ([p] * 8 + [i] * 4 +
-                                      [ll, i, ctypes.c_float, p])
-    lib.flash_attn_bwd_dkv.restype = lib.flash_attn_bwd_dq.restype = i
+def _bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The argument types of ``csrc/flash_attn_bwd.cu``'s entry points (a
+    build of it, or of a version of it)."""
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    for name, n_ptr in (("flash_attn_bwd", 10), ("flash_attn_bwd_dkv", 9),
+                        ("flash_attn_bwd_dq", 8)):
+        getattr(lib, name).argtypes = [p] * n_ptr + [i] * 4 + [ll, f, p]
+    lib.flash_attn_bwd_prep.argtypes = ([p] * 3 + [ll] * 2 + [p] * 4 +
+                                        [i] * 4 + [ll, p])
+    lib.flash_attn_bwd_dq_cast.argtypes = [p] * 3 + [i] * 4 + [ll, f, p]
+    lib.flash_attn_bwd_block_keys.argtypes = []
     lib.flash_attn_bwd_error_string.argtypes = [i]
     lib.flash_attn_bwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_library() -> ctypes.CDLL:
+    from vision_instance_seg_tpu_torch.kernels.build import load_library
+    return _bind_bwd(load_library("flash_attn_bwd"))
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:
@@ -263,72 +275,126 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out if lse is None else (out, lse[..., :s])
 
 
-def _padded_stat(t: torch.Tensor) -> torch.Tensor:
-    """A (B, nH, S) fp32 row statistic as the kernels read it: rows of
-    ``_stat_row(S)`` floats (the view K8 returns already is one)."""
-    b, nh, s = t.shape
-    sp = _stat_row(s)
-    if t.dtype == torch.float32 and t.stride() == (nh * sp, sp, 1) and \
-            t.data_ptr() % 16 == 0:
-        return t
-    out = torch.zeros((b, nh, sp), dtype=torch.float32, device=t.device)
-    out[..., :s] = t
-    return out
-
-
 def _bwd_operands(q, k, v, o, lse, do) -> tuple:
-    """The cotangent with 16-byte aligned rows, each row's lse and D =
-    rowsum(o * do) (fp32, torch) in rows of ``_stat_row(S)`` floats, after
-    K9's checks."""
+    """The cotangent and the forward's output with 16-byte aligned rows and
+    its lse with contiguous tokens, after K9's checks."""
     if do.shape == q.shape and not _rows_aligned(do):
         do = do.contiguous()
-    _check_operands("K9", q, k, v, do)
-    if o.shape != q.shape or lse.shape != q.shape[:3] or \
-            o.device != q.device or lse.device != q.device:
-        raise ValueError(f"K9 takes o of q's shape and lse of (B, nH, S) on "
-                         f"q's device: {tuple(o.shape)}, {tuple(lse.shape)}")
-    with torch.autocast(q.device.type, enabled=False):
-        delta = (o.float() * do.float()).sum(-1)
-    return do, _padded_stat(lse), _padded_stat(delta)
+    if o.shape == q.shape and not _rows_aligned(o):
+        o = o.contiguous()
+    _check_operands("K9", q, k, v, do, o)
+    if lse.shape != q.shape[:3] or lse.device != q.device or \
+            lse.dtype != torch.float32:
+        raise ValueError(f"K9 takes an fp32 lse of (B, nH, S) on q's device: "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    return do, o, lse if lse.stride(-1) == 1 else lse.contiguous()
 
 
-def _launch_bwd_kernel(name: str, q, k, v, do, lse, delta, outs,
-                       scale: float) -> None:
-    """K9a (``flash_attn_bwd_dkv``: outs dk, dv) or K9b
-    (``flash_attn_bwd_dq``: outs dq) on operands from ``_bwd_operands``;
-    outs are (B, nH, S, hd) with 16-byte aligned rows."""
-    b, nh, s, hd = q.shape
-    # the strides of dq, dk, dv; each kernel reads only its own (q fills
-    # the others)
-    grads = (q, *outs) if name == "flash_attn_bwd_dkv" else (outs[0], q, q)
-    strides = (ctypes.c_longlong * 21)(
-        *(st for t in (q, k, v, do, *grads) for st in t.stride()[:3]))
-    lib = _bwd_library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, name)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
-            strides, b, nh, s, hd, _stat_row(s),
-            int(q.dtype == torch.bfloat16), scale, stream)
+def _strides(*ts: torch.Tensor):
+    """The C interface's 21 element strides: (batch, head, token) of q, k,
+    v, the cotangent, dq, dk, dv, in that order."""
+    return (ctypes.c_longlong * 21)(*(st for t in ts for st in t.stride()[:3]))
+
+
+def _call(name: str, *args, lib=None) -> None:
+    lib = lib or _bwd_library()
+    err = getattr(lib, name)(*args)
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.flash_attn_bwd_error_string(err).decode()}"
                            f" ({err})")
-    LAUNCHES[name] += 1
+    if name in LAUNCH_NAMES:
+        LAUNCHES[name] += 1
+
+
+# the kernels counted in LAUNCHES: K9 (bf16) and K9a, K9b (fp32), not the
+# bf16 kernel's two helpers (flash_attn_bwd_prep, flash_attn_bwd_dq_cast)
+LAUNCH_NAMES = ("flash_attn_bwd", "flash_attn_bwd_dkv", "flash_attn_bwd_dq")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _bwd_prep(q, o, lse, do, lib=None) -> tuple:
+    """bf16, before the fused kernel (``flash_attn_bwd_prep``): the row
+    statistics (2, B nH, stat_row) fp32, lse * log2 e and D = rowsum(o *
+    do), zero past S, and the zeroed dQ accumulator (B nH, stat_row, hd)
+    fp32."""
+    b, nh, s, hd = q.shape
+    sp = _stat_row(s)
+    stats = torch.empty((2, b * nh, sp), dtype=torch.float32,
+                        device=q.device)
+    acc = torch.empty((b * nh, sp, hd), dtype=torch.float32,
+                      device=q.device)
+    with torch.cuda.device(q.device):
+        _call("flash_attn_bwd_prep", o.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), lse.stride(0), lse.stride(1),
+              stats[0].data_ptr(), stats[1].data_ptr(), acc.data_ptr(),
+              _strides(o, o, o, do, o, o, o), b, nh, s, hd, sp, _stream(q),
+              lib=lib)
+    return stats, acc
+
+
+def _launch_bwd_kernel(q, k, v, do, stats, dq_acc, dk, dv, scale: float,
+                       lib=None) -> None:
+    """The fused bf16 K9 (``flash_attn_bwd``) on operands from
+    ``_bwd_operands`` and ``_bwd_prep``: dk and dv (B, nH, S, hd) with
+    16-byte aligned rows, dQ / scale added into ``dq_acc``."""
+    b, nh, s, hd = q.shape
+    with torch.cuda.device(q.device):
+        _call("flash_attn_bwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              do.data_ptr(), stats[0].data_ptr(), stats[1].data_ptr(),
+              dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+              _strides(q, k, v, do, q, dk, dv), b, nh, s, hd,
+              stats.shape[-1], scale, _stream(q), lib=lib)
+
+
+def _bwd_dq_cast(acc, dq, scale: float, lib=None) -> None:
+    """bf16, after the fused kernel (``flash_attn_bwd_dq_cast``): dq =
+    accumulator * scale, cast."""
+    b, nh, s, hd = dq.shape
+    with torch.cuda.device(dq.device):
+        _call("flash_attn_bwd_dq_cast", acc.data_ptr(), dq.data_ptr(),
+              _strides(dq, dq, dq, dq, dq, dq, dq), b, nh, s, hd,
+              acc.shape[1], scale, _stream(dq), lib=lib)
+
+
+def _launch_bwd_simt(q, k, v, o, lse, do, dq, dk, dv, scale: float) -> None:
+    """fp32: D and the statistics in torch ((2, B, nH, stat_row), zero past
+    S), then K9a (``flash_attn_bwd_dkv``: dk, dv) and K9b
+    (``flash_attn_bwd_dq``: dq)."""
+    b, nh, s, hd = q.shape
+    stats = torch.zeros((2, b, nh, _stat_row(s)), dtype=torch.float32,
+                        device=q.device)
+    stats[0, ..., :s] = lse
+    stats[1, ..., :s] = (o * do).sum(-1)
+    strides = _strides(q, k, v, do, dq, dk, dv)
+    ptrs = [t.data_ptr() for t in (q, k, v, do, stats[0], stats[1])]
+    with torch.cuda.device(q.device):
+        tail = (strides, b, nh, s, hd, stats.shape[-1], scale, _stream(q))
+        _call("flash_attn_bwd_dkv", *ptrs, dk.data_ptr(), dv.data_ptr(),
+              *tail)
+        _call("flash_attn_bwd_dq", *ptrs, dq.data_ptr(), *tail)
 
 
 def _launch_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-                scale: float) -> tuple:
-    """D in torch, then K9a (dk, dv) and K9b (dq). The gradients are (B,
-    nH, S, hd) views of (B, S, nH, hd) memory."""
-    do, lse, delta = _bwd_operands(q, k, v, o, lse, do)
+                scale: float, lib=None) -> tuple:
+    """K9 on CUDA tensors: in bf16 the fused kernel between its two helpers
+    (the statistics and the zeroed fp32 dQ accumulator before it, dQ's
+    scaled cast after it); in fp32 D in torch, then K9a and K9b. The
+    gradients are (B, nH, S, hd) views of (B, S, nH, hd) memory. ``lib``:
+    another build of the kernels' source (the bf16 benches' variants)."""
+    do, o, lse = _bwd_operands(q, k, v, o, lse, do)
     dq, dk, dv = _heads_view(q), _heads_view(k), _heads_view(v)
-    _launch_bwd_kernel("flash_attn_bwd_dkv", q, k, v, do, lse, delta,
-                       (dk, dv), scale)
-    _launch_bwd_kernel("flash_attn_bwd_dq", q, k, v, do, lse, delta, (dq,),
-                       scale)
+    with torch.autocast(q.device.type, enabled=False):
+        if q.dtype != torch.bfloat16:
+            _launch_bwd_simt(q, k, v, o, lse, do, dq, dk, dv, scale)
+            return dq, dk, dv
+        stats, acc = _bwd_prep(q, o, lse, do, lib)
+        _launch_bwd_kernel(q, k, v, do, stats, acc, dk, dv, scale, lib)
+        _bwd_dq_cast(acc, dq, scale, lib)
     return dq, dk, dv
 
 
@@ -340,7 +406,7 @@ def _forward_lse(q, k, v, scale):
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """K8 with each row's log-sum-exp forward; D, K9a and K9b backward, on
+    """K8 with each row's log-sum-exp forward; D and K9 backward, on
     CUDA. On the CPU the plain versions of the same steps
     (``full_attention_torch`` and ``attention_lse_torch``, then
     ``flash_attention_bwd_torch``), which the CPU tests use to check this
@@ -370,7 +436,7 @@ class FlashAttentionFunction(torch.autograd.Function):
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    scale: float) -> torch.Tensor:
-    """(B, nH, S, hd) self-attention: for CUDA tensors K8, with K9a and K9b
+    """(B, nH, S, hd) self-attention: for CUDA tensors K8, with K9
     behind it when a gradient is wanted; the plain version for CPU tensors.
     The output is (B, nH, S, hd); the kernels' is a view of (B, S, nH, hd)
     memory."""
