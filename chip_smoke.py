@@ -18,7 +18,10 @@ Swin stages 1-4, split at the window encoder's three levels) and split at
 window 16, K6 at all seven shapes of the flagship's training path and split
 at window 16, K8 (the full-attention encoder's flash-attention forward)
 at its serving and training shapes, with 4 heads of 64, on a ragged short
-sequence and on sharp logits (in fp32 against a float64 attention), and
+sequence, at S 129 and head dims 16 and 128 (bf16 in both instances, with
+and without each row's lse, each call repeated bit for bit; the registers
+and spills of each instance from the build's log) and on sharp logits (in
+fp32 against a float64 attention), and
 K9 (its backward: one fused wgmma kernel in bf16, K9a / K9b's SIMT
 bodies in fp32) at the training shape, with 4 heads of 64, on ragged
 short sequences (77 and 129 tokens) and at head dims 16, 48 and 128.
@@ -88,6 +91,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -875,23 +879,53 @@ ENC_TOKENS = sum(h * w for h, w in LEVELS)                  # 13,125 at 800 px
 TRAIN_TOKENS = sum(h * w for h, w in TRAIN_LEVELS)          # 8,400 at 640 px
 # name -> (B, nH, S, hd, dtype, sd of q and k). The serving shape (the
 # kernels line's row), the training shape (640 px, batch 2), 4 heads of 64,
-# a short ragged S, sharp logits in bf16 (sd 3: N(0, 81), the running max
-# moves often over 206 key blocks), fp32 at batch 1 and fp32 on sharp
+# a short ragged S, S = 129 (one real key in the last 128-key block, one
+# real query row in the last CTA's block), the smallest and the largest
+# head dim at a short S, sharp logits in bf16 (sd 3: N(0, 81), the running
+# max moves often over 103 key blocks), fp32 at batch 1 and fp32 on sharp
 # logits. That last one is not held to 1e-5 of the plain version: a logit
 # of magnitude ~45 carries an fp32 rounding of ~4e-6 in each version, so
 # p, and an output that mixes a few keys, move by ~1e-5 relative. Both are
 # held instead to a float64 attention: K8's max error from it at most the
-# plain version's.
+# plain version's. Every bf16 case runs both instances (the output alone,
+# and with each row's lse) and checks that a second call gives the same
+# bits.
 K8_CASES = {
     "serving": (BATCH, HEADS, ENC_TOKENS, HEAD_DIM, torch.bfloat16, 1.0),
     "training": (TRAIN_BATCH, HEADS, TRAIN_TOKENS, HEAD_DIM, torch.bfloat16,
                  1.0),
     "4 x 64": (BATCH, 4, ENC_TOKENS, 64, torch.bfloat16, 1.0),
     "ragged 77": (BATCH, HEADS, 77, HEAD_DIM, torch.bfloat16, 1.0),
+    "129": (BATCH, HEADS, 129, HEAD_DIM, torch.bfloat16, 1.0),
+    "hd 16": (1, 4, 1000, 16, torch.bfloat16, 1.0),
+    "hd 128": (1, 4, 1000, 128, torch.bfloat16, 1.0),
     "sharp": (1, HEADS, ENC_TOKENS, HEAD_DIM, torch.bfloat16, 3.0),
     "fp32": (1, HEADS, ENC_TOKENS, HEAD_DIM, torch.float32, 1.0),
     "sharp fp32": (1, HEADS, ENC_TOKENS, HEAD_DIM, torch.float32, 3.0),
 }
+# K8's lse against the plain version's fp32 logsumexp: sums over S fp32
+# terms in another order, ex2.approx
+K8_LSE_TOL = 2e-5
+
+
+def k8_build_info(log: str) -> dict:
+    """{(hd, with lse): (registers, spill bytes stored and loaded)} of the
+    bf16 K8 instances in ``nvcc -Xptxas -v``'s output of
+    flash_attn_fwd.cu. The registers are the count at launch; the
+    warpgroups' own come from ``setmaxnreg`` (``Fwd`` in the source)."""
+    out, key, spill = {}, None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"flash_fwd_wgmma_kernelILi(\d+)ELb([01])E", line)
+            key = (int(m.group(1)), m.group(2) == "1") if m else None
+        elif key is not None and "spill stores" in line:
+            spill = sum(int(x) for x in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", line))
+        elif key is not None and re.search(r"Used \d+ registers", line):
+            out[key] = (int(re.search(r"Used (\d+) registers",
+                                      line).group(1)), spill)
+            key, spill = None, 0
+    return out
 
 
 def attention_f64(q, k, v, scale: float, rows: int = 512) -> torch.Tensor:
@@ -920,13 +954,30 @@ def k8_bound_ms(b: int, nh: int, s: int, hd: int, dtype) -> tuple:
         f"ex2 {t_ex2:.4f} ms: {what}")
 
 
-def flash_kernel_phase(FA, smi: str) -> dict:
+def _k8_lse_share(FA, lse, q, k, scale) -> float:
+    """K8's lse against the plain version's: the largest |kernel - plain|
+    over K8_LSE_TOL (1 + |plain|)."""
+    want = FA.attention_lse_torch(q, k, scale)
+    return ((lse - want).abs() / (K8_LSE_TOL * (1 + want.abs()))).max().item()
+
+
+def flash_kernel_phase(FA, build, smi: str) -> dict:
     """K8 at every shape of ``K8_CASES`` against its plain version (in bf16
     on q as the plain version rounds q * scale, with scale 1: the plain
     version's output at the real scale, bit for bit, since K8 scales in
-    fp32 and that rounding of the logits is the plain version's own);
-    kernel, plain, SDPA (timed here only) and bound times. The kernels
-    line's row: the serving shape in bf16."""
+    fp32 and that rounding of the logits is the plain version's own); in
+    bf16 both instances (the lse one's lse within ``K8_LSE_TOL``) and a
+    second call of each, bit for bit; kernel, plain, SDPA (timed here only)
+    and bound times, and the registers and spills of the instance from the
+    build's log (a spill fails the phase). The kernels line's row: the
+    serving shape in bf16."""
+    log = build.library_path(build.CSRC / "flash_attn_fwd.cu").with_suffix(
+        ".log").read_text()
+    info = k8_build_info(log)
+    spilled = {key: v for key, v in info.items() if v[1]}
+    if len(info) != 16 or spilled:
+        raise AssertionError(f"K8's bf16 instances: {len(info)} of 16 in "
+                             f"the build log, spills (bytes) {spilled}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
     row, max_err = None, 0.0
     for name, (b, nh, s, hd, dtype, sd) in K8_CASES.items():
@@ -942,33 +993,52 @@ def flash_kernel_phase(FA, smi: str) -> dict:
         if FA.LAUNCHES["flash_attn_fwd"] != before + 1:
             raise AssertionError(f"K8 {name} did not launch")
         want = FA.full_attention_torch(q, k, v, scale)
-        err_t = (got.float() - want.float()).abs()
         ref = want.float().abs()
-        err = err_t.max().item()
+        outs = {"out": got}
+        extra = ""
         if dtype == torch.bfloat16:
-            why = "2^-7 |plain| + 2^-8 max|plain| per element"
-            ok = bool((err_t <= 2.0 ** -7 * ref + 2.0 ** -8 * ref.max())
-                      .all())
-        elif sd == 1.0:
-            why = "1e-5 max|plain|"
-            ok = err <= 1e-5 * ref.max().item()
-        else:
-            f64 = attention_f64(q, k, v, scale)
-            ek = (got.double() - f64).abs().max().item()
-            ep = (want.double() - f64).abs().max().item()
-            why = (f"float64: max |kernel - f64| {ek:.3e} <= max |plain - "
-                   f"f64| {ep:.3e}, ratio {ek / ep:.3f}")
-            ok = ek <= ep
-            del f64
+            outs["lse instance"], lse = FA._launch(q, k, v, scale,
+                                                   with_lse=True)
+            lse_share = _k8_lse_share(FA, lse, q, k, scale)
+            same = (torch.equal(got, FA.full_attention(q, k, v, scale)) and
+                    torch.equal(outs["lse instance"],
+                                FA._launch(q, k, v, scale, True)[0]))
+            extra = (f"; lse within {lse_share:.3f} of {K8_LSE_TOL} (1 + "
+                     f"|plain|); a second call of each instance bit for "
+                     f"bit: {same}")
+            del lse
+        ok, errs = True, []
+        for label, out in outs.items():
+            err_t = (out.float() - want.float()).abs()
+            err = err_t.max().item()
+            if dtype == torch.bfloat16:
+                why = "2^-7 |plain| + 2^-8 max|plain| per element"
+                ok &= bool((err_t <= 2.0 ** -7 * ref + 2.0 ** -8 * ref.max())
+                           .all())
+            elif sd == 1.0:
+                why = "1e-5 max|plain|"
+                ok &= err <= 1e-5 * ref.max().item()
+            else:
+                f64 = attention_f64(q, k, v, scale)
+                ek = (out.double() - f64).abs().max().item()
+                ep = (want.double() - f64).abs().max().item()
+                why = (f"float64: max |kernel - f64| {ek:.3e} <= max |plain "
+                       f"- f64| {ep:.3e}, ratio {ek / ep:.3f}")
+                ok &= ek <= ep
+                del f64
+            ok &= out.dtype == want.dtype == dtype
+            errs.append(f"{label} {err:.3e}")
+            max_err = max(max_err, err)
+        if dtype == torch.bfloat16:
+            ok &= lse_share <= 1 and same
         dn = str(dtype).replace("torch.", "")
         print(f"K8 {name} {dn} {(b, nh, s, hd)}: max |kernel - plain| = "
-              f"{err:.3e}, max|plain| {ref.max().item():.3e} (tolerance "
-              f"{why}): {ok}", flush=True)
-        if not (ok and got.dtype == want.dtype == dtype):
+              f"{', '.join(errs)}, max|plain| {ref.max().item():.3e} "
+              f"(tolerance {why}){extra}: {ok}", flush=True)
+        if not ok:
             raise AssertionError(f"K8 {name} ({dn}) disagrees with its "
                                  f"plain version")
-        max_err = max(max_err, err)
-        del got, want, err_t, ref
+        del got, want, ref, outs
         if sd != 1.0:
             continue
         ms = cuda_time_ms(lambda: FA.full_attention(q, k, v, scale), reps=10)
@@ -978,10 +1048,18 @@ def flash_kernel_phase(FA, smi: str) -> dict:
         lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, scale=scale), reps=10)
         bound, bound_by, detail = k8_bound_ms(b, nh, s, hd, dtype)
+        built = ""
+        if dtype == torch.bfloat16:
+            lse_ms = cuda_time_ms(lambda: FA._launch(q, k, v, scale, True),
+                                  reps=10)
+            built = (f"; the lse instance {lse_ms:.4f} ms; registers at "
+                     f"launch and spilled bytes: {info[(hd, False)]}, lse "
+                     f"instance {info[(hd, True)]}")
         print(f"K8 {name} {dn} {(b, nh, s, hd)}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, bound {bound:.4f} "
               f"ms ({bound_by}; {detail}), {bound / ms:.1%} of the bound, "
-              f"{lib_ms / ms:.2f}x SDPA's speed, on {smi}", flush=True)
+              f"{lib_ms / ms:.2f}x SDPA's speed{built}, on {smi}",
+              flush=True)
         if name == "serving":
             row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound, bound_by=bound_by)
@@ -2017,7 +2095,7 @@ def main() -> int:
                "msdeform_attn_bwd": bwd_kernel_phase(K, smi)}
     numbers.update(window_kernel_phase(WA, smi))
     numbers.update(window_bwd_kernel_phase(WA, smi))
-    numbers.update(flash_kernel_phase(FA, smi))
+    numbers.update(flash_kernel_phase(FA, build, smi))
     numbers.update(flash_bwd_kernel_phase(FA, smi))
 
     cfg = get_cfg()

@@ -1,11 +1,12 @@
 """What the kernel benches (``bench_k1.py``, ``bench_k4.py``, ``bench_k5.py``,
-``bench_k6.py``, ``bench_msdeform_bwd.py``) share: the run over checkouts of
-the port, one child process each, and the parallel build of versions of a
-kernel's source.
+``bench_k6.py``, ``bench_k8.py``, ``bench_k9.py``, ``bench_msdeform_bwd.py``)
+share: the run over checkouts of the port, one child process each, and the
+parallel build of versions of a kernel's source.
 
 ``main_over_roots`` is a bench's ``main``. ``SCRIPT --child ROOT`` imports
 the port from ROOT and prints ``measure(ROOT)`` as one JSON line {"root",
-"device", "shapes": {name: {...}}}. Otherwise the card's name and power
+"device", "card", "shapes": {name: {...}}} ("card": the name and power
+limit as nvidia-smi gives them). Otherwise the card's name and power
 limit come first, then each ROOT (default: this checkout) runs in a child
 of its own, in the order given, so that ``A B B A`` compares two trees on
 one card (a parent goes into ``_chip/`` with ``git archive``); where the
@@ -42,7 +43,8 @@ def main_over_roots(script: str, argv, measure, variants=None,
         shapes = measure(os.path.abspath(argv[1]))
         print(json.dumps({"root": argv[1],
                           "device": torch.cuda.get_device_name(0),
-                          "shapes": shapes}), flush=True)
+                          "card": device_line(), "shapes": shapes}),
+              flush=True)
         return 0
     name = os.path.splitext(os.path.basename(script))[0]
     if not torch.cuda.is_available():

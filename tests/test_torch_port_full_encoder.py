@@ -135,10 +135,11 @@ def test_k8_head_dim_rule(hd, takes):
 
 
 # -------------------------------------------- K8's bf16 bound, pinned here
-def k8_emulation(q, k, v, scale, bits=7, block=64):
+def k8_emulation(q, k, v, scale, bits=7, block=FA.KEY_BLOCK):
     """K8's arithmetic in torch on (B, nH, S, hd) operands: fp32 q . k over
-    key blocks of 64 (the last one ragged), scaled in fp32 in base 2; an
-    fp32 running max and sum; p = exp2(s - running max), unnormalized,
+    key blocks of ``block`` (the bf16 body's, ``FA.KEY_BLOCK``; the last
+    one ragged), scaled in fp32 in base 2; an fp32 running max and sum; p
+    = exp2(s - running max), unnormalized,
     rounded to ``bits`` mantissa bits (bf16 keeps 7; None: not rounded)
     before p . v, the sum from fp32 p; o rescaled when the max moves and
     scaled by 1 / sum at the end (an fp32 result)."""
@@ -191,16 +192,18 @@ def _emulation_inputs(case, seed, dtype):
 
 
 # p rounded to 7 bits (bf16) stays inside the bound (a CPU run of this
-# emulation: 0.55-0.66 of it); 4 bits leave it in every case (1.5-3.3x)
-# and 2 bits far (6.5-11x)
+# emulation: 0.55-0.66 of it at either block); 4 bits leave it in every
+# case (1.5-3.3x) and 2 bits far (6.5-11x). The blocks: the mma.sync
+# body's 64 keys and the wgmma body's FA.KEY_BLOCK.
 @pytest.mark.parametrize("bits,passes", [(7, True), (2, False)])
 @pytest.mark.parametrize("case", list(EMULATION_CASES))
-def test_k8_bf16_bound_holds_the_body_rounding(case, bits, passes):
-    """One head: the plain version in bf16 against K8's rounding, rounded
-    to bf16 once at the end."""
+@pytest.mark.parametrize("block", sorted({64, FA.KEY_BLOCK}))
+def test_k8_bf16_bound_holds_the_body_rounding(block, case, bits, passes):
+    """One head: the plain version in bf16 against K8's rounding over key
+    blocks of ``block``, rounded to bf16 once at the end."""
     q, k, v, scale = _emulation_inputs(case, 31, torch.bfloat16)
     want = FA.full_attention_torch(q, k, v, scale, max_chunk_bytes=2 ** 28)
-    got = k8_emulation(q, k, v, scale, bits).bfloat16()
+    got = k8_emulation(q, k, v, scale, bits, block).bfloat16()
     ok = bool(((got.float() - want.float()).abs()
                <= bf16_tol(want)).all())
     assert ok == passes

@@ -1540,10 +1540,14 @@ def test_window_kernels_reject_what_they_do_not_take():
 # ------------------------------------------------- K8, full self-attention
 # (B, nH, S, hd): the full encoder's serving (800 px) and training (640 px)
 # shapes, 4 heads of 64, a short ragged S, the smallest and largest head
-# dims K8 takes
+# dims K8 takes; S = 129 (one real key in the bf16 body's last 128-key
+# block, one real query row in its last CTA) and the smallest and largest
+# head dims at S = 1000 (query blocks of 192 and 128 rows)
 K8_SHAPES = {"serving": (8, 8, 13125, 32), "training": (2, 8, 8400, 32),
              "4 x 64": (2, 4, 1300, 64), "ragged": (2, 8, 77, 32),
-             "hd 16": (1, 2, 130, 16), "hd 128": (1, 2, 200, 128)}
+             "hd 16": (1, 2, 130, 16), "hd 128": (1, 2, 200, 128),
+             "129": (2, 8, 129, 32), "hd 16 1000": (1, 4, 1000, 16),
+             "hd 128 1000": (1, 4, 1000, 128)}
 
 
 def k8_inputs(shape, dtype, seed=0):
@@ -1586,6 +1590,40 @@ def test_k8_matches_plain_on_cuda(case, dtype):
     assert FA.LAUNCHES["flash_attn_fwd"] == before + 1
     assert got.shape == q.shape and got.dtype == q.dtype
     assert k8_close(got, FA.full_attention_torch(q, k, v, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(K8_SHAPES))
+def test_k8_lse_instance_matches_plain_on_cuda(case, dtype):
+    """The training instance: the output as the serving one's tolerance
+    holds it, each row's lse within 2e-5 (1 + |plain|) of the plain
+    version's fp32 logsumexp (sums over S terms in another order,
+    ex2.approx)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    q, k, v, scale = k8_inputs(K8_SHAPES[case], getattr(torch, dtype), 1)
+    out, lse = FA._launch(q, k, v, scale, with_lse=True)
+    torch.cuda.synchronize()
+    assert k8_close(out, FA.full_attention_torch(q, k, v, scale))
+    want = FA.attention_lse_torch(q, k, scale)
+    assert lse.shape == want.shape
+    assert bool(((lse - want).abs() <= 2e-5 * (1 + want.abs())).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_lse", [False, True])
+@pytest.mark.parametrize("case", ["training", "129", "hd 128 1000"])
+def test_k8_repeats_bit_for_bit_on_cuda(case, with_lse):
+    """bf16 K8 has no atomics: two calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, k, v, scale = k8_inputs(K8_SHAPES[case], torch.bfloat16, 2)
+    first = FA._launch(q, k, v, scale, with_lse=with_lse)
+    again = FA._launch(q, k, v, scale, with_lse=with_lse)
+    torch.cuda.synchronize()
+    pairs = zip(first, again) if with_lse else [(first, again)]
+    assert all(torch.equal(a, b) for a, b in pairs)
 
 
 @pytest.mark.cuda
@@ -1683,6 +1721,50 @@ def _wgmma_widths(kind: str) -> set:
         if f" {kind}(float (&d)[{nt}][4]" in body:
             out.add(int(nt))
     return out
+
+
+@pytest.mark.parametrize("hd", range(16, 129, 16))
+def test_k8_wgmma_has_every_width_it_takes(hd):
+    """K8's bf16 body runs S = Q K^T over FA.KEY_BLOCK keys (ss) and O +=
+    P V at hd (rs); csrc/wgmma.cuh must define each, or the card's build
+    fails."""
+    assert FA.KEY_BLOCK // 8 in _wgmma_widths("ss")
+    assert hd // 8 in _wgmma_widths("rs")
+
+
+def test_k8_key_block_is_the_kernels():
+    """FA.KEY_BLOCK (the CPU emulation's block,
+    tests/test_torch_port_full_encoder.py) is the bf16 body's kKeys."""
+    src = (pathlib.Path(FA.__file__).parent / "csrc" / "flash_attn_fwd.cu"
+           ).read_text()
+    assert re.findall(r"int kKeys = (\d+);", src) == [str(FA.KEY_BLOCK)]
+
+
+def test_k8_build_info_reads_the_ptxas_lines():
+    """``chip_smoke.k8_build_info`` takes each bf16 instance's registers
+    and spilled bytes from ``nvcc -Xptxas -v``'s output, and skips the
+    fp32 bodies."""
+    import chip_smoke
+    entry = ("ptxas info    : Compiling entry function '_ZN50_GLOBAL__N__7f_"
+             "flash_attn_fwd_cu_cd22flash_fwd_{}EEEvPK13__nv_bfloat16' for "
+             "'sm_90a'\n")
+    log = "".join([
+        entry.format("wgmma_kernelILi32ELb0"),
+        "ptxas info    : Function properties for _ZN50_x\n",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n",
+        "ptxas info    : Used 128 registers, used 16 barriers\n",
+        entry.format("simt_kernelILi32"),
+        "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill "
+        "loads\n",
+        "ptxas info    : Used 69 registers, used 1 barriers\n",
+        entry.format("wgmma_kernelILi128ELb1"),
+        "    32 bytes stack frame, 12 bytes spill stores, 20 bytes spill "
+        "loads\n",
+        "ptxas info    : Used 168 registers, used 16 barriers, 32 bytes "
+        "cumulative stack size\n"])
+    assert chip_smoke.k8_build_info(log) == {(32, False): (128, 0),
+                                             (128, True): (168, 32)}
 
 
 @pytest.mark.parametrize("hd", range(16, 129, 16))

@@ -6,8 +6,11 @@ against all S keys: what ``vision_instance_seg_tpu/models/pixel_decoder.py``
 ``_flash_or_dense_attention`` computes, with JAX's bundled TPU
 flash-attention forward (``_flash_attention_impl``) on a TPU and a dense
 jnp path elsewhere. K8 (``csrc/flash_attn_fwd.cu``) replaces the TPU
-kernel: bf16 on the tensor cores (one pass of an online softmax over
-64-key blocks), fp32 on a SIMT body of the same loop.
+kernel: bf16 on the tensor cores (``wgmma``: a producer thread that loads
+K and V by TMA into a ring of stages, consumer warpgroups of 64 query rows
+that run one pass of an online softmax over ``KEY_BLOCK``-key blocks and
+take turns on the tensor cores), fp32 on a SIMT body of the same loop
+over 64-key blocks.
 
 The backward replaces JAX's flash-attention backward
 (``_flash_attention_bwd``: the TPU kernels ``_flash_attention_bwd_dkv`` and
@@ -45,6 +48,8 @@ MAX_HEADS_TIMES_BATCH = 65535    # the grid's second dimension
 MAX_CHUNK_BYTES = 2 ** 31    # the plain version's fp32 logits per chunk
 STAT_BLOCK = 64              # csrc: the row statistics' rows are padded to
                              # a multiple of this (K9's query block)
+KEY_BLOCK = 128              # csrc: keys a step of K8's bf16 body, the
+                             # blocks of its online softmax
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -170,10 +175,9 @@ def takes(dtype: torch.dtype, head_dim: int) -> bool:
             and 16 <= head_dim <= MAX_HEAD_DIM)
 
 
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    from vision_instance_seg_tpu_torch.kernels.build import load_library
-    lib = load_library("flash_attn_fwd")
+def _bind_fwd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The argument types of ``csrc/flash_attn_fwd.cu``'s entry points (a
+    build of it, or of a version of it)."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attn_fwd.argtypes = ([p] * 5 + [i] * 5 +
                                    [ctypes.c_float, p, ctypes.c_longlong, p])
@@ -181,6 +185,12 @@ def _library() -> ctypes.CDLL:
     lib.flash_attn_fwd_error_string.argtypes = [i]
     lib.flash_attn_fwd_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    from vision_instance_seg_tpu_torch.kernels.build import load_library
+    return _bind_fwd(load_library("flash_attn_fwd"))
 
 
 def _bind_bwd(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -248,10 +258,11 @@ def _heads_view(like: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            scale: float, with_lse: bool = False):
+            scale: float, with_lse: bool = False, lib=None):
     """K8: the output, and with ``with_lse`` also each row's log-sum-exp,
     (B, nH, S) fp32, a view of rows padded to a multiple of
-    ``STAT_BLOCK``."""
+    ``STAT_BLOCK``. ``lib``: another build of the kernel's source (the
+    bench's variants)."""
     _check_operands("K8", q, k, v)
     b, nh, s, hd = q.shape
     out = _heads_view(q)
@@ -259,7 +270,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        device=q.device) if with_lse else None)
     strides = (ctypes.c_longlong * 12)(
         *(st for t in (q, k, v, out) for st in t.stride()[:3]))
-    lib = _library()
+    lib = lib or _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attn_fwd(
