@@ -8,9 +8,11 @@ PyTorch version at the shapes its path gives it: K1 (sampling forward) at
 the serving shapes, and at the training shapes, with 4 heads of 64 and of
 24 channels, on a decoder's free queries and at MaskDINO R-50 4-scale's
 shapes (its encoder's 4 levels and its decoder's 100 box queries, timed
-beside the serving shape) (fp32 and bf16 values, the vector width it chose
+beside the serving shape, and in training at 640 px its encoder and its
+decoder's 300 queries) (fp32 and bf16 values, the vector width it chose
 printed for each), the sampling backward (the TPU's K2, K3a and K3b) at the
-training shapes with 8 heads of 32 channels and at head dims 64 and 24, and
+training shapes with 8 heads of 32 channels and at head dims 64 and 24 and
+at MaskDINO's two training shapes, and
 the window kernels: K4b at Swin stages 1-4 with windows of 8 and of 12, at
 stage 1 with windows of 7, K4a at the window encoder's three levels and at
 window 16, K5 at all seven shapes of the flagship's serving path (fused at
@@ -44,7 +46,12 @@ paths with weights drawn from a fixed seed, through ``build_model`` ->
   queries and 9 layers of box-referenced deformable cross-attention):
   serving batches of 8 at 800x800, 15 K1 per forward, the contract's boxes
   checked; an fp32 forward through K1 against its plain version, the
-  two-stage selection first;
+  two-stage selection first; train steps with the training CLI's
+  settings (batch 2, 640 px, 100 GT slots, bf16, CLASS_WEIGHT 4,
+  hungarian matcher, grid points, clip 0.01, the dn loss ramped over
+  1500 steps; 200 denoising + 100 matchable decoder queries): 15 K1 and
+  15 backward launches a step, 21 K1 under REMAT_ENCODER; one fp32 step
+  through the kernels against the same step on the plain sampling core;
 - the window-attention flagship (the same model with Swin window 8 and the
   6-layer window encoder): serving batches of 8 at 800x800 under
   ``TPU.WINDOW_ATTN_NHWC`` (12 fused + 18 split K5 per forward) and under
@@ -72,8 +79,9 @@ paths with weights drawn from a fixed seed, through ``build_model`` ->
   versions in bf16 and fp32), the full-attention encoder's q/k/v/out
   projection gradients through K8 + K9 at batch 1, 640 px, in fp32
   against the plain versions and in bf16 (no further from the plain
-  versions than bf16 is from fp32), and 30 steps on one batch of each
-  model that must lower the loss.
+  versions than bf16 is from fp32), and 30 steps on one batch of the
+  default model, the NHWC flagship and MaskDINO that must lower the
+  loss.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path was launched as many
@@ -221,9 +229,26 @@ def box_query_inputs(value_dtype: torch.dtype, gen: torch.Generator,
     return value.to(value_dtype), loc.contiguous(), aw.contiguous()
 
 
+# MaskDINO R-50 4-scale in training (batch 2 at 640 px): its encoder's 4
+# levels, /64 to /8 (8,500 tokens), and its decoder's 300 box queries (200
+# denoising + 100 matchable)
+DINO_TRAIN_LEVELS = [(10, 10), (20, 20), (40, 40), (80, 80)]
+DINO_TRAIN_QUERIES = 300
+
+
+def dino_train_encoder_inputs(dt, gen):
+    return sampling_inputs(dt, gen, TRAIN_BATCH, DINO_TRAIN_LEVELS)
+
+
+def dino_train_decoder_inputs(dt, gen):
+    return box_query_inputs(dt, gen, TRAIN_BATCH, DINO_TRAIN_QUERIES,
+                            DINO_TRAIN_LEVELS)
+
+
 # K1's checked shapes: name -> (levels, inputs(dtype, gen)); the MaskDINO
 # R-50 4-scale ones (its encoder's grid queries over /64 to /8 and its
-# decoder's box queries, batch 8 at 800 px) are timed beside serving
+# decoder's box queries, batch 8 at 800 px in serving, batch 2 at 640 px
+# with 300 queries in training) are timed beside serving
 K1_SHAPES = {
     "serving": (LEVELS, sampling_inputs),
     "training": (TRAIN_LEVELS, lambda dt, gen: sampling_inputs(
@@ -235,8 +260,11 @@ K1_SHAPES = {
     "free queries": (FREE_LEVELS, free_query_inputs),
     "maskdino encoder": (FREE_LEVELS, lambda dt, gen: sampling_inputs(
         dt, gen, levels=FREE_LEVELS)),
-    "maskdino decoder": (FREE_LEVELS, box_query_inputs)}
-K1_TIMED = ("serving", "maskdino encoder", "maskdino decoder")
+    "maskdino decoder": (FREE_LEVELS, box_query_inputs),
+    "maskdino train encoder": (DINO_TRAIN_LEVELS, dino_train_encoder_inputs),
+    "maskdino train decoder": (DINO_TRAIN_LEVELS, dino_train_decoder_inputs)}
+K1_TIMED = ("serving", "maskdino encoder", "maskdino decoder",
+            "maskdino train encoder", "maskdino train decoder")
 
 
 def grid_sample_core(value, shapes, loc, aw):
@@ -466,16 +494,57 @@ def bwd_kernel_phase(K, smi: str) -> dict:
                   f"the bound, on {smi}", flush=True)
             result[heads] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                  bound_ms=bound, bound_by=bound_by)
+    for shape in ("maskdino train encoder", "maskdino train decoder"):
+        max_err = max(max_err, dino_bwd_case(K, shape, gen, smi))
     # the train step samples bf16 values (TPU.COMPUTE_DTYPE bfloat16) at
     # the default 8 x 32 heads
     return dict(result["8 x 32"], max_abs_err=max_err)
 
 
-def grid_sample_bwd_ms(value, loc, aw, g, reps: int) -> float:
-    """Device ms of autograd's backward through ``grid_sample_core`` at the
-    training levels (the library yardstick of the backward)."""
+def dino_bwd_case(K, shape: str, gen, smi: str) -> float:
+    """The backward at one of MaskDINO's training shapes (``K1_SHAPES``),
+    fp32 and bf16 values, against its plain version; in bf16 the kernel,
+    plain, library and bound times. Returns the largest difference."""
+    levels, inputs = K1_SHAPES[shape]
+    max_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        value, loc, aw = inputs(dtype, gen)
+        g = torch.randn(loc.shape[0], loc.shape[1], value.shape[2]
+                        * value.shape[3], device="cuda", generator=gen)
+        before = K.ms_deform_attn_bwd.launches
+        got = K.ms_deform_attn_bwd(value, levels, loc, aw, g)
+        torch.cuda.synchronize()
+        if K.ms_deform_attn_bwd.launches != before + 1:
+            raise AssertionError(f"backward {shape}: no kernel launch")
+        want = K.ms_deform_attn_bwd_torch(value, levels, loc, aw, g)
+        name = str(dtype).replace("torch.", "")
+        max_err = max(max_err, bwd_close(got, want, dtype,
+                                         f"{shape}, {name} value"))
+        if dtype != torch.bfloat16:
+            continue
+        ms = cuda_time_ms(
+            lambda: K.ms_deform_attn_bwd(value, levels, loc, aw, g), reps=20)
+        plain_ms = cuda_time_ms(
+            lambda: K.ms_deform_attn_bwd_torch(value, levels, loc, aw, g),
+            reps=5, warmup=1)
+        lib_ms = grid_sample_bwd_ms(value, loc, aw, g, reps=10,
+                                    levels=levels)
+        bound, bound_by = bwd_bound_ms(value, loc, aw)
+        print(f"backward {shape}, bf16 value at B={loc.shape[0]}, "
+              f"{loc.shape[1]} queries, levels {levels}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, grid_sample autograd {lib_ms:.4f} "
+              f"ms, bound {bound:.4f} ms ({bound_by}), {bound / ms:.1%} of "
+              f"the bound, on {smi}", flush=True)
+    return max_err
+
+
+def grid_sample_bwd_ms(value, loc, aw, g, reps: int,
+                       levels=TRAIN_LEVELS) -> float:
+    """Device ms of autograd's backward through ``grid_sample_core`` at
+    ``levels`` (the training levels by default): the library yardstick of
+    the backward."""
     leaves = [t.clone().requires_grad_() for t in (value, loc, aw)]
-    out = grid_sample_core(leaves[0], TRAIN_LEVELS, leaves[1], leaves[2])
+    out = grid_sample_core(leaves[0], levels, leaves[1], leaves[2])
     gl = g.to(out.dtype)
     return cuda_time_ms(lambda: torch.autograd.grad(
         out, leaves, gl, retain_graph=True), reps=reps)
@@ -1435,14 +1504,15 @@ def fp32_parity_phase(cfg, counts: Counts, build_model, normalize_image,
 
 
 def _proposal_order(logits: torch.Tensor, num_queries: int,
-                    num_classes: int):
+                    num_classes: int, levels=FREE_LEVELS):
     """The MaskDINO decoder's two-stage selection from its
-    ``enc_class_embed`` output (B, S, C) at 800 px: per image the top-k
-    token indices with every border-ring token as -1 (their rows are one
-    and the same), sorted, and the query order that sorts them."""
+    ``enc_class_embed`` output (B, S, C) over ``levels`` (800 px by
+    default): per image the top-k token indices with every border-ring
+    token as -1 (their rows are one and the same), sorted, and the query
+    order that sorts them."""
     from vision_instance_seg_tpu_torch.models.maskdino_decoder import (
         proposal_anchors)
-    valid, _ = proposal_anchors(tuple(FREE_LEVELS), logits.device)
+    valid, _ = proposal_anchors(tuple(levels), logits.device)
     idx = logits[..., :num_classes].amax(-1).topk(
         num_queries, dim=1, sorted=True).indices
     return torch.where(valid[idx], idx, -1).sort(dim=-1, stable=True)
@@ -1613,6 +1683,94 @@ def grad_check_phase(cfg, counts: Counts, build_model, K) -> None:
                                 "attention_weights")}
         del model, dec, mf, outs
     _compare_grads(grads, "fp32 pixel-decoder gradient (TF32 off)")
+
+
+def maskdino_train_cfg(cfg, remat: bool = False):
+    """MaskDINO R-50 4-scale (``maskdino_cfg``) with the training CLI's
+    settings (training/maskdino/common.py ``setup_cfg`` at its defaults:
+    batch 2, lr 1e-4, 3000 steps): CLASS_WEIGHT 4, hungarian matcher, grid
+    points, global-norm clip 0.01, a 150-step warm-up, the dn loss ramped
+    over 1500 steps (DN_WARMUP_STEPS = max_iter // 2, so dn_scale is
+    neither 0 nor 1 after the first step), 640 px, 100 GT slots, bf16;
+    ``remat`` recomputes the encoder layers in the backward, as the CLI
+    does (REMAT_ENCODER; SWIN.USE_CHECKPOINT leaves a ResNet as it is)."""
+    c = maskdino_cfg(cfg)
+    c.MODEL.MASK_FORMER.CLASS_WEIGHT = 4.0
+    c.MODEL.MASK_FORMER.MATCHER = "hungarian"
+    c.MODEL.MASK_FORMER.POINT_MODE = "grid"
+    c.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    c.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+    c.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 0.01
+    c.SOLVER.BASE_LR = 1e-4
+    c.SOLVER.MAX_ITER = 3000
+    c.SOLVER.STEPS = [2400, 2700]
+    c.SOLVER.WARMUP_ITERS = 150
+    c.MODEL.MASK_DINO.DN_WARMUP_STEPS = 1500
+    c.MODEL.SWIN.USE_CHECKPOINT = remat
+    c.TPU.REMAT_ENCODER = remat
+    return c
+
+
+def _dino_attn_params(model) -> dict:
+    """The sampling layers' weights of MaskDINO's 6 encoder layers and 9
+    decoder cross-attentions: the weights behind K1 and the backward."""
+    enc = model.sem_seg_head.pixel_decoder.transformer.encoder.layers
+    dec = model.sem_seg_head.predictor.decoder.layers
+    return {f"{tag} {i} {n}": getattr(a, n).weight
+            for tag, attns in (("encoder", [x.self_attn for x in enc]),
+                               ("decoder", [x.cross_attn for x in dec]))
+            for i, a in enumerate(attns)
+            for n in ("value_proj", "sampling_offsets", "attention_weights")}
+
+
+def maskdino_grad_check_phase(cfg, counts: Counts, build_model, engine, K,
+                              per_step: dict) -> None:
+    """One fp32 MaskDINO train step (batch 2, 640 px, TF32 off) through K1
+    and the backward kernel, and the same step on the plain sampling core
+    (autograd of ms_deform_attn_core_torch): same weights, batch and
+    generator seed. The two-stage top-k sets of the two runs first (a swap
+    of two proposal scores within float noise would change the step, a
+    discontinuity and not a fault, reported as such); then loss_total
+    within 1e-4 relative and every sampling layer's gradient at
+    ``_compare_grads``' tolerance."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg.clone()
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    batch = train_batch(cfg, SEED + 40, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
+    grads, losses, picks = {}, {}, {}
+    for tag, kw, want in (("kernel", {}, per_step),
+                          ("plain", {"deform_core_fn":
+                                     K.ms_deform_attn_core_torch}, {})):
+        model = build_model(cfg, seed=SEED, **kw)
+        pred = model.sem_seg_head.predictor
+        captured = []
+        pred.enc_class_embed.register_forward_hook(
+            lambda mod, args, out: captured.append(out.detach()))
+        state = engine.create_train_state(cfg, model)
+        step = engine.make_train_step(cfg, model, state.optimizer)
+        counts.reset()
+        _, logs = step(state, batch, SEED)
+        torch.cuda.synchronize()
+        counts.check(counts.read(), want, f"fp32 MaskDINO train step {tag}")
+        losses[tag] = logs["loss_total"]
+        picks[tag] = _proposal_order(captured[0], pred.num_queries,
+                                     pred.num_classes, DINO_TRAIN_LEVELS)[0]
+        grads[tag] = {n: p.grad.clone()
+                      for n, p in _dino_attn_params(model).items()}
+        del model, pred, state, step, captured
+    if not torch.equal(picks["kernel"], picks["plain"]):
+        raise AssertionError("fp32 MaskDINO train step: the two-stage "
+                             "selection differs between the kernel and the "
+                             "plain run (a flip across the top-k boundary)")
+    a, b = losses["kernel"], losses["plain"]
+    print(f"fp32 MaskDINO train step (batch {TRAIN_BATCH}, {TRAIN_CANVAS} "
+          f"px, launches {per_step}): two-stage selection equal; "
+          f"loss_total kernel {a:.8g}, plain {b:.8g}, relative difference "
+          f"{abs(a - b) / abs(b):.3e} (tolerance 1e-4)", flush=True)
+    if not abs(a - b) <= 1e-4 * abs(b):
+        raise AssertionError("fp32 MaskDINO train-step loss diverges")
+    _compare_grads(grads, "fp32 MaskDINO train-step gradient (TF32 off)")
 
 
 def _full_encoder_params(model) -> dict:
@@ -1910,9 +2068,13 @@ def _add(a: dict, b: dict) -> dict:
 
 def train_phase(cfg, counts: Counts, build_model, engine, smi: str,
                 per_step: dict, label: str, n_timed: int,
-                grad_params, cli_settings: bool = False) -> dict:
+                grad_params, cli_settings: bool = False,
+                cli_matchers=("hungarian", "greedy"),
+                remat_fwd: int = None) -> dict:
     """The training path: 1 warm-up and ``n_timed`` timed steps, then
-    (``cli_settings``) 2 steps each with the training CLIs' settings."""
+    (``cli_settings``) 2 steps each with the training CLIs' settings for
+    each of ``cli_matchers``, whose remat recomputes ``remat_fwd`` of the
+    step's K1 launches (all of them by default)."""
     cfg = cfg.clone()
     ncls = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
     batches = [train_batch(cfg, SEED + 10 + i, ncls)
@@ -1937,7 +2099,7 @@ def train_phase(cfg, counts: Counts, build_model, engine, smi: str,
           f"after the warm-up, on {smi}", flush=True)
     del model, state, step
     if cli_settings:
-        for matcher in ("hungarian", "greedy"):
+        for matcher in cli_matchers:
             c = cfg.clone()
             # training/maskdino/common.py: grid points, remat of the
             # backbone blocks and the encoder layers (which recomputes
@@ -1949,8 +2111,9 @@ def train_phase(cfg, counts: Counts, build_model, engine, smi: str,
             model = build_model(c, seed=SEED)
             state = engine.create_train_state(c, model)
             step = engine.make_train_step(c, model, state.optimizer)
-            remat = dict(per_step, msdeform_attn_fwd=2 * per_step.get(
-                "msdeform_attn_fwd", 0))
+            fwd = per_step.get("msdeform_attn_fwd", 0)
+            remat = dict(per_step, msdeform_attn_fwd=fwd + (
+                fwd if remat_fwd is None else remat_fwd))
             cli_logs, cli_times, n = _run_steps(counts, step, state,
                                                 batches[:2], SEED, remat,
                                                 label)
@@ -1968,12 +2131,12 @@ OVERFIT_STEPS = 30
 
 
 def overfit_phase(cfg, counts: Counts, build_model, engine, per_step: dict,
-                  label: str) -> None:
-    """``OVERFIT_STEPS`` steps on one fixed batch from warm-up-free AdamW:
-    the loss must fall (mean of the last 5 below the mean of the first
-    5)."""
+                  label: str, warmup_iters: int = 0) -> None:
+    """``OVERFIT_STEPS`` steps on one fixed batch from AdamW with
+    ``warmup_iters`` steps of linear warm-up (none by default): the loss
+    must fall (mean of the last 5 below the mean of the first 5)."""
     cfg = cfg.clone()
-    cfg.SOLVER.WARMUP_ITERS = 0
+    cfg.SOLVER.WARMUP_ITERS = warmup_iters
     batch = train_batch(cfg, SEED + 30, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
     model = build_model(cfg, seed=SEED + 1)
     state = engine.create_train_state(cfg, model)
@@ -2212,6 +2375,13 @@ def main() -> int:
     bf16_window_grad_phase(nhwc16, counts, build_model, WA, k56_mma,
                            "window-16 encoder flagship")
     full_grad_check_phase(full, counts, build_model, FA, k89_fp32, k89)
+    # MaskDINO training: 15 K1 (6 encoder, 9 decoder at 300 queries) and 15
+    # backward launches a step
+    dtrain = maskdino_train_cfg(cfg)
+    dino_step = {"msdeform_attn_fwd": dino_k1["msdeform_attn_fwd"],
+                 "msdeform_attn_bwd": dino_k1["msdeform_attn_fwd"]}
+    maskdino_grad_check_phase(dtrain, counts, build_model, engine, K,
+                              dino_step)
     trained = [
         (train_phase(cfg, counts, build_model, engine, smi, sampling,
                      "default", 4, _default_grads, cli_settings=True), {}),
@@ -2228,10 +2398,21 @@ def main() -> int:
                      "flagship, USE_PALLAS_WINDOW_ATTN", 3, _window_params),
          {}),
         (train_phase(full, counts, build_model, engine, smi, k89,
-                     "full-attention encoder", 3, _full_encoder_params), {})]
+                     "full-attention encoder", 3, _full_encoder_params), {}),
+        (train_phase(dtrain, counts, build_model, engine, smi, dino_step,
+                     "MaskDINO R-50 4-scale", 4, _dino_attn_params,
+                     cli_settings=True, cli_matchers=("hungarian",),
+                     remat_fwd=enc), {})]
     overfit_phase(cfg, counts, build_model, engine, sampling, "default")
     overfit_phase(nhwc, counts, build_model, engine, k56_mma,
                   "flagship, WINDOW_ATTN_NHWC")
+    # MaskDINO keeps the training CLI's 150-step warm-up: from random
+    # weights at the full rate its box heads saturate within 10 steps
+    # (every box's L1 2.607, GIoU loss 1.186), on the plain core and in
+    # fp32 alike (PERF.md)
+    overfit_phase(dtrain, counts, build_model, engine, dino_step,
+                  "MaskDINO R-50 4-scale",
+                  warmup_iters=int(dtrain.SOLVER.WARMUP_ITERS))
 
     launches = {}
     for run, rename in served + trained:

@@ -311,11 +311,14 @@ def box_query_inputs(seed, shapes, q, b=2, nh=8, hd=32, p=4):
 
 
 FREE_SHAPES = [(13, 13), (25, 25), (50, 50), (100, 100)]
+DINO_TRAIN_SHAPES = [(10, 10), (20, 20), (40, 40), (80, 80)]
 # K1 only (the backward takes what the TPU kernels take, so these stay out
 # of CASES): free queries, 8 points over 4 levels, head dims 12 and 128,
 # heads x head dim 1024; MaskDINO R-50 4-scale at 800 px (levels /64 to
 # /8): its encoder's grid queries over 4 levels, 12 px offsets, and its
-# decoder's 100 box-referenced queries
+# decoder's 100 box-referenced queries; and in training at 640 px (batch
+# 2, 8,500 tokens): its encoder, and its decoder's 300 queries (200
+# denoising + 100 matchable)
 K1_CASES = {
     "free-queries": lambda: (FREE_SHAPES,
                              free_query_inputs(12, FREE_SHAPES, 300)),
@@ -323,6 +326,12 @@ K1_CASES = {
         17, FREE_SHAPES, offset_px=12.0, nh=8, hd=32, p=4))),
     "maskdino-box-queries": lambda: (FREE_SHAPES, box_query_inputs(
         18, FREE_SHAPES, 100)),
+    "maskdino-train-encoder": lambda: (DINO_TRAIN_SHAPES, off_map(
+        *sampling_inputs(19, DINO_TRAIN_SHAPES, offset_px=12.0, nh=8,
+                         hd=32, p=4))),
+    "maskdino-train-box-queries": lambda: (DINO_TRAIN_SHAPES,
+                                           box_query_inputs(
+                                               20, DINO_TRAIN_SHAPES, 300)),
     "p8-l4": lambda: ([(3, 3), (8, 8), (4, 4), (2, 2)], off_map(
         *sampling_inputs(13, [(3, 3), (8, 8), (4, 4), (2, 2)],
                          offset_px=4.0, nh=8, hd=32, p=8))),

@@ -209,27 +209,61 @@ def test_encoder_sampling_gets_gradients(three_steps):
                         .any()), name
 
 
-def test_param_labels_match_jax(setup):
+def _maskdino_params_and_model(freeze_at: int):
+    """The JAX parameter shapes (``jax.eval_shape`` of the init, no
+    compute) and the port model of MaskDINO R-50 4-scale at the tiny widths
+    of tests/test_full_import.py, with ``MODEL.BACKBONE.FREEZE_AT``."""
+    from test_full_import import _tiny_cfg
+    from test_torch_port_maskdino import port_cfg
+
+    jcfg = _tiny_cfg(dino=True)
+    jcfg.MODEL.BACKBONE.FREEZE_AT = freeze_at
+    jmodel = jax_build_model(jcfg)
+    shapes = jax.eval_shape(jmodel.init, jax.random.key(0),
+                            jnp.zeros((1, 64, 64, 3), jnp.float32))
+    return jcfg, shapes["params"], build_model(port_cfg(jcfg), device="cpu")
+
+
+@pytest.mark.parametrize("model_name,freeze_at", [
+    ("default", 0), ("maskdino", 0), ("maskdino", 2)])
+def test_param_labels_match_jax(setup, model_name, freeze_at):
     """Fill each JAX leaf with its own index, map the tree through
     state_dict_from_jax: each torch parameter then names its JAX leaves,
-    whose JAX label must be the port's."""
-    _, _, params, _ = setup
+    whose JAX label must be the port's. MaskDINO R-50 4-scale at
+    FREEZE_AT 0 and 2: the denoising label table takes no decay (JAX's
+    ``dn_label_enc``) and the frozen stages (stem, res2) the ``frozen``
+    label. (The FrozenBN statistics are buffers of the port and not
+    labelled; see tests/test_torch_port_maskdino_train.py.)"""
+    if model_name == "default":
+        _, _, params, _ = setup
+        _, model = port_train_model(params)
+    else:
+        _, params, model = _maskdino_params_and_model(freeze_at)
     tree = {"params": params}
     flat, treedef = jax.tree_util.tree_flatten(tree)
     ids = jax.tree_util.tree_unflatten(
         treedef, [np.full(np.shape(x), i + 1, np.float32)
                   for i, x in enumerate(flat)])
-    jlabels = jax.tree_util.tree_leaves(jax_solver._param_labels(tree))
-    _, model = port_train_model(params)
-    plabels = solver.param_labels(model)
+    jlabels = jax.tree_util.tree_leaves(
+        jax_solver._param_labels(tree, freeze_at=freeze_at))
+    plabels = solver.param_labels(model, freeze_at)
     mapped = state_dict_from_jax(ids)
     assert set(plabels) == set(mapped)
     for name, t in mapped.items():
         want = {jlabels[int(i) - 1] for i in torch.unique(t).tolist()}
         assert want == {plabels[name]}, name
-    assert plabels["backbone.patch_embed.proj.weight"] == "backbone_nodecay"
-    assert plabels["sem_seg_head.pixel_decoder.input_proj.0.1.weight"] == \
-        "nodecay"
+    if model_name == "default":
+        assert plabels["backbone.patch_embed.proj.weight"] == \
+            "backbone_nodecay"
+        assert plabels["sem_seg_head.pixel_decoder.input_proj.0.1.weight"] \
+            == "nodecay"
+        return
+    assert plabels["sem_seg_head.predictor.label_enc.weight"] == "nodecay"
+    frozen = {n for n, v in plabels.items() if v == "frozen"}
+    want = {n for n in plabels if n.startswith(("backbone.stem.",
+                                                "backbone.res2."))}
+    assert frozen == (want if freeze_at == 2 else set())
+    assert want and plabels["backbone.res3.0.conv1.weight"] == "backbone"
 
 
 @pytest.mark.parametrize("name,method", [

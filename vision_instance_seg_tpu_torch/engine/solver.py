@@ -4,11 +4,14 @@ Counterpart of ``vision_instance_seg_tpu/engine/solver.py`` (an optax
 chain there): WarmupMultiStepLR or WarmupCosineLR with linear or constant
 warmup; AdamW (b1 0.9, b2 0.999, eps 1e-8 outside the square root, decay
 decoupled and scaled by the learning rate) or SGD with momentum and L2
-decay folded into the gradient; four parameter groups (main, nodecay,
-backbone, backbone_nodecay) with ``SOLVER.BACKBONE_MULTIPLIER`` on the
-backbone's learning rate; the gradient clipped by its global L2 norm with
-optax's formula. The learning rate of update ``n`` (counted from 0) is
-``schedule(n)``, as optax's ``scale_by_schedule`` count gives it.
+decay folded into the gradient; the parameter groups of the JAX labels
+(main, nodecay, backbone, backbone_nodecay) with
+``SOLVER.BACKBONE_MULTIPLIER`` on the backbone's learning rate, and the
+ResNet stages that ``MODEL.BACKBONE.FREEZE_AT`` freezes in a ``frozen``
+group that takes no update (optax's ``set_to_zero``); the gradient clipped
+by its global L2 norm with optax's formula. The learning rate of update
+``n`` (counted from 0) is ``schedule(n)``, as optax's
+``scale_by_schedule`` count gives it.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from torch import nn
 
 from vision_instance_seg_tpu_torch.models.layers import GroupNorm, LayerNorm
 
-LABELS = ("main", "nodecay", "backbone", "backbone_nodecay")
+LABELS = ("main", "nodecay", "backbone", "backbone_nodecay", "frozen")
 
 
 def make_lr_schedule(cfg) -> Callable[[int], float]:
@@ -60,16 +63,31 @@ def make_lr_schedule(cfg) -> Callable[[int], float]:
     return multistep
 
 
-def param_labels(model: nn.Module) -> Dict[str, str]:
+def frozen_stage(name: str, freeze_at: int) -> bool:
+    """detectron2's ``ResNet.freeze(FREEZE_AT)`` on the port's ResNet
+    names (the JAX ``_frozen_stage`` on its ``stem_*`` / ``res{k}_block*``
+    paths): 1 and above freeze the stem, k (2 to 5) and above res2 to
+    res{k}."""
+    if freeze_at >= 1 and name.startswith("backbone.stem."):
+        return True
+    return any(freeze_at >= k and name.startswith(f"backbone.res{k}.")
+               for k in (2, 3, 4, 5))
+
+
+def param_labels(model: nn.Module, freeze_at: int = 0) -> Dict[str, str]:
     """Parameter name -> 'main' / 'nodecay' / 'backbone' /
-    'backbone_nodecay', the label the JAX package's ``_param_labels`` gives
-    the same parameter.
+    'backbone_nodecay' / 'frozen', the label the JAX package's
+    ``_param_labels`` gives the same parameter.
 
     No decay for norm scales, biases, relative position bias tables,
-    query features and every parameter whose name holds ``_embed``. That
+    query features and boxes (``query_feat``, ``refpoint_embed``: JAX's
+    ``query_box``), MaskDINO's denoising label table (``label_enc``: JAX's
+    ``dn_label_enc``) and every parameter whose name holds ``_embed``. That
     last rule is the JAX package's ``"_embed" in path`` test, which also
     exempts ``patch_embed``, ``class_embed`` and ``mask_embed`` weights
     (detectron2 decays those); it is kept so both packages train alike.
+    ``freeze_at`` (``MODEL.BACKBONE.FREEZE_AT``) labels the frozen ResNet
+    stages ``frozen`` (``frozen_stage``).
     """
     norm_params = {id(p) for mod in model.modules()
                    if isinstance(mod, (LayerNorm, GroupNorm))
@@ -78,8 +96,11 @@ def param_labels(model: nn.Module) -> Dict[str, str]:
     for name, p in model.named_parameters():
         nodecay = (id(p) in norm_params or name.endswith("bias")
                    or "bias_table" in name or "_embed" in name
-                   or "query_feat" in name)
-        if name.startswith("backbone."):
+                   or "query_feat" in name or "refpoint_embed" in name
+                   or "label_enc" in name)
+        if frozen_stage(name, freeze_at):
+            labels[name] = "frozen"
+        elif name.startswith("backbone."):
             labels[name] = "backbone_nodecay" if nodecay else "backbone"
         else:
             labels[name] = "nodecay" if nodecay else "main"
@@ -88,13 +109,17 @@ def param_labels(model: nn.Module) -> Dict[str, str]:
 
 def make_optimizer(cfg, model: nn.Module) -> torch.optim.Optimizer:
     """AdamW or SGD over the labelled groups. Each group carries its
-    ``label`` and ``lr_scale``; the train step sets ``lr`` every update."""
+    ``label`` and ``lr_scale``; the train step sets ``lr`` every update.
+    The ``frozen`` group's scale and decay are 0: its parameters keep
+    their gradients (they count in the global norm, as in JAX) and stay
+    bit for bit as they are."""
     s = cfg.SOLVER
     wd = float(s.WEIGHT_DECAY)
     scale = {"main": 1.0, "nodecay": 1.0,
              "backbone": float(s.BACKBONE_MULTIPLIER),
-             "backbone_nodecay": float(s.BACKBONE_MULTIPLIER)}
-    labels = param_labels(model)
+             "backbone_nodecay": float(s.BACKBONE_MULTIPLIER),
+             "frozen": 0.0}
+    labels = param_labels(model, int(cfg.MODEL.BACKBONE.FREEZE_AT))
     groups: List[dict] = []
     for label in LABELS:
         params = [p for n, p in model.named_parameters()
@@ -102,7 +127,9 @@ def make_optimizer(cfg, model: nn.Module) -> torch.optim.Optimizer:
         if params:
             groups.append({"params": params, "label": label,
                            "lr_scale": scale[label],
-                           "weight_decay": 0.0 if "nodecay" in label else wd,
+                           "weight_decay": (wd if label in ("main",
+                                                            "backbone")
+                                            else 0.0),
                            "lr": 0.0})
     if s.OPTIMIZER == "ADAMW":
         return torch.optim.AdamW(groups, lr=0.0, betas=(0.9, 0.999),

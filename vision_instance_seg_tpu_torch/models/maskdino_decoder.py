@@ -1,5 +1,6 @@
-"""MaskDINO transformer decoder (serving): two-stage proposals, box-referenced
-deformable cross-attention, iterative box refinement.
+"""MaskDINO transformer decoder: two-stage proposals, box-referenced
+deformable cross-attention, iterative box refinement and, in training, the
+contrastive denoising (CDN) queries.
 
 PyTorch counterpart of ``MaskDINODecoder`` in
 ``vision_instance_seg_tpu/models/maskdino_decoder.py`` with its deformable
@@ -23,16 +24,24 @@ from the shared heads.)
 
 Dtypes follow the JAX module: the class and box heads, the box arithmetic
 and the mask einsum run in fp32 with autocast off; the rest in the compute
-dtype. The denoising queries (training, with GT) and the dense
-cross-attention are not ported yet: asking for them raises
+dtype. The dense cross-attention is not ported yet: asking for it raises
 NotImplementedError.
+
+Training passes the GT (classes, normalized cxcywh boxes, validity) and the
+step's generator: ``build_dn_queries`` draws ``groups`` noised copies of
+the GT, each ``[M positives | M negatives]``, embeds their labels with
+``label_enc`` and prepends them to the matchable queries and their boxes
+to the references; ``dn_attn_mask`` keeps the groups and the matchable
+queries apart in every layer's self-attention. The forward stops the
+gradient where the JAX module does: at the proposals' content and boxes
+and at each layer's next references.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,14 +76,102 @@ class DecoderLayer(nn.Module):
         self.linear2 = nn.Linear(ffn_dim, dim)
         self.norm3 = LayerNorm(dim)
 
-    def forward(self, x, qpos, refs, value, spatial_shapes):
-        """x, qpos (B, Q, C); refs (B, Q, 4) cxcywh fp32; value (B, S, C)."""
+    def forward(self, x, qpos, refs, value, spatial_shapes,
+                attn_bias: Optional[torch.Tensor] = None):
+        """x, qpos (B, Q, C); refs (B, Q, 4) cxcywh fp32; value (B, S, C);
+        ``attn_bias`` the self-attention's additive mask (Q, Q), fp32."""
         q = x + qpos
-        x = self.norm2(x + self.self_attn(q, q, x))
+        x = self.norm2(x + self.self_attn(q, q, x, attn_bias))
         refs4 = refs[:, :, None, :].expand(-1, -1, len(spatial_shapes), -1)
         x = self.norm1(x + self.cross_attn(x + qpos, refs4, value,
                                            spatial_shapes))
         return self.norm3(x + self.linear2(F.relu(self.linear1(x))))
+
+
+class DNInfo(NamedTuple):
+    """Static denoising layout: [dn_pos | dn_neg] * groups, then the
+    matchable queries."""
+    groups: int
+    max_gt: int            # M (slots of each half of a group)
+    total: int             # groups * 2 * max_gt
+
+    @property
+    def single(self) -> int:
+        return 2 * self.max_gt
+
+
+def build_dn_queries(generator: torch.Generator, gt_classes: torch.Tensor,
+                     gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
+                     num_classes: int, groups: int, noise_scale: float,
+                     label_noise_ratio: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Noised GT labels and boxes of the CDN queries, drawn from
+    ``generator``.
+
+    gt_classes (B, M) (-1 padded); gt_boxes (B, M, 4) normalized cxcywh;
+    gt_valid (B, M). Returns (labels (B, T) int64, boxes (B, T, 4) fp32,
+    positives (B, T) bool), T = groups * 2 * M, each group ``[M positives
+    | M negatives]``. A label flips to a uniform class with probability
+    ``label_noise_ratio / 2``; each box coordinate moves by sign * part *
+    (w or h) / 2 * ``noise_scale``, part ~ U[0, 1) for the positives and
+    U[1, 2) for the negatives (the JAX module's separable shell), clipped to
+    [1e-4, 1]. Padded slots are never positive.
+    """
+    b, m = gt_classes.shape
+    dev = gt_boxes.device
+    gt_classes = gt_classes.long()
+    boxes_in = gt_boxes.float()
+    w, h = boxes_in[..., 2], boxes_in[..., 3]
+    diff = torch.stack([w / 2, h / 2, w / 2, h / 2], -1)
+
+    def one_half(negative: bool):
+        flip = torch.rand((b, m), generator=generator, device=dev) \
+            < label_noise_ratio * 0.5
+        rand_lab = torch.randint(0, num_classes, (b, m), generator=generator,
+                                 device=dev)
+        labels = torch.where(flip, rand_lab, gt_classes)
+        sign = torch.randint(0, 2, (b, m, 4), generator=generator,
+                             device=dev) * 2.0 - 1.0
+        part = torch.rand((b, m, 4), generator=generator, device=dev)
+        if negative:
+            part = part + 1.0
+        boxes = (boxes_in + sign * part * diff * noise_scale).clamp(1e-4,
+                                                                    1.0)
+        return labels, boxes
+
+    labels, boxes = [], []
+    for _ in range(groups):
+        for negative in (False, True):
+            lab, box = one_half(negative)
+            labels.append(lab)
+            boxes.append(box)
+    pos = torch.cat([torch.full((b, m), not negative, device=dev)
+                     for _ in range(groups) for negative in (False, True)],
+                    1) & gt_valid.bool().repeat(1, 2 * groups)
+    return torch.cat(labels, 1), torch.cat(boxes, 1), pos
+
+
+def dn_attn_mask(dn: DNInfo, num_queries: int) -> np.ndarray:
+    """Static additive self-attention mask (T+Q, T+Q), fp32: -1e9 where
+    attending is forbidden (a matchable query to any dn query, a dn query
+    to another group)."""
+    t = dn.total
+    mask = np.zeros((t + num_queries, t + num_queries), np.float32)
+    mask[t:, :t] = -1e9
+    for gi in range(dn.groups):
+        s, e = gi * dn.single, (gi + 1) * dn.single
+        mask[s:e, :t] = -1e9
+        mask[s:e, s:e] = 0.0
+    return mask
+
+
+@functools.lru_cache(maxsize=None)
+def dn_attn_bias(dn: DNInfo, num_queries: int,
+                 device: torch.device) -> torch.Tensor:
+    """``dn_attn_mask`` on ``device``, made once per layout (outside
+    inference mode, so that a cached mask also serves autograd)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(dn_attn_mask(dn, num_queries)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -158,6 +255,8 @@ class MaskDINODecoder(nn.Module):
                  initialize_box_type: str = "no",
                  semantic_ce_loss: bool = False,
                  cross_attention: str = "deformable",
+                 dn_groups: int = 0, dn_noise_scale: float = 0.4,
+                 dn_label_noise_ratio: float = 0.2,
                  core_fn: Optional[DeformCoreFn] = None):
         super().__init__()
         if cross_attention != "deformable":
@@ -171,6 +270,8 @@ class MaskDINODecoder(nn.Module):
         self.learn_tgt = learn_tgt
         self.initialize_box_type = initialize_box_type
         self.semantic_ce_loss = semantic_ce_loss
+        self.dn_groups, self.dn_noise_scale = dn_groups, dn_noise_scale
+        self.dn_label_noise_ratio = dn_label_noise_ratio
         n_cls = num_classes + (1 if semantic_ce_loss else 0)
         self.class_embed = nn.Linear(c, n_cls)
         self.enc_class_embed = nn.Linear(c, n_cls)
@@ -222,17 +323,16 @@ class MaskDINODecoder(nn.Module):
                 mask_features: torch.Tensor, aux_masks: bool = True,
                 gt_classes: Optional[torch.Tensor] = None,
                 gt_boxes: Optional[torch.Tensor] = None,
-                gt_valid: Optional[torch.Tensor] = None) -> Dict:
+                gt_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Dict:
         """multi_scale_features: NHWC maps, lowest resolution first;
         mask_features (B, Hm, Wm, Cm). ``aux_masks`` False (serving)
         computes only the last layer's masks (``pred_masks`` then has
         leading dim 1) and the proposals' masks only when the boxes start
-        from them."""
-        if gt_classes is not None or gt_boxes is not None \
-                or gt_valid is not None:
-            raise NotImplementedError(
-                "MaskDINO's denoising queries (training with GT) are not "
-                "ported yet")
+        from them. Training passes gt_classes (B, M), gt_boxes (B, M, 4)
+        normalized cxcywh, gt_valid (B, M) and the step's ``generator``:
+        with dn groups, the T dn queries come first on the query axis of
+        every output, and ``out["dn_meta"]`` describes them."""
         b = mask_features.shape[0]
         srcs, shapes = [], []
         for f in multi_scale_features[:self.num_levels]:
@@ -277,6 +377,28 @@ class MaskDINODecoder(nn.Module):
             refs = torch.sigmoid(self.refpoint_embed.weight.float())[None] \
                 .expand(b, -1, -1)
 
+        attn_bias = None
+        if gt_classes is not None and self.dn_groups > 0:
+            if generator is None:
+                raise ValueError("the denoising queries need the step's "
+                                 "generator")
+            m = gt_classes.shape[1]
+            dn = DNInfo(self.dn_groups, m, self.dn_groups * 2 * m)
+            dn_labels, dn_boxes, dn_pos = build_dn_queries(
+                generator, gt_classes, gt_boxes, gt_valid, self.num_classes,
+                self.dn_groups, self.dn_noise_scale,
+                self.dn_label_noise_ratio)
+            # a padded slot's -1 takes the table's last row, as JAX's
+            # negative index does
+            rows = self.label_enc.num_embeddings
+            dn_tgt = self.label_enc(torch.remainder(dn_labels, rows))
+            tgt = torch.cat([dn_tgt.to(tgt.dtype), tgt], 1)
+            refs = torch.cat([dn_boxes, refs.float()], 1)
+            attn_bias = dn_attn_bias(dn, self.num_queries, value.device)
+            out["dn_meta"] = {"groups": self.dn_groups, "max_gt": m,
+                              "total": dn.total, "pos_mask": dn_pos,
+                              "labels": dn_labels, "boxes": dn_boxes}
+
         x = tgt
         cls_list, mask_list, box_list = [], [], []
         if self.initial_pred:
@@ -290,7 +412,7 @@ class MaskDINODecoder(nn.Module):
         layers = self.decoder.layers
         for li, layer in enumerate(layers):
             qpos = self.decoder.ref_point_head(box_pos_embed(refs, c))
-            x = layer(x, qpos, refs, value, shapes)
+            x = layer(x, qpos, refs, value, shapes, attn_bias)
             y = self.decoder.norm(x)
             # reported boxes from the normed output (upstream pred_box); the
             # next layer's references from the raw output, detached
@@ -313,6 +435,10 @@ def build_maskdino_decoder(cfg, core_fn: Optional[DeformCoreFn] = None
                            ) -> MaskDINODecoder:
     m, md = cfg.MODEL.MASK_FORMER, cfg.MODEL.MASK_DINO
     s = cfg.MODEL.SEM_SEG_HEAD
+    # the JAX module's static group count: DN_NUM // MAX_INSTANCES, at
+    # least 1, or none under DN "no"
+    max_inst = max(int(cfg.INPUT.MAX_INSTANCES), 1)
+    groups = max(1, int(md.DN_NUM) // max_inst) if md.DN != "no" else 0
     return MaskDINODecoder(
         num_classes=s.NUM_CLASSES, hidden_dim=m.HIDDEN_DIM,
         num_queries=m.NUM_OBJECT_QUERIES, num_heads=m.NHEADS,
@@ -324,4 +450,6 @@ def build_maskdino_decoder(cfg, core_fn: Optional[DeformCoreFn] = None
         initial_pred=md.INITIAL_PRED, learn_tgt=md.LEARN_TGT,
         initialize_box_type=md.INITIALIZE_BOX_TYPE,
         semantic_ce_loss=md.SEMANTIC_CE_LOSS,
-        cross_attention=md.CROSS_ATTENTION, core_fn=core_fn)
+        cross_attention=md.CROSS_ATTENTION, dn_groups=groups,
+        dn_noise_scale=md.DN_NOISE_SCALE,
+        dn_label_noise_ratio=md.DN_LABEL_NOISE_RATIO, core_fn=core_fn)

@@ -70,8 +70,26 @@ class MaskFormer(nn.Module):
 class MaskDINO(MaskFormer):
     """MaskDINO meta-architecture (``MODEL.MASK_DINO.ENABLED``): the
     predictor is the MaskDINO decoder, and the forward returns its dict
-    (``pred_logits``, ``pred_masks``, ``pred_boxes``, ``enc_*``). Serving
-    only: the denoising queries of training are not ported yet."""
+    (``pred_logits``, ``pred_masks``, ``pred_boxes``, ``enc_*``, and in
+    training ``dn_meta``)."""
+
+    def forward(self, images: torch.Tensor, aux_masks: bool = True,
+                generator: Optional[torch.Generator] = None,
+                gt_classes: Optional[torch.Tensor] = None,
+                gt_boxes: Optional[torch.Tensor] = None,
+                gt_valid: Optional[torch.Tensor] = None) -> Dict:
+        """The training call passes the GT (classes (B, M), normalized
+        cxcywh boxes (B, M, 4), validity (B, M)) for the denoising queries,
+        which ``generator`` draws; serving passes none."""
+        with torch.autocast(images.device.type, dtype=self.compute_dtype,
+                            enabled=self.compute_dtype != torch.float32):
+            feats = self.backbone(images, generator)
+            head = self.sem_seg_head
+            mask_features, multi_scale = head.pixel_decoder(feats)
+            return head.predictor(multi_scale, mask_features,
+                                  aux_masks=aux_masks, gt_classes=gt_classes,
+                                  gt_boxes=gt_boxes, gt_valid=gt_valid,
+                                  generator=generator)
 
 
 def resolve_device(device=None) -> torch.device:
