@@ -81,7 +81,15 @@ paths with weights drawn from a fixed seed, through ``build_model`` ->
   against the plain versions and in bf16 (no further from the plain
   versions than bf16 is from fp32), and 30 steps on one batch of the
   default model, the NHWC flagship and MaskDINO that must lower the
-  loss.
+  loss;
+- the training CLIs' loop (``Trainer(cfg).train()``) on the default model:
+  a COCO set of PNG files written here (24 train, 8 val images at
+  600x800, polygon blobs), 40 steps at the JAX defaults with a checkpoint
+  and a COCO eval (batch 1, 800x800 canvas, 100 detections) every 20, a
+  second ``Trainer`` that resumes from ``ckpt_final`` (model and optimizer
+  state bit for bit) and takes 6 more steps from ``make_batch(0)``, and a
+  GT-echo inference function on device tensors through the evaluator
+  (segm AP50 >= 99); the data and eval path imports neither cv2 nor PIL.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path was launched as many
@@ -101,9 +109,11 @@ import json
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -2162,6 +2172,314 @@ def _default_grads(model) -> dict:
             for n in ("value_proj", "sampling_offsets", "attention_weights")}
 
 
+# ------------------------------------------------ the training CLI's loop
+
+TRAINER_STEPS, TRAINER_PERIOD, RESUME_STEPS = 40, 20, 6
+TRAINER_IMAGES = {"train": 24, "val": 8}
+TRAINER_HW = (600, 800)
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """(H, W, 3) uint8 -> an 8-bit RGB PNG, every row filtered Up."""
+    h, w, _ = img.shape
+    rows = img.reshape(h, w * 3)
+    up = np.concatenate([rows[:1], rows[1:] - rows[:-1]])   # mod 256
+    lines = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(lines.tobytes(), 1))
+                + chunk(b"IEND", b""))
+
+
+def write_png_coco(root: str, n_images: int, seed: int) -> tuple:
+    """A COCO set of PNG images at TRAINER_HW with 1-3 polygon blobs each,
+    drawn as tests/fixtures.py draws them (radii scaled to the size).
+    Returns (annotation file, image directory)."""
+    from vision_instance_seg_tpu_torch.data.polygons import polygons_to_bitmask
+
+    rng = np.random.default_rng(seed)
+    height, width = TRAINER_HW
+    radius = (height / 15, height * 0.15)     # (8, 18) at the fixture's 120
+    img_dir = os.path.join(root, "images")
+    os.makedirs(img_dir, exist_ok=True)
+    images, annotations = [], []
+    for i in range(n_images):
+        img = (rng.random((height, width, 3)) * 60 + 40).astype(np.uint8)
+        for _ in range(int(rng.integers(1, 4))):
+            margin = radius[1] + 2
+            cx = float(rng.uniform(margin, width - margin))
+            cy = float(rng.uniform(margin, height - margin))
+            r = float(rng.uniform(*radius))
+            angles = np.linspace(0, 2 * np.pi, 12, endpoint=False)
+            radii = r * (0.6 + 0.4 * rng.random(12))
+            poly = [float(f"{v:.2f}") for v in np.stack(
+                [cx + radii * np.cos(angles), cy + radii * np.sin(angles)],
+                axis=1).reshape(-1)]
+            mask = polygons_to_bitmask([poly], height, width)
+            img[mask > 0] = (200, 60, 60)
+            ys, xs = np.nonzero(mask)
+            annotations.append({
+                "id": len(annotations) + 1, "image_id": i + 1,
+                "category_id": 1, "segmentation": [poly],
+                "bbox": [float(xs.min()), float(ys.min()),
+                         float(xs.max() - xs.min() + 1),
+                         float(ys.max() - ys.min() + 1)],
+                "area": float(mask.sum()), "iscrowd": 0})
+        name = f"img_{i:06d}.png"
+        write_png(os.path.join(img_dir, name), img)
+        images.append({"id": i + 1, "file_name": name, "width": width,
+                       "height": height})
+    ann = os.path.join(root, "annotations.json")
+    with open(ann, "w") as f:
+        json.dump({"images": images, "annotations": annotations,
+                   "categories": [{"id": 1, "name": "thunderbolt",
+                                   "supercategory": "thunderbolt"}]}, f)
+    return ann, img_dir
+
+
+def _same_state(a, b, what: str) -> None:
+    """Two (state dict) trees equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        if not (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a, b)):
+            raise AssertionError(f"{what}: differs after the resume")
+    elif isinstance(a, dict):
+        if sorted(a, key=str) != sorted(b, key=str):
+            raise AssertionError(f"{what}: keys differ after the resume")
+        for k in a:
+            _same_state(a[k], b[k], f"{what}.{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{what}: lengths differ after the resume")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_state(x, y, f"{what}[{i}]")
+    elif a != b:
+        raise AssertionError(f"{what}: {a!r} != {b!r} after the resume")
+
+
+def _counted(trainer, counts: "Counts", per_step: dict, per_batch: dict,
+             total: dict, label: str) -> list:
+    """Wrap the trainer's train step and inference function so that each
+    call's launches are read and checked; returns the list that collects
+    each step's batch (host copies)."""
+    step, infer = trainer.train_step, trainer.infer_fn
+    batches = []
+
+    def train_step(state, batch, seed):
+        batches.append({k: v.cpu().numpy() if isinstance(v, torch.Tensor)
+                        else v for k, v in batch.items()})
+        counts.reset()
+        state, logs = step(state, batch, seed)
+        n = counts.read()
+        counts.check(n, per_step, f"{label}: a train step")
+        total.update(_add(total, n))
+        if not all(np.isfinite(v) for v in logs.values()):
+            raise AssertionError(f"{label}: non-finite train logs {logs}")
+        return state, logs
+
+    def infer_fn(images):
+        counts.reset()
+        out = infer(images)
+        n = counts.read()
+        counts.check(n, per_batch, f"{label}: an eval batch")
+        total.update(_add(total, n))
+        return out
+
+    trainer.train_step, trainer.infer_fn = train_step, infer_fn
+    return batches
+
+
+def trainer_phase(cfg, counts: "Counts", engine, smi: str) -> dict:
+    """The training CLIs' loop, ``Trainer(cfg).train()``, on the default
+    model at full width and depth (bf16, batch 2, 640 px LSJ, eval at
+    batch 1 on the 800 x 800 canvas, SCORE_THRESH 0) over a COCO set of
+    PNG files written here: TRAINER_STEPS steps with a checkpoint and an
+    eval every TRAINER_PERIOD, then a second Trainer that resumes from
+    ``ckpt_final`` and takes RESUME_STEPS more, then a GT-echo inference
+    function on device tensors through the real evaluator."""
+    import tempfile
+
+    from vision_instance_seg_tpu_torch.data.catalog import (DatasetCatalog,
+                                                            MetadataCatalog)
+    from vision_instance_seg_tpu_torch.data.coco import load_coco_json
+    from vision_instance_seg_tpu_torch.data.loader import TrainLoader
+    from vision_instance_seg_tpu_torch.data.resize import resize_linear_f32
+    from vision_instance_seg_tpu_torch.data.transforms import (
+        resize_shortest_edge_size)
+    from vision_instance_seg_tpu_torch.engine import checkpoint
+    from vision_instance_seg_tpu_torch.engine.evaluator import COCOEvaluator
+    from vision_instance_seg_tpu_torch.models.meta_arch import (
+        _extract_mask_patches, _mask_support_boxes)
+
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    t0 = time.perf_counter()
+    for split, n in TRAINER_IMAGES.items():
+        ann, img_dir = write_png_coco(os.path.join(root, split), n,
+                                      SEED + 40 + len(split))
+        name = f"chip_smoke_{split}"
+        if name in DatasetCatalog:
+            DatasetCatalog.remove(name)
+        DatasetCatalog.register(name, lambda a=ann, d=img_dir, n=name:
+                                load_coco_json(a, d, n))
+        MetadataCatalog.get(name).set(json_file=ann, image_root=img_dir,
+                                      thing_classes=["thunderbolt"])
+    print(f"trainer: {TRAINER_IMAGES['train']} train and "
+          f"{TRAINER_IMAGES['val']} val PNG images at {TRAINER_HW[0]}x"
+          f"{TRAINER_HW[1]} written in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    cfg = cfg.clone()
+    cfg.DATASETS.TRAIN = ["chip_smoke_train"]
+    cfg.DATASETS.TEST = ["chip_smoke_val"]
+    cfg.SOLVER.MAX_ITER = TRAINER_STEPS
+    cfg.SOLVER.CHECKPOINT_PERIOD = TRAINER_PERIOD
+    cfg.TEST.EVAL_PERIOD = TRAINER_PERIOD
+    cfg.OUTPUT_DIR = os.path.join(root, "out")
+    enc = cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS
+    per_step = {"msdeform_attn_fwd": enc, "msdeform_attn_bwd": enc}
+    per_batch = {"msdeform_attn_fwd": enc}
+    total: dict = {}
+
+    torch.cuda.reset_peak_memory_stats()
+    first = engine.Trainer(cfg)
+    _counted(first, counts, per_step, per_batch, total, "trainer")
+    t0 = time.perf_counter()
+    first.train()
+    wall = time.perf_counter() - t0
+    ms = statistics.median(first.step_times) * 1e3
+    ips = int(cfg.SOLVER.IMS_PER_BATCH) / (ms / 1e3)
+    print(f"trainer: Trainer.train() {TRAINER_STEPS} steps of batch "
+          f"{cfg.SOLVER.IMS_PER_BATCH} at {cfg.INPUT.IMAGE_SIZE} px LSJ "
+          f"({cfg.TPU.COMPUTE_DTYPE}), checkpoint and eval every "
+          f"{TRAINER_PERIOD}, {wall:.2f} s in all; launches per step "
+          f"{per_step} and per eval batch {per_batch}, checked each call",
+          flush=True)
+    print(f"trainer: median {ms:.3f} ms/step, {ips:.3f} images/s (host "
+          f"clock, all {TRAINER_STEPS} steps), on {smi}", flush=True)
+    evals = []
+    with open(os.path.join(cfg.OUTPUT_DIR, "metrics.json")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if "eval" in rec:
+                evals.append(rec)
+    if [e["iteration"] for e in evals] != [TRAINER_PERIOD]:
+        raise AssertionError(f"trainer: eval lines {evals}")
+    for task in ("segm", "bbox"):
+        if not np.isfinite(evals[0]["eval"][task]["AP"]):
+            raise AssertionError(f"trainer: {task} AP not finite {evals}")
+    ckpts = sorted(os.listdir(first.checkpoint_dir()))
+    want = {f"ckpt_{TRAINER_PERIOD}", "ckpt_best", "ckpt_final"}
+    if not want <= set(ckpts):
+        raise AssertionError(f"trainer: checkpoints {ckpts}")
+    t = first.last_eval_timing
+    print(f"trainer eval @ {TRAINER_PERIOD}: {t['images']} images at batch "
+          f"{cfg.TEST.BATCH_SIZE} ({cfg.INPUT.TEST_PAD_H}x"
+          f"{cfg.INPUT.TEST_PAD_W} canvas, {cfg.TEST.DETECTIONS_PER_IMAGE} "
+          f"detections, SCORE_THRESH {cfg.TEST.SCORE_THRESH}): "
+          f"{t['images'] / t['loop_s']:.3f} images/s over the loop "
+          f"({t['loop_s']:.3f} s: inference dispatch and wait "
+          f"{t['inference_s']:.3f} s, host postprocess "
+          f"{t['postprocess_s']:.3f} s), COCOeval {t['cocoeval_s']:.3f} s; "
+          f"segm {evals[0]['eval']['segm']}, bbox {evals[0]['eval']['bbox']}"
+          f"; checkpoints {ckpts}", flush=True)
+    t0 = time.perf_counter()
+    probe = checkpoint.save_checkpoint(
+        os.path.join(root, "probe"), first.model, first.state.optimizer,
+        first.state.step, first.best_metric, "probe")
+    save_ms = (time.perf_counter() - t0) * 1e3
+    size = os.path.getsize(probe)
+    os.remove(probe)
+    print(f"trainer checkpoint: {size} bytes, saved in {save_ms:.1f} ms; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+
+    # resume from ckpt_final: bit for bit, then more steps from make_batch(0)
+    cfg2 = cfg.clone()
+    cfg2.SOLVER.MAX_ITER = TRAINER_STEPS + RESUME_STEPS
+    second = engine.Trainer(cfg2).resume_or_load()
+    if second.start_iter != TRAINER_STEPS:
+        raise AssertionError(f"resume: start_iter {second.start_iter}")
+    _same_state(second.model.state_dict(), first.model.state_dict(), "model")
+    _same_state(second.state.optimizer.state_dict(),
+                first.state.optimizer.state_dict(), "optimizer")
+    del first
+    torch.cuda.empty_cache()
+    batches = _counted(second, counts, per_step, per_batch, total, "resume")
+    second.train()
+    if second.state.step != TRAINER_STEPS + RESUME_STEPS \
+            or len(batches) != RESUME_STEPS:
+        raise AssertionError(f"resume: step {second.state.step}, "
+                             f"{len(batches)} steps")
+    want0 = TrainLoader(DatasetCatalog.get("chip_smoke_train"),
+                        cfg).make_batch(0)
+    for k, v in want0.items():
+        if not np.array_equal(batches[0][k], v):
+            raise AssertionError(f"resume: first batch's {k} is not "
+                                 "make_batch(0)")
+    print(f"trainer resume: from ckpt_final at iter {second.start_iter}, "
+          f"model and optimizer state bit for bit; {RESUME_STEPS} more steps"
+          f" (launches checked, logs finite), the first on make_batch(0) "
+          f"byte for byte; step seconds "
+          f"{['%.4f' % s for s in second.step_times]}", flush=True)
+    del second
+    torch.cuda.empty_cache()
+
+    # a GT-echo oracle on device tensors through the real evaluator
+    val = DatasetCatalog.get("chip_smoke_val")
+    ch, cw = cfg.INPUT.TEST_PAD_H, cfg.INPUT.TEST_PAD_W
+    slots = max(len(d["annotations"]) for d in val)
+    from vision_instance_seg_tpu_torch.data.polygons import (
+        polygons_to_bitmask)
+    state = {"i": 0}
+
+    def oracle(images):
+        bs = images.shape[0]
+        chunk = val[state["i"]:state["i"] + bs]
+        state["i"] += bs
+        chunk = chunk + [chunk[-1]] * (bs - len(chunk))
+        probs = np.zeros((bs, slots, ch // 4, cw // 4), np.float32)
+        scores = np.zeros((bs, slots), np.float32)
+        for b, d in enumerate(chunk):
+            vh, vw = resize_shortest_edge_size(
+                d["height"], d["width"], cfg.INPUT.MIN_SIZE_TEST,
+                cfg.INPUT.MAX_SIZE_TEST)
+            for k, a in enumerate(d["annotations"]):
+                m = polygons_to_bitmask(a["segmentation"], d["height"],
+                                        d["width"]).astype(np.float32)
+                canvas = np.zeros((ch, cw), np.float32)
+                canvas[:vh, :vw] = resize_linear_f32(m, vh, vw)
+                probs[b, k] = resize_linear_f32(canvas, ch // 4, cw // 4)
+                scores[b, k] = 0.9
+        p = torch.from_numpy(probs).cuda()
+        boxes = _mask_support_boxes(p)
+        u8 = torch.round(p * 255.0).to(torch.uint8)
+        origin, patches = _extract_mask_patches(u8, boxes,
+                                                cfg.TEST.PATCH_SIZE)
+        return {"scores": torch.from_numpy(scores).cuda(),
+                "labels": torch.zeros((bs, slots), dtype=torch.int32,
+                                      device="cuda"),
+                "mask_probs": u8, "mask_boxes": boxes,
+                "patch_origin": origin, "mask_patches": patches}
+
+    res = COCOEvaluator("chip_smoke_val", cfg).evaluate(oracle)
+    loaded = sorted(m for m in ("cv2", "PIL") if m in sys.modules)
+    print(f"trainer eval oracle (GT echo, device tensors): segm "
+          f"{res['segm']}, bbox {res['bbox']}; cv2 / PIL imported: "
+          f"{loaded or 'neither'}", flush=True)
+    if not res["segm"]["AP50"] >= 99.0:
+        raise AssertionError(f"oracle segm AP50 {res['segm']['AP50']}")
+    if loaded:
+        raise AssertionError(f"the data and eval path imported {loaded}")
+    tmp.cleanup()
+    return dict(launches=total, ms_per_step=ms)
+
+
 SOURCES = "vision_instance_seg_tpu_torch/kernels/csrc/"
 TPU_KERNELS = "vision_instance_seg_tpu/kernels/"
 KERNEL_ROWS = {   # kernels line name -> (source, the TPU function it replaces)
@@ -2413,6 +2731,9 @@ def main() -> int:
     overfit_phase(dtrain, counts, build_model, engine, dino_step,
                   "MaskDINO R-50 4-scale",
                   warmup_iters=int(dtrain.SOLVER.WARMUP_ITERS))
+    # the training CLIs' loop: Trainer over PNG files, checkpoints, resume
+    # and COCO eval (6 K1 an eval batch)
+    trained.append((trainer_phase(cfg, counts, engine, smi), {}))
 
     launches = {}
     for run, rename in served + trained:

@@ -1,4 +1,4 @@
-"""The Mask2Former and MaskDINO train step, PyTorch port.
+"""The Mask2Former and MaskDINO train step and the ``Trainer``, PyTorch port.
 
 Counterpart of ``make_train_step`` / ``create_train_state`` in
 ``vision_instance_seg_tpu/engine/trainer.py``: forward in train mode under
@@ -16,7 +16,9 @@ or tensors): ``image`` (B, H, W, 3) uint8 RGB, ``gt_classes`` (B, M) int32
 ``num_instances`` (B,). The step's random numbers (drop path, MaskDINO's
 denoising queries, criterion points) come from one ``torch.Generator``
 seeded from (seed, step), as the JAX step folds the step into its key.
-``Trainer`` (data, checkpoints, eval) is not ported yet. The step's
+``Trainer`` is ``engine/trainer.py``'s loop: the data pipeline, periodic
+COCO eval with a "best" checkpoint and early stopping, checkpoints and
+resume. The step's
 phases are ``torch.profiler`` ranges (``train_step.forward``,
 ``.criterion``, ``.backward``, ``.optimizer``; ``criterion.match`` inside
 the criterion), which cost nothing measurable when no profiler runs;
@@ -25,14 +27,24 @@ the criterion), which cost nothing measurable when no profiler runs;
 
 from __future__ import annotations
 
+import json
+import logging
+import os
+import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.profiler import record_function
 
+from vision_instance_seg_tpu_torch.data.catalog import DatasetCatalog
+from vision_instance_seg_tpu_torch.data.loader import (TrainLoader,
+                                                       prefetch_to_device)
+from vision_instance_seg_tpu_torch.engine import checkpoint
+from vision_instance_seg_tpu_torch.engine.evaluator import COCOEvaluator
 from vision_instance_seg_tpu_torch.engine.solver import (
     clip_by_global_norm_, global_norm, make_lr_schedule, make_optimizer,
     set_learning_rate)
@@ -42,7 +54,9 @@ from vision_instance_seg_tpu_torch.models.criterion import (
 from vision_instance_seg_tpu_torch.models.criterion_dino import (
     dino_criterion_config_from_cfg, maskdino_criterion, sample_dino_points)
 from vision_instance_seg_tpu_torch.models.meta_arch import (
-    MaskDINO, normalize_image)
+    MaskDINO, build_model, make_inference_fn, normalize_image)
+
+logger = logging.getLogger(__name__)
 
 
 @dataclass
@@ -164,3 +178,179 @@ def make_train_step(cfg, model: nn.Module, optimizer: torch.optim.Optimizer
         return state, out
 
     return train_step
+
+
+class Trainer:
+    """Full training driver: data, step loop, checkpoints, eval hook.
+
+    The model comes from ``build_model(cfg, device, seed=cfg.SEED)`` unless
+    one is given; the batches from ``TrainLoader`` over
+    ``DATASETS.TRAIN``, through ``prefetch_to_device``; the eval from
+    ``COCOEvaluator`` on ``DATASETS.TEST[0]`` through ``infer_fn``. The
+    JAX Trainer's mesh commit has no counterpart on one device."""
+
+    def __init__(self, cfg, model: Optional[nn.Module] = None, device=None):
+        self.cfg = cfg
+        self.model = model if model is not None else build_model(
+            cfg, device=device, seed=int(cfg.SEED))
+        self.device = next(self.model.parameters()).device
+        dicts: List[dict] = []
+        for name in cfg.DATASETS.TRAIN:
+            dicts.extend(DatasetCatalog.get(name))
+        self.loader = TrainLoader(dicts, cfg)
+        self.state = create_train_state(cfg, self.model)
+        self.train_step = make_train_step(cfg, self.model,
+                                          self.state.optimizer)
+        self.infer_fn = make_inference_fn(self.model, cfg)
+        self.schedule = make_lr_schedule(cfg)
+        self.start_iter = 0
+        self.hooks: List[Callable[[int, Dict], None]] = []
+        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+        self._metrics_file = os.path.join(cfg.OUTPUT_DIR, "metrics.json")
+        self.best_metric = float("-inf")   # best eval segm AP so far
+        self.step_times: List[float] = []  # seconds of each train_step
+        self.last_eval_timing: Dict[str, float] = {}
+
+    # -------------------------------------------------- checkpoint/resume
+    def checkpoint_dir(self) -> str:
+        return os.path.join(os.path.abspath(self.cfg.OUTPUT_DIR),
+                            "checkpoints")
+
+    def save_checkpoint(self, tag: Optional[str] = None) -> str:
+        step = self.state.step
+        return checkpoint.save_checkpoint(
+            self.checkpoint_dir(), self.model, self.state.optimizer, step,
+            self.best_metric, step if tag is None else tag)
+
+    def resume_or_load(self, resume: bool = True) -> "Trainer":
+        """Resume from the latest checkpoint (model, optimizer, step and
+        best metric), else load ``MODEL.WEIGHTS`` when set."""
+        if resume:
+            latest = checkpoint.latest_checkpoint(self.checkpoint_dir())
+            if latest is not None:
+                info = checkpoint.load_checkpoint(latest, self.model,
+                                                  self.state.optimizer)
+                self.state.step = self.start_iter = info["step"]
+                self.best_metric = info["best_metric"]
+                logger.info("resumed from %s at iter %d", latest,
+                            self.start_iter)
+                return self
+        w = self.cfg.MODEL.WEIGHTS
+        if w:
+            checkpoint.load_pretrained_backbone(w, self.model)
+            logger.info("initialized from %s", w)
+        return self
+
+    # --------------------------------------------------------------- eval
+    def evaluate(self) -> Dict[str, Dict[str, float]]:
+        """COCO bbox+segm AP on cfg.DATASETS.TEST[0] with the current
+        weights (the model in eval mode meanwhile)."""
+        evaluator = COCOEvaluator(self.cfg.DATASETS.TEST[0], self.cfg)
+        self.model.eval()
+        try:
+            metrics = evaluator.evaluate(self.infer_fn)
+        finally:
+            self.model.train()
+        self.last_eval_timing = evaluator.last_timing
+        return metrics
+
+    def _write_metrics(self, obj: Dict) -> None:
+        """metrics.json append, by the main process only."""
+        if dist.is_available() and dist.is_initialized() \
+                and dist.get_rank() != 0:
+            return
+        with open(self._metrics_file, "a") as f:
+            f.write(json.dumps(obj) + "\n")
+
+    def _periodic_eval(self, it: int) -> bool:
+        """Mid-training eval (reference TEST.EVAL_PERIOD,
+        train_experiments.py:75): logs AP to metrics.json, keeps a "best"
+        checkpoint, and returns True when early-stopping patience
+        (TEST.EARLY_STOP_PATIENCE eval rounds without segm-AP improvement,
+        reference train_template.py:45-57) runs out."""
+        metrics = self.evaluate()
+        ap = float(metrics.get("segm", {}).get("AP", float("nan")))
+        logger.info("eval @ iter %d: segm AP %.4f (best %.4f)", it, ap,
+                    self.best_metric)
+        self._write_metrics({"iteration": it, "eval": metrics})
+        if np.isfinite(ap) and ap > self.best_metric:
+            self.best_metric = ap
+            self._evals_since_best = 0
+            self.save_checkpoint("best")
+        else:
+            self._evals_since_best += 1
+        patience = int(self.cfg.TEST.get("EARLY_STOP_PATIENCE", 0))
+        if patience > 0 and self._evals_since_best >= patience:
+            logger.info("early stop at iter %d: no segm-AP improvement for "
+                        "%d evals", it, self._evals_since_best)
+            return True
+        return False
+
+    # --------------------------------------------------------------- loop
+    def train(self) -> Dict[str, float]:
+        """Steps ``start_iter`` .. ``SOLVER.MAX_ITER`` - 1. The batches are
+        ``make_batch(0)``, ``make_batch(1)``, ... whatever ``start_iter``
+        is, as in the JAX loop. ``TPU.PROFILE`` traces iterations
+        start + 10 .. start + 14 with ``torch.profiler`` into
+        ``TPU.PROFILE_DIR``."""
+        cfg = self.cfg
+        max_iter = int(cfg.SOLVER.MAX_ITER)
+        eval_period = int(cfg.TEST.EVAL_PERIOD)
+        self._evals_since_best = 0
+        log_period = 20
+        data_iter = prefetch_to_device(
+            iter(self.loader), int(cfg.DATALOADER.PREFETCH_BATCHES),
+            self.device)
+        last_logs: Dict[str, float] = {}
+        t_start = time.time()
+        profiler = None
+        try:
+            for it in range(self.start_iter, max_iter):
+                if cfg.TPU.PROFILE and it == self.start_iter + 10:
+                    # a steady-state window, after the first steps' builds
+                    profiler = torch.profiler.profile()
+                    profiler.start()
+                if profiler is not None and it == self.start_iter + 15:
+                    self._stop_profiler(profiler)
+                    profiler = None
+                batch = next(data_iter)
+                t0 = time.perf_counter()
+                self.state, logs = self.train_step(self.state, batch,
+                                                   int(cfg.SEED))
+                self.step_times.append(time.perf_counter() - t0)
+                if it % log_period == 0 or it == max_iter - 1:
+                    logs["step_time_s"] = self.step_times[-1]
+                    last_logs = logs
+                    logger.info(
+                        "iter %d/%d %s", it, max_iter,
+                        " ".join(f"{k}={v:.4g}" for k, v in logs.items()))
+                    self._write_metrics({"iteration": it, **logs})
+                if (it + 1) % int(cfg.SOLVER.CHECKPOINT_PERIOD) == 0:
+                    self.save_checkpoint()
+                if (eval_period > 0 and cfg.DATASETS.TEST
+                        and (it + 1) % eval_period == 0
+                        and (it + 1) < max_iter):
+                    if self._periodic_eval(it + 1):
+                        break
+                for hook in self.hooks:
+                    hook(it, last_logs)
+        except KeyboardInterrupt:
+            # preemption-safe: persist progress before propagating
+            logger.warning("interrupted at iter %d — saving checkpoint",
+                           self.state.step)
+            self.save_checkpoint()
+            raise
+        finally:
+            if profiler is not None:
+                self._stop_profiler(profiler)
+            data_iter.close()
+        self.save_checkpoint("final")
+        last_logs["total_time_s"] = time.time() - t_start
+        return last_logs
+
+    def _stop_profiler(self, profiler) -> None:
+        profiler.stop()
+        os.makedirs(self.cfg.TPU.PROFILE_DIR, exist_ok=True)
+        path = os.path.join(self.cfg.TPU.PROFILE_DIR, "trace.json")
+        profiler.export_chrome_trace(path)
+        logger.info("profiler trace written to %s", path)
