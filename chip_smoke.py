@@ -19,7 +19,8 @@ window 16, K5 at all seven shapes of the flagship's serving path (fused at
 Swin stages 1-4, split at the window encoder's three levels) and split at
 window 16, K6 at all seven shapes of the flagship's training path and split
 at window 16, K8 (the full-attention encoder's flash-attention forward)
-at its serving and training shapes, with 4 heads of 64, on a ragged short
+at its serving and training shapes, at the dense MaskDINO's 13,294 tokens
+(4 levels at 800 px), with 4 heads of 64, on a ragged short
 sequence, at S 129 and head dims 16 and 128 (bf16 in both instances, with
 and without each row's lse, each call repeated bit for bit; the registers
 and spills of each instance from the build's log) and on sharp logits (in
@@ -61,6 +62,27 @@ paths with weights drawn from a fixed seed, through ``build_model`` ->
   at 256 tokens), and with Swin window 12 and the window-16 encoder under
   ``USE_PALLAS_WINDOW_ATTN`` (serving: K4b at 144 tokens, K4a at 256, both
   on the tensor cores);
+- bench.py's MaskDINO, the dense cross-attention (Swin-T, 4 levels,
+  ``MASK_DINO.CROSS_ATTENTION dense`` at JAX's defaults) with the window
+  encoder (Swin window 8, ``TPU.WINDOW_ATTN_NHWC``: 12 fused + 24 split
+  K5 a forward, one split launch per level per encoder layer, no K1) and
+  with the full-attention encoder (6 K8 over 13,294 tokens): serving
+  batches of 8 at 800x800; fp32 forwards at batch 1 through the kernels
+  against their plain versions (also with MASK_ATTN_BIAS,
+  DENSE_LEVEL_CYCLE and GEO_READOUT on, the mask gate compared
+  gate-aware); bf16 outputs against fp32 (relative L2; the dense logits
+  formed in fp32, as JAX forms them); K5 split and K6 split at its /64
+  level (13 -> 16 at 800 px, 10 -> 16 at 640 px) and its training levels,
+  K8 and K9 at its training path's 8,500 tokens, against their plain
+  versions; train steps at the MaskDINO training CLI's settings (30 K5 + 30 K6 a
+  step; the full encoder 6 K8 + 6 K9), every box-bias width and dense
+  projection given a finite, nonzero gradient, and 30 overfit steps;
+- ImageNet backbones through ``MODEL.WEIGHTS``'s loader: a
+  detectron2-layout R-50 ``.pkl`` into MaskDINO R-50 4-scale and a
+  timm-layout window-7 Swin-T ``.pth`` into the window-8 dense MaskDINO,
+  both written from a seed, every backbone tensor held to the expected
+  map (relative-position tables resized bicubically), then one batch of
+  each served (15 K1; 12 + 24 K5);
 - the full-attention encoder (the default model with
   ``SEM_SEG_HEAD.ENCODER_ATTENTION full``: 6 layers of dense
   self-attention over all 13,125 tokens at 800 px): serving batches of 8 at
@@ -112,6 +134,7 @@ import statistics
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -594,7 +617,8 @@ def _windows(WA, x, ws, nh):
 
 
 def _wa_forward_specs(WA, gen):
-    """The window forwards at the serving path's shapes (batch 8, 800 px):
+    """The window forwards at the serving path's shapes (batch 8, 800 px),
+    and K5 split at the dense MaskDINO's training levels (batch 2, 640 px):
     name -> dict(ops: operands in fp32; calls: a function of the operands
     cast to a dtype returning (kernel, plain, library) callables and the
     output's bytes; rel; mask or None; flops; kind: the launch counter;
@@ -691,6 +715,14 @@ def _wa_forward_specs(WA, gen):
     for name, hp, h in (("k5 split 50->56", 56, 50),
                         ("k5 split 25->32", 32, 25)):
         nhwc(name, BATCH, hp, hp, 8, 32, 8, 4, (h, h), True, row=False)
+    # the dense MaskDINO's 4-level window encoder: its /64 level at 800 px
+    # (13 -> 16), and its four levels at the training path's 640 px, batch 2
+    # (80, 40, 20 -> 24, 10 -> 16)
+    nhwc("k5 split 13->16", BATCH, 16, 16, 8, 32, 8, 4, (13, 13), True,
+         row=False)
+    for hp, h in ((80, 80), (40, 40), (24, 20), (16, 10)):
+        nhwc(f"k5 split train {h}->{hp}", TRAIN_BATCH, hp, hp, 8, 32, 8, 4,
+             (h, h), True, row=False)
     # windows past 64 tokens on the 256-token tensor-core body: Swin
     # window 12 (Swin-B/L's; 144 tokens, padded to 192) at stages 1-4
     # (200 -> 204, 100 -> 108, 50 -> 60, 25 -> 36), and window 16 on the
@@ -783,7 +815,8 @@ def window_kernel_phase(WA, smi: str) -> dict:
 # step, window). Swin pads stage 4's 20 to 24 (padded tokens attend); the
 # window encoder's 20 -> 24 level has pad labels. The last three are the
 # window-16 encoder's levels (80 with no padding, 40 -> 48 and 20 -> 32 with
-# pad labels), on the 256-token tensor-core body in bf16.
+# pad labels), on the 256-token tensor-core body in bf16. "k6 split 10->16" is
+# the dense MaskDINO's /64 level (its 4-level window encoder).
 K6_HD = 32
 K6_SHAPES = {
     "window_attn_k6_fused": (160, 3, None, False, 2, 8),   # Swin stage 1
@@ -793,6 +826,7 @@ K6_SHAPES = {
     "window_attn_k6_split": (80, 8, None, True, 6, 8),     # encoder, res3
     "k6 split 40": (40, 8, None, True, 6, 8),
     "k6 split 20->24": (24, 8, 20, True, 6, 8),
+    "k6 split 10->16": (16, 8, 10, True, 6, 8),
     "window_attn_k6_split_ws16": (80, 8, None, True, 6, 16),
     "k6 split ws16 40->48": (48, 8, 40, True, 6, 16),
     "k6 split ws16 20->32": (32, 8, 20, True, 6, 16),
@@ -955,9 +989,15 @@ def window_bwd_kernel_phase(WA, smi: str) -> dict:
 # documentation)
 EX2_PER_S = 16 * 132 * 1.98e9
 ENC_TOKENS = sum(h * w for h, w in LEVELS)                  # 13,125 at 800 px
+DENSE_TOKENS = sum(h * w for h, w in FREE_LEVELS)           # 13,294, 4 levels
 TRAIN_TOKENS = sum(h * w for h, w in TRAIN_LEVELS)          # 8,400 at 640 px
+DENSE_TRAIN_TOKENS = sum(h * w for h, w in DINO_TRAIN_LEVELS)  # 8,500, 4 levels
 # name -> (B, nH, S, hd, dtype, sd of q and k). The serving shape (the
 # kernels line's row), the training shape (640 px, batch 2), 4 heads of 64,
+# the dense MaskDINO's 4 levels at 800 px (13,294 tokens: 110 real keys in
+# the last 128-key block) and at its training path's 640 px (8,500 tokens:
+# 52 real keys in the last block; the lse instance is the one training
+# runs),
 # a short ragged S, S = 129 (one real key in the last 128-key block, one
 # real query row in the last CTA's block), the smallest and the largest
 # head dim at a short S, sharp logits in bf16 (sd 3: N(0, 81), the running
@@ -978,6 +1018,10 @@ K8_CASES = {
     "129": (BATCH, HEADS, 129, HEAD_DIM, torch.bfloat16, 1.0),
     "hd 16": (1, 4, 1000, 16, torch.bfloat16, 1.0),
     "hd 128": (1, 4, 1000, 128, torch.bfloat16, 1.0),
+    "dense MaskDINO": (BATCH, HEADS, DENSE_TOKENS, HEAD_DIM, torch.bfloat16,
+                       1.0),
+    "dense MaskDINO training": (TRAIN_BATCH, HEADS, DENSE_TRAIN_TOKENS,
+                                HEAD_DIM, torch.bfloat16, 1.0),
     "sharp": (1, HEADS, ENC_TOKENS, HEAD_DIM, torch.bfloat16, 3.0),
     "fp32": (1, HEADS, ENC_TOKENS, HEAD_DIM, torch.float32, 1.0),
     "sharp fp32": (1, HEADS, ENC_TOKENS, HEAD_DIM, torch.float32, 3.0),
@@ -1148,11 +1192,14 @@ def flash_kernel_phase(FA, build, smi: str) -> dict:
 
 
 # ------------------------------------------ K9: full self-attention backward
-# name -> (B, nH, S, hd): the training shape (the kernels line's row), 4
-# heads of 64 over the same tokens, a short ragged S, S = 2 x 64 + 1 (one
+# name -> (B, nH, S, hd): the training shape (the kernels line's row), the
+# dense MaskDINO's training shape (8,500 tokens), 4 heads of 64 over the
+# training shape's tokens, a short ragged S, S = 2 x 64 + 1 (one
 # real row in the last query block) and the smallest, an odd and the
 # largest head dim the kernels take
 K9_CASES = {"training": (TRAIN_BATCH, HEADS, TRAIN_TOKENS, HEAD_DIM),
+            "dense MaskDINO training": (TRAIN_BATCH, HEADS,
+                                        DENSE_TRAIN_TOKENS, HEAD_DIM),
             "4 x 64": (TRAIN_BATCH, 4, TRAIN_TOKENS, 64),
             "ragged 77": (TRAIN_BATCH, HEADS, 77, HEAD_DIM),
             "129": (TRAIN_BATCH, HEADS, 129, HEAD_DIM),
@@ -1416,8 +1463,16 @@ class Counts:
             raise AssertionError(f"{what}: launches (got, want) {bad}")
 
 
+def plain_nhwc_fns(WA) -> dict:
+    """build_model's arguments that hand in K5's plain versions (Swin's
+    fused entry, the window encoder's split one)."""
+    return {"window_attn_fn": (WA.window_attention_nhwc_torch,
+                               WA.window_attention_nhwc_split_torch)}
+
+
 def serve_phase(cfg, counts: Counts, build_model, make_inference_fn,
-                per_forward: dict, n_batches: int, label: str) -> dict:
+                per_forward: dict, n_batches: int, label: str,
+                smi: str = "") -> dict:
     model = build_model(cfg, seed=SEED)
     infer = make_inference_fn(model, cfg)
     rng = np.random.default_rng(SEED)
@@ -1440,8 +1495,9 @@ def serve_phase(cfg, counts: Counts, build_model, make_inference_fn,
                  f"serve {label}")
     steady = times[1:] or times             # the first batch warms up
     ips = BATCH * len(steady) / sum(steady)
+    on = f", on {smi}" if smi else ""
     print(f"serve {label}: {ips:.2f} images/s ({cfg.TPU.COMPUTE_DTYPE}, "
-          f"batch {BATCH}, {CANVAS}x{CANVAS})", flush=True)
+          f"batch {BATCH}, {CANVAS}x{CANVAS}){on}", flush=True)
     del model, infer
     return dict(launches=launches, images_per_s=ips)
 
@@ -1695,8 +1751,10 @@ def grad_check_phase(cfg, counts: Counts, build_model, K) -> None:
     _compare_grads(grads, "fp32 pixel-decoder gradient (TF32 off)")
 
 
-def maskdino_train_cfg(cfg, remat: bool = False):
-    """MaskDINO R-50 4-scale (``maskdino_cfg``) with the training CLI's
+def maskdino_train_cfg(cfg, remat: bool = False, dense_encoder=None):
+    """MaskDINO R-50 4-scale (``maskdino_cfg``), or with ``dense_encoder``
+    the dense MaskDINO over that encoder (``dense_maskdino_cfg``), with
+    the training CLI's
     settings (training/maskdino/common.py ``setup_cfg`` at its defaults:
     batch 2, lr 1e-4, 3000 steps): CLASS_WEIGHT 4, hungarian matcher, grid
     points, global-norm clip 0.01, a 150-step warm-up, the dn loss ramped
@@ -1704,7 +1762,8 @@ def maskdino_train_cfg(cfg, remat: bool = False):
     neither 0 nor 1 after the first step), 640 px, 100 GT slots, bf16;
     ``remat`` recomputes the encoder layers in the backward, as the CLI
     does (REMAT_ENCODER; SWIN.USE_CHECKPOINT leaves a ResNet as it is)."""
-    c = maskdino_cfg(cfg)
+    c = (maskdino_cfg(cfg) if dense_encoder is None
+         else dense_maskdino_cfg(cfg, dense_encoder))
     c.MODEL.MASK_FORMER.CLASS_WEIGHT = 4.0
     c.MODEL.MASK_FORMER.MATCHER = "hungarian"
     c.MODEL.MASK_FORMER.POINT_MODE = "grid"
@@ -2070,6 +2129,9 @@ def _nonzero_grads(params: dict, label: str) -> None:
     for name, p in params.items():
         if p.grad is None or not bool((p.grad != 0).any()):
             raise AssertionError(f"{label}: {name} got no gradient")
+        if not bool(torch.isfinite(p.grad).all()):
+            raise AssertionError(f"{label}: {name} got a non-finite "
+                                 "gradient")
 
 
 def _add(a: dict, b: dict) -> dict:
@@ -2303,7 +2365,6 @@ def trainer_phase(cfg, counts: "Counts", engine, smi: str) -> dict:
     eval every TRAINER_PERIOD, then a second Trainer that resumes from
     ``ckpt_final`` and takes RESUME_STEPS more, then a GT-echo inference
     function on device tensors through the real evaluator."""
-    import tempfile
 
     from vision_instance_seg_tpu_torch.data.catalog import (DatasetCatalog,
                                                             MetadataCatalog)
@@ -2478,6 +2539,368 @@ def trainer_phase(cfg, counts: "Counts", engine, smi: str) -> dict:
         raise AssertionError(f"the data and eval path imported {loaded}")
     tmp.cleanup()
     return dict(launches=total, ms_per_step=ms)
+
+
+# ------------------------------- MaskDINO with the dense cross-attention
+
+DENSE_KNOBS = ("MASK_ATTN_BIAS", "DENSE_LEVEL_CYCLE", "GEO_READOUT")
+
+
+def dense_maskdino_cfg(cfg, encoder: str, knobs=()):
+    """bench.py's MaskDINO (``python bench.py --model maskdino``, and with
+    ``--encoder full``): Swin-T, res3-res5 and a stride-2 /64 level
+    (TOTAL_NUM_FEATURE_LEVELS 4), the two-stage decoder with the dense
+    cross-attention at JAX's defaults (BOX_ATTN_BIAS on; ``knobs`` from
+    DENSE_KNOBS turned on too), bf16. ``encoder`` "window": Swin window 8
+    and the 6-layer window encoder under TPU.WINDOW_ATTN_NHWC (K5);
+    "full": Swin window 7 and the 6-layer full-attention encoder (K8)."""
+    c = cfg.clone()
+    c.MODEL.MASK_DINO.ENABLED = True
+    c.MODEL.MASK_DINO.CROSS_ATTENTION = "dense"
+    c.MODEL.SEM_SEG_HEAD.TOTAL_NUM_FEATURE_LEVELS = 4
+    c.MODEL.SEM_SEG_HEAD.ENCODER_ATTENTION = encoder
+    c.TPU.COMPUTE_DTYPE = "bfloat16"
+    if encoder == "window":
+        c.MODEL.SWIN.WINDOW_SIZE = 8
+        c.TPU.WINDOW_ATTN_NHWC = True
+    for knob in knobs:
+        setattr(c.MODEL.MASK_DINO, knob, True)
+    return c
+
+
+@torch.no_grad()
+def _draw_dense_heads(pred, seed: int) -> None:
+    """The layers that start at zero, drawn (the same in every run of one
+    phase): the box heads' and the geometry head's last layers (zero, they
+    leave every box at its proposal's anchor and the readout unread) and
+    the box-bias widths ``xattn_log_sigma``."""
+    gen = torch.Generator().manual_seed(seed)
+    heads = [pred.enc_box_embed, pred.decoder.bbox_embed[0]]
+    if pred.geo_readout:
+        heads.append(pred.decoder.geo_box_head)
+    for head in heads:
+        w = head.layers[-1].weight
+        w.copy_(torch.randn(w.shape, generator=gen) * 0.02)
+    for layer in pred.decoder.layers:
+        if hasattr(layer, "xattn_log_sigma"):
+            s = layer.xattn_log_sigma
+            s.copy_(torch.randn(s.shape, generator=gen) * 0.3)
+
+
+def _dense_run(cfg, build_model, normalize_image, images, kw: dict,
+               scores=None):
+    """One forward (``aux_masks`` off) of the dense MaskDINO of ``cfg``
+    with ``build_model``'s ``kw``. ``scores``: the proposals' class logits
+    to select by (a forward hook on ``enc_class_embed``), so that two runs
+    pick the same tokens. Returns (outputs, the run's own
+    proposal logits, each layer's mask-gate keep bits or None)."""
+    model = build_model(cfg, seed=SEED, **kw)
+    pred = model.sem_seg_head.predictor
+    _draw_dense_heads(pred, SEED + 14)
+    own, gates = [], []
+    pred.enc_class_embed.register_forward_hook(
+        lambda mod, args, out: own.append(out) or scores)
+    if pred.mask_attn_bias:
+        gate = pred._mask_gate
+
+        def recording_gate(x, level_masks):
+            bias = gate(x, level_masks)
+            gates.append(bias[:, 0] == 0)
+            return bias
+
+        pred._mask_gate = recording_gate
+    with torch.inference_mode():
+        out = model(normalize_image(images, cfg), aux_masks=False)
+    torch.cuda.synchronize()
+    del model, pred
+    return out, own[0], (gates or None)
+
+
+def dense_parity_phase(cfg, counts: Counts, build_model, normalize_image,
+                       plain: dict, per_forward: dict, label: str) -> None:
+    """One fp32 forward of the dense MaskDINO (batch 1, 800 px, TF32 off)
+    through the kernels and the same on their plain versions (``plain``:
+    build_model's arguments). The kernel run selects its proposals by the
+    plain run's scores: two scores within float noise may swap across the
+    top-k boundary, a flip and not a fault; how far its own scores are
+    from the plain run's, and whether its own top-k matches, is printed.
+    Then enc_boxes, every layer's pred_logits and pred_boxes and the last
+    layer's pred_masks, at the MaskDINO parity phase's tolerances. Under
+    the mask gate, a mask logit within float noise of 0 may flip one gate
+    and change its query's row: each layer compares only the queries whose
+    gate bits agreed in every layer so far, which must be at least half."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg.clone()
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    images = torch.from_numpy(np.random.default_rng(SEED + 15).integers(
+        0, 256, (1, CANVAS, CANVAS, 3), dtype=np.uint8)).cuda()
+    counts.reset()
+    b, b_scores, b_gates = _dense_run(cfg, build_model, normalize_image,
+                                      images, plain)
+    counts.check(counts.read(), {}, f"fp32 {label} forward plain")
+    counts.reset()
+    a, a_scores, a_gates = _dense_run(cfg, build_model, normalize_image,
+                                      images, {}, scores=b_scores)
+    counts.check(counts.read(), per_forward, f"fp32 {label} forward kernel")
+    nq = a["pred_logits"].shape[2]
+    top = [s[..., :1].amax(-1).topk(nq, dim=1).indices.sort(-1).values
+           for s in (a_scores, b_scores)]
+    d_score = (a_scores - b_scores).abs().max().item()
+    print(f"fp32 {label} forward: the kernel run's own proposal scores "
+          f"within {d_score:.3e} of the plain run's; its own top-{nq} "
+          f"equal: {bool(torch.equal(*top))} (it selects by the plain "
+          f"run's)", flush=True)
+    if not d_score <= 1e-3:
+        raise AssertionError(f"fp32 {label}: proposal scores diverge")
+    ok = torch.ones(a["pred_logits"].shape[1:3], dtype=torch.bool,
+                    device=a["pred_logits"].device)
+    oks = [ok.clone()]                     # per reported layer
+    if a_gates is not None:
+        for ga, gb in zip(a_gates, b_gates):
+            ok &= (ga == gb).all(-1)
+            oks.append(ok.clone())
+    else:
+        oks *= a["pred_logits"].shape[0]
+    n_ok = sum(int(o.sum()) for o in oks[1:])
+    total = (len(oks) - 1) * ok.numel()
+    for key, atol in (("enc_boxes", 1e-4), ("pred_logits", 2e-3),
+                      ("pred_boxes", 1e-3), ("pred_masks", 4e-3)):
+        x, y = a[key], b[key]
+        if key == "enc_boxes":
+            sel = [oks[0]]
+            x, y = x[None], y[None]
+        elif key == "pred_masks":
+            sel = oks[-1:]
+        else:
+            sel = oks
+        worst, bad = 0.0, False
+        for layer, keep in enumerate(sel):
+            err = (x[layer] - y[layer]).abs()[keep]
+            if err.numel():
+                worst = max(worst, err.max().item())
+                bad |= not bool((err <= atol + 1e-3 * y[layer].abs()[keep]
+                                 ).all())
+        print(f"fp32 {label} forward, {key} {tuple(x.shape)}: max "
+              f"|kernel - plain| = {worst:.3e} (tolerance {atol:g} + 1e-3 "
+              f"* |plain|)", flush=True)
+        if bad:
+            raise AssertionError(f"fp32 {label} {key} diverges")
+    if a_gates is not None:
+        print(f"fp32 {label} forward, mask gate: {n_ok}/{total} "
+              f"query-layers with every gate bit equal so far", flush=True)
+        if 2 * n_ok < total:
+            raise AssertionError(f"fp32 {label}: the mask gates diverge")
+
+
+DENSE_BF16_TOL = 0.05
+
+
+def dense_bf16_phase(cfg, counts: Counts, build_model, normalize_image,
+                     per_forward: dict, label: str) -> None:
+    """The dense MaskDINO's bf16 outputs against fp32 (batch 2, 800 px,
+    seeded weights and images, TF32 off), both through the kernels; the
+    dense logits are formed in fp32 in both, as JAX's
+    ``preferred_element_type=float32`` forms them. The bf16 run selects
+    its proposals by the fp32 run's scores (the top-k would otherwise move
+    by whole queries). Prints each output's relative L2 error against fp32
+    and fails unless every output is within DENSE_BF16_TOL."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    images = torch.from_numpy(np.random.default_rng(SEED + 16).integers(
+        0, 256, (TRAIN_BATCH, CANVAS, CANVAS, 3), dtype=np.uint8)).cuda()
+    ref_cfg = cfg.clone()
+    ref_cfg.TPU.COMPUTE_DTYPE = "float32"
+    counts.reset()
+    ref, scores, _ = _dense_run(ref_cfg, build_model, normalize_image,
+                                images, {})
+    counts.reset()
+    out = _dense_run(cfg, build_model, normalize_image, images, {},
+                     scores=scores)[0]
+    counts.check(counts.read(), per_forward, f"bf16 {label}")
+    errs = {k: _rel_l2(out[k], ref[k]) for k in
+            ("enc_boxes", "pred_logits", "pred_boxes", "pred_masks")}
+    print(f"bf16 {label} against fp32, relative L2 error: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tolerance {DENSE_BF16_TOL:g})", flush=True)
+    if not all(v <= DENSE_BF16_TOL for v in errs.values()):
+        raise AssertionError(f"bf16 {label}: outputs further than "
+                             f"{DENSE_BF16_TOL} from fp32")
+
+
+def _dense_params(model) -> dict:
+    """Every dense cross-attention's projections and box-bias widths."""
+    out = {}
+    for i, layer in enumerate(model.sem_seg_head.predictor.decoder.layers):
+        a = layer.cross_attn
+        out[f"decoder {i} in_proj_weight"] = a.in_proj_weight
+        out[f"decoder {i} out_proj"] = a.out_proj.weight
+        if hasattr(layer, "xattn_log_sigma"):
+            out[f"decoder {i} xattn_log_sigma"] = layer.xattn_log_sigma
+    return out
+
+
+def synth_d2_r50(rng) -> dict:
+    """A detectron2-layout ResNet-50 state (``ImageNetPretrained/
+    torchvision/R-50.pkl``'s names) from ``rng``: convs N(0, 1 / fan-in),
+    FrozenBN weight and variance U(0.5, 1.5), bias and mean N(0, 0.1)."""
+    def conv(o, i, k):
+        return (rng.standard_normal((o, i, k, k)) / np.sqrt(i * k * k)
+                ).astype(np.float32)
+
+    def bn(prefix, c):
+        return {f"{prefix}.weight": rng.uniform(0.5, 1.5, c),
+                f"{prefix}.bias": 0.1 * rng.standard_normal(c),
+                f"{prefix}.running_mean": 0.1 * rng.standard_normal(c),
+                f"{prefix}.running_var": rng.uniform(0.5, 1.5, c)}
+
+    sd = {"stem.conv1.weight": conv(64, 3, 7), **bn("stem.conv1.norm", 64)}
+    cin = 64
+    for r, n in ((2, 3), (3, 4), (4, 6), (5, 3)):
+        mid = 64 * 2 ** (r - 2)
+        for b in range(n):
+            i0 = cin if b == 0 else 4 * mid
+            for c, (o, i, k) in enumerate(((mid, i0, 1), (mid, mid, 3),
+                                           (4 * mid, mid, 1)), start=1):
+                sd[f"res{r}.{b}.conv{c}.weight"] = conv(o, i, k)
+                sd.update(bn(f"res{r}.{b}.conv{c}.norm", o))
+            if b == 0:
+                sd[f"res{r}.{b}.shortcut.weight"] = conv(4 * mid, i0, 1)
+                sd.update(bn(f"res{r}.{b}.shortcut.norm", 4 * mid))
+        cin = 4 * mid
+    return {k: np.asarray(v, np.float32) for k, v in sd.items()}
+
+
+def synth_timm_swin_t(rng) -> dict:
+    """A timm / microsoft ImageNet Swin-T state at window 7 from ``rng``:
+    linear and conv weights N(0, 0.02), norms 1 + N(0, 0.02), biases and
+    the (169, heads) relative-position tables N(0, 0.02), with what the
+    import drops: each block's ``relative_position_index``, the shifted
+    blocks' ``attn_mask``, the classifier's ``norm`` and ``head``."""
+    def normal(*shape):
+        return (0.02 * rng.standard_normal(shape)).astype(np.float32)
+
+    sd = {"patch_embed.proj.weight": normal(96, 3, 4, 4),
+          "patch_embed.proj.bias": normal(96),
+          "patch_embed.norm.weight": 1 + normal(96),
+          "patch_embed.norm.bias": normal(96)}
+    for s, (depth, nh) in enumerate(zip((2, 2, 6, 2), (3, 6, 12, 24))):
+        dim = 96 * 2 ** s
+        for b in range(depth):
+            p = f"layers.{s}.blocks.{b}"
+            for n in ("norm1", "norm2"):
+                sd[f"{p}.{n}.weight"] = 1 + normal(dim)
+                sd[f"{p}.{n}.bias"] = normal(dim)
+            sd[f"{p}.attn.relative_position_bias_table"] = normal(169, nh)
+            sd[f"{p}.attn.relative_position_index"] = np.zeros((49, 49),
+                                                               np.int64)
+            if b % 2:
+                sd[f"{p}.attn_mask"] = np.zeros((4, 49, 49), np.float32)
+            for name, (o, i) in (("attn.qkv", (3 * dim, dim)),
+                                 ("attn.proj", (dim, dim)),
+                                 ("mlp.fc1", (4 * dim, dim)),
+                                 ("mlp.fc2", (dim, 4 * dim))):
+                sd[f"{p}.{name}.weight"] = normal(o, i)
+                sd[f"{p}.{name}.bias"] = normal(o)
+        if s < 3:
+            sd[f"layers.{s}.downsample.reduction.weight"] = normal(2 * dim,
+                                                                   4 * dim)
+            sd[f"layers.{s}.downsample.norm.weight"] = 1 + normal(4 * dim)
+            sd[f"layers.{s}.downsample.norm.bias"] = normal(4 * dim)
+    sd.update({"norm.weight": 1 + normal(768), "norm.bias": normal(768),
+               "head.weight": normal(1000, 768), "head.bias": normal(1000)})
+    return sd
+
+
+def _bicubic_table(t: np.ndarray, window: int) -> torch.Tensor:
+    """A (L, heads) relative-position table resized to ``window``: bicubic
+    over the unflattened square, ``align_corners=False`` (microsoft Swin's
+    ``load_pretrained``)."""
+    s0, nh = int(round(t.shape[0] ** 0.5)), t.shape[1]
+    s1 = 2 * window - 1
+    x = torch.from_numpy(t).reshape(s0, s0, nh).permute(2, 0, 1)[None]
+    x = F.interpolate(x, size=(s1, s1), mode="bicubic", align_corners=False)
+    return x[0].permute(1, 2, 0).reshape(s1 * s1, nh)
+
+
+def weights_phase(r50_cfg, swin_cfg, counts: Counts, build_model,
+                  make_inference_fn, r50_forward: dict, swin_forward: dict,
+                  tmp: str) -> list:
+    """ImageNet backbones through ``MODEL.WEIGHTS``'s loader
+    (``engine/checkpoint.load_pretrained_backbone``): a detectron2-layout
+    R-50 ``.pkl`` into MaskDINO R-50 4-scale and a timm-layout window-7
+    Swin-T ``.pth`` into the window-8 dense MaskDINO, both written here
+    from a seed. Every backbone tensor must be the file's under the
+    expected map (names unchanged, the relative-position tables resized
+    bicubically from 13 x 13 to 15 x 15, the dropped keys absent) and every
+    backbone tensor the file does not hold unchanged; then one batch of
+    each serves, K1 pinned on the R-50 model and K5 on the Swin one."""
+    import pickle
+
+    from vision_instance_seg_tpu_torch.engine.checkpoint import (
+        load_pretrained_backbone)
+
+    rng = np.random.default_rng(SEED + 40)
+    r50 = synth_d2_r50(rng)
+    swin = synth_timm_swin_t(rng)
+    t0 = time.perf_counter()
+    r50_path = os.path.join(tmp, "R-50.pkl")
+    with open(r50_path, "wb") as f:
+        pickle.dump({"model": r50, "__author__": "chip_smoke"}, f)
+    swin_path = os.path.join(tmp, "swin_tiny_patch4_window7_224.pth")
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in swin.items()}},
+               swin_path)
+    print(f"weights: {len(r50)}-key R-50 .pkl and {len(swin)}-key Swin-T "
+          f".pth written in {time.perf_counter() - t0:.2f} s", flush=True)
+    ws = int(swin_cfg.MODEL.SWIN.WINDOW_SIZE)
+    swin_want = {k: (_bicubic_table(v, ws) if k.endswith("bias_table")
+                     else torch.from_numpy(v)) for k, v in swin.items()
+                 if not k.startswith(("head.", "norm.")) and "attn_mask"
+                 not in k and "relative_position_index" not in k}
+    runs = []
+    for cfg, path, want, per_forward, label in (
+            (r50_cfg, r50_path, {k: torch.from_numpy(v)
+                                 for k, v in r50.items()},
+             r50_forward, "MaskDINO R-50 4-scale from a detectron2 .pkl"),
+            (swin_cfg, swin_path, swin_want, swin_forward,
+             f"dense MaskDINO, Swin-T window {ws}, from a timm window-7 "
+             ".pth")):
+        model = build_model(cfg, seed=SEED)
+        before = {k: v.clone() for k, v in model.backbone.state_dict().items()}
+        t0 = time.perf_counter()
+        load_pretrained_backbone(path, model)
+        load_s = time.perf_counter() - t0
+        got = model.backbone.state_dict()
+        missing = set(want) - set(got)
+        if missing:
+            raise AssertionError(f"{label}: the model lacks {sorted(missing)}")
+        wrong = [k for k, v in want.items()
+                 if not torch.equal(got[k].cpu(), v.to(got[k].dtype))]
+        moved = [k for k in got if k not in want
+                 and not torch.equal(got[k], before[k])]
+        tables = sum(k.endswith("bias_table") for k in want)
+        print(f"weights {label}: loaded in {load_s:.2f} s; {len(want)} of "
+              f"{len(got)} backbone tensors from the file, equal to the "
+              f"expected map: {not wrong} ({tables} relative-position tables "
+              f"resized to {(2 * ws - 1) ** 2} rows); the other "
+              f"{len(got) - len(want)} unchanged: {not moved}", flush=True)
+        if wrong or moved:
+            raise AssertionError(f"{label}: wrong {wrong[:5]}, moved "
+                                 f"{moved[:5]}")
+        infer = make_inference_fn(model, cfg)
+        images = np.random.default_rng(SEED + 41).integers(
+            0, 256, (BATCH, CANVAS, CANVAS, 3), dtype=np.uint8)
+        counts.reset()                      # the main path starts here
+        res = infer(images)
+        torch.cuda.synchronize()
+        launches = counts.read()            # ... and ends here
+        check_contract(res, cfg)
+        counts.check(launches, per_forward, f"serve {label}")
+        print(f"weights {label}: one batch of {BATCH} served, launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        runs.append((dict(launches=launches), {}))
+        del model, infer
+    return runs
 
 
 SOURCES = "vision_instance_seg_tpu_torch/kernels/csrc/"
@@ -2657,11 +3080,43 @@ def main() -> int:
           "window_attn_k4a": "window_attn_k4a_ws16"}),
         (serve_phase(full, counts, build_model, make_inference_fn, k8, 3,
                      "full-attention encoder"), {})]
+    # bench.py's MaskDINO: the dense cross-attention over 4 levels, with
+    # the window encoder (K5: 12 fused in Swin, one split per level per
+    # encoder layer, 6 x 4 = 24) or the full-attention encoder (6 K8 over
+    # 100^2 + 50^2 + 25^2 + 13^2 = 13,294 tokens); no K1
+    dense_w = dense_maskdino_cfg(cfg, "window")
+    dense_f = dense_maskdino_cfg(cfg, "full")
+    k5_dense = {"window_attn_k5_fused": blocks,
+                "window_attn_k5_split": enc * 4}
+    k5_dense_mma = dict(k5_dense, window_attn_k5_fused_mma=blocks,
+                        window_attn_k5_split_mma=enc * 4)
+    k6_dense_mma = {k.replace("k5", "k6"): v
+                    for k, v in k5_dense_mma.items()}
+    served += [
+        (serve_phase(dense_w, counts, build_model, make_inference_fn,
+                     k5_dense_mma, 2, "MaskDINO dense, window encoder",
+                     smi), {}),
+        (serve_phase(dense_f, counts, build_model, make_inference_fn, k8, 1,
+                     "MaskDINO dense, full-attention encoder", smi), {})]
     fp32_parity_phase(cfg, counts, build_model, normalize_image,
                       {"deform_core_fn": K.ms_deform_attn_core_torch},
                       {"msdeform_attn_fwd": enc}, "default")
     maskdino_parity_phase(mdino, counts, build_model, normalize_image, K,
                           dino_k1)
+    for c, plain, want, label in (
+            (dense_w, plain_nhwc_fns(WA), k5_dense,
+             "MaskDINO dense, window encoder"),
+            (dense_f, {"full_attn_fn": FA.full_attention_torch}, k8,
+             "MaskDINO dense, full-attention encoder"),
+            (dense_maskdino_cfg(cfg, "window", DENSE_KNOBS),
+             plain_nhwc_fns(WA), k5_dense, "MaskDINO dense, window encoder, "
+             "MASK_ATTN_BIAS + DENSE_LEVEL_CYCLE + GEO_READOUT")):
+        dense_parity_phase(c, counts, build_model, normalize_image, plain,
+                           want, label)
+    dense_bf16_phase(dense_w, counts, build_model, normalize_image,
+                     k5_dense_mma, "MaskDINO dense, window encoder")
+    dense_bf16_phase(dense_f, counts, build_model, normalize_image, k8,
+                     "MaskDINO dense, full-attention encoder")
     fp32_parity_phase(nhwc, counts, build_model, normalize_image,
                       {"window_attn_fn": (WA.window_attention_nhwc_torch,
                                           WA.window_attention_nhwc_split_torch)},
@@ -2672,8 +3127,7 @@ def main() -> int:
     fp32_parity_phase(full, counts, build_model, normalize_image,
                       {"full_attn_fn": FA.full_attention_torch}, k8,
                       "full-attention encoder", batch=1)
-    plain_nhwc = {"window_attn_fn": (WA.window_attention_nhwc_torch,
-                                     WA.window_attention_nhwc_split_torch)}
+    plain_nhwc = plain_nhwc_fns(WA)
     bf16_window_parity_phase(nhwc, counts, build_model, normalize_image,
                              plain_nhwc, k5_mma, "window-8 flagship NHWC")
     bf16_window_parity_phase(nhwc16, counts, build_model, normalize_image,
@@ -2700,7 +3154,18 @@ def main() -> int:
                  "msdeform_attn_bwd": dino_k1["msdeform_attn_fwd"]}
     maskdino_grad_check_phase(dtrain, counts, build_model, engine, K,
                               dino_step)
+    # the dense MaskDINO at the training CLI's settings (300 decoder
+    # queries, 200 of them denoising, over 8,500 keys at 640 px)
+    dense_train_w = maskdino_train_cfg(cfg, dense_encoder="window")
+    dense_train_f = maskdino_train_cfg(cfg, dense_encoder="full")
     trained = [
+        (train_phase(dense_train_w, counts, build_model, engine, smi,
+                     _add(k5_dense_mma, k6_dense_mma),
+                     "MaskDINO dense, window encoder", 2, _dense_params),
+         {}),
+        (train_phase(dense_train_f, counts, build_model, engine, smi, k89,
+                     "MaskDINO dense, full-attention encoder", 1,
+                     _dense_params), {}),
         (train_phase(cfg, counts, build_model, engine, smi, sampling,
                      "default", 4, _default_grads, cli_settings=True), {}),
         (train_phase(heads4, counts, build_model, engine, smi, sampling,
@@ -2731,6 +3196,15 @@ def main() -> int:
     overfit_phase(dtrain, counts, build_model, engine, dino_step,
                   "MaskDINO R-50 4-scale",
                   warmup_iters=int(dtrain.SOLVER.WARMUP_ITERS))
+    overfit_phase(dense_train_w, counts, build_model, engine,
+                  _add(k5_dense_mma, k6_dense_mma),
+                  "MaskDINO dense, window encoder",
+                  warmup_iters=int(dense_train_w.SOLVER.WARMUP_ITERS))
+    # ImageNet backbones through MODEL.WEIGHTS (ROADMAP M7)
+    with tempfile.TemporaryDirectory() as tmp:
+        served += weights_phase(mdino, dense_w, counts, build_model,
+                                make_inference_fn, dino_k1, k5_dense_mma,
+                                tmp)
     # the training CLIs' loop: Trainer over PNG files, checkpoints, resume
     # and COCO eval (6 K1 an eval batch)
     trained.append((trainer_phase(cfg, counts, engine, smi), {}))

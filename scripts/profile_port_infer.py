@@ -11,17 +11,19 @@ takes them (the window-attention flagship:
 TPU.WINDOW_ATTN_NHWC True``; MaskDINO R-50 4-scale:
 ``MODEL.MASK_DINO.ENABLED True MODEL.BACKBONE.NAME resnet
 MODEL.SEM_SEG_HEAD.TOTAL_NUM_FEATURE_LEVELS 4``; the full-attention
-encoder, K8 in each layer: ``MODEL.SEM_SEG_HEAD.ENCODER_ATTENTION full``),
+encoder, K8 in each layer: ``MODEL.SEM_SEG_HEAD.ENCODER_ATTENTION full``;
+bench.py's MaskDINO adds ``MODEL.MASK_DINO.CROSS_ATTENTION dense`` to
+the MaskDINO keys without the ResNet, and the window or full encoder),
 serves one warm-up batch and ``--iters`` timed batches of random uint8
 images through ``make_inference_fn``, and prints:
 
 - images/s and per-batch ms (host clock around synchronized batches);
 - device ms per stage per batch (backbone, pixel decoder, of which the
   encoder layers and, in the deformable encoder, their deformable
-  attention, decoder, of which, in MaskDINO's, the deformable
-  cross-attention; the remainder of the batch is normalization and
-  instance post-processing), from CUDA events that forward hooks record
-  around the stage modules;
+  attention, decoder, of which, in MaskDINO's, the cross-attention
+  modules, deformable or dense; the remainder of the batch is
+  normalization and instance post-processing), from CUDA events that
+  forward hooks record around the stage modules;
 - the top kernels by device time over one profiled batch (torch.profiler),
   and the device's busy share of that batch's wall time.
 
@@ -108,8 +110,8 @@ def main() -> int:
               "deform_attn": [layer.self_attn for layer in layers
                               if hasattr(layer, "self_attn")],
               "decoder": [pred],
-              "decoder_deform_attn": [layer.cross_attn
-                                      for layer in dec_layers]}
+              "decoder_cross_attn": [layer.cross_attn
+                                     for layer in dec_layers]}
     timer = StageTimer({k: v for k, v in stages.items() if v})
     rng = np.random.default_rng(0)
     batches = [rng.integers(0, 256, (args.batch, args.size, args.size, 3),

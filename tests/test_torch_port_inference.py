@@ -123,17 +123,13 @@ def test_default_device_needs_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("opts", [
-    ["MODEL.MASK_DINO.ENABLED", "True",
-     "MODEL.MASK_DINO.CROSS_ATTENTION", "dense"],
     ["MODEL.BACKBONE.NAME", "resnet", "MODEL.RESNETS.NORM", "BN"],
     ["MODEL.SWIN.APE", "True"],
-], ids=["maskdino-dense-cross-attention", "resnet-batch-norm",
-        "swin-ape"])
+], ids=["resnet-batch-norm", "swin-ape"])
 def test_unported_options_raise(opts):
-    """MaskDINO's dense cross-attention, a ResNet norm other than FrozenBN
-    (the JAX ResNet builds FrozenBN whatever ``RESNETS.NORM`` says) and
-    Swin's absolute position embedding are not ported (``build_model``
-    raises)."""
+    """A ResNet norm other than FrozenBN (the JAX ResNet builds FrozenBN
+    whatever ``RESNETS.NORM`` says) and Swin's absolute position embedding
+    are not ported (``build_model`` raises)."""
     cfg = tiny_cfg(get_cfg())
     cfg.merge_from_list(opts)
     with pytest.raises(NotImplementedError):

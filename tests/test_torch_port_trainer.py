@@ -14,8 +14,9 @@ read through PIL here). No JAX model is built.
   ``make_batch(1)``, ... as the JAX loop does after a resume (and those
   batches equal the JAX loader's).
 - The save on ``KeyboardInterrupt``; ``MODEL.WEIGHTS``: a full-model state
-  dict loads strictly, a backbone-only one raises NotImplementedError
-  naming M7.
+  dict the port wrote loads strictly; its ``backbone.*`` keys alone match
+  nothing in the backbone import and raise, as in the JAX package
+  (detectron2 and timm files: tests/test_torch_port_weights.py).
 """
 
 import copy
@@ -215,7 +216,14 @@ def test_keyboard_interrupt_saves_a_checkpoint(dataset, tmp_path):
     assert info["step"] == 2
 
 
-def test_model_weights_full_loads_backbone_only_raises(dataset, tmp_path):
+def test_model_weights_full_loads_prefixed_backbone_matches_nothing(
+        dataset, tmp_path):
+    """A full-model state dict the port wrote loads strictly. A file of
+    only its ``backbone.*`` keys has no ``sem_seg_head.*`` key, so it goes
+    to the ImageNet backbone import, whose Swin and ResNet maps name no
+    ``backbone.``-prefixed Swin key: nothing matches, and the port raises
+    what the JAX package's ``load_pretrained_backbone`` raises on the same
+    file."""
     donor = Trainer(_cfg(tmp_path / "d"), device="cpu")
     full = str(tmp_path / "full.pth")
     torch.save(donor.model.state_dict(), full)
@@ -230,8 +238,11 @@ def test_model_weights_full_loads_backbone_only_raises(dataset, tmp_path):
                 if k.startswith("backbone.")}, backbone)
     cfg = _cfg(tmp_path / "b")
     cfg.MODEL.WEIGHTS = backbone
-    with pytest.raises(NotImplementedError, match="M7"):
+    with pytest.raises(ValueError, match="no weights matched"):
         Trainer(cfg, device="cpu").resume_or_load()
+    with pytest.raises(ValueError, match="no weights matched"):
+        jckpt.load_pretrained_backbone(backbone,
+                                       {"params": {"backbone": {}}})
 
 
 def test_profile_window_writes_a_trace(dataset, tmp_path):

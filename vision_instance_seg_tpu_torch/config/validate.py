@@ -26,11 +26,10 @@ Keys validated here rather than consumed elsewhere:
 - TPU.PARAM_DTYPE: parameters are fp32 by design (CLAUDE.md conventions);
   compute precision is TPU.COMPUTE_DTYPE.
 
-The port also rejects what its model build does not run: MaskDINO's dense
-cross-attention (``MASK_DINO.CROSS_ATTENTION dense``) and a ResNet norm
+The port also rejects what its model build does not run: a ResNet norm
 other than FrozenBN (the JAX ResNet builds FrozenBN whatever
-``RESNETS.NORM`` says). MaskDINO's denoising queries take GT, which the
-serving path never passes; the port's MaskDINO decoder refuses GT.
+``RESNETS.NORM`` says). MaskDINO's cross-attention is deformable or dense,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -108,10 +107,6 @@ def validate_cfg(cfg) -> None:
         raise ValueError(f"MASK_DINO.INITIALIZE_BOX_TYPE "
                          f"{md.INITIALIZE_BOX_TYPE!r} (no, bitmask or "
                          "mask2box)")
-    dino = cfg.MODEL.META_ARCHITECTURE == "MaskDINO" or md.ENABLED
-    _reject(dino and md.CROSS_ATTENTION == "dense",
-            "MASK_DINO.CROSS_ATTENTION dense: the dense cross-attention is "
-            "not ported yet (deformable is)")
 
     if cfg.MODEL.BACKBONE.NAME == "resnet":
         r = cfg.MODEL.RESNETS

@@ -18,6 +18,8 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from vision_instance_seg_tpu_torch.utils import weights
+
 
 def save_checkpoint(ckpt_dir: str, model: nn.Module,
                     optimizer: torch.optim.Optimizer, step: int,
@@ -59,25 +61,45 @@ def load_checkpoint(path: str, model: nn.Module,
             "best_metric": float(ckpt["best_metric"])}
 
 
-def load_pretrained_backbone(weights_path: str, model: nn.Module) -> None:
-    """Initialize ``model`` from a weights file.
+# Names only the port writes: upstream MaskDINO shares ``class_embed`` and
+# ``decoder.bbox_embed.0`` with its two-stage heads, and the dense
+# cross-attention's parameters exist in no upstream checkpoint.
+_PORT_ONLY_NAME = re.compile(
+    r"\.(enc_class_embed|enc_box_embed|geo_box_head)\.|kpos_level_embed$|"
+    r"xattn_log_sigma$")
+# The top-level keys of a ``save_checkpoint`` file.
+_PORT_CHECKPOINT_KEYS = {"model", "optimizer", "step", "best_metric"}
 
-    A full-model state dict (``sem_seg_head.*`` keys, what the reference
-    loads at evaluate.py:113-115; the port's names are the upstream
-    layout) loads strictly. An ImageNet backbone checkpoint, which the JAX
-    package maps onto its backbone through ``utils/weights.py``, raises:
-    that import comes with ROADMAP M7."""
-    if weights_path.endswith(".pkl"):
-        raise NotImplementedError(
-            f"{weights_path}: detectron2 .pkl backbones are imported by "
-            "load_torch_state / import_backbone_weights, which come with "
-            "ROADMAP M7")
-    state = torch.load(weights_path, map_location="cpu", weights_only=True)
-    if isinstance(state, dict) and isinstance(state.get("model"), dict):
-        state = state["model"]
+
+def _written_by_port(path: str, state: Dict[str, Any],
+                     model: nn.Module) -> bool:
+    """Whether ``path`` is a file the port wrote: it holds exactly the
+    model's names, or a name only the port writes, or it is a
+    ``save_checkpoint`` file."""
+    if set(state) == set(model.state_dict()) or any(
+            _PORT_ONLY_NAME.search(k) for k in state):
+        return True
+    if path.endswith(".pkl"):
+        return False
+    data = torch.load(path, map_location="cpu", weights_only=True)
+    return isinstance(data, dict) and _PORT_CHECKPOINT_KEYS <= set(data)
+
+
+def load_pretrained_backbone(weights_path: str, model: nn.Module) -> None:
+    """Initialize ``model`` from a weights file, routed as the JAX module
+    routes it: a file with ``sem_seg_head.*`` keys is a full model (what
+    the reference loads at evaluate.py:113-115) and goes through
+    ``import_full_model_weights``, unless the port wrote it
+    (``_written_by_port``): that loads strictly, so a file of another
+    configuration raises; any other file is an ImageNet backbone (a
+    detectron2 R-50 ``.pkl``, a timm or microsoft Swin ``.pth``) for
+    ``import_backbone_weights``."""
+    state = weights.load_torch_state(weights_path)
     if not any(k.startswith("sem_seg_head.") for k in state):
-        raise NotImplementedError(
-            f"{weights_path}: a backbone-only checkpoint (no sem_seg_head.* "
-            "keys); the ImageNet backbone import (load_torch_state / "
-            "import_backbone_weights) comes with ROADMAP M7")
-    model.load_state_dict(state)
+        weights.import_backbone_weights(weights_path, model)
+        return
+    if _written_by_port(weights_path, state, model):
+        model.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in state.items()})
+        return
+    weights.import_full_model_weights(weights_path, model)

@@ -82,7 +82,9 @@ def param_labels(model: nn.Module, freeze_at: int = 0) -> Dict[str, str]:
     No decay for norm scales, biases, relative position bias tables,
     query features and boxes (``query_feat``, ``refpoint_embed``: JAX's
     ``query_box``), MaskDINO's denoising label table (``label_enc``: JAX's
-    ``dn_label_enc``) and every parameter whose name holds ``_embed``. That
+    ``dn_label_enc``), the dense cross-attention's box-bias widths
+    (``xattn_log_sigma``: JAX's ``log_sigma`` rule) and every parameter
+    whose name holds ``_embed``. That
     last rule is the JAX package's ``"_embed" in path`` test, which also
     exempts ``patch_embed``, ``class_embed`` and ``mask_embed`` weights
     (detectron2 decays those); it is kept so both packages train alike.
@@ -97,7 +99,7 @@ def param_labels(model: nn.Module, freeze_at: int = 0) -> Dict[str, str]:
         nodecay = (id(p) in norm_params or name.endswith("bias")
                    or "bias_table" in name or "_embed" in name
                    or "query_feat" in name or "refpoint_embed" in name
-                   or "label_enc" in name)
+                   or "label_enc" in name or "log_sigma" in name)
         if frozen_stage(name, freeze_at):
             labels[name] = "frozen"
         elif name.startswith("backbone."):

@@ -1,10 +1,10 @@
 """MaskDINO transformer decoder: two-stage proposals, box-referenced
-deformable cross-attention, iterative box refinement and, in training, the
-contrastive denoising (CDN) queries.
+deformable or dense cross-attention, iterative box refinement and, in
+training, the contrastive denoising (CDN) queries.
 
 PyTorch counterpart of ``MaskDINODecoder`` in
-``vision_instance_seg_tpu/models/maskdino_decoder.py`` with its deformable
-cross-attention branch, in the upstream state-dict layout
+``vision_instance_seg_tpu/models/maskdino_decoder.py`` with both its
+cross-attention branches, in the upstream state-dict layout
 (``maskdino_decoder`` / ``dino_decoder``): ``class_embed``, ``label_enc``,
 ``mask_embed.layers.{j}``, ``enc_output``, ``enc_output_norm``,
 ``query_feat`` and ``refpoint_embed`` (the JAX ``query_box``) where the
@@ -22,10 +22,24 @@ parameters of their own, which training moves apart. So does the port:
 carries over without losing either. (An upstream checkpoint fills both
 from the shared heads.)
 
-Dtypes follow the JAX module: the class and box heads, the box arithmetic
-and the mask einsum run in fp32 with autocast off; the rest in the compute
-dtype. The dense cross-attention is not ported yet: asking for it raises
-NotImplementedError.
+The dense cross-attention (``CROSS_ATTENTION dense``, which upstream does
+not have) attends every multi-scale token, or with ``dense_level_cycle``
+layer i only level i % levels (lowest resolution first), through a
+``MultiheadAttention`` as ``cross_attn``. Its keys add a sine position and
+a row of ``kpos_level_embed`` per level. Its logits take the Gaussian box
+bias (``box_attn_bias``: ``box_gaussian_bias`` with the per-layer
+``decoder.layers.{i}.xattn_log_sigma``) and the mask gate
+(``mask_attn_bias``: -1e9 where the current mask logit at the level's
+resolution is not above 0, a query empty at a level keeping all of it).
+``geo_readout`` feeds each head's attention centroid and spread, relative
+to the reference box, through ``decoder.geo_box_head`` into both box
+refinements. The JAX module's parameters ``kpos_level_embed``,
+``layer{i}_xattn_log_sigma`` and ``geo_box_head`` map onto these names
+(``utils/weights.state_dict_from_jax``).
+
+Dtypes follow the JAX module: the class and box heads, the box arithmetic,
+the dense logits and the mask einsum run in fp32 with autocast off; the
+rest in the compute dtype.
 
 Training passes the GT (classes, normalized cxcywh boxes, validity) and the
 step's generator: ``build_dn_queries`` draws ``groups`` noised copies of
@@ -51,24 +65,57 @@ from torch import nn
 from vision_instance_seg_tpu_torch.models.deform_attn import (
     DeformCoreFn, MSDeformAttn)
 from vision_instance_seg_tpu_torch.models.layers import (
-    LayerNorm, inverse_sigmoid)
+    LayerNorm, inverse_sigmoid, position_embedding_sine,
+    resize_bilinear_2tap)
 from vision_instance_seg_tpu_torch.models.transformer_decoder import (
     MLPHead, MultiheadAttention, fp32_call, mask_from_embed)
 
 PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)   # sigmoid prior 0.01
 
 
+class DenseKeys(NamedTuple):
+    """The keys one dense cross-attention layer attends: values (B, S, C),
+    their key positions (1, S, C) in the values' dtype, their normalized
+    pixel centres (S, 2) fp32 and, under the mask gate, the mask features
+    of each level (B, h, w, Cm) in the compute dtype."""
+    value: torch.Tensor
+    pos: torch.Tensor
+    xy: torch.Tensor
+    mask_features: Optional[List[torch.Tensor]] = None
+
+
+def box_gaussian_bias(key_xy: torch.Tensor, refs: torch.Tensor,
+                      log_sigma: torch.Tensor) -> torch.Tensor:
+    """Gaussian locality bias -0.5 |(key - centre) / sigma|^2 of each query
+    over the keys, sigma = max(box wh * exp(log_sigma), 0.02): key_xy (S, 2)
+    normalized key centres, refs (B, Q, 4) cxcywh, log_sigma (2,). Returns
+    (B, 1, Q, S) fp32, broadcast over the heads."""
+    sig = (refs[..., 2:] * log_sigma.exp()).clamp(min=0.02)
+    d = [(key_xy[:, i] - refs[..., i:i + 1]) / sig[..., i:i + 1]
+         for i in (0, 1)]
+    return (-0.5 * (d[0] * d[0] + d[1] * d[1]))[:, None]
+
+
 class DecoderLayer(nn.Module):
-    """Self-attention among the queries -> ``norm2``; deformable
-    cross-attention over the multi-scale tokens around each query's box ->
-    ``norm1``; FFN -> ``norm3``."""
+    """Self-attention among the queries -> ``norm2``; cross-attention over
+    the multi-scale tokens -> ``norm1``; FFN -> ``norm3``. The
+    cross-attention is deformable (around each query's box) or, with
+    ``dense``, a ``MultiheadAttention`` over ``DenseKeys`` (fp32 logits),
+    with ``xattn_log_sigma`` under ``box_attn_bias``."""
 
     def __init__(self, dim: int, num_heads: int, num_levels: int,
                  num_points: int, ffn_dim: int,
-                 core_fn: Optional[DeformCoreFn] = None):
+                 core_fn: Optional[DeformCoreFn] = None,
+                 dense: bool = False, box_attn_bias: bool = False):
         super().__init__()
-        self.cross_attn = MSDeformAttn(dim, num_heads, num_levels,
-                                       num_points, core_fn=core_fn)
+        if dense:
+            self.cross_attn = MultiheadAttention(dim, num_heads,
+                                                 fp32_logits=True)
+            if box_attn_bias:
+                self.xattn_log_sigma = nn.Parameter(torch.zeros(2))
+        else:
+            self.cross_attn = MSDeformAttn(dim, num_heads, num_levels,
+                                           num_points, core_fn=core_fn)
         self.norm1 = LayerNorm(dim)
         self.self_attn = MultiheadAttention(dim, num_heads)
         self.norm2 = LayerNorm(dim)
@@ -77,15 +124,35 @@ class DecoderLayer(nn.Module):
         self.norm3 = LayerNorm(dim)
 
     def forward(self, x, qpos, refs, value, spatial_shapes,
-                attn_bias: Optional[torch.Tensor] = None):
+                attn_bias: Optional[torch.Tensor] = None,
+                keys: Optional[DenseKeys] = None, mask_gate=None,
+                geo: bool = False):
         """x, qpos (B, Q, C); refs (B, Q, 4) cxcywh fp32; value (B, S, C);
-        ``attn_bias`` the self-attention's additive mask (Q, Q), fp32."""
+        ``attn_bias`` the self-attention's additive mask (Q, Q), fp32. The
+        dense layer takes its ``keys``, ``mask_gate(x, level masks)`` (the
+        mask gate's bias, from the post-self-attention queries) and
+        ``geo`` (return the attention's geometry). Returns (x, geo or
+        None)."""
         q = x + qpos
         x = self.norm2(x + self.self_attn(q, q, x, attn_bias))
-        refs4 = refs[:, :, None, :].expand(-1, -1, len(spatial_shapes), -1)
-        x = self.norm1(x + self.cross_attn(x + qpos, refs4, value,
-                                           spatial_shapes))
-        return self.norm3(x + self.linear2(F.relu(self.linear1(x))))
+        g = None
+        if keys is None:
+            refs4 = refs[:, :, None, :].expand(-1, -1, len(spatial_shapes),
+                                               -1)
+            y = self.cross_attn(x + qpos, refs4, value, spatial_shapes)
+        else:
+            bias = None
+            if hasattr(self, "xattn_log_sigma"):
+                bias = box_gaussian_bias(keys.xy, refs, self.xattn_log_sigma)
+            if keys.mask_features is not None:
+                gate = mask_gate(x, keys.mask_features)
+                bias = gate if bias is None else bias + gate
+            y = self.cross_attn(x + qpos, keys.value + keys.pos, keys.value,
+                                bias, key_xy=keys.xy if geo else None)
+            if geo:
+                y, g = y
+        x = self.norm1(x + y)
+        return self.norm3(x + self.linear2(F.relu(self.linear1(x)))), g
 
 
 class DNInfo(NamedTuple):
@@ -255,15 +322,21 @@ class MaskDINODecoder(nn.Module):
                  initialize_box_type: str = "no",
                  semantic_ce_loss: bool = False,
                  cross_attention: str = "deformable",
+                 box_attn_bias: bool = True, mask_attn_bias: bool = False,
+                 dense_level_cycle: bool = False, geo_readout: bool = False,
                  dn_groups: int = 0, dn_noise_scale: float = 0.4,
                  dn_label_noise_ratio: float = 0.2,
                  core_fn: Optional[DeformCoreFn] = None):
         super().__init__()
-        if cross_attention != "deformable":
-            raise NotImplementedError(
-                f"MASK_DINO.CROSS_ATTENTION={cross_attention!r}: only the "
-                "deformable cross-attention is ported")
+        if cross_attention not in ("deformable", "dense"):
+            raise ValueError(f"cross_attention {cross_attention!r} "
+                             "(deformable or dense)")
         c = hidden_dim
+        dense = cross_attention == "dense"
+        self.dense = dense
+        self.mask_attn_bias = dense and mask_attn_bias
+        self.dense_level_cycle = dense and dense_level_cycle
+        self.geo_readout = dense and geo_readout
         self.num_classes, self.num_queries = num_classes, num_queries
         self.num_levels = num_levels
         self.two_stage, self.initial_pred = two_stage, initial_pred
@@ -288,27 +361,97 @@ class MaskDINODecoder(nn.Module):
         self.decoder.norm = LayerNorm(c)
         self.decoder.ref_point_head = MLPHead(2 * c, c, c, 2)
         self.decoder.bbox_embed = nn.ModuleList([MLPHead(c, c, 4, 3)])
+        if self.geo_readout:
+            self.decoder.geo_box_head = MLPHead(num_heads * 4, 64, 4, 2)
+        if dense:
+            self.kpos_level_embed = nn.Parameter(torch.empty(num_levels, c))
         self.decoder.layers = nn.ModuleList(
             DecoderLayer(c, num_heads, num_levels, num_points,
-                         dim_feedforward, core_fn)
+                         dim_feedforward, core_fn, dense=dense,
+                         box_attn_bias=box_attn_bias)
             for _ in range(dec_layers))
 
     @torch.no_grad()
     def reset_heads(self) -> None:
         """The JAX init of the heads that shape the first outputs: class
         biases at the 0.01 prior (zero under SEMANTIC_CE_LOSS) and zero last
-        layers of both box heads, so that the first references are the
-        proposals."""
+        layers of both box heads (and of the geometry head), so that the
+        first references are the proposals; the dense layers'
+        ``xattn_log_sigma`` at zero."""
         for head in (self.class_embed, self.enc_class_embed):
             head.bias.fill_(0.0 if self.semantic_ce_loss else PRIOR_BIAS)
-        for head in (self.decoder.bbox_embed[0], self.enc_box_embed):
+        heads = [self.decoder.bbox_embed[0], self.enc_box_embed]
+        if self.geo_readout:
+            heads.append(self.decoder.geo_box_head)
+        for head in heads:
             head.layers[-1].weight.zero_()
             head.layers[-1].bias.zero_()
+        for layer in self.decoder.layers:
+            if hasattr(layer, "xattn_log_sigma"):
+                layer.xattn_log_sigma.zero_()
 
-    def _refine(self, x: torch.Tensor, refs: torch.Tensor) -> torch.Tensor:
-        """sigmoid(box_mlp(x) + inverse_sigmoid(refs)), eps 1e-3 (DINO's)."""
+    def _refine(self, x: torch.Tensor, refs: torch.Tensor,
+                geo_delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """sigmoid(box_mlp(x) [+ geo_delta] + inverse_sigmoid(refs)), eps
+        1e-3 (DINO's)."""
         delta = fp32_call(self.decoder.bbox_embed[0], x)
+        if geo_delta is not None:
+            delta = delta + geo_delta
         return torch.sigmoid(delta + inverse_sigmoid(refs, 1e-3))
+
+    def _dense_keys(self, value: torch.Tensor, shapes,
+                    mask_features: torch.Tensor) -> List[DenseKeys]:
+        """The dense cross-attention's keys of each level, lowest resolution
+        first: the level's values, its sine position plus its row of
+        ``kpos_level_embed`` (in the values' dtype), its pixel centres and,
+        under the mask gate, the mask features resized to the level
+        (bilinear with two taps, in fp32, then back to their dtype)."""
+        c = value.shape[-1]
+        dt, dev = value.dtype, value.device
+        keys, off = [], 0
+        for lvl, (h, w) in enumerate(shapes):
+            pos = (position_embedding_sine(h, w, c, dev).to(dt)
+                   + self.kpos_level_embed[lvl].to(dt))[None]
+            ys = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h
+            xs = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
+            gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+            xy = torch.stack([gx.reshape(-1), gy.reshape(-1)], -1)
+            mf = None
+            if self.mask_attn_bias:
+                mf = [resize_bilinear_2tap(
+                    mask_features.float().permute(0, 3, 1, 2), h, w
+                ).permute(0, 2, 3, 1).to(mask_features.dtype)]
+            keys.append(DenseKeys(value[:, off:off + h * w], pos, xy, mf))
+            off += h * w
+        return keys
+
+    def _mask_gate(self, x: torch.Tensor,
+                   level_masks: List[torch.Tensor]) -> torch.Tensor:
+        """(B, 1, Q, S) fp32: 0 where the current mask logit (the mask head
+        on the decoder-normed queries, against each level's mask features)
+        is above 0, -1e9 elsewhere; a query with no such key at a level
+        keeps the whole level. A threshold, so no gradient."""
+        with torch.no_grad():
+            emb = self.mask_embed(self.decoder.norm(x))
+            keeps = []
+            for mf in level_masks:
+                k = mask_from_embed(emb, mf).flatten(2) > 0.0
+                keeps.append(k | ~k.any(-1, keepdim=True))
+            keep = torch.cat(keeps, -1)
+            return torch.where(keep, 0.0, -1e9).float()[:, None]
+
+    def _geo_delta(self, geo: torch.Tensor,
+                   refs: torch.Tensor) -> torch.Tensor:
+        """The geometry head on each head's attention centroid offset
+        (clipped to +-8) and log spread (clipped to [1e-3, 1e3]), both in
+        units of the reference box's size (at least 0.02): (B, Q, 4)
+        fp32."""
+        wh = refs[..., 2:].clamp(min=0.02)[..., None, :]
+        rel_c = (geo[..., :2] - refs[..., None, :2]) / wh
+        rel_s = geo[..., 2:] / wh
+        feats = torch.cat([rel_c.clamp(-8.0, 8.0),
+                           rel_s.clamp(1e-3, 1e3).log()], -1)
+        return fp32_call(self.decoder.geo_box_head, feats.flatten(2))
 
     def _predict(self, y: torch.Tensor, mask_features: torch.Tensor,
                  masks: bool):
@@ -399,6 +542,16 @@ class MaskDINODecoder(nn.Module):
                               "total": dn.total, "pos_mask": dn_pos,
                               "labels": dn_labels, "boxes": dn_boxes}
 
+        keys = None
+        if self.dense:
+            levels = self._dense_keys(value, shapes, mask_features)
+            if not self.dense_level_cycle:
+                levels = [DenseKeys(
+                    value, torch.cat([lv.pos for lv in levels], 1),
+                    torch.cat([lv.xy for lv in levels], 0),
+                    [lv.mask_features[0] for lv in levels]
+                    if self.mask_attn_bias else None)]
+
         x = tgt
         cls_list, mask_list, box_list = [], [], []
         if self.initial_pred:
@@ -412,18 +565,22 @@ class MaskDINODecoder(nn.Module):
         layers = self.decoder.layers
         for li, layer in enumerate(layers):
             qpos = self.decoder.ref_point_head(box_pos_embed(refs, c))
-            x = layer(x, qpos, refs, value, shapes, attn_bias)
+            if self.dense:
+                keys = levels[li % len(levels)]
+            x, geo = layer(x, qpos, refs, value, shapes, attn_bias, keys,
+                           self._mask_gate, self.geo_readout)
+            geo_delta = None if geo is None else self._geo_delta(geo, refs)
             y = self.decoder.norm(x)
             # reported boxes from the normed output (upstream pred_box); the
             # next layer's references from the raw output, detached
-            # (upstream dino_decoder loop)
-            box_list.append(self._refine(y, refs))
+            # (upstream dino_decoder loop); the geometry delta feeds both
+            box_list.append(self._refine(y, refs, geo_delta))
             cls_l, masks_l = self._predict(
                 y, mask_features, aux_masks or li == len(layers) - 1)
             cls_list.append(cls_l)
             if masks_l is not None:
                 mask_list.append(masks_l)
-            refs = self._refine(x, refs).detach()
+            refs = self._refine(x, refs, geo_delta).detach()
 
         out["pred_logits"] = torch.stack(cls_list)   # (L+1, B, Q, C)
         out["pred_masks"] = torch.stack(mask_list)   # (L+1 or 1, B, Q, ...)
@@ -450,6 +607,10 @@ def build_maskdino_decoder(cfg, core_fn: Optional[DeformCoreFn] = None
         initial_pred=md.INITIAL_PRED, learn_tgt=md.LEARN_TGT,
         initialize_box_type=md.INITIALIZE_BOX_TYPE,
         semantic_ce_loss=md.SEMANTIC_CE_LOSS,
-        cross_attention=md.CROSS_ATTENTION, dn_groups=groups,
+        cross_attention=md.CROSS_ATTENTION,
+        box_attn_bias=bool(md.BOX_ATTN_BIAS),
+        mask_attn_bias=bool(md.MASK_ATTN_BIAS),
+        dense_level_cycle=bool(md.DENSE_LEVEL_CYCLE),
+        geo_readout=bool(md.GEO_READOUT), dn_groups=groups,
         dn_noise_scale=md.DN_NOISE_SCALE,
         dn_label_noise_ratio=md.DN_LABEL_NOISE_RATIO, core_fn=core_fn)

@@ -29,19 +29,30 @@ from vision_instance_seg_tpu_torch.models.pixel_decoder import conv1x1
 
 class MultiheadAttention(nn.Module):
     """q/k/v multi-head attention with an additive bias, in
-    ``nn.MultiheadAttention``'s parameter layout."""
+    ``nn.MultiheadAttention``'s parameter layout.
 
-    def __init__(self, dim: int, num_heads: int):
+    ``fp32_logits`` forms the logits from the (compute-dtype) projections
+    in fp32, as the JAX module's ``preferred_element_type=float32`` does;
+    otherwise the product is rounded to the compute dtype before the bias
+    is added. MaskDINO's dense cross-attention sets it: its Gaussian box
+    bias spans ~13k keys, where bf16 logits would round it away."""
+
+    def __init__(self, dim: int, num_heads: int, fp32_logits: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.fp32_logits = fp32_logits
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, q, k, v, attn_bias: Optional[torch.Tensor] = None):
+    def forward(self, q, k, v, attn_bias: Optional[torch.Tensor] = None,
+                key_xy: Optional[torch.Tensor] = None):
         """q (B, Q, C), k/v (B, K, C); attn_bias broadcastable to
-        (B, nH, Q, K), fp32."""
+        (B, nH, Q, K), fp32. With ``key_xy`` (K, 2), the normalized key
+        coordinates, also returns ``geo`` (B, Q, nH, 4) fp32: each head's
+        attention centroid E[xy] and spread sqrt(max(Var[xy], 0) + 1e-6),
+        from the attention as the value product sees it."""
         b, nq, c = q.shape
         nh = self.num_heads
         hd = c // nh
@@ -51,12 +62,24 @@ class MultiheadAttention(nn.Module):
             b, -1, nh, hd).transpose(1, 2)
         vp = F.linear(v, w[2 * c:], bias[2 * c:]).view(
             b, -1, nh, hd).transpose(1, 2)
-        logits = ((qp * hd ** -0.5) @ kp.transpose(-2, -1)).float()
+        if self.fp32_logits:
+            with torch.autocast(q.device.type, enabled=False):
+                logits = (qp * hd ** -0.5).float() @ kp.float().transpose(
+                    -2, -1)
+        else:
+            logits = ((qp * hd ** -0.5) @ kp.transpose(-2, -1)).float()
         if attn_bias is not None:
             logits = logits + attn_bias
         attn = logits.softmax(-1).to(vp.dtype)
-        out = (attn @ vp).transpose(1, 2).reshape(b, nq, c)
-        return self.out_proj(out)
+        out = self.out_proj((attn @ vp).transpose(1, 2).reshape(b, nq, c))
+        if key_xy is None:
+            return out
+        with torch.autocast(q.device.type, enabled=False):
+            a32 = attn.float()
+            cen = a32 @ key_xy
+            sq = a32 @ (key_xy * key_xy)
+            sd = torch.sqrt((sq - cen * cen).clamp(min=0.0) + 1e-6)
+        return out, torch.cat([cen, sd], -1).transpose(1, 2)
 
 
 class MLPHead(nn.Module):
