@@ -111,7 +111,18 @@ paths with weights drawn from a fixed seed, through ``build_model`` ->
   second ``Trainer`` that resumes from ``ckpt_final`` (model and optimizer
   state bit for bit) and takes 6 more steps from ``make_batch(0)``, and a
   GT-echo inference function on device tensors through the evaluator
-  (segm AP50 >= 99); the data and eval path imports neither cv2 nor PIL.
+  (segm AP50 >= 99); the data and eval path imports neither cv2 nor PIL;
+- the port's CLIs as a user runs them (``training/maskdino``'s ``main``
+  functions, in this process): a COCO set of JPEG files in the reference's
+  layout (``Cable/{train,val}``, 24 + 8 images ``000000.jpg``... at
+  600x800, written by the port's encoder), ``train_original`` for 20
+  steps of MaskDINO R-50 4-scale at its own config (21 K1 + 15 backward a
+  step: the encoder recomputed in the backward) and its eval on the train
+  set (15 K1 an image), ``evaluate`` on its ``ckpt_final`` (outputs bit
+  for bit the trained model's, results within 1e-6 of a
+  ``COCOEvaluator``'s), ``visualize`` on 4 val images, the committed JPEG
+  corpus against PIL's SHA-256 digests, JPEG decode ms an image; neither
+  cv2 nor PIL imported.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path was launched as many
@@ -131,12 +142,10 @@ import json
 import os
 import re
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 
 import numpy as np
 import torch
@@ -2242,27 +2251,29 @@ TRAINER_HW = (600, 800)
 
 
 def write_png(path: str, img: np.ndarray) -> None:
-    """(H, W, 3) uint8 -> an 8-bit RGB PNG, every row filtered Up."""
-    h, w, _ = img.shape
-    rows = img.reshape(h, w * 3)
-    up = np.concatenate([rows[:1], rows[1:] - rows[:-1]])   # mod 256
-    lines = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1)
-
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return (struct.pack(">I", len(body)) + kind + body
-                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+    """(H, W, 3) uint8 -> an 8-bit RGB PNG, every row filtered Up (the
+    port's ``data/png.encode_png`` at zlib level 1)."""
+    from vision_instance_seg_tpu_torch.data.png import encode_png
 
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(lines.tobytes(), 1))
-                + chunk(b"IEND", b""))
+        f.write(encode_png(img, level=1))
 
 
-def write_png_coco(root: str, n_images: int, seed: int) -> tuple:
-    """A COCO set of PNG images at TRAINER_HW with 1-3 polygon blobs each,
-    drawn as tests/fixtures.py draws them (radii scaled to the size).
-    Returns (annotation file, image directory)."""
+def write_jpeg(path: str, img: np.ndarray) -> None:
+    """(H, W, 3) uint8 -> a baseline JPEG at cv2.imwrite's defaults
+    (quality 95, 4:2:0), by the port's ``data/jpeg.encode_jpeg``."""
+    from vision_instance_seg_tpu_torch.data.jpeg import encode_jpeg
+
+    with open(path, "wb") as f:
+        f.write(encode_jpeg(img, 95, "4:2:0"))
+
+
+def write_coco(root: str, n_images: int, seed: int,
+               fmt: str = "png") -> tuple:
+    """A COCO set at TRAINER_HW with 1-3 polygon blobs an image, drawn as
+    tests/fixtures.py draws them (radii scaled to the size): PNG files
+    ``img_000000.png``, or JPEG files ``000000.jpg``, the reference's
+    original images' names. Returns (annotation file, image directory)."""
     from vision_instance_seg_tpu_torch.data.polygons import polygons_to_bitmask
 
     rng = np.random.default_rng(seed)
@@ -2293,8 +2304,12 @@ def write_png_coco(root: str, n_images: int, seed: int) -> tuple:
                          float(xs.max() - xs.min() + 1),
                          float(ys.max() - ys.min() + 1)],
                 "area": float(mask.sum()), "iscrowd": 0})
-        name = f"img_{i:06d}.png"
-        write_png(os.path.join(img_dir, name), img)
+        if fmt == "png":
+            name = f"img_{i:06d}.png"
+            write_png(os.path.join(img_dir, name), img)
+        else:
+            name = f"{i:06d}.jpg"
+            write_jpeg(os.path.join(img_dir, name), img)
         images.append({"id": i + 1, "file_name": name, "width": width,
                        "height": height})
     ann = os.path.join(root, "annotations.json")
@@ -2326,16 +2341,18 @@ def _same_state(a, b, what: str) -> None:
 
 
 def _counted(trainer, counts: "Counts", per_step: dict, per_batch: dict,
-             total: dict, label: str) -> list:
+             total: dict, label: str, keep_batches: bool = True) -> list:
     """Wrap the trainer's train step and inference function so that each
     call's launches are read and checked; returns the list that collects
-    each step's batch (host copies)."""
+    each step's batch (host copies, inside the timed step, when
+    ``keep_batches``)."""
     step, infer = trainer.train_step, trainer.infer_fn
     batches = []
 
     def train_step(state, batch, seed):
-        batches.append({k: v.cpu().numpy() if isinstance(v, torch.Tensor)
-                        else v for k, v in batch.items()})
+        if keep_batches:
+            batches.append({k: v.cpu().numpy() if isinstance(v, torch.Tensor)
+                            else v for k, v in batch.items()})
         counts.reset()
         state, logs = step(state, batch, seed)
         n = counts.read()
@@ -2382,8 +2399,8 @@ def trainer_phase(cfg, counts: "Counts", engine, smi: str) -> dict:
     root = tmp.name
     t0 = time.perf_counter()
     for split, n in TRAINER_IMAGES.items():
-        ann, img_dir = write_png_coco(os.path.join(root, split), n,
-                                      SEED + 40 + len(split))
+        ann, img_dir = write_coco(os.path.join(root, split), n,
+                                  SEED + 40 + len(split))
         name = f"chip_smoke_{split}"
         if name in DatasetCatalog:
             DatasetCatalog.remove(name)
@@ -2539,6 +2556,230 @@ def trainer_phase(cfg, counts: "Counts", engine, smi: str) -> dict:
         raise AssertionError(f"the data and eval path imported {loaded}")
     tmp.cleanup()
     return dict(launches=total, ms_per_step=ms)
+
+
+# ------------------------------------------- the training and eval CLIs
+
+CLI_STEPS = 20
+CLI_VIS_IMAGES = 4
+JPEG_CORPUS = os.path.join(ROOT, "tests", "data", "jpeg_corpus")
+
+
+def jpeg_corpus_check() -> int:
+    """Decode ``tests/data/jpeg_corpus/`` with the port's decoder and hold
+    each result's SHA-256 to the digest of PIL's decode recorded beside it
+    (this machine's Python need not have PIL). Returns the file count."""
+    import hashlib
+
+    from vision_instance_seg_tpu_torch.data.jpeg import decode_jpeg
+
+    with open(os.path.join(JPEG_CORPUS, "jpeg_corpus.json")) as f:
+        table = json.load(f)
+    for name, entry in sorted(table.items()):
+        with open(os.path.join(JPEG_CORPUS, name), "rb") as f:
+            img = decode_jpeg(f.read())
+        if img is None or list(img.shape) != entry["shape"] or \
+                hashlib.sha256(img.tobytes()).hexdigest() != entry["sha256"]:
+            raise AssertionError(f"jpeg corpus: {name} does not decode to "
+                                 "PIL's bytes")
+    return len(table)
+
+
+def _recording_trainer(cls, trainers: list, counts: "Counts",
+                       per_step: dict, per_batch: dict, total: dict,
+                       label: str):
+    """``cls`` whose instances check each step's and each eval batch's
+    launches (``_counted``, no batch copies) and are kept in
+    ``trainers``."""
+
+    class Checked(cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            _counted(self, counts, per_step, per_batch, total, label,
+                     keep_batches=False)
+            trainers.append(self)
+
+    return Checked
+
+
+def _recording_infer(make_inference_fn, outputs: list):
+    """``make_inference_fn`` whose inference functions keep a copy of each
+    output."""
+    def make(model, cfg):
+        infer = make_inference_fn(model, cfg)
+
+        def fn(images):
+            out = infer(images)
+            outputs.append({k: v.clone() for k, v in out.items()})
+            return out
+        return fn
+    return make
+
+
+def cli_phase(counts: "Counts", smi: str) -> dict:
+    """The port's CLIs as a user runs them, in this process, on MaskDINO
+    R-50 4-scale at full width and depth (their own config:
+    ``common.setup_cfg``, bf16, batch 2, grid points, clip 0.01, the encoder
+    recomputed in the backward) over a JPEG set in the reference's layout
+    (``<root>/Cable/{train,val}``, 24 + 8 images at 600 x 800, written by
+    the port's encoder): ``train_original`` for CLI_STEPS steps (every
+    step's and eval batch's launches checked) and its eval on the train
+    set, ``evaluate`` on its ``ckpt_final`` held to a ``COCOEvaluator`` run
+    here on the trained model, ``visualize`` on CLI_VIS_IMAGES val images;
+    and the committed JPEG corpus against PIL's digests."""
+    from vision_instance_seg_tpu_torch.data.jpeg import decode_jpeg
+    from vision_instance_seg_tpu_torch.engine.evaluator import COCOEvaluator
+    from vision_instance_seg_tpu_torch.models import make_inference_fn
+    from vision_instance_seg_tpu_torch.training.maskdino import (
+        common, evaluate, train_original, visualize)
+
+    t0 = time.perf_counter()
+    n_corpus = jpeg_corpus_check()
+    print(f"cli: {n_corpus} corpus JPEGs decode to PIL's SHA-256 "
+          f"({(time.perf_counter() - t0) * 1e3:.1f} ms)", flush=True)
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    data = os.path.join(root, "data")
+    t0 = time.perf_counter()
+    for split, n in TRAINER_IMAGES.items():
+        write_coco(os.path.join(data, "Cable", split), n,
+                   SEED + 50 + len(split), fmt="jpg")
+    img_dir = os.path.join(data, "Cable", "train", "images")
+    files = sorted(os.listdir(img_dir))
+    print(f"cli: {TRAINER_IMAGES['train']} train and {TRAINER_IMAGES['val']} "
+          f"val JPEGs at {TRAINER_HW[0]}x{TRAINER_HW[1]} written in "
+          f"{time.perf_counter() - t0:.2f} s ({files[0]} ... {files[-1]})",
+          flush=True)
+    blobs = []
+    for name in files:
+        with open(os.path.join(img_dir, name), "rb") as f:
+            blobs.append(f.read())
+    t0 = time.perf_counter()
+    for blob in blobs:
+        decode_jpeg(blob)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / len(blobs)
+    print(f"cli: JPEG decode {decode_ms:.3f} ms an image ({len(blobs)} "
+          f"images at {TRAINER_HW[0]}x{TRAINER_HW[1]}, quality 95, 4:2:0, "
+          f"one host thread, warm file cache)", flush=True)
+
+    cfg = common.setup_cfg()
+    enc = int(cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS)
+    dec = int(cfg.MODEL.MASK_FORMER.DEC_LAYERS) - 1
+    remat = enc if cfg.TPU.REMAT_ENCODER else 0
+    per_step = {"msdeform_attn_fwd": enc + dec + remat,
+                "msdeform_attn_bwd": enc + dec}
+    per_batch = {"msdeform_attn_fwd": enc + dec}
+    total: dict = {}
+    trainers: list = []
+    out = os.path.join(root, "out")
+    cls = train_original.Trainer
+    train_original.Trainer = _recording_trainer(
+        cls, trainers, counts, per_step, per_batch, total, "cli")
+    t0 = time.perf_counter()
+    try:
+        train_original.main(["--data-root", data, "--output-dir", out,
+                             "--max-iter", str(CLI_STEPS)])
+    finally:
+        train_original.Trainer = cls
+    wall = time.perf_counter() - t0
+    trainer = trainers[0]
+    ms = statistics.median(trainer.step_times) * 1e3
+    with open(os.path.join(out, "results.json")) as f:
+        results = json.load(f)
+    if sorted(results) != ["bbox", "segm"] or any(
+            sorted(results[t]) != sorted(["AP", "AP50", "AP75", "APs",
+                                          "APm", "APl"]) for t in results):
+        raise AssertionError(f"cli: results.json {results}")
+    if trainer.state.step != CLI_STEPS:
+        raise AssertionError(f"cli: {trainer.state.step} steps")
+    print(f"cli: train_original {CLI_STEPS} steps of batch "
+          f"{trainer.cfg.SOLVER.IMS_PER_BATCH} ({trainer.cfg.TPU.COMPUTE_DTYPE}"
+          f", remat of the encoder) and its eval on the "
+          f"{TRAINER_IMAGES['train']} train images in {wall:.2f} s; launches "
+          f"per step {per_step} and per eval image {per_batch}, checked each "
+          f"call; results.json segm {results['segm']}", flush=True)
+    print(f"cli: median {ms:.3f} ms/step over all {CLI_STEPS} steps (host "
+          "clock; Trainer over PNGs, PERF.md: 347.934-355.770 ms/step); "
+          f"step seconds {['%.4f' % t for t in trainer.step_times]}, on "
+          f"{smi}", flush=True)
+
+    ckpt = os.path.join(out, "checkpoints", "ckpt_final")
+    ev_out = os.path.join(root, "eval")
+    inner = evaluate.make_inference_fn
+    got_out, want_out = [], []
+    evaluate.make_inference_fn = _recording_infer(inner, got_out)
+    counts.reset()
+    t0 = time.perf_counter()
+    try:
+        evaluate.main(["--data-root", data, "--original-model", ckpt,
+                       "--full-model", os.path.join(root, "none"),
+                       "--output-dir", ev_out])
+    finally:
+        evaluate.make_inference_fn = inner
+    ev_s = time.perf_counter() - t0
+    n = counts.read()
+    counts.check(n, {"msdeform_attn_fwd": per_batch["msdeform_attn_fwd"]
+                     * TRAINER_IMAGES["val"]}, "cli: evaluate")
+    total.update(_add(total, n))
+    with open(os.path.join(ev_out, "original_results.json")) as f:
+        got = json.load(f)
+    ecfg = common.setup_cfg(test_name="thunderbolt_val")
+    model = trainer.model.eval()
+    want = COCOEvaluator("thunderbolt_val", ecfg).evaluate(
+        _recording_infer(make_inference_fn, want_out)(model, ecfg))
+    # the checkpoint's model computes what the trained model computes
+    if len(got_out) != len(want_out) or not all(
+            torch.equal(a[k], b[k]) for a, b in zip(got_out, want_out)
+            for k in a):
+        raise AssertionError("cli: evaluate's outputs differ from the "
+                             "trained model's")
+    positive = sum(int((o["scores"] > 0).sum()) for o in got_out)
+    top_prob = max(int(o["mask_probs"].max()) for o in got_out)
+    for task in ("bbox", "segm"):
+        for k, v in want[task].items():
+            g = got[task][k]
+            if not (abs(g - v) <= 1e-6 or (np.isnan(g) and np.isnan(v))):
+                raise AssertionError(f"cli: evaluate {task} {k} {g} against "
+                                     f"COCOEvaluator {v}")
+    print(f"cli: evaluate on ckpt_final over the {TRAINER_IMAGES['val']} val "
+          f"images in {ev_s:.2f} s (model build and load included): its "
+          "outputs bit for bit the trained model's, its results equal to a "
+          f"COCOEvaluator's within 1e-6: segm {got['segm']}, bbox "
+          f"{got['bbox']} ({positive} detections with a score above 0; the "
+          f"largest mask probability {top_prob}/255 after {CLI_STEPS} steps "
+          "from random weights)", flush=True)
+    del model, trainer, trainers
+    torch.cuda.empty_cache()
+
+    vis_out = os.path.join(root, "vis")
+    counts.reset()
+    t0 = time.perf_counter()
+    summary = visualize.main(["--model", ckpt, "--data-root", data,
+                              "--max-images", str(CLI_VIS_IMAGES),
+                              "--threshold", "0.0", "--output-dir", vis_out])
+    vis_s = time.perf_counter() - t0
+    n = counts.read()
+    counts.check(n, {"msdeform_attn_fwd": per_batch["msdeform_attn_fwd"]
+                     * CLI_VIS_IMAGES}, "cli: visualize")
+    total.update(_add(total, n))
+    names = sorted(os.listdir(vis_out))
+    want_names = sorted([f"pred_{i:06d}.jpg" for i in range(CLI_VIS_IMAGES)]
+                        + ["prediction_summary.json"])
+    if names != want_names or len(summary["images"]) != CLI_VIS_IMAGES:
+        raise AssertionError(f"cli: visualize wrote {names}")
+    for name in names[:-1]:
+        with open(os.path.join(vis_out, name), "rb") as f:
+            img = decode_jpeg(f.read())
+        if img is None or img.shape != TRAINER_HW + (3,):
+            raise AssertionError(f"cli: {name} is not a {TRAINER_HW} JPEG")
+    loaded = sorted(m for m in ("cv2", "PIL") if m in sys.modules)
+    print(f"cli: visualize {CLI_VIS_IMAGES} val images in {vis_s:.2f} s: "
+          f"{names}, predictions {[r['num_predictions'] for r in summary['images']]}"
+          f"; cv2 / PIL imported: {loaded or 'neither'}", flush=True)
+    if loaded:
+        raise AssertionError(f"the CLIs imported {loaded}")
+    tmp.cleanup()
+    return dict(launches=total, ms_per_step=ms, decode_ms=decode_ms)
 
 
 # ------------------------------- MaskDINO with the dense cross-attention
@@ -3208,6 +3449,9 @@ def main() -> int:
     # the training CLIs' loop: Trainer over PNG files, checkpoints, resume
     # and COCO eval (6 K1 an eval batch)
     trained.append((trainer_phase(cfg, counts, engine, smi), {}))
+    # the port's training, eval and visualization CLIs over JPEG files
+    # (21 K1 and 15 backward launches a step, 15 K1 an eval image)
+    trained.append((cli_phase(counts, smi), {}))
 
     launches = {}
     for run, rename in served + trained:

@@ -7,7 +7,9 @@
   ``save_coco_json``, ``merge_datasets``, ``renumber_ids``): equal dicts.
 - ``_read_image``: 8-bit PNG decoded without PIL, byte for byte against
   PIL (gray, gray + alpha, RGB, RGBA, palette; rows of all five filter
-  types); JPEG through PIL, as the JAX loader reads it.
+  types); baseline JPEG by the port's decoder (``data/jpeg.py``), as the
+  JAX loader reads it through PIL (tests/test_torch_port_jpeg.py holds
+  the codec itself).
 - The resizes, numpy (``data/resize.py``) against the JAX transforms'
   cv2 calls over hypothesis-drawn sizes: ``_resize_mask`` (INTER_NEAREST)
   byte for byte; ``_resize_image`` (INTER_LINEAR, uint8) byte for byte on

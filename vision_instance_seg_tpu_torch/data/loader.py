@@ -12,8 +12,8 @@ custom mapper):
 - deterministic per-step RNG derived from (seed, step), the JAX package's
   draws, so the port's batches equal the JAX loader's.
 
-Images are read without PIL when they are 8-bit PNG (``data/png.py``);
-other files go through PIL.
+Images are read without PIL when they are 8-bit PNG (``data/png.py``) or
+baseline JPEG (``data/jpeg.py``); other files go through PIL.
 
 Batch layout (dict of arrays, NHWC):
   image      (B, H, W, 3) uint8 RGB 0-255
@@ -37,14 +37,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from vision_instance_seg_tpu_torch.data import png
+from vision_instance_seg_tpu_torch.data import jpeg, png
 from vision_instance_seg_tpu_torch.data.transforms import EvalTransform, SampleRecord, TrainTransform
 
 
 def _read_image(path: str) -> np.ndarray:
     """Read an image file to RGB uint8 (reference uses detectron2
-    utils.read_image, train_original.py:74). 8-bit non-interlaced PNG is
-    decoded here; anything else goes through PIL."""
+    utils.read_image, train_original.py:74). 8-bit non-interlaced PNG and
+    baseline JPEG are decoded here, as PIL decodes them; anything else
+    (progressive or arithmetic-coded JPEG, CMYK, ...) goes through PIL."""
     with open(path, "rb") as f:
         data = f.read()
     if data.startswith(png.SIGNATURE):
@@ -52,16 +53,19 @@ def _read_image(path: str) -> np.ndarray:
         if img is not None:
             return img
         kind = "16-bit, low bit-depth or interlaced PNG"
-    elif data.startswith(b"\xff\xd8\xff"):
-        kind = "JPEG"
+    elif data.startswith(jpeg.SOI):
+        img = jpeg.decode_jpeg(data)
+        if img is not None:
+            return img
+        kind = f"{jpeg.unsupported_mode(data)} JPEG"
     else:
-        kind = "non-PNG"
+        kind = "non-PNG, non-JPEG"
     try:
         from PIL import Image
     except ImportError as e:
         raise ImportError(f"{path}: decoding a {kind} image needs PIL, which "
-                          "is not installed (8-bit non-interlaced PNG needs "
-                          "nothing)") from e
+                          "is not installed (8-bit non-interlaced PNG and "
+                          "baseline JPEG need nothing)") from e
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
 

@@ -1,4 +1,4 @@
-"""PNG decoding without PIL: zlib and numpy.
+"""PNG decoding and encoding without PIL: zlib and numpy.
 
 Takes 8-bit, non-interlaced PNG files of colour type gray (0), RGB (2),
 palette (3), gray + alpha (4) and RGBA (6), with any of the five row
@@ -9,6 +9,8 @@ then hands to PIL.
 
 Rows filtered None, Sub or Up are undone with numpy; Average and Paeth
 depend on the pixel to their left and run as a byte loop, a few ms a row.
+
+``encode_png`` writes 8-bit grey or RGB, every row filtered Up.
 """
 
 from __future__ import annotations
@@ -106,3 +108,27 @@ def decode_png(data: bytes) -> Optional[np.ndarray]:
     if ch <= 2:
         return np.repeat(img[..., :1], 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    return (struct.pack(">I", len(body)) + kind + body
+            + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+
+def encode_png(img: np.ndarray, level: int = 6) -> bytes:
+    """(H, W, 3) RGB or (H, W) grey uint8 -> PNG bytes (zlib ``level``)."""
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    if img.ndim == 2:
+        color, ch = 0, 1
+    elif img.ndim == 3 and img.shape[2] == 3:
+        color, ch = 2, 3
+    else:
+        raise ValueError(f"expected (H, W) or (H, W, 3), got {img.shape}")
+    h, w = img.shape[:2]
+    rows = img.reshape(h, w * ch)
+    up = np.concatenate([rows[:1], rows[1:] - rows[:-1]])      # mod 256
+    lines = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1)
+    return (SIGNATURE
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(lines.tobytes(), level))
+            + _chunk(b"IEND", b""))

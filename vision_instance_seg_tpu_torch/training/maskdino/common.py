@@ -1,0 +1,152 @@
+"""Shared setup for the port's MaskDINO training, eval and visualization
+CLIs: the port's copy of ``training/maskdino/common.py``.
+
+Registers a Cable-defect COCO dataset under a name, assembles the MaskDINO
+R-50 4-scale config with the reference's solver settings (the same config
+as the JAX CLIs build, key for key), applies free-form ``opts``, and picks
+the device. Every CLI runs on CUDA unless it is given ``--device cpu``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional
+
+import torch
+
+from vision_instance_seg_tpu_torch.config import get_cfg
+from vision_instance_seg_tpu_torch.data.catalog import (DatasetCatalog,
+                                                        MetadataCatalog)
+from vision_instance_seg_tpu_torch.data.coco import load_coco_json
+
+DEFAULT_DATA_ROOT = os.environ.get("VIST_DATA_ROOT", "./data")
+
+
+def add_device_flag(ap) -> None:
+    """The one flag the port's CLIs add to the JAX CLIs' surface."""
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the plain versions of the "
+                         "kernels")
+
+
+def cli_device(name: str) -> torch.device:
+    """The device a CLI runs on: CUDA unless asked otherwise, and never a
+    silent fall back to the CPU."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass --device cpu to run this "
+                           "CLI on the CPU")
+    return device
+
+
+def bootstrap_distributed(dist_url: str | None = None,
+                          num_machines: int | None = None,
+                          machine_rank: int | None = None) -> int:
+    """Returns the process count, 1: multi-process training comes with the
+    port's parallel module (ROADMAP M6), so ``--num-machines`` above 1 or
+    a coordinator address raises."""
+    del machine_rank
+    if (num_machines or 1) > 1 or dist_url not in (None, "", "auto"):
+        raise NotImplementedError(
+            "multi-process training (--num-machines, --dist-url) comes with "
+            "the port's parallel module (ROADMAP M6)")
+    return 1
+
+
+def filter_original_only(dataset_dicts: List[dict],
+                         n_original: int = 40) -> List[dict]:
+    """Keep only the original images 000000.jpg..0000NN.jpg (reference
+    train_original.py:174-195 filename whitelist)."""
+    keep = {f"{i:06d}.jpg" for i in range(n_original)}
+    return [d for d in dataset_dicts
+            if os.path.basename(d["file_name"]) in keep]
+
+
+def register_dataset(name: str, ann_file: str, image_root: str,
+                     filter_fn=None, thing_classes=("thunderbolt",)):
+    """Register (re-register-safe) with category ids remapped to 0
+    (reference train_original.py:198-244 forces category_id=0)."""
+    if name in DatasetCatalog:
+        DatasetCatalog.remove(name)
+        MetadataCatalog.remove(name)
+
+    def loader():
+        dicts = load_coco_json(ann_file, image_root, name)
+        if filter_fn is not None:
+            dicts = filter_fn(dicts)
+        for d in dicts:
+            for a in d.get("annotations", []):
+                a["category_id"] = 0
+        return dicts
+
+    DatasetCatalog.register(name, loader)
+    MetadataCatalog.get(name).set(
+        thing_classes=list(thing_classes),
+        json_file=ann_file, image_root=image_root, evaluator_type="coco")
+    return name
+
+
+def setup_cfg(train_name: Optional[str] = None,
+              test_name: Optional[str] = None,
+              output_dir: str = "./output/maskdino",
+              batch_size: int = 2, lr: float = 1e-4, max_iter: int = 3000,
+              amp: bool = True, weights: str = "",
+              opts: Optional[list] = None,
+              checkpoint_period: Optional[int] = None,
+              eval_period: Optional[int] = None,
+              num_workers: Optional[int] = None,
+              seed: Optional[int] = None,
+              config_file: str = ""):
+    """MaskDINO R-50 4-scale config matching the reference's overrides
+    (train_original.py:250-301, train_experiments.py:48-87), the JAX CLIs'
+    choices included (hungarian matcher, grid points, the dn-loss ramp);
+    the TPU keys are set as JAX sets them, so the two configs compare
+    equal."""
+    cfg = get_cfg()
+    cfg.MODEL.MASK_DINO.ENABLED = True
+    cfg.MODEL.BACKBONE.NAME = "resnet"          # R-50 base yaml
+    # MaskDINO base yaml: CLASS_WEIGHT 4.0 (Mask2Former default is 2.0)
+    cfg.MODEL.MASK_FORMER.CLASS_WEIGHT = 4.0
+    # "4s_dowsample1": 4 encoder scales (res3-5 + one /64 downsample)
+    cfg.MODEL.SEM_SEG_HEAD.TOTAL_NUM_FEATURE_LEVELS = 4
+    cfg.MODEL.WEIGHTS = weights
+    if train_name:
+        cfg.DATASETS.TRAIN = [train_name]
+    if test_name:
+        cfg.DATASETS.TEST = [test_name]
+    cfg.SOLVER.IMS_PER_BATCH = batch_size
+    cfg.SOLVER.BASE_LR = lr
+    cfg.SOLVER.MAX_ITER = max_iter
+    cfg.SOLVER.STEPS = [int(max_iter * 0.8), int(max_iter * 0.9)]
+    cfg.SOLVER.WARMUP_ITERS = min(200, max(100, max_iter // 20))
+    cfg.SOLVER.CHECKPOINT_PERIOD = min(1000, max(500, max_iter // 5))
+    cfg.TEST.EVAL_PERIOD = min(1000, max(500, max_iter // 5))
+    # grad clip: reference fixes full_model->norm 0.01 (:294-299)
+    cfg.SOLVER.CLIP_GRADIENTS.ENABLED = True
+    cfg.SOLVER.CLIP_GRADIENTS.CLIP_TYPE = "norm"
+    cfg.SOLVER.CLIP_GRADIENTS.CLIP_VALUE = 0.01
+    cfg.SOLVER.AMP.ENABLED = amp
+    cfg.TPU.COMPUTE_DTYPE = "bfloat16" if amp else "float32"
+    cfg.MODEL.SWIN.USE_CHECKPOINT = True
+    cfg.TPU.REMAT_ENCODER = True
+    cfg.TPU.SCAN_ENC_UNROLL = 1
+    cfg.MODEL.MASK_FORMER.MATCHER = "hungarian"
+    cfg.MODEL.MASK_FORMER.POINT_MODE = "grid"
+    # the denoising loss ramps 0 -> 1 over the first half of training
+    cfg.MODEL.MASK_DINO.DN_WARMUP_STEPS = max_iter // 2
+    cfg.OUTPUT_DIR = output_dir
+    # explicit CLI periods/seed/workers win over the max_iter-derived
+    # defaults (reference train_experiments.py:221-239 CLI surface)
+    if checkpoint_period is not None:
+        cfg.SOLVER.CHECKPOINT_PERIOD = checkpoint_period
+    if eval_period is not None:
+        cfg.TEST.EVAL_PERIOD = eval_period
+    if num_workers is not None:
+        cfg.DATALOADER.NUM_WORKERS = num_workers
+    if seed is not None:
+        cfg.SEED = seed
+    if config_file:
+        cfg.merge_from_file(config_file)
+    if opts:
+        cfg.merge_from_list(list(opts))
+    return cfg
