@@ -123,6 +123,19 @@ paths with weights drawn from a fixed seed, through ``build_model`` ->
   ``COCOEvaluator``'s), ``visualize`` on 4 val images, the committed JPEG
   corpus against PIL's SHA-256 digests, JPEG decode ms an image; neither
   cv2 nor PIL imported.
+- data parallelism (``parallel/``): ``train_original`` through its
+  ``main`` with ``--num-gpus 1 --num-machines 1 --dist-url
+  tcp://127.0.0.1:<port>``, a one-process NCCL group (5 steps of MaskDINO
+  R-50 4-scale at its config, 21 K1 + 15 backward a step, and its eval),
+  and the NCCL all-reduce of its gradient buffer timed; then two
+  processes sharing the card over gloo (``parallel.launch``) on the
+  default model at global batch 2, 640 px, each counting its own K1 and
+  backward launches (6 + 6 a step): a COCO eval merged over the two (its
+  detections and AP held to one process's), 3
+  fp32 steps with drop path and random points, 3 bf16 steps timed and
+  the gloo all-reduce timed, held to the same run in one process (logs
+  within rtol 1e-3, parameters within 1e-3 of the largest update, the
+  merged AP within 1e-6).
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path was launched as many
@@ -2782,6 +2795,371 @@ def cli_phase(counts: "Counts", smi: str) -> dict:
     return dict(launches=total, ms_per_step=ms, decode_ms=decode_ms)
 
 
+# ---------------------------------------------- data parallelism (M6)
+
+NCCL_STEPS = 5
+DP_STEPS = 3
+DP_VAL = "chip_smoke_dp_val"
+ADAM_EPS = 1e-8        # SOLVER's AdamW
+
+
+def _dp_register(ann: str, img_dir: str) -> None:
+    from vision_instance_seg_tpu_torch.data.catalog import (DatasetCatalog,
+                                                            MetadataCatalog)
+    from vision_instance_seg_tpu_torch.data.coco import load_coco_json
+
+    if DP_VAL in DatasetCatalog:
+        DatasetCatalog.remove(DP_VAL)
+        MetadataCatalog.remove(DP_VAL)
+    DatasetCatalog.register(DP_VAL, lambda: load_coco_json(ann, img_dir,
+                                                           DP_VAL))
+    MetadataCatalog.get(DP_VAL).set(json_file=ann, image_root=img_dir,
+                                    thing_classes=["thunderbolt"])
+
+
+def _params_digest(params: dict) -> str:
+    import hashlib
+
+    flat = torch.cat([p.detach().reshape(-1) for p in params.values()])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def dp_run(spec: dict) -> dict:
+    """The default ``get_cfg()`` model on one process of the parallel
+    phase's two (started by ``parallel.launch``: gloo, both on cuda:0) or
+    alone (the one-process run it is held to): a COCO eval of the seeded
+    weights over ``spec``'s set (merged over the processes), DP_STEPS fp32
+    steps at the full rate (no warm-up; drop path 0.3 and random points,
+    the defaults; TF32 off) on this process's rows of each global batch of
+    2, DP_STEPS bf16 steps timed, and (two processes) the gloo all-reduce
+    of a buffer of the gradients' size timed. Every step's K1 and
+    backward launches are this process's own, checked. The one-process
+    run keeps its tensors (``spec["keep"]``); rank 0 of two writes its
+    per-step gradients and final parameters to ``spec["save"]``. The
+    detections COCOeval got (the merged list) come back as their count and
+    a digest."""
+    import hashlib
+
+    from vision_instance_seg_tpu_torch import engine
+    from vision_instance_seg_tpu_torch.config import get_cfg
+    from vision_instance_seg_tpu_torch.engine.evaluator import COCOEvaluator
+    from vision_instance_seg_tpu_torch.kernels import msdeform_attn as K
+    from vision_instance_seg_tpu_torch.models import (build_model,
+                                                      make_inference_fn)
+    from vision_instance_seg_tpu_torch.parallel import comm
+    from vision_instance_seg_tpu_torch.parallel.mesh import shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = comm.process_index(), comm.process_count()
+    device = comm.device() or torch.device("cuda", 0)
+    _dp_register(*spec["val"])
+    cfg = get_cfg()
+    cfg.TPU.COMPUTE_DTYPE = "float32"
+    cfg.SOLVER.WARMUP_ITERS = 0
+    cfg.TEST.SCORE_THRESH = 0.0
+    enc = int(cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS)
+    ncls = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
+    model = build_model(cfg, device=device, seed=SEED)
+    comm.broadcast_tensors(list(model.parameters()) + list(model.buffers()))
+
+    K.ms_deform_attn.launches = 0
+    merged = []
+
+    class Recording(COCOEvaluator):
+        def evaluate_predictions(self, results):
+            merged.append(results)
+            return super().evaluate_predictions(results)
+
+    evaluator = Recording(DP_VAL, cfg)
+    metrics = evaluator.evaluate(make_inference_fn(model.eval(), cfg))
+    images = evaluator.last_timing["images"]
+    dets = sorted((d["image_id"], d["category_id"], d["score"],
+                   tuple(d["bbox"]), repr(d["segmentation"]))
+                  for d in merged[0])
+    detections = (len(dets), hashlib.sha256(repr(dets).encode()).hexdigest())
+    if K.ms_deform_attn.launches != enc * images:
+        raise AssertionError(f"dp rank {rank}: {K.ms_deform_attn.launches} "
+                             f"K1 launches over {images} eval images")
+    init = ({n: p.detach().clone() for n, p in model.named_parameters()}
+            if spec.get("keep") else None)
+
+    def run_steps(model, cfg, timed: bool):
+        state = engine.create_train_state(cfg, model)
+        step = engine.make_train_step(cfg, model, state.optimizer)
+        logs, grads, times = [], [], []
+        for i in range(DP_STEPS):
+            batch = shard_batch(train_batch(cfg, SEED + 70 + i, ncls), rank,
+                                world)
+            K.ms_deform_attn.launches = K.ms_deform_attn_bwd.launches = 0
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            state, out = step(state, batch, SEED)
+            torch.cuda.synchronize(device)
+            times.append(time.perf_counter() - t0)
+            n = (K.ms_deform_attn.launches, K.ms_deform_attn_bwd.launches)
+            if n != (enc, enc):
+                raise AssertionError(f"dp rank {rank}: a step launched K1 "
+                                     f"and the backward {n} times, not "
+                                     f"{enc} each")
+            if not all(np.isfinite(v) for v in out.values()):
+                raise AssertionError(f"dp rank {rank}: train logs {out}")
+            logs.append(out)
+            if not timed:
+                grads.append({n: p.grad.detach().clone()
+                              for n, p in model.named_parameters()})
+        return state, logs, grads, times
+
+    state, logs, grads, _ = run_steps(model.train(), cfg, timed=False)
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    digest = _params_digest(params)
+    del model, state
+    cfg16 = cfg.clone()
+    cfg16.TPU.COMPUTE_DTYPE = "bfloat16"
+    model = build_model(cfg16, device=device, seed=SEED)
+    comm.broadcast_tensors(list(model.parameters()) + list(model.buffers()))
+    state, logs16, _, times = run_steps(model, cfg16, timed=True)
+    numel = sum(p.numel() for g in state.optimizer.param_groups
+                for p in g["params"])
+    allreduce_ms = None
+    if world > 1:
+        buf = torch.zeros(numel, device=device)
+        ar = []
+        for _ in range(4):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            comm.all_reduce_sum(buf)
+            torch.cuda.synchronize(device)
+            ar.append(time.perf_counter() - t0)
+        allreduce_ms = statistics.median(ar[1:]) * 1e3
+    out = dict(rank=rank, metrics=metrics, images=images,
+               detections=detections, logs=logs,
+               logs16=logs16, step_s=times, digest=digest, numel=numel,
+               allreduce_ms=allreduce_ms,
+               launches={"msdeform_attn_fwd": enc * (images + 2 * DP_STEPS),
+                         "msdeform_attn_bwd": enc * 2 * DP_STEPS})
+    if spec.get("keep"):
+        out.update(init=init, grads=grads, params=params)
+    elif rank == 0:
+        torch.save({"grads": [{k: v.cpu() for k, v in g.items()}
+                              for g in grads],
+                    "params": {k: v.cpu() for k, v in params.items()}},
+                   spec["save"])
+    return out
+
+
+def _adam_amplified(one_grads: list, got_grads: list, name: str):
+    """Elements where some step's two gradients g, g' differ enough to move
+    AdamW's normalized update g / (|g| + eps) by more than 1e-4, a tenth of
+    a step's share of the parameters' 1e-3 of DP_STEPS updates: there its
+    update amplifies their rounding difference (on the H100 at 5e-4, elements
+    of five tensors parted by up to 0.94% of the largest update while
+    every gradient agreed within 1e-3 of the largest)."""
+    out = None
+    for one, got in zip(one_grads, got_grads):
+        a = one[name]
+        b = got[name].to(a.device)
+        hit = (b - a).abs() * ADAM_EPS / (
+            torch.minimum(a.abs(), b.abs()) + ADAM_EPS) ** 2 > 1e-4
+        out = hit if out is None else out | hit
+    return out
+
+
+def _params_held(one: dict, got: dict) -> dict:
+    """Rank 0's gradients and parameters ``got`` against the one-process
+    run ``one``: every step's every gradient within 1e-3 of the step's
+    largest (tests/test_torch_port_train.py's bound), and every parameter
+    within 1e-3 of the one-process run's largest update past an fp32 ulp
+    of its own value a step (each step rounds its update once: the
+    sampling offsets' biases sit at up to 8, where an ulp, 4.8e-7, exceeds
+    1e-3 of a 3e-4 update), but where AdamW amplifies the gradients'
+    rounding (``_adam_amplified``: gradients near its eps, held by the
+    gradient bound alone; counted). Raises past the bounds, naming the
+    tensors; returns the worst ratios and the counts."""
+    worst_grad, bad = 0.0, []
+    for step, (a_s, b_s) in enumerate(zip(one["grads"], got["grads"])):
+        top = max(v.abs().max().item() for v in a_s.values())
+        for n, a in a_s.items():
+            err = (b_s[n].to(a.device) - a).abs().max().item()
+            worst_grad = max(worst_grad, err / top)
+            if err > 1e-3 * top:
+                bad.append((step, n, err, top))
+    if bad:
+        raise AssertionError(f"parallel: {len(bad)} gradients past 1e-3 of "
+                             f"the step's largest: {bad[:8]}")
+    update = max((one["params"][n] - one["init"][n]).abs().max().item()
+                 for n in one["params"])
+    worst, amplified, worst_amplified, n_all = 0.0, 0, 0.0, 0
+    for n, want in one["params"].items():
+        hit = _adam_amplified(one["grads"], got["grads"], n)
+        amplified += int(hit.sum())
+        n_all += want.numel()
+        diff = (got["params"][n].to(want.device) - want).abs()
+        ulp = torch.nextafter(want.abs(), torch.full_like(want, np.inf)) \
+            - want.abs()
+        excess = torch.where(hit, 0.0, diff - len(one["grads"]) * ulp
+                             ).max().item()
+        worst = max(worst, excess / update)
+        if hit.any():
+            worst_amplified = max(worst_amplified,
+                                  diff[hit].max().item() / update)
+        if excess > 1e-3 * update:
+            bad.append((n, diff.max().item()))
+    if bad:
+        raise AssertionError(f"parallel: {len(bad)} tensors past 1e-3 of "
+                             f"the largest update {update} (and an ulp a "
+                             f"step): {bad[:8]}")
+    return dict(worst_grad=worst_grad, worst=worst, update=update,
+                amplified=amplified, worst_amplified=worst_amplified,
+                n_all=n_all)
+
+
+def parallel_phase(counts: "Counts", smi: str) -> dict:
+    """Data parallelism over processes (ROADMAP M6). (a) NCCL:
+    ``train_original`` through its ``main`` at its own config (MaskDINO R-50
+    4-scale, bf16, batch 2, 640 px, REMAT_ENCODER) with ``--num-gpus 1
+    --num-machines 1 --dist-url tcp://127.0.0.1:<port>``, a one-process
+    NCCL group, NCCL_STEPS steps (21 K1 + 15 backward each, checked) and its
+    eval, then the NCCL all-reduce of a buffer of its gradients' size. (b)
+    Two processes on cuda:0 over gloo (``parallel.launch``,
+    ``backend="gloo"``) running ``dp_run`` on the default model at full
+    width, held to the same run in this process: the fp32 logs within
+    rtol 1e-3, every gradient of every step within 1e-3 of the step's
+    largest, every parameter after DP_STEPS steps within 1e-3 of the
+    one-process run's largest update past an fp32 ulp of its value a
+    step (but where AdamW amplifies gradient rounding: ``_params_held``),
+    the two replicas equal, the merged bbox and segm AP within 1e-6."""
+    import torch.distributed as dist
+
+    from vision_instance_seg_tpu_torch.parallel import comm
+    from vision_instance_seg_tpu_torch.parallel.launch import (free_port,
+                                                               launch)
+    from vision_instance_seg_tpu_torch.training.maskdino import (
+        common, train_original)
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    data = os.path.join(root, "data")
+    write_coco(os.path.join(data, "Cable", "train"), TRAINER_IMAGES["train"],
+               SEED + 90, fmt="jpg")
+    val = write_coco(os.path.join(root, "val"), TRAINER_IMAGES["val"],
+                     SEED + 91)
+
+    # (a) NCCL through the training CLI
+    cfg = common.setup_cfg()
+    enc = int(cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS)
+    dec = int(cfg.MODEL.MASK_FORMER.DEC_LAYERS) - 1
+    per_step = {"msdeform_attn_fwd": 2 * enc + dec,
+                "msdeform_attn_bwd": enc + dec}
+    per_batch = {"msdeform_attn_fwd": enc + dec}
+    total: dict = {}
+    trainers: list = []
+    cls = train_original.Trainer
+    train_original.Trainer = _recording_trainer(
+        cls, trainers, counts, per_step, per_batch, total, "parallel NCCL")
+    url = f"tcp://127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    try:
+        train_original.main([
+            "--data-root", data, "--output-dir", os.path.join(root, "out"),
+            "--max-iter", str(NCCL_STEPS), "--num-gpus", "1",
+            "--num-machines", "1", "--dist-url", url])
+        wall = time.perf_counter() - t0
+        if not (dist.is_initialized() and dist.get_backend() == "nccl"
+                and comm.process_count() == 1):
+            raise AssertionError("parallel: train_original did not run in "
+                                 "a one-process NCCL group")
+        trainer = trainers[0]
+        if trainer.state.step != NCCL_STEPS:
+            raise AssertionError(f"parallel: {trainer.state.step} steps")
+        numel = sum(p.numel() for g in trainer.state.optimizer.param_groups
+                    for p in g["params"])
+        buf = torch.zeros(numel, device=trainer.device)
+        nccl_ms = cuda_time_ms(lambda: dist.all_reduce(buf), reps=20)
+        nccl_step_ms = statistics.median(trainer.step_times[1:]) * 1e3
+    finally:
+        train_original.Trainer = cls
+        comm.shutdown()
+    print(f"parallel (a): train_original --num-gpus 1 --num-machines 1 "
+          f"--dist-url {url}: a one-process NCCL group, {NCCL_STEPS} steps "
+          f"of batch {trainer.cfg.SOLVER.IMS_PER_BATCH} (bf16, remat of the "
+          f"encoder; launches per step {per_step}, per eval image "
+          f"{per_batch}, checked each call) and its eval in {wall:.2f} s; "
+          f"median {nccl_step_ms:.3f} ms/step after the first; NCCL "
+          f"all-reduce of the gradient buffer ({numel} fp32, {numel * 4} "
+          f"bytes): {nccl_ms:.4f} ms (one process), on {smi}", flush=True)
+    del trainer, trainers, buf
+    torch.cuda.empty_cache()
+
+    # (b) two gloo processes sharing cuda:0, against one process
+    t0 = time.perf_counter()
+    one = dp_run({"val": val, "keep": True})
+    one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    save = os.path.join(root, "rank0.pt")
+    t0 = time.perf_counter()
+    ranks = launch(dp_run, 2, args=({"val": val, "save": save},),
+                   backend="gloo", devices=["cuda:0", "cuda:0"], timeout=600)
+    two_s = time.perf_counter() - t0
+    for r in ranks:
+        for i, (a, b) in enumerate(zip(r["logs"], one["logs"])):
+            for k, v in b.items():
+                if not abs(a[k] - v) <= 1e-3 * abs(v):
+                    raise AssertionError(f"parallel: rank {r['rank']} step "
+                                         f"{i} {k} {a[k]} against one "
+                                         f"process's {v}")
+        for task in ("bbox", "segm"):
+            for k, v in one["metrics"][task].items():
+                g = r["metrics"][task][k]
+                if not (abs(g - v) <= 1e-6 or (np.isnan(g) and np.isnan(v))):
+                    raise AssertionError(f"parallel: rank {r['rank']} merged "
+                                         f"{task} {k} {g} against {v}")
+        if r["detections"] != one["detections"]:
+            raise AssertionError(f"parallel: rank {r['rank']} merged "
+                                 f"{r['detections']} detections, one "
+                                 f"process {one['detections']}")
+    if ranks[0]["digest"] != ranks[1]["digest"]:
+        raise AssertionError("parallel: the two replicas' parameters differ")
+    if [r["images"] for r in ranks] != [TRAINER_IMAGES["val"] // 2] * 2:
+        raise AssertionError(f"parallel: eval images per rank "
+                             f"{[r['images'] for r in ranks]}")
+    held = _params_held(one, torch.load(save, weights_only=True))
+    ms1 = statistics.median(one["step_s"][1:]) * 1e3
+    ms2 = statistics.median(ranks[0]["step_s"][1:]) * 1e3
+    first = {k: float('%.6g' % v) for k, v in ranks[0]["logs"][0].items()}
+    print(f"parallel (b): two processes on cuda:0 over gloo (parallel.launch"
+          f", {two_s:.2f} s with their start; the one-process run "
+          f"{one_s:.2f} s), default model at global batch {TRAIN_BATCH}, "
+          f"{TRAIN_CANVAS} px: K1 and backward launches per step per rank "
+          f"{enc} + {enc}, checked; {DP_STEPS} fp32 steps (drop path, random "
+          f"points, TF32 off) within rtol 1e-3 of one process (first step "
+          f"{first}); every step's gradients within {held['worst_grad']:.3e}"
+          f" of the step's largest; parameters after them within an fp32 "
+          f"ulp a step plus {held['worst']:.3e} of the largest update "
+          f"{held['update']:.4e} but at {held['amplified']} of "
+          f"{held['n_all']} elements, whose gradients sit near AdamW's eps "
+          f"(there up to {held['worst_amplified']:.3e} of it); the replicas "
+          f"bit for bit; merged eval of "
+          f"{[r['images'] for r in ranks]} images: its "
+          f"{one['detections'][0]} detections equal to one process's (RLEs, "
+          f"boxes and scores), AP within 1e-6: segm {one['metrics']['segm']}"
+          f", bbox {one['metrics']['bbox']}", flush=True)
+    print(f"parallel (b): bf16 {ms1:.3f} ms/step on 1 process (batch "
+          f"{TRAIN_BATCH}), {ms2:.3f} ms/step on 2 processes sharing the card "
+          f"(batch 1 each; step seconds {['%.4f' % t for t in ranks[0]['step_s']]}"
+          f"); gloo all-reduce of the gradient buffer ({ranks[0]['numel']} "
+          f"fp32, {ranks[0]['numel'] * 4} bytes, CUDA tensors through the "
+          f"host): {ranks[0]['allreduce_ms']:.3f} ms; on {smi}", flush=True)
+    launches = _add(total, one["launches"])
+    for r in ranks:
+        launches = _add(launches, r["launches"])
+    tmp.cleanup()
+    print(f"parallel: {time.perf_counter() - t_phase:.1f} s in all",
+          flush=True)
+    return dict(launches=launches, nccl_ms=nccl_ms, ms_1=ms1, ms_2=ms2)
+
+
 # ------------------------------- MaskDINO with the dense cross-attention
 
 DENSE_KNOBS = ("MASK_ATTN_BIAS", "DENSE_LEVEL_CYCLE", "GEO_READOUT")
@@ -3452,6 +3830,9 @@ def main() -> int:
     # the port's training, eval and visualization CLIs over JPEG files
     # (21 K1 and 15 backward launches a step, 15 K1 an eval image)
     trained.append((cli_phase(counts, smi), {}))
+    # data parallelism: a one-process NCCL group through train_original,
+    # and two gloo processes on the card against one process (M6)
+    trained.append((parallel_phase(counts, smi), {}))
 
     launches = {}
     for run, rename in served + trained:

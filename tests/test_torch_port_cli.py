@@ -3,7 +3,9 @@
 
 - Flags: each port CLI's parser has the JAX CLI's option strings, dests,
   defaults, types, nargs and choices, plus ``--device`` (the seventh,
-  ``register_experiments``, needs no device and has exactly JAX's).
+  ``register_experiments``, needs no device and has exactly JAX's);
+  ``train_original`` and ``train_full`` also take JAX
+  ``train_experiments``' distributed flags.
 - Configs: ``setup_cfg`` equals JAX's for the defaults, CLI arguments,
   ``opts`` and ``--config-file``; every CLI assembles JAX's config from the
   same command line (train_template for all four ``--model`` routes),
@@ -22,8 +24,10 @@
   them): equal ``{name}_results.json`` and ``prediction_summary.json``;
   the overlays equal pixel for pixel except where cv2 drew a contour line
   (the port's lines within one pixel of cv2's) and inside label boxes.
-- ``--num-gpus`` / ``--num-machines`` above 1 and a ``--dist-url`` raise,
-  naming M6; without CUDA and without ``--device cpu`` a CLI raises.
+- The distributed flags follow JAX's rules (no process group for one
+  machine, ``--dist-url auto`` with two machines raises JAX's error) and
+  ``--num-gpus`` resolves to JAX ``make_mesh``'s data axis; without CUDA
+  and without ``--device cpu`` a CLI raises.
 """
 
 import argparse
@@ -236,12 +240,23 @@ def _capture_parser(monkeypatch, run):
 # -------------------------------------------------------------- flags
 
 
+# JAX train_experiments' distributed flags, which the port's other
+# training CLIs take too
+DIST_FLAGS = (("--num-chips", "--num-gpus"), ("--num-machines",),
+              ("--machine-rank",), ("--dist-url",))
+
+
 @pytest.mark.parametrize("name", sorted(JAX_SCRIPTS))
 def test_flags_match_jax(monkeypatch, name):
     want = _surface(_capture_parser(monkeypatch, _jax_cli(name).main))
     got = _surface(PORT[name].build_parser())
     assert got.pop(("--device",)) == ("device", "cuda", None, None, False,
                                       None, None, "_StoreAction")
+    if name in ("train_original", "train_full"):
+        jax_te = _surface(_capture_parser(
+            monkeypatch, _jax_cli("train_experiments").main))
+        for flag in DIST_FLAGS:
+            assert got.pop(flag) == jax_te[flag], flag
     assert got == want
 
 
@@ -369,16 +384,39 @@ def test_train_template_builds_jax_config(monkeypatch, tmp_path, data,
 # --------------------------------------------------- surface and device
 
 
-def test_distributed_flags_raise(data, tmp_path):
+def test_distributed_flags_follow_jax(monkeypatch, data, tmp_path):
+    """One machine without an address starts no process group; two with
+    ``--dist-url auto`` raise JAX's ValueError; ``--num-gpus N`` at
+    ``--device cpu`` asks for JAX ``make_mesh``'s data axis of processes
+    (nothing is trained or spawned here)."""
+    import jax
+
+    from vision_instance_seg_tpu.parallel import comm as jax_comm
+    from vision_instance_seg_tpu.parallel.mesh import make_mesh
+
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
+                "LOCAL_RANK", "JAX_COORDINATOR_ADDRESS",
+                "COORDINATOR_ADDRESS"):
+        monkeypatch.delenv(var, raising=False)
     assert p_common.bootstrap_distributed() == 1
     assert p_common.bootstrap_distributed("auto", 1, 0) == 1
+    assert not torch.distributed.is_initialized()
     base = ["--exp", EXP, "--base-dir", f"{data}/exp", "--output-dir",
             str(tmp_path), "--device", "cpu"]
-    for extra in (["--num-gpus", "2"], ["--num-chips", "4"],
-                  ["--num-machines", "2"],
-                  ["--dist-url", "tcp://localhost:23456"]):
-        with pytest.raises(NotImplementedError, match="M6"):
-            p_te.main(base + extra)
+    with pytest.raises(ValueError) as want:
+        jax_comm.initialize("auto", 2, 0)
+    with pytest.raises(ValueError) as got:
+        p_te.main(base + ["--num-machines", "2"])
+    assert str(got.value) == str(want.value)
+    for gpus, batch in ((2, 2), (4, 2), (2, 3), (3, 6), (-1, 2)):
+        args = p_te.build_parser().parse_args(
+            base + ["--num-gpus", str(gpus), "--batch-size", str(batch)])
+        cfg = p_te.build_cfg(args)
+        n = p_common.local_processes(cfg, "cpu")
+        devices = jax.devices()[:max(gpus, 1)]
+        assert n == make_mesh(cfg, devices=devices,
+                              batch_size=batch).shape["data"], (gpus, batch)
+    assert not torch.distributed.is_initialized()
 
 
 def test_cli_needs_cuda_or_device_cpu(monkeypatch, data, tmp_path):

@@ -15,7 +15,10 @@ function). A batch in the JAX loader's layout is made with numpy.
   discontinuous (bilinear floors, ReLU kinks), and perturbing the port's
   own weights by 1e-7 relative moves a few small gradients by 2e-3 of
   their size, the same amount JAX differs by. Three steps track the JAX
-  losses within 1e-3 relative.
+  losses within 1e-3 relative. The same three steps on two gloo
+  processes (``parallel.launch``), each on its row of the batch, are held
+  to JAX's step at the same tolerances: JAX's SPMD step computes the
+  global batch's function on any mesh.
 - Labels are equal for every parameter; the schedule agrees within 1e-6
   relative (JAX computes it in fp32, so cosine steps stay where 1 + cos is
   not small); two optimizer updates from identical gradients agree with
@@ -188,6 +191,37 @@ def test_train_step_matches_jax(three_steps):
         assert err <= 1e-3 * top, name
         rel.append(err / max(np.abs(want).max(), 1e-30))
     assert np.median(rel) <= 1e-4
+
+
+def test_two_process_steps_match_jax(setup, three_steps):
+    import torch_port_dp as dp
+    from vision_instance_seg_tpu_torch.parallel.launch import launch
+
+    jlogs, _, jgrads, _, _ = three_steps
+    _, _, params, batch = setup
+    state = {k: v.numpy() for k, v in state_dict_from_jax(params).items()}
+    cfg = train_cfg(port_get_cfg())
+    results = launch(dp.train_steps, 2, args=(cfg.to_dict(), [batch] * 3,
+                                              state),
+                     devices=["cpu", "cpu"], timeout=120)
+    plogs, pgrads, _ = results[0]
+    assert results[1][0] == plogs
+    assert set(plogs[0]) == set(jlogs[0]) | {"lr"}
+    for k, v in jlogs[0].items():
+        np.testing.assert_allclose(plogs[0][k], v, rtol=1e-4, err_msg=k)
+    clip = 0.01 / jlogs[0]["grad_norm"]
+    assert set(pgrads[0]) == set(jgrads)
+    top = max(np.abs(g.numpy()).max() for g in jgrads.values()) * clip
+    rel = []
+    for name, g in jgrads.items():
+        want = g.numpy() * clip
+        err = np.abs(pgrads[0][name] - want).max()
+        assert err <= 1e-3 * top, name
+        rel.append(err / max(np.abs(want).max(), 1e-30))
+    assert np.median(rel) <= 1e-4
+    for j, p in zip(jlogs, plogs):
+        for k in ("loss_ce", "loss_mask", "loss_dice", "loss_total"):
+            np.testing.assert_allclose(p[k], j[k], rtol=1e-3, err_msg=k)
 
 
 def test_three_steps_track_jax(three_steps):

@@ -265,9 +265,13 @@ def prefetch_to_device(iterator, size: int = 2, device=None):
     On CUDA each batch's arrays are copied into pinned host buffers and
     sent with ``non_blocking`` copies on a side stream; a batch is yielded
     once the consumer's stream has been made to wait for its copies. On the
-    CPU the arrays become tensors without a copy.
+    CPU the arrays become tensors without a copy. The default device is the
+    current card (each process's own in a data-parallel run:
+    ``parallel.comm.initialize`` sets it); ``Trainer`` passes its
+    model's.
     """
-    device = torch.device(device if device is not None else "cuda")
+    device = torch.device(device if device is not None
+                          else f"cuda:{torch.cuda.current_device()}")
     it = iter(iterator)
     try:
         if device.type != "cuda":

@@ -6,7 +6,9 @@ model's state dict, the optimizer's, the step and the best eval metric so
 far. It is written under a temporary name and moved into place with
 ``os.replace``, so a preempted save never leaves a torn file. The naming
 rule is the JAX module's: ``latest_checkpoint`` takes ``ckpt_final``, else
-the highest ``ckpt_<n>``, and never ``ckpt_best``.
+the highest ``ckpt_<n>``, and never ``ckpt_best``. In a data-parallel run
+every process calls ``save_checkpoint``: rank 0 writes (the replicas are
+equal) and no process returns before the file is in place.
 """
 
 from __future__ import annotations
@@ -18,19 +20,23 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
+from vision_instance_seg_tpu_torch.parallel import comm
 from vision_instance_seg_tpu_torch.utils import weights
 
 
 def save_checkpoint(ckpt_dir: str, model: nn.Module,
                     optimizer: torch.optim.Optimizer, step: int,
                     best_metric: float, tag) -> str:
-    os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(os.path.abspath(ckpt_dir), f"ckpt_{tag}")
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"model": model.state_dict(),
-                "optimizer": optimizer.state_dict(),
-                "step": int(step), "best_metric": float(best_metric)}, tmp)
-    os.replace(tmp, path)
+    if comm.is_main_process():
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save({"model": model.state_dict(),
+                    "optimizer": optimizer.state_dict(),
+                    "step": int(step), "best_metric": float(best_metric)},
+                   tmp)
+        os.replace(tmp, path)
+    comm.barrier()
     return path
 
 
@@ -51,9 +57,10 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 def load_checkpoint(path: str, model: nn.Module,
                     optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
     """Restore the model and optimizer in place; returns ``{"step",
-    "best_metric"}``. The file is read onto the host: ``load_state_dict``
-    moves each tensor where a fresh run keeps it (the moments beside their
-    parameters, AdamW's step counts on the host)."""
+    "best_metric"}``. The file is read onto the host, never onto the card
+    it was saved from: ``load_state_dict`` moves each tensor where a fresh
+    run keeps it (the moments beside their parameters on this process's
+    device, AdamW's step counts on the host)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(ckpt["model"])
     optimizer.load_state_dict(ckpt["optimizer"])

@@ -17,6 +17,10 @@ The JAX module's prefix / chunk fetch machinery and its cost models
 back by one non-blocking copy of the small outputs and the patches per
 batch, and a row that escapes its patch is one more slice of the device
 tensor. Batch n+1 is dispatched before the host postprocesses batch n.
+In a data-parallel run each process evaluates its rank-strided share of
+the images (``EvalLoader``), the detection lists are merged in rank order
+(``parallel.comm.all_gather_objects``) and every process runs COCOeval on
+the merged list, so all of them return the same AP.
 """
 
 from __future__ import annotations
@@ -27,7 +31,6 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from vision_instance_seg_tpu_torch.data import rle as mask_util
 from vision_instance_seg_tpu_torch.data.catalog import (DatasetCatalog,
@@ -37,6 +40,7 @@ from vision_instance_seg_tpu_torch.data.loader import EvalLoader
 from vision_instance_seg_tpu_torch.data.resize import (resize_linear_f32,
                                                        warp_scale_f32)
 from vision_instance_seg_tpu_torch.evaluation.cocoeval import COCOeval
+from vision_instance_seg_tpu_torch.parallel import comm
 
 logger = logging.getLogger(__name__)
 
@@ -343,15 +347,12 @@ class COCOEvaluator:
         result, or any function with its output contract) over
         ``DATASETS`` ``dataset_name`` and return COCO AP per task.
 
-        ``last_timing`` then holds the images, the seconds spent
+        ``last_timing`` then holds this process's images, the seconds spent
         dispatching inference and waiting for its results
         (``inference_s``), in host postprocess (``postprocess_s``) and in
-        COCOeval (``cocoeval_s``), and the wall seconds of the loop."""
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "merging eval results across processes comes with the "
-                "port's parallel module (ROADMAP M6)")
+        COCOeval (``cocoeval_s``; with more than one process, the merge of
+        the processes' results first), and the wall seconds of the
+        loop."""
         cfg = self.cfg
         dicts = DatasetCatalog.get(self.dataset_name)
         loader = EvalLoader(dicts, cfg,
@@ -435,6 +436,9 @@ class COCOEvaluator:
                     timing["images"], timing["loop_s"],
                     timing["images"] / max(timing["loop_s"], 1e-9))
         t0 = time.perf_counter()
+        if comm.process_count() > 1:
+            results = [r for part in comm.all_gather_objects(results)
+                       for r in part]
         metrics = self.evaluate_predictions(results)
         timing["cocoeval_s"] = time.perf_counter() - t0
         self.last_timing = timing

@@ -20,9 +20,17 @@ seeded from (seed, step), as the JAX step folds the step into its key.
 COCO eval with a "best" checkpoint and early stopping, checkpoints and
 resume. The step's
 phases are ``torch.profiler`` ranges (``train_step.forward``,
-``.criterion``, ``.backward``, ``.optimizer``; ``criterion.match`` inside
-the criterion), which cost nothing measurable when no profiler runs;
-``scripts/profile_port_train.py`` reads them.
+``.criterion``, ``.backward``, ``.optimizer``, ``.all_reduce``;
+``criterion.match`` inside the criterion), which cost nothing measurable
+when no profiler runs; ``scripts/profile_port_train.py`` reads them.
+
+Data parallelism (``parallel/``): with a process group running, each
+process holds a replica and its contiguous slice of the global batch. The
+step draws its random numbers for the global batch and keeps its rows,
+divides by the global batch's loss normalizers, and sums the gradients
+and the logged losses over the processes in one all-reduce of a flat
+buffer, before the norm and the clip: every process then makes the same
+update, the one JAX's SPMD step makes on the global batch.
 """
 
 from __future__ import annotations
@@ -55,6 +63,8 @@ from vision_instance_seg_tpu_torch.models.criterion_dino import (
     dino_criterion_config_from_cfg, maskdino_criterion, sample_dino_points)
 from vision_instance_seg_tpu_torch.models.meta_arch import (
     MaskDINO, build_model, make_inference_fn, normalize_image)
+from vision_instance_seg_tpu_torch.parallel import comm
+from vision_instance_seg_tpu_torch.parallel.mesh import sharded_step
 
 logger = logging.getLogger(__name__)
 
@@ -82,6 +92,20 @@ def step_seed(seed: int, step: int) -> int:
         1, np.uint64)[0])
 
 
+def reduce_gradients(grads: List[torch.Tensor], values: torch.Tensor
+                     ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """Sum ``grads`` and the log ``values`` (1-D) over the processes in one
+    all-reduce of a flat buffer; returns views of the summed buffer."""
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [values.to(grads[0].dtype)])
+    comm.all_reduce_sum(flat)
+    out, offset = [], 0
+    for g in grads:
+        out.append(flat[offset:offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return out, flat[offset:]
+
+
 def make_train_step(cfg, model: nn.Module, optimizer: torch.optim.Optimizer
                     ) -> Callable[[TrainState, Dict, int],
                                   Tuple[TrainState, Dict[str, float]]]:
@@ -92,7 +116,9 @@ def make_train_step(cfg, model: nn.Module, optimizer: torch.optim.Optimizer
     the clip) and the step's base ``lr``. The full-attention encoder
     trains through K8 and the flash backward K9 on the card. MaskDINO's
     denoising loss is scaled by min(step / ``MASK_DINO.DN_WARMUP_STEPS``,
-    1) (1 when that is 0)."""
+    1) (1 when that is 0). With a process group running, ``batch`` is this
+    process's slice of the global batch and the logs are the global
+    batch's (see the module's docstring)."""
     dino = isinstance(model, MaskDINO)
     cc = (dino_criterion_config_from_cfg(cfg) if dino
           else criterion_config_from_cfg(cfg))
@@ -142,26 +168,33 @@ def make_train_step(cfg, model: nn.Module, optimizer: torch.optim.Optimizer
         m = gt_classes.shape[1]
         gt_valid = torch.arange(m, device=device)[None, :] < num[:, None]
 
-        if dino:
-            total, logs = dino_loss(state.step, images, gt_classes,
-                                    gt_masks, gt_valid, batch, gen)
-        else:
-            with record_function("train_step.forward"):
-                cls_layers, mask_layers = model(images, aux_masks=True,
-                                                generator=gen)
-            with record_function("train_step.criterion"):
-                n_layers = cls_layers.shape[0] if cc.deep_supervision else 1
-                points = sample_points(gen, n_layers, gt_classes.numel(),
-                                       cc, device)
-                total, logs = set_criterion(cls_layers, mask_layers,
-                                            gt_classes, gt_masks, gt_valid,
-                                            cc, points)
+        group = dist.is_available() and dist.is_initialized()
+        with sharded_step(comm.process_index(), comm.process_count()):
+            if dino:
+                total, logs = dino_loss(state.step, images, gt_classes,
+                                        gt_masks, gt_valid, batch, gen)
+            else:
+                with record_function("train_step.forward"):
+                    cls_layers, mask_layers = model(images, aux_masks=True,
+                                                    generator=gen)
+                with record_function("train_step.criterion"):
+                    n_layers = (cls_layers.shape[0] if cc.deep_supervision
+                                else 1)
+                    points = sample_points(gen, n_layers,
+                                           gt_classes.numel(), cc, device)
+                    total, logs = set_criterion(cls_layers, mask_layers,
+                                                gt_classes, gt_masks,
+                                                gt_valid, cc, points)
         with record_function("train_step.backward"):
             optimizer.zero_grad()
             total.backward()
+        values = torch.stack([logs[k].detach() for k in logs])
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        if group:
+            with record_function("train_step.all_reduce"):
+                grads, values = reduce_gradients(grads, values)
         with record_function("train_step.optimizer"):
-            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                     for p in params]
             for p, g in zip(params, grads):
                 p.grad = g
             norm = global_norm(grads)
@@ -172,7 +205,7 @@ def make_train_step(cfg, model: nn.Module, optimizer: torch.optim.Optimizer
             optimizer.step()
         state.step += 1
         keys = list(logs) + ["grad_norm"]
-        values = torch.stack([logs[k].detach() for k in logs] + [norm])
+        values = torch.cat([values, norm[None]])
         out = dict(zip(keys, values.tolist()))       # one host sync
         out["lr"] = lr
         return state, out
@@ -186,19 +219,33 @@ class Trainer:
     The model comes from ``build_model(cfg, device, seed=cfg.SEED)`` unless
     one is given; the batches from ``TrainLoader`` over
     ``DATASETS.TRAIN``, through ``prefetch_to_device``; the eval from
-    ``COCOEvaluator`` on ``DATASETS.TEST[0]`` through ``infer_fn``. The
-    JAX Trainer's mesh commit has no counterpart on one device."""
+    ``COCOEvaluator`` on ``DATASETS.TEST[0]`` through ``infer_fn``.
+
+    With a process group running (``parallel.comm``) every process builds
+    a Trainer: its model on the device ``comm.initialize`` gave it unless
+    ``device`` names one, rank 0's parameters and buffers broadcast to the
+    others (after building, a resume and ``MODEL.WEIGHTS``: JAX's
+    ``_commit_state_to_mesh``), its loader's slice of each global batch of
+    ``SOLVER.IMS_PER_BATCH``, checkpoints written by rank 0, the eval
+    merged over the processes (so every process takes the same "best" and
+    early-stop decisions), ``metrics.json`` written by rank 0."""
 
     def __init__(self, cfg, model: Optional[nn.Module] = None, device=None):
         self.cfg = cfg
+        n_proc = comm.process_count()
+        if int(cfg.SOLVER.IMS_PER_BATCH) % n_proc:
+            raise ValueError(f"SOLVER.IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH}"
+                             f" does not split over {n_proc} processes")
         self.model = model if model is not None else build_model(
-            cfg, device=device, seed=int(cfg.SEED))
+            cfg, device=device if device is not None else comm.device(),
+            seed=int(cfg.SEED))
         self.device = next(self.model.parameters()).device
         dicts: List[dict] = []
         for name in cfg.DATASETS.TRAIN:
             dicts.extend(DatasetCatalog.get(name))
         self.loader = TrainLoader(dicts, cfg)
         self.state = create_train_state(cfg, self.model)
+        self._commit_state_to_ranks()
         self.train_step = make_train_step(cfg, self.model,
                                           self.state.optimizer)
         self.infer_fn = make_inference_fn(self.model, cfg)
@@ -210,6 +257,12 @@ class Trainer:
         self.best_metric = float("-inf")   # best eval segm AP so far
         self.step_times: List[float] = []  # seconds of each train_step
         self.last_eval_timing: Dict[str, float] = {}
+
+    def _commit_state_to_ranks(self) -> None:
+        """Every process takes rank 0's parameters and buffers (the
+        optimizer state is equal already: fresh, or read from one file)."""
+        comm.broadcast_tensors(list(self.model.parameters())
+                               + list(self.model.buffers()))
 
     # -------------------------------------------------- checkpoint/resume
     def checkpoint_dir(self) -> str:
@@ -224,7 +277,8 @@ class Trainer:
 
     def resume_or_load(self, resume: bool = True) -> "Trainer":
         """Resume from the latest checkpoint (model, optimizer, step and
-        best metric), else load ``MODEL.WEIGHTS`` when set."""
+        best metric), else load ``MODEL.WEIGHTS`` when set. Every process
+        calls it."""
         if resume:
             latest = checkpoint.latest_checkpoint(self.checkpoint_dir())
             if latest is not None:
@@ -232,12 +286,14 @@ class Trainer:
                                                   self.state.optimizer)
                 self.state.step = self.start_iter = info["step"]
                 self.best_metric = info["best_metric"]
+                self._commit_state_to_ranks()
                 logger.info("resumed from %s at iter %d", latest,
                             self.start_iter)
                 return self
         w = self.cfg.MODEL.WEIGHTS
         if w:
             checkpoint.load_pretrained_backbone(w, self.model)
+            self._commit_state_to_ranks()
             logger.info("initialized from %s", w)
         return self
 
@@ -256,8 +312,7 @@ class Trainer:
 
     def _write_metrics(self, obj: Dict) -> None:
         """metrics.json append, by the main process only."""
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_rank() != 0:
+        if not comm.is_main_process():
             return
         with open(self._metrics_file, "a") as f:
             f.write(json.dumps(obj) + "\n")

@@ -13,6 +13,12 @@ every layer's points from the train step's generator, ``set_criterion``
 consumes them. So a test can hand both packages the same points. In
 "grid" point mode nothing is random. All layers are matched with one host
 round trip (``matcher.solve_assignments``).
+
+In a data-parallel train step (``parallel.mesh.sharded_step``) the points
+of the pairs are drawn for the global batch and this process keeps its
+pairs, and ``num_masks`` and the CE weight sums are the global batch's
+(summed over the processes in one collective), so the processes' losses
+add up to the global batch's loss, as in JAX's SPMD step.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from torch.profiler import record_function
 
 from vision_instance_seg_tpu_torch.models.matcher import (
     grid_sample_masks, match_cost, point_sample_nhw, solve_assignments)
+from vision_instance_seg_tpu_torch.parallel.mesh import draw_rows, global_sum
 
 
 class CriterionConfig(NamedTuple):
@@ -78,11 +85,14 @@ def sample_points(generator: torch.Generator, n_layers: int, n_pairs: int,
     def uniform(*shape):
         return torch.rand(shape, generator=generator, device=device)
 
+    def per_pair(n_points):
+        return draw_rows(lambda n: uniform(n_layers, n, n_points, 2),
+                         n_pairs, dim=1)
+
     return CriterionPoints(
         match=uniform(n_layers, p, 2),
-        candidates=uniform(n_layers, n_pairs, int(p * cc.oversample_ratio),
-                           2),
-        fill=uniform(n_layers, n_pairs, p - _n_uncertain(cc), 2))
+        candidates=per_pair(int(p * cc.oversample_ratio)),
+        fill=per_pair(p - _n_uncertain(cc)))
 
 
 def importance_sample_points(pair_logits: torch.Tensor,
@@ -99,14 +109,19 @@ def importance_sample_points(pair_logits: torch.Tensor,
     return torch.cat([top, fill], dim=1)
 
 
+def _ce_weights(target_cls: torch.Tensor, cc: CriterionConfig
+                ) -> torch.Tensor:
+    return torch.where(target_cls == cc.num_classes, cc.eos_coef, 1.0)
+
+
 def _losses(cls_logits, pred_v, gt_v, target_cls, valid, num_masks,
-            cc: CriterionConfig) -> Dict[str, torch.Tensor]:
+            ce_norm, cc: CriterionConfig) -> Dict[str, torch.Tensor]:
     """One layer's CE over all queries and BCE / dice over matched pairs.
-    pred_v / gt_v (B*M, P); target_cls (B, Q); valid (B*M,) fp32."""
+    pred_v / gt_v (B*M, P); target_cls (B, Q); valid (B*M,) fp32;
+    ``ce_norm`` the sum of the CE weights."""
     logp = F.log_softmax(cls_logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, target_cls[..., None])[..., 0]
-    w = torch.where(target_cls == cc.num_classes, cc.eos_coef, 1.0)
-    loss_ce = (nll * w).sum() / w.sum()
+    loss_ce = (nll * _ce_weights(target_cls, cc)).sum() / ce_norm
     bce = F.softplus(pred_v) - pred_v * gt_v
     loss_mask = (bce.mean(-1) * valid).sum() / num_masks
     pr = pred_v.sigmoid()
@@ -153,7 +168,6 @@ def set_criterion(cls_logits_layers: torch.Tensor,
     if not grid_mode and points is None:
         raise ValueError("random point mode needs the step's points "
                          "(sample_points)")
-    num_masks = gt_valid.sum().float().clamp(min=1.0)
     valid = gt_valid.reshape(b * m).float()
     masks = mask_logits_layers.float()
 
@@ -176,12 +190,20 @@ def set_criterion(cls_logits_layers: torch.Tensor,
                           pred_pts, gt_valid, cc.class_weight,
                           cc.mask_weight, cc.dice_weight)
         gt_to_query = solve_assignments(cost, cc.matcher)   # (L+1, B, M)
+    targets = [_target_classes(gt_to_query[k], gt_classes, gt_valid, q, cc)
+               for k in range(n_layers)]
+    # the batch's normalizers (the global batch's, one collective): the
+    # valid slots, then each layer's CE weight sum
+    norms = global_sum(torch.stack(
+        [gt_valid.sum().float()]
+        + [_ce_weights(t, cc).sum() for t in targets]))
+    num_masks = norms[0].clamp(min=1.0)
 
     # ---- losses, layer by layer
     total = torch.zeros((), dtype=torch.float32, device=masks.device)
     for k in range(n_layers):
         match = gt_to_query[k]
-        target = _target_classes(match, gt_classes, gt_valid, q, cc)
+        target = targets[k]
         if grid_mode:
             pred_v = torch.gather(
                 pred_pts[k], 1,
@@ -200,7 +222,7 @@ def set_criterion(cls_logits_layers: torch.Tensor,
             gt_v = (point_sample_nhw(gt_masks.flatten(0, 1), pts)
                     > 0.5).float()
         ld = _losses(cls_logits_layers[k], pred_v, gt_v, target, valid,
-                     num_masks, cc)
+                     num_masks, norms[1 + k], cc)
         weighted = (cc.class_weight * ld["loss_ce"]
                     + cc.mask_weight * ld["loss_mask"]
                     + cc.dice_weight * ld["loss_dice"])

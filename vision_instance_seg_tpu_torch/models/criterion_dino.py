@@ -23,6 +23,12 @@ each matched layer, each dn group of it and the encoder level), and
 same points. In "grid" point mode nothing is random. Every layer and the
 encoder level are matched with one host round trip
 (``matcher.solve_assignments``).
+
+In a data-parallel train step (``parallel.mesh.sharded_step``) the pairs'
+points are drawn for the global batch and this process keeps its pairs,
+and every normalizer (the valid slots, the CE weight sums) is the global
+batch's, summed over the processes before the clamp, as JAX computes it
+over the mesh.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from vision_instance_seg_tpu_torch.models.criterion import (
 from vision_instance_seg_tpu_torch.models.matcher import (
     _INVALID_COST, batch_dice_cost, batch_sigmoid_ce_cost, grid_sample_masks,
     point_sample_nhw, solve_assignments)
+from vision_instance_seg_tpu_torch.parallel.mesh import draw_rows, global_sum
 
 LOSSES = ("loss_cls", "loss_bbox", "loss_giou", "loss_mask", "loss_dice")
 
@@ -121,16 +128,21 @@ def sample_dino_points(generator: torch.Generator, n_layers: int,
     def uniform(*shape):
         return torch.rand(shape + (2,), generator=generator, device=device)
 
+    def per_pair(*lead, n_points):
+        """(*lead, n_pairs, n_points, 2), the pairs this process's"""
+        return draw_rows(lambda n: uniform(*lead, n, n_points), n_pairs,
+                         dim=len(lead))
+
     pts = DinoPoints(match=uniform(p),
-                     candidates=uniform(n_layers, n_pairs, n_cand),
-                     fill=uniform(n_layers, n_pairs, n_fill))
+                     candidates=per_pair(n_layers, n_points=n_cand),
+                     fill=per_pair(n_layers, n_points=n_fill))
     if groups:
         pts = pts._replace(
-            dn_candidates=uniform(n_layers, groups, n_pairs, n_cand),
-            dn_fill=uniform(n_layers, groups, n_pairs, n_fill))
+            dn_candidates=per_pair(n_layers, groups, n_points=n_cand),
+            dn_fill=per_pair(n_layers, groups, n_points=n_fill))
     if encoder:
-        pts = pts._replace(enc_candidates=uniform(n_pairs, n_cand),
-                           enc_fill=uniform(n_pairs, n_fill))
+        pts = pts._replace(enc_candidates=per_pair(n_points=n_cand),
+                           enc_fill=per_pair(n_points=n_fill))
     return pts
 
 
@@ -231,7 +243,7 @@ def _class_loss(cls_logits: torch.Tensor, gt_classes: torch.Tensor,
         nll = -torch.gather(F.log_softmax(logits, -1), -1,
                             target[..., None])[..., 0]
         w = torch.where(target == cc.num_classes, cc.no_object_weight, 1.0)
-        return (nll * w).sum() / w.sum()
+        return (nll * w).sum() / global_sum(w.sum())
     onehot = torch.zeros((b, q * c), device=logits.device).scatter_reduce(
         1, gt_to_query * c + cls_t, gt_valid.float(), "amax").view(b, q, c)
     return sigmoid_focal_loss(logits, onehot, cc.focal_alpha,
@@ -275,13 +287,20 @@ def _box_mask_losses(mask_logits, boxes, gt_masks, gt_boxes, gt_valid,
     return out
 
 
+def _num_valid(gt_valid: torch.Tensor) -> torch.Tensor:
+    """The (global) batch's valid slots, at least 1."""
+    return global_sum(gt_valid.sum().float()).clamp(min=1.0)
+
+
 def matched_losses(cls_logits, mask_logits, boxes, gt_classes, gt_masks,
                    gt_boxes, gt_valid, gt_to_query, cc: DinoCriterionConfig,
-                   pred_grid=None, gt_grid=None, candidates=None, fill=None
-                   ) -> Dict[str, torch.Tensor]:
+                   pred_grid=None, gt_grid=None, candidates=None, fill=None,
+                   num_masks=None) -> Dict[str, torch.Tensor]:
     """The JAX ``_matched_losses``: ``loss_cls``, ``loss_bbox``,
-    ``loss_giou``, ``loss_mask``, ``loss_dice`` given an assignment."""
-    num_masks = gt_valid.sum().float().clamp(min=1.0)
+    ``loss_giou``, ``loss_mask``, ``loss_dice`` given an assignment;
+    ``num_masks`` is the batch's valid slots (computed when None)."""
+    if num_masks is None:
+        num_masks = _num_valid(gt_valid)
     out = {"loss_cls": _class_loss(cls_logits, gt_classes, gt_valid,
                                    gt_to_query, num_masks, cc)}
     out.update(_box_mask_losses(mask_logits, boxes, gt_masks, gt_boxes,
@@ -300,19 +319,20 @@ def weighted(ld: Dict[str, torch.Tensor], cc: DinoCriterionConfig
 
 def dn_losses(cls_logits, mask_logits, boxes, dn_meta: Dict, gt_classes,
               gt_masks, gt_boxes, gt_valid, cc: DinoCriterionConfig,
-              gt_grid=None, candidates=None, fill=None
+              gt_grid=None, candidates=None, fill=None, num_masks=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The JAX ``_dn_losses`` over the dn prefix (B, T, ...) of the query
     axis: classification over every dn query (positives to their GT
     class, negatives to the background, padded slots out), box and mask
     losses of the positives with the identity assignment, divided by the
-    groups. ``candidates`` / ``fill`` (G, N, ..., 2) in random mode.
-    Returns (weighted total, logs)."""
+    groups. ``candidates`` / ``fill`` (G, N, ..., 2) in random mode;
+    ``num_masks`` as in ``matched_losses``. Returns (weighted total,
+    logs)."""
     groups, m = dn_meta["groups"], dn_meta["max_gt"]
     b = cls_logits.shape[0]
     pred_grid = (grid_sample_masks(mask_logits, cc.num_points)
                  if cc.point_mode == "grid" else None)
-    n_valid = gt_valid.sum().float().clamp(min=1.0)
+    n_valid = _num_valid(gt_valid) if num_masks is None else num_masks
     pos = dn_meta["pos_mask"]                                  # (B, T)
     rep_cls = gt_classes.long().clamp(0, cc.num_classes - 1).repeat(
         1, 2 * groups)
@@ -323,7 +343,7 @@ def dn_losses(cls_logits, mask_logits, boxes, dn_meta: Dict, gt_classes,
         nll = -torch.gather(F.log_softmax(logits, -1), -1,
                             target[..., None])[..., 0]
         w = torch.where(pos, 1.0, cc.no_object_weight) * dn_valid
-        loss_cls = (nll * w).sum() / w.sum().clamp(min=1.0)
+        loss_cls = (nll * w).sum() / global_sum(w.sum()).clamp(min=1.0)
     else:
         onehot = F.one_hot(rep_cls, cc.num_classes).float() \
             * pos[..., None].float()
@@ -397,13 +417,15 @@ def maskdino_criterion(outputs: Dict, gt_classes: torch.Tensor,
                                            gt_boxes, gt_classes, gt_valid,
                                            cc)
 
+    num_masks = _num_valid(gt_valid)
+
     def level_losses(k: int, cand, fill):
         return matched_losses(
             cls_m[k], masks_m[k], boxes_m[k], gt_classes, gt_masks,
             gt_boxes, gt_valid, gt_to_query[k], cc,
             pred_grid=pred_pts[k] if grid_mode else None,
             gt_grid=gt_pts if grid_mode else None, candidates=cand,
-            fill=fill)
+            fill=fill, num_masks=num_masks)
 
     total = torch.zeros((), dtype=torch.float32, device=cls_m.device)
     for k in range(n_layers):
@@ -417,7 +439,8 @@ def maskdino_criterion(outputs: Dict, gt_classes: torch.Tensor,
                 box_layers[k, :, :t], dn_meta, gt_classes, gt_masks,
                 gt_boxes, gt_valid, cc, gt_grid=gt_pts if grid_mode else None,
                 candidates=None if grid_mode else points.dn_candidates[k],
-                fill=None if grid_mode else points.dn_fill[k])
+                fill=None if grid_mode else points.dn_fill[k],
+                num_masks=num_masks)
             total = total + dn_scale * dn_total
             logs["loss_dn"] = dn_total
             logs.update({f"dn_{n[5:]}": dnl[n] for n in LOSSES})

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vision_instance_seg_tpu_torch.parallel.mesh import draw_rows
+
 
 class LayerNorm(nn.LayerNorm):
     """LayerNorm with torch's eps 1e-5, computed in fp32."""
@@ -82,6 +84,8 @@ class DropPath(nn.Module):
     ``draw`` takes the keep mask from an explicit generator (the train
     step's, never the global one); ``forward`` applies it. Drawing apart
     from applying lets a checkpointed block recompute with the same mask.
+    In a data-parallel step the mask is drawn for the global batch and
+    this process keeps its rows (``parallel.mesh.draw_rows``).
     """
 
     def __init__(self, rate: float = 0.0):
@@ -96,9 +100,12 @@ class DropPath(nn.Module):
         if generator is None:
             raise ValueError("DropPath in training needs the train step's "
                              "torch.Generator")
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        keep = torch.empty(shape, device=x.device, dtype=torch.float32)
-        return keep.bernoulli_(1.0 - self.rate, generator=generator).bool()
+        def draw(rows: int) -> torch.Tensor:
+            keep = torch.empty((rows,) + (1,) * (x.ndim - 1),
+                               device=x.device, dtype=torch.float32)
+            return keep.bernoulli_(1.0 - self.rate, generator=generator)
+
+        return draw_rows(draw, x.shape[0]).bool()
 
     def forward(self, x: torch.Tensor,
                 keep: Optional[torch.Tensor]) -> torch.Tensor:

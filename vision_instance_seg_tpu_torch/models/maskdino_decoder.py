@@ -69,6 +69,7 @@ from vision_instance_seg_tpu_torch.models.layers import (
     resize_bilinear_2tap)
 from vision_instance_seg_tpu_torch.models.transformer_decoder import (
     MLPHead, MultiheadAttention, fp32_call, mask_from_embed)
+from vision_instance_seg_tpu_torch.parallel.mesh import draw_rows
 
 PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)   # sigmoid prior 0.01
 
@@ -182,7 +183,9 @@ def build_dn_queries(generator: torch.Generator, gt_classes: torch.Tensor,
     ``label_noise_ratio / 2``; each box coordinate moves by sign * part *
     (w or h) / 2 * ``noise_scale``, part ~ U[0, 1) for the positives and
     U[1, 2) for the negatives (the JAX module's separable shell), clipped to
-    [1e-4, 1]. Padded slots are never positive.
+    [1e-4, 1]. Padded slots are never positive. In a data-parallel step
+    each draw is made for the global batch and this process keeps its
+    rows (``parallel.mesh.draw_rows``).
     """
     b, m = gt_classes.shape
     dev = gt_boxes.device
@@ -191,15 +194,20 @@ def build_dn_queries(generator: torch.Generator, gt_classes: torch.Tensor,
     w, h = boxes_in[..., 2], boxes_in[..., 3]
     diff = torch.stack([w / 2, h / 2, w / 2, h / 2], -1)
 
+    def rand(*shape):
+        return draw_rows(lambda n: torch.rand(
+            (n,) + shape, generator=generator, device=dev), b)
+
+    def randint(high, *shape):
+        return draw_rows(lambda n: torch.randint(
+            0, high, (n,) + shape, generator=generator, device=dev), b)
+
     def one_half(negative: bool):
-        flip = torch.rand((b, m), generator=generator, device=dev) \
-            < label_noise_ratio * 0.5
-        rand_lab = torch.randint(0, num_classes, (b, m), generator=generator,
-                                 device=dev)
+        flip = rand(m) < label_noise_ratio * 0.5
+        rand_lab = randint(num_classes, m)
         labels = torch.where(flip, rand_lab, gt_classes)
-        sign = torch.randint(0, 2, (b, m, 4), generator=generator,
-                             device=dev) * 2.0 - 1.0
-        part = torch.rand((b, m, 4), generator=generator, device=dev)
+        sign = randint(2, m, 4) * 2.0 - 1.0
+        part = rand(m, 4)
         if negative:
             part = part + 1.0
         boxes = (boxes_in + sign * part * diff * noise_scale).clamp(1e-4,

@@ -5,19 +5,30 @@ Registers a Cable-defect COCO dataset under a name, assembles the MaskDINO
 R-50 4-scale config with the reference's solver settings (the same config
 as the JAX CLIs build, key for key), applies free-form ``opts``, and picks
 the device. Every CLI runs on CUDA unless it is given ``--device cpu``.
+
+Data parallelism: the training CLIs take the reference's
+``--num-gpus/--num-machines/--machine-rank/--dist-url`` and run on
+``parallel.mesh.data_parallel_size`` processes a machine, one per card
+(``run_cli``), started here by ``parallel.launch`` or by a launcher such as
+torchrun (its environment); every CLI joins a process group that a
+launcher set up (``bootstrap_distributed``).
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import Any, Callable, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from vision_instance_seg_tpu_torch.config import get_cfg
 from vision_instance_seg_tpu_torch.data.catalog import (DatasetCatalog,
                                                         MetadataCatalog)
 from vision_instance_seg_tpu_torch.data.coco import load_coco_json
+from vision_instance_seg_tpu_torch.parallel import comm
+from vision_instance_seg_tpu_torch.parallel.launch import launch
+from vision_instance_seg_tpu_torch.parallel.mesh import data_parallel_size
 
 DEFAULT_DATA_ROOT = os.environ.get("VIST_DATA_ROOT", "./data")
 
@@ -39,18 +50,83 @@ def cli_device(name: str) -> torch.device:
     return device
 
 
+def add_distributed_flags(ap) -> None:
+    """The reference CLIs' distributed flags (train_experiments.py:241-248),
+    as the JAX ``train_experiments`` defines them."""
+    ap.add_argument("--num-chips", "--num-gpus", type=int, default=-1,
+                    dest="num_chips",
+                    help="processes on the data axis, one per card (-1 = "
+                         "every card), shrunk to a divisor of the batch; "
+                         "with --device cpu, CPU processes over gloo")
+    ap.add_argument("--num-machines", type=int, default=1,
+                    help="number of machines in the run")
+    ap.add_argument("--machine-rank", type=int, default=0,
+                    help="this machine's rank (0 = coordinator)")
+    ap.add_argument("--dist-url", default="auto",
+                    help="coordinator address, e.g. tcp://host:port; 'auto' "
+                         "(detectron2 default) or empty = a free local port "
+                         "(one machine), or torchrun's environment")
+
+
 def bootstrap_distributed(dist_url: str | None = None,
                           num_machines: int | None = None,
-                          machine_rank: int | None = None) -> int:
-    """Returns the process count, 1: multi-process training comes with the
-    port's parallel module (ROADMAP M6), so ``--num-machines`` above 1 or
-    a coordinator address raises."""
-    del machine_rank
-    if (num_machines or 1) > 1 or dist_url not in (None, "", "auto"):
-        raise NotImplementedError(
-            "multi-process training (--num-machines, --dist-url) comes with "
-            "the port's parallel module (ROADMAP M6)")
-    return 1
+                          machine_rank: int | None = None,
+                          device: str = "cuda") -> int:
+    """Start the process group of a multi-process run by
+    ``parallel.comm.initialize``'s rules (the JAX CLIs' surface: a no-op
+    unless a coordinator address is given or a launcher such as torchrun
+    set the environment). ``device`` is the CLI's ``--device``: each
+    process takes card ``LOCAL_RANK`` over NCCL, or the CPU over gloo.
+    Returns the process count."""
+    if comm.initialize(dist_url=dist_url, num_machines=num_machines,
+                       machine_rank=machine_rank, device=device):
+        print(f"[dist] initialized: process {comm.process_index()}/"
+              f"{comm.process_count()} on {comm.device()} "
+              f"({dist.get_backend()})")
+    return comm.process_count()
+
+
+def local_processes(cfg, device) -> int:
+    """Processes this machine runs: ``data_parallel_size`` of the cards
+    present (``TPU.MESH_SHAPE``'s data axis, -1 = all, set from
+    ``--num-gpus``) at ``SOLVER.IMS_PER_BATCH``. The CPU has as many
+    devices as the data axis asks for (one for -1)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        present = torch.cuda.device_count()
+    else:
+        data = int(cfg.TPU.MESH_SHAPE[list(cfg.TPU.MESH_AXES).index("data")])
+        present = max(data, 1)
+    return data_parallel_size(cfg, present, int(cfg.SOLVER.IMS_PER_BATCH))
+
+
+def rank_device(name: str) -> torch.device:
+    """This process's device: the one ``comm.initialize`` gave it in a
+    process group, else ``cli_device(name)``."""
+    return comm.device() or cli_device(name)
+
+
+def run_cli(worker: Callable[[Any], Any], args, cfg) -> Any:
+    """Run ``worker(args)`` on every process of the run and return rank 0's
+    result. ``cfg`` (with ``TPU.MESH_SHAPE`` from ``--num-gpus``) gives
+    the processes of this machine, ``local_processes``: more than one are
+    started by ``parallel.launch`` (``worker`` must pickle), one runs here
+    in the process group of ``--dist-url`` / ``--num-machines`` /
+    ``--machine-rank``, or of a launcher's environment."""
+    device = cli_device(args.device)
+    if comm.launched_by_env() or dist.is_initialized():
+        bootstrap_distributed(device=args.device)
+        return worker(args)
+    n = local_processes(cfg, device)
+    if n > 1:
+        devices = ([f"cuda:{i}" for i in range(n)] if device.type == "cuda"
+                   else ["cpu"] * n)
+        return launch(worker, n, args.num_machines, args.machine_rank,
+                      args.dist_url or "auto", args=(args,),
+                      devices=devices)[0]
+    bootstrap_distributed(args.dist_url or None, args.num_machines,
+                          args.machine_rank, device=args.device)
+    return worker(args)
 
 
 def filter_original_only(dataset_dicts: List[dict],

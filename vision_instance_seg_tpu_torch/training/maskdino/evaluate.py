@@ -4,7 +4,9 @@ port's ``training/maskdino/evaluate.py``).
 Val-set registration (reference :28-56), config + checkpoint load
 (:58-115; the port's ``checkpoints/ckpt_final`` files), bbox + segm COCO
 evaluation (:120-132), the per-metric printout and ``{name}_results.json``
-(:149-156), the original-vs-full comparison table (:204-220).
+(:149-156), the original-vs-full comparison table (:204-220). Under a
+launcher (torchrun) each process evaluates its share of the images and
+rank 0 writes the results.
 
     python -m vision_instance_seg_tpu_torch.training.maskdino.evaluate \\
         --data-root DATA [--device cpu] [KEY VALUE ...]
@@ -20,9 +22,10 @@ from vision_instance_seg_tpu_torch.engine import checkpoint
 from vision_instance_seg_tpu_torch.engine.evaluator import COCOEvaluator
 from vision_instance_seg_tpu_torch.engine.trainer import create_train_state
 from vision_instance_seg_tpu_torch.models import build_model, make_inference_fn
+from vision_instance_seg_tpu_torch.parallel import comm
 from vision_instance_seg_tpu_torch.training.maskdino.common import (
     DEFAULT_DATA_ROOT, add_device_flag, bootstrap_distributed, cli_device,
-    register_dataset, setup_cfg)
+    rank_device, register_dataset, setup_cfg)
 
 
 def register_val_dataset(data_root: str, category: str = "Cable") -> str:
@@ -48,9 +51,11 @@ def evaluate_model(model_path: str, output_dir: str, name: str,
     """Load a checkpoint and run bbox+segm COCO eval (reference :91-164)."""
     cfg = setup_cfg(test_name=dataset, output_dir=output_dir, opts=opts)
     cfg.freeze()
-    model = load_trained_model(cfg, model_path, cli_device(str(device)))
+    model = load_trained_model(cfg, model_path, rank_device(str(device)))
     evaluator = COCOEvaluator(dataset, cfg)
     metrics = evaluator.evaluate(make_inference_fn(model, cfg))
+    if not comm.is_main_process():
+        return metrics
 
     os.makedirs(output_dir, exist_ok=True)
     out_file = os.path.join(output_dir, f"{name}_results.json")
@@ -80,8 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    bootstrap_distributed()
     cli_device(args.device)
+    bootstrap_distributed(device=args.device)
     dataset = register_val_dataset(args.data_root, args.category)
     results = {}
     for name, path in (("original", args.original_model),

@@ -5,11 +5,13 @@ setup_cfg with 5e-5 LR / AMP on (reference :48-87, :216-230),
 per-experiment output dirs + train.log (:103-109), resume /
 --pretrained-model (:115-124, :233-236), final test + results.json
 (:128-137), per-experiment try/except isolation (:159-166), all_results.json
-+ summary (:171-204). The distributed flags are kept; more than one process
-or card raises until the port's parallel module (ROADMAP M6).
++ summary (:171-204), the distributed flags (:241-248): ``--num-gpus``
+processes a machine, one per card, ``--num-machines`` / ``--machine-rank``
+/ ``--dist-url`` for several machines (``common.run_cli``).
 
     python -m vision_instance_seg_tpu_torch.training.maskdino.train_experiments \\
-        --exp exp_2_original26_only --base-dir DATA [--device cpu] [KEY VALUE ...]
+        --exp exp_2_original26_only --base-dir DATA [--num-gpus N] \\
+        [--device cpu] [KEY VALUE ...]
 """
 
 from __future__ import annotations
@@ -23,8 +25,9 @@ import time
 
 from vision_instance_seg_tpu_torch.engine.evaluator import COCOEvaluator
 from vision_instance_seg_tpu_torch.engine.trainer import Trainer
+from vision_instance_seg_tpu_torch.parallel import comm
 from vision_instance_seg_tpu_torch.training.maskdino.common import (
-    add_device_flag, bootstrap_distributed, cli_device, setup_cfg)
+    add_device_flag, add_distributed_flags, rank_device, run_cli, setup_cfg)
 from vision_instance_seg_tpu_torch.training.register_experiments import (
     EXPERIMENT_NAMES, get_dataset_names, register_all_experiments)
 
@@ -33,25 +36,16 @@ def train_experiment(exp_name: str, args) -> dict:
     train_name, test_name = get_dataset_names(exp_name)
     out_dir = os.path.join(args.output_dir, exp_name)
     os.makedirs(out_dir, exist_ok=True)
-    logging.basicConfig(
-        level=logging.INFO,
-        handlers=[logging.FileHandler(os.path.join(out_dir, "train.log")),
-                  logging.StreamHandler()],
-        force=True)
+    handlers = [logging.StreamHandler()]
+    if comm.is_main_process():
+        handlers.insert(0, logging.FileHandler(os.path.join(out_dir,
+                                                            "train.log")))
+    logging.basicConfig(level=logging.INFO, handlers=handlers, force=True)
 
-    cfg = setup_cfg(train_name=train_name, test_name=test_name,
-                    output_dir=out_dir, batch_size=args.batch_size,
-                    lr=args.lr, max_iter=args.max_iter, amp=args.amp,
-                    weights=args.pretrained_model, opts=args.opts,
-                    checkpoint_period=args.checkpoint_period,
-                    eval_period=args.eval_period,
-                    num_workers=args.num_workers, seed=args.seed,
-                    config_file=args.config_file)
-    # --num-chips (reference --num-gpus): the data axis, as JAX records it
-    cfg.TPU.MESH_SHAPE = [int(args.num_chips), 1]
+    cfg = build_cfg(args, train_name, test_name, out_dir)
     cfg.freeze()
 
-    trainer = Trainer(cfg, device=cli_device(args.device))
+    trainer = Trainer(cfg, device=rank_device(args.device))
     trainer.resume_or_load(resume=args.resume)
     t0 = time.time()
     train_logs = trainer.train()
@@ -62,9 +56,25 @@ def train_experiment(exp_name: str, args) -> dict:
     result = {"experiment": exp_name, "status": "completed",
               "train": train_logs, **metrics,
               "elapsed_s": round(time.time() - t0, 1)}
-    with open(os.path.join(out_dir, "results.json"), "w") as f:
-        json.dump(result, f, indent=2, default=float)
+    if comm.is_main_process():
+        with open(os.path.join(out_dir, "results.json"), "w") as f:
+            json.dump(result, f, indent=2, default=float)
     return result
+
+
+def build_cfg(args, train_name=None, test_name=None, out_dir=None):
+    cfg = setup_cfg(train_name=train_name, test_name=test_name,
+                    output_dir=out_dir or args.output_dir,
+                    batch_size=args.batch_size, lr=args.lr,
+                    max_iter=args.max_iter, amp=args.amp,
+                    weights=args.pretrained_model, opts=args.opts,
+                    checkpoint_period=args.checkpoint_period,
+                    eval_period=args.eval_period,
+                    num_workers=args.num_workers, seed=args.seed,
+                    config_file=args.config_file)
+    # --num-chips (reference --num-gpus): the data axis, as JAX records it
+    cfg.TPU.MESH_SHAPE = [int(args.num_chips), 1]
+    return cfg
 
 
 def train_all_experiments(args):
@@ -78,9 +88,11 @@ def train_all_experiments(args):
             traceback.print_exc()
             results.append({"experiment": exp_name, "status": "failed",
                              "error": str(e)})
-    with open(os.path.join(args.output_dir, "all_results.json"), "w") as f:
-        json.dump(results, f, indent=2, default=float)
-    print_results_summary(results)
+    if comm.is_main_process():
+        with open(os.path.join(args.output_dir, "all_results.json"),
+                  "w") as f:
+            json.dump(results, f, indent=2, default=float)
+        print_results_summary(results)
     return results
 
 
@@ -116,32 +128,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--pretrained-model", default="")
     ap.add_argument("--output-dir", default="./output/experiments")
     ap.add_argument("--base-dir", default=None, help="dataset root")
-    ap.add_argument("--num-chips", "--num-gpus", type=int, default=-1,
-                    dest="num_chips",
-                    help="cards on the data axis; above 1 needs the port's "
-                         "parallel module (ROADMAP M6)")
-    ap.add_argument("--num-machines", type=int, default=1,
-                    help="number of hosts; above 1 needs ROADMAP M6")
-    ap.add_argument("--machine-rank", type=int, default=0,
-                    help="this host's rank (0 = coordinator)")
-    ap.add_argument("--dist-url", default="auto",
-                    help="coordinator address; only 'auto' or empty (one "
-                         "process) until ROADMAP M6")
+    add_distributed_flags(ap)
     add_device_flag(ap)
     ap.add_argument("opts", nargs=argparse.REMAINDER)
     return ap
 
 
-def main(argv=None):
-    args = build_parser().parse_args(argv)
-    bootstrap_distributed(dist_url=args.dist_url or None,
-                          num_machines=args.num_machines,
-                          machine_rank=args.machine_rank)
-    if args.num_chips > 1:
-        raise NotImplementedError(
-            f"--num-gpus {args.num_chips}: training on more than one card "
-            "comes with the port's parallel module (ROADMAP M6)")
-    cli_device(args.device)
+def run(args):
+    """One process's part of the run."""
     os.makedirs(args.output_dir, exist_ok=True)
     register_all_experiments(args.base_dir)
 
@@ -150,8 +144,14 @@ def main(argv=None):
     if args.exp not in EXPERIMENT_NAMES:
         sys.exit(f"unknown experiment {args.exp!r}")
     r = train_experiment(args.exp, args)
-    print_results_summary([r])
+    if comm.is_main_process():
+        print_results_summary([r])
     return r
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    return run_cli(run, args, build_cfg(args))
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """Train MaskDINO on the FULL Cable train set, original and augmented (the
 port's ``training/maskdino/train_full.py``): ``train_original`` without the
-original-only filter, evaluated on the val split when it exists.
+original-only filter, evaluated on the val split when it exists, with
+the same distributed flags.
 
     python -m vision_instance_seg_tpu_torch.training.maskdino.train_full \\
-        --data-root DATA [--device cpu] [KEY VALUE ...]
+        --data-root DATA [--num-gpus N] [--device cpu] [KEY VALUE ...]
 """
 
 from __future__ import annotations
@@ -13,8 +14,8 @@ import os
 
 from vision_instance_seg_tpu_torch.engine.trainer import Trainer
 from vision_instance_seg_tpu_torch.training.maskdino.common import (
-    DEFAULT_DATA_ROOT, add_device_flag, bootstrap_distributed, cli_device,
-    register_dataset, setup_cfg)
+    DEFAULT_DATA_ROOT, add_device_flag, add_distributed_flags, rank_device,
+    register_dataset, run_cli, setup_cfg)
 from vision_instance_seg_tpu_torch.training.maskdino.train_original import (
     train_and_evaluate)
 
@@ -30,15 +31,24 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--weights", default="")
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--no-amp", action="store_true")
+    add_distributed_flags(ap)
     add_device_flag(ap)
     ap.add_argument("opts", nargs=argparse.REMAINDER)
     return ap
 
 
-def main(argv=None) -> dict:
-    args = build_parser().parse_args(argv)
-    bootstrap_distributed()
-    device = cli_device(args.device)
+def build_cfg(args, train_name: str, test_name: str):
+    cfg = setup_cfg(train_name=train_name, test_name=test_name,
+                    output_dir=args.output_dir, batch_size=args.batch_size,
+                    lr=args.lr, max_iter=args.max_iter,
+                    amp=not args.no_amp, weights=args.weights,
+                    opts=args.opts)
+    cfg.TPU.MESH_SHAPE = [int(args.num_chips), 1]
+    return cfg
+
+
+def run(args) -> dict:
+    """One process's part of the run."""
     train_dir = os.path.join(args.data_root, args.category, "train")
     val_dir = os.path.join(args.data_root, args.category, "val")
     train_name = register_dataset(
@@ -52,14 +62,15 @@ def main(argv=None) -> dict:
             os.path.join(val_dir, "images"))
     else:
         test_name = train_name
-    cfg = setup_cfg(train_name=train_name, test_name=test_name,
-                    output_dir=args.output_dir, batch_size=args.batch_size,
-                    lr=args.lr, max_iter=args.max_iter,
-                    amp=not args.no_amp, weights=args.weights,
-                    opts=args.opts)
+    cfg = build_cfg(args, train_name, test_name)
     cfg.freeze()
-    return train_and_evaluate(Trainer(cfg, device=device), test_name, cfg,
-                              args.resume)
+    return train_and_evaluate(Trainer(cfg, device=rank_device(args.device)),
+                              test_name, cfg, args.resume)
+
+
+def main(argv=None) -> dict:
+    args = build_parser().parse_args(argv)
+    return run_cli(run, args, build_cfg(args, None, None))
 
 
 if __name__ == "__main__":

@@ -10,7 +10,8 @@ by ``data/polygons.find_external_contours``, images read and written by
 ``data/jpeg.py`` (JPEG, quality 95, 4:2:0, as cv2.imwrite) or
 ``data/png.py`` (PNG sources) under the JAX CLI's names ``pred_*`` /
 ``compare_*``. The labels use ``utils/draw.py``'s bitmap font, not cv2's
-Hershey glyphs.
+Hershey glyphs. Under a launcher (torchrun) rank 0 draws and writes every
+image; the other processes wait for it.
 
     python -m vision_instance_seg_tpu_torch.training.maskdino.visualize \\
         --model CKPT --data-root DATA [--device cpu] [KEY VALUE ...]
@@ -21,6 +22,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -32,9 +34,10 @@ from vision_instance_seg_tpu_torch.data.polygons import (
     find_external_contours, polygons_to_bitmask)
 from vision_instance_seg_tpu_torch.data.resize import resize_linear_f32
 from vision_instance_seg_tpu_torch.models import make_inference_fn
+from vision_instance_seg_tpu_torch.parallel import comm
 from vision_instance_seg_tpu_torch.training.maskdino.common import (
     DEFAULT_DATA_ROOT, add_device_flag, bootstrap_distributed, cli_device,
-    register_dataset, setup_cfg)
+    rank_device, register_dataset, setup_cfg)
 from vision_instance_seg_tpu_torch.training.maskdino.evaluate import (
     load_trained_model)
 from vision_instance_seg_tpu_torch.utils.draw import draw_polylines, put_text
@@ -117,10 +120,23 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv=None) -> dict:
+def main(argv=None) -> Optional[dict]:
+    """Rank 0's summary (None on the other processes of a run)."""
     args = build_parser().parse_args(argv)
-    bootstrap_distributed()
-    device = cli_device(args.device)
+    cli_device(args.device)
+    bootstrap_distributed(device=args.device)
+    if not comm.is_main_process():
+        comm.barrier()
+        return None
+    result = visualize_split(args)
+    comm.barrier()
+    return result
+
+
+def visualize_split(args) -> dict:
+    """Draw and write the overlays of ``--max-images`` images of
+    ``--split`` and ``prediction_summary.json``."""
+    device = rank_device(args.device)
     split_dir = os.path.join(args.data_root, args.category, args.split)
     dataset = register_dataset(
         f"vis_{args.category}_{args.split}",
@@ -136,7 +152,8 @@ def main(argv=None) -> dict:
 
     os.makedirs(args.output_dir, exist_ok=True)
     dicts = DatasetCatalog.get(dataset)[:args.max_images]
-    loader = EvalLoader(dicts, cfg, batch_size=1)
+    loader = EvalLoader(dicts, cfg, batch_size=1, process_index=0,
+                        process_count=1)
     summary = []
     for rec, batch in zip(dicts, loader):
         out = {k: v.cpu().numpy() if isinstance(v, torch.Tensor)

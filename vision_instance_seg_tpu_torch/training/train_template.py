@@ -29,8 +29,9 @@ from vision_instance_seg_tpu_torch.config import get_cfg
 from vision_instance_seg_tpu_torch.data.catalog import DatasetCatalog
 from vision_instance_seg_tpu_torch.engine.evaluator import COCOEvaluator
 from vision_instance_seg_tpu_torch.engine.trainer import Trainer
+from vision_instance_seg_tpu_torch.parallel import comm
 from vision_instance_seg_tpu_torch.training.maskdino.common import (
-    add_device_flag, bootstrap_distributed, cli_device)
+    add_device_flag, bootstrap_distributed, cli_device, rank_device)
 from vision_instance_seg_tpu_torch.training.register_experiments import (
     EXPERIMENT_NAMES, get_dataset_names, register_all_experiments)
 
@@ -93,7 +94,7 @@ def train_model(model: str, exp_name: str, args) -> dict:
     """Train + evaluate one (model, experiment); returns metric dict."""
     cfg = build_cfg(model, exp_name, args)
     cfg.freeze()
-    trainer = Trainer(cfg, device=cli_device(args.device))
+    trainer = Trainer(cfg, device=rank_device(args.device))
     trainer.resume_or_load(resume=args.resume)
     train_logs = trainer.train()
 
@@ -133,20 +134,22 @@ def run_experiment(model: str, exp_name: str, args) -> dict:
         traceback.print_exc()
         result = {"experiment": exp_name, "model": model, "status": "failed",
                   "error": str(e)}
-    out_dir = Path(args.output_dir) / model / exp_name
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with open(out_dir / "results.json", "w") as f:
-        json.dump(result, f, indent=2, default=float)
+    if comm.is_main_process():
+        out_dir = Path(args.output_dir) / model / exp_name
+        out_dir.mkdir(parents=True, exist_ok=True)
+        with open(out_dir / "results.json", "w") as f:
+            json.dump(result, f, indent=2, default=float)
     return result
 
 
 def run_all_experiments(model: str, args):
     results = [run_experiment(model, e, args) for e in EXPERIMENTS]
-    out = Path(args.output_dir) / model / "all_results.json"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    with open(out, "w") as f:
-        json.dump(results, f, indent=2, default=float)
-    print_summary(results)
+    if comm.is_main_process():
+        out = Path(args.output_dir) / model / "all_results.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(results, f, indent=2, default=float)
+        print_summary(results)
     return results
 
 
@@ -182,8 +185,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    bootstrap_distributed()
     cli_device(args.device)
+    bootstrap_distributed(device=args.device)
     register_all_experiments(args.base_dir)
     if args.exp == "all":
         return run_all_experiments(args.model, args)
