@@ -9,8 +9,9 @@ the serving shapes, and at the training shapes, with 4 heads of 64 and of
 24 channels, on a decoder's free queries and at MaskDINO R-50 4-scale's
 shapes (its encoder's 4 levels and its decoder's 100 box queries, timed
 beside the serving shape, and in training at 640 px its encoder and its
-decoder's 300 queries) (fp32 and bf16 values, the vector width it chose
-printed for each), the sampling backward (the TPU's K2, K3a and K3b) at the
+decoder's 300 queries) and at the labeling backend's batch-1 shapes (its
+encoder's 5,376 grid queries over 3 levels and its 100 box queries) (fp32
+and bf16 values, the vector width it chose printed for each), the sampling backward (the TPU's K2, K3a and K3b) at the
 training shapes with 8 heads of 32 channels and at head dims 64 and 24 and
 at MaskDINO's two training shapes, and
 the window kernels: K4b at Swin stages 1-4 with windows of 8 and of 12, at
@@ -136,6 +137,20 @@ paths with weights drawn from a fixed seed, through ``build_model`` ->
   the gloo all-reduce timed, held to the same run in one process (logs
   within rtol 1e-3, parameters within 1e-3 of the largest update, the
   merged AP within 1e-6).
+- the labeling server's AI-assisted segmentation (``labeling/``): a port
+  checkpoint of a seeded MaskDINO R-50 at the backend's defaults (3
+  levels, hidden 256, 6 encoder and 9 decoder layers, bf16) loaded by
+  ``AISegmentationModel`` at batch 1 on its 512 canvas, 15 K1 a
+  ``predict`` at the path's own shapes (5,376 grid and 100 box queries,
+  also checked and timed in the K1 phase); ``predict`` against the plain
+  sampling core (fp32: masks within 0.5% of the pixels, scores within
+  1e-2; bf16: no further apart than bf16 is from fp32); the fallback at
+  score_thresh 0.3 equal to ``classical_segment``; every route of the
+  app through WSGI in process (``/ai/segment`` with a JPEG data URL,
+  ``/save`` of a PNG and a JPEG, ``/save/existing``, ``/delete``, ...)
+  and the ``/segment`` + ``/refine`` blueprint; ``predict``'s host-clock
+  latency (median and p90 of 30) and split, the round trip and the
+  device's busy share; neither cv2 nor PIL imported.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path was launched as many
@@ -154,6 +169,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -300,10 +316,26 @@ def dino_train_decoder_inputs(dt, gen):
                             DINO_TRAIN_LEVELS)
 
 
+# the labeling server's MaskDINO R-50 at batch 1 on its 512 canvas (the
+# backend's defaults: res5 to res3, strides 32 to 8, coarsest first as the
+# path orders them): its encoder's 5,376 grid queries and its decoder's 100
+# box queries
+LABELING_LEVELS = [(16, 16), (32, 32), (64, 64)]
+
+
+def labeling_encoder_inputs(dt, gen):
+    return sampling_inputs(dt, gen, 1, LABELING_LEVELS)
+
+
+def labeling_decoder_inputs(dt, gen):
+    return box_query_inputs(dt, gen, 1, BOX_QUERIES, LABELING_LEVELS)
+
+
 # K1's checked shapes: name -> (levels, inputs(dtype, gen)); the MaskDINO
 # R-50 4-scale ones (its encoder's grid queries over /64 to /8 and its
 # decoder's box queries, batch 8 at 800 px in serving, batch 2 at 640 px
-# with 300 queries in training) are timed beside serving
+# with 300 queries in training) and the labeling backend's are timed
+# beside serving
 K1_SHAPES = {
     "serving": (LEVELS, sampling_inputs),
     "training": (TRAIN_LEVELS, lambda dt, gen: sampling_inputs(
@@ -317,9 +349,12 @@ K1_SHAPES = {
         dt, gen, levels=FREE_LEVELS)),
     "maskdino decoder": (FREE_LEVELS, box_query_inputs),
     "maskdino train encoder": (DINO_TRAIN_LEVELS, dino_train_encoder_inputs),
-    "maskdino train decoder": (DINO_TRAIN_LEVELS, dino_train_decoder_inputs)}
+    "maskdino train decoder": (DINO_TRAIN_LEVELS, dino_train_decoder_inputs),
+    "labeling encoder": (LABELING_LEVELS, labeling_encoder_inputs),
+    "labeling decoder": (LABELING_LEVELS, labeling_decoder_inputs)}
 K1_TIMED = ("serving", "maskdino encoder", "maskdino decoder",
-            "maskdino train encoder", "maskdino train decoder")
+            "maskdino train encoder", "maskdino train decoder",
+            "labeling encoder", "labeling decoder")
 
 
 def grid_sample_core(value, shapes, loc, aw):
@@ -3522,6 +3557,353 @@ def weights_phase(r50_cfg, swin_cfg, counts: Counts, build_model,
     return runs
 
 
+# ---------------------------------------------------------- labeling phase
+LABELING_CALLS = 30         # predicts timed after the warm-up
+LABELING_ROUND_TRIPS = 10   # /ai/segment requests timed
+LABELING_ROUTES = {         # the reference app's keys, route by route
+    "/info": {"category", "split", "classes", "num_images",
+              "num_annotations", "image_dir"},
+    "/images/list": {"images", "total"},
+    "/stats": {"num_images", "num_annotations", "per_class", "uptime_s"},
+    "/save": {"status", "filename", "image_id", "annotation_ids"},
+    "/save/existing": {"status", "image_id", "annotation_ids"},
+    "/annotations/for": {"image", "annotations"},
+    "/ai/segment": {"status", "polygon"},
+    "/delete": {"status", "removed_annotations", "file_deleted"},
+    "/segment": {"status", "polygon", "score", "session_id"},
+    "/refine": {"status", "polygon", "session_id"}}
+
+
+def labeling_crop(seed: int, h: int, w: int, square: bool = False):
+    """A seeded RGB crop; ``square``: a bright square defect in its middle
+    third, as ``labeling_server/ai_segmentation.py``'s smoke test draws."""
+    img = np.random.default_rng(seed).integers(0, 256, (h, w, 3),
+                                               dtype=np.uint8)
+    if square:
+        img[h // 3:2 * h // 3, w // 3:2 * w // 3] = 250
+    return img
+
+
+def wsgi_call(app, method: str, path: str, body: bytes = b"",
+              ctype: str = "application/json") -> tuple:
+    """One request through the app's WSGI interface, in process:
+    (status, headers, body)."""
+    import io
+
+    out = {}
+
+    def start_response(status, headers):
+        out["status"], out["headers"] = status, dict(headers)
+
+    env = {"REQUEST_METHOD": method, "PATH_INFO": path, "QUERY_STRING": "",
+           "CONTENT_LENGTH": str(len(body)), "CONTENT_TYPE": ctype,
+           "wsgi.input": io.BytesIO(body)}
+    data = b"".join(app(env, start_response))
+    return out["status"], out["headers"], data
+
+
+def _route_ok(route: str, status: str, body: bytes) -> dict:
+    if not status.startswith("200"):
+        raise AssertionError(f"labeling {route}: {status} {body[:300]!r}")
+    got = json.loads(body)
+    if set(got) != LABELING_ROUTES[route]:
+        raise AssertionError(f"labeling {route}: keys {sorted(got)}, want "
+                             f"{sorted(LABELING_ROUTES[route])}")
+    return got
+
+
+def _multipart(fields: dict) -> tuple:
+    boundary = b"chipsmokeboundary"
+    parts = []
+    for name, (filename, data) in fields.items():
+        head = f'Content-Disposition: form-data; name="{name}"'
+        if filename:
+            head += f'; filename="{filename}"'
+        parts.append(b"--" + boundary + b"\r\n" + head.encode()
+                     + b"\r\n\r\n" + data + b"\r\n")
+    return (b"".join(parts) + b"--" + boundary + b"--\r\n",
+            f"multipart/form-data; boundary={boundary.decode()}")
+
+
+def labeling_app_check(seg, root: str, crop: np.ndarray) -> tuple:
+    """Every route of the port's labeling app with ``seg`` as its model,
+    and the /segment + /refine blueprint, in process: each answers 200
+    with the reference's keys. Returns (the predicts it ran, /ai/segment
+    round-trip seconds)."""
+    import base64
+
+    from vision_instance_seg_tpu_torch.data.jpeg import encode_jpeg
+    from vision_instance_seg_tpu_torch.data.png import encode_png
+    from vision_instance_seg_tpu_torch.labeling.ai_segmentation import (
+        make_blueprint)
+    from vision_instance_seg_tpu_torch.labeling.app import LabelingApp
+
+    app = LabelingApp("Cable", "train", root, ai_model=seg)
+    # the page sends canvas.toDataURL("image/jpeg", 0.9)
+    url = "data:image/jpeg;base64," + base64.b64encode(
+        encode_jpeg(crop, quality=90)).decode()
+    body = json.dumps({"image_data": url}).encode()
+    trips = []
+    for _ in range(LABELING_ROUND_TRIPS):
+        t0 = time.perf_counter()
+        status, _, data = wsgi_call(app, "POST", "/ai/segment", body)
+        trips.append(time.perf_counter() - t0)
+        _route_ok("/ai/segment", status, data)
+    predicts = LABELING_ROUND_TRIPS
+    status, headers, page = wsgi_call(app, "GET", "/")
+    if not status.startswith("200") or b"<canvas" not in page \
+            or b"__SERVER_CONFIG__" in page:
+        raise AssertionError(f"labeling /: {status}")
+    anns = json.dumps([{"category_id": 1, "bbox": [4, 4, 20, 10],
+                        "segmentation": [[4, 4, 24, 4, 24, 14, 4, 14]],
+                        "area": 200}]).encode()
+    saved = []
+    for name, data in (("a.png", encode_png(crop[:64, :96])),
+                       ("b.jpg", encode_jpeg(crop[:48, :80], quality=95))):
+        status, _, out = wsgi_call(app, "POST", "/save", *_multipart({
+            "image": (name, data), "annotations": (None, anns)}))
+        saved.append(_route_ok("/save", status, out)["filename"])
+    with open(os.path.join(app.image_dir, "placed.png"), "wb") as f:
+        f.write(encode_png(crop[:40, :30]))
+    for fname in (saved[0], "placed.png"):
+        status, _, out = wsgi_call(app, "POST", "/save/existing", json.dumps(
+            {"filename": fname, "annotations": json.loads(anns)}).encode())
+        _route_ok("/save/existing", status, out)
+    for route in ("/info", "/images/list", "/stats"):
+        _route_ok(route, *wsgi_call(app, "GET", route)[::2])
+    _route_ok("/annotations/for", *wsgi_call(
+        app, "GET", f"/annotations/for/{saved[1]}")[::2])
+    status, headers, img = wsgi_call(app, "GET",
+                                     f"/images/serve/{saved[1]}")
+    if not status.startswith("200") or not img.startswith(b"\xff\xd8"):
+        raise AssertionError(f"labeling /images/serve: {status}")
+    got = _route_ok("/delete", *wsgi_call(app, "POST", "/delete", json.dumps(
+        {"filename": saved[0]}).encode())[::2])
+    if got["removed_annotations"] != 1 or not got["file_deleted"]:
+        raise AssertionError(f"labeling /delete: {got}")
+    bp = make_blueprint(seg)
+    got = bp[("POST", "/segment")]({"image_data": url, "session_id": "s"})
+    _route_ok("/segment", "200", json.dumps(got).encode())
+    predicts += 1
+    h, w = crop.shape[:2]
+    for payload in ({"x": w // 2, "y": h // 2, "positive": True},
+                    {"x": 3, "y": 3, "positive": False}, {"undo": True}):
+        got = bp[("POST", "/refine")](dict(payload, session_id="s"))
+        _route_ok("/refine", "200", json.dumps(got).encode())
+    return predicts, trips
+
+
+def labeling_parity(K, cfg, ckpt: str, crops: dict) -> None:
+    """``predict`` through K1 against the same backend on the plain
+    sampling core (``deform_core_fn``), on the same card. In fp32 (TF32
+    off): masks apart on at most 0.5% of the pixels, scores within 1e-2
+    relative. In bf16, the served path, each layer rounds K1's output to
+    bf16 and a random model's mask probabilities sit near the threshold
+    over wide areas, so the two runs are held to bf16's own distance: no
+    further apart than the plain core's bf16 run is from its fp32 run
+    (or the fp32 bounds, whichever is wider)."""
+    from vision_instance_seg_tpu_torch.labeling.ai_segmentation import (
+        AISegmentationModel)
+
+    fp32 = cfg.clone()
+    fp32.TPU.COMPUTE_DTYPE = "float32"
+    plain = {"deform_core_fn": K.ms_deform_attn_core_torch}
+    backends = {(dt, core): AISegmentationModel(
+        ckpt, cfg=(fp32 if dt == "float32" else cfg).clone(),
+        score_thresh=0.0, **(plain if core == "plain" else {}))
+        for dt in ("bfloat16", "float32") for core in ("kernel", "plain")}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for label, crop in crops.items():
+            out = {key: seg.predict(crop) for key, seg in backends.items()}
+            mk, sk = out["float32", "kernel"]
+            mp, sp = out["float32", "plain"]
+            frac, rel = float((mk != mp).mean()), abs(sk - sp) / abs(sp)
+            print(f"labeling predict {label} {crop.shape[:2]}, fp32: masks "
+                  f"differ on {frac:.4%} of the pixels (bound 0.5%; kernel "
+                  f"mask {mk.mean():.4%} of the crop), score {sk:.7g} vs "
+                  f"{sp:.7g} (relative {rel:.3e}, bound 1e-2)", flush=True)
+            if not (frac <= 5e-3 and rel <= 1e-2):
+                raise AssertionError(f"labeling predict {label}: fp32 "
+                                     "kernel and plain paths disagree")
+            bk, tk = out["bfloat16", "kernel"]
+            bp, tp = out["bfloat16", "plain"]
+            frac16, rel16 = float((bk != bp).mean()), abs(tk - tp) / abs(tp)
+            noise, noise_rel = float((bp != mp).mean()), abs(tp - sp) / abs(sp)
+            print(f"labeling predict {label} {crop.shape[:2]}, bf16: masks "
+                  f"differ on {frac16:.4%} of the pixels, scores {tk:.7g} "
+                  f"vs {tp:.7g} (relative {rel16:.3e}); the plain core's "
+                  f"bf16 run against its fp32 run: {noise:.4%} of the "
+                  f"pixels, score relative {noise_rel:.3e}", flush=True)
+            if not (frac16 <= max(noise, 5e-3)
+                    and rel16 <= max(noise_rel, 1e-2)):
+                raise AssertionError(f"labeling predict {label}: bf16 "
+                                     "kernel and plain paths further apart "
+                                     "than bf16 is from fp32")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+def labeling_phase(K, counts: Counts, smi: str) -> dict:
+    """The labeling server's AI-assisted segmentation on the card (M8b):
+    MaskDINO R-50 at the JAX backend's defaults (``cfg=None``: res3-res5,
+    6 deformable encoder and 9 decoder layers, hidden 256, 100 queries,
+    bf16) at batch 1 on the 512 canvas, from a port checkpoint of a seeded
+    model, through ``AISegmentationModel`` (15 K1 a predict), its
+    classical fallback (a second backend at score_thresh 0.3) and the app's
+    routes. ``predict`` through K1 against the same backend on the plain
+    sampling core on a 300 x 400 crop and a bright-square crop
+    (``labeling_parity``)."""
+    from vision_instance_seg_tpu_torch.config import get_cfg
+    from vision_instance_seg_tpu_torch.engine.checkpoint import (
+        save_checkpoint)
+    from vision_instance_seg_tpu_torch.engine.trainer import (
+        create_train_state)
+    from vision_instance_seg_tpu_torch.data.resize import (
+        resize_linear_f32, resize_linear_u8)
+    from vision_instance_seg_tpu_torch.labeling.ai_segmentation import (
+        AISegmentationModel, classical_segment)
+    from vision_instance_seg_tpu_torch.models import build_model
+    from vision_instance_seg_tpu_torch.models.deform_attn import MSDeformAttn
+
+    t_phase = time.perf_counter()
+    cfg = get_cfg()                     # what AISegmentationModel builds
+    cfg.MODEL.MASK_DINO.ENABLED = True
+    cfg.MODEL.BACKBONE.NAME = "resnet"
+    cfg.INPUT.TEST_PAD_H = cfg.INPUT.TEST_PAD_W = 512
+    per_predict = {"msdeform_attn_fwd":
+                   cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS
+                   + cfg.MODEL.MASK_FORMER.DEC_LAYERS - 1}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_labeling_")
+    model = build_model(cfg, seed=SEED)
+    ckpt = save_checkpoint(os.path.join(tmp, "ckpt"), model,
+                           create_train_state(cfg, model).optimizer, 0, 0.0,
+                           "final")
+    del model
+    seg = AISegmentationModel(ckpt, score_thresh=0.0)
+    fallback = AISegmentationModel(ckpt, score_thresh=0.3)
+    crops = {"300 x 400": labeling_crop(SEED + 40, 300, 400),
+             "bright square": labeling_crop(SEED + 41, 256, 256, True)}
+    for crop in crops.values():                  # warm-up (cuDNN, caches)
+        seg.predict(crop)
+    torch.cuda.synchronize()
+
+    # K1 at the path's own shapes (kernel_phase holds them to the plain
+    # version and times them as "labeling encoder" / "labeling decoder")
+    seen = {}
+
+    def record(mod, args):          # (query, refs, value, spatial_shapes)
+        key = (tuple((int(h), int(w)) for h, w in args[3]),
+               int(args[0].shape[1]))
+        seen[key] = seen.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(record)
+             for m in seg.model.modules() if isinstance(m, MSDeformAttn)]
+    seg.predict(crops["300 x 400"])
+    for hk in hooks:
+        hk.remove()
+    levels = tuple(map(tuple, LABELING_LEVELS))
+    want_calls = {(levels, sum(h * w for h, w in LABELING_LEVELS)):
+                  cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS,
+                  (levels, BOX_QUERIES): cfg.MODEL.MASK_FORMER.DEC_LAYERS - 1}
+    print(f"labeling: K1 calls of one predict by (levels, queries): {seen}",
+          flush=True)
+    if seen != want_calls:
+        raise AssertionError(f"labeling: K1 shapes {seen}, want "
+                             f"{want_calls}")
+
+    labeling_parity(K, cfg, ckpt, crops)
+
+    counts.reset()                      # the main path starts here
+    predicts = 0
+    crop = crops["300 x 400"]
+    times = []
+    for _ in range(LABELING_CALLS):
+        t0 = time.perf_counter()
+        mask, score = seg.predict(crop)       # ends in the mask's D2H copy
+        times.append(time.perf_counter() - t0)
+    predicts += LABELING_CALLS
+    if mask.shape != crop.shape[:2] or mask.dtype != np.uint8 or \
+            not np.isfinite(score):
+        raise AssertionError(f"labeling predict: {mask.shape} {mask.dtype} "
+                             f"score {score}")
+    for label, c in crops.items():            # the score sends it back
+        m, sc = fallback.predict(c)
+        want = classical_segment(c)
+        predicts += 1
+        if sc != (0.5 if want is not None else 0.0) or (
+                (m is None) != (want is None)) or (
+                m is not None and not np.array_equal(m, want)):
+            raise AssertionError(f"labeling fallback {label}: not the "
+                                 "classical path's mask")
+    n_app, trips = labeling_app_check(seg, os.path.join(tmp, "data"), crop)
+    predicts += n_app
+    launches = counts.read()                  # ... and ends here
+    counts.check(launches, {k: v * predicts for k, v in per_predict.items()},
+                 f"labeling ({predicts} predicts)")
+
+    # the host-clock split of a predict: the crop's fit into the canvas,
+    # the model with its top-1 on the device (ending in the mask's copy to
+    # the host), the mask back to the crop's size
+    h, w = crop.shape[:2]
+    scale = min(512 / h, 512 / w)
+    nh, nw = int(round(h * scale)), int(round(w * scale))
+    canvas = np.zeros((1, 512, 512, 3), np.uint8)
+    canvas[0, :nh, :nw] = resize_linear_u8(crop, nh, nw)
+    mask_c = seg._infer_top1(canvas)[0][:nh, :nw].astype(np.float32)
+    split = {"fit": lambda: resize_linear_u8(crop, nh, nw),
+             "model + top-1": lambda: seg._infer_top1(canvas),
+             "mask back": lambda: resize_linear_f32(mask_c, h, w)}
+    split_ms = {}
+    for part, fn in split.items():
+        ts = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        split_ms[part] = statistics.median(ts)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        seg.predict(crop)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = sum(getattr(ev, "self_device_time_total", 0) / 1e3
+                  for ev in prof.key_averages()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA)
+    shutil.rmtree(tmp)
+    loaded = sorted(m for m in ("cv2", "PIL") if m in sys.modules)
+    if loaded:
+        raise AssertionError(f"the labeling path imported {loaded}")
+    ms = sorted(t * 1e3 for t in times)
+    med, p90 = statistics.median(ms), ms[int(0.9 * (len(ms) - 1) + 0.5)]
+    trip_ms = statistics.median(t * 1e3 for t in trips)
+    print(f"labeling predict (300 x 400 crop, 512 canvas, batch 1, "
+          f"{seg.cfg.TPU.COMPUTE_DTYPE}): "
+          f"median {med:.3f} ms, p90 {p90:.3f} ms over {LABELING_CALLS} "
+          f"calls (min {ms[0]:.3f}, max {ms[-1]:.3f}), on {smi}", flush=True)
+    print("labeling predict split (host clock, medians of 10): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split_ms.items())
+          + f", on {smi}", flush=True)
+    print(f"labeling /ai/segment round trip (JPEG data URL, in process): "
+          f"median {trip_ms:.3f} ms over {LABELING_ROUND_TRIPS}, on {smi}",
+          flush=True)
+    print(f"labeling profiled predict: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({busy_ms / wall_ms:.1%}), on {smi}",
+          flush=True)
+    print(f"labeling: {predicts} predicts, launches "
+          f"{ {k: v for k, v in launches.items() if v} } (per predict "
+          f"{per_predict}); phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    del seg, fallback
+    return dict(launches=launches, predict_ms=med, p90_ms=p90,
+                round_trip_ms=trip_ms, split_ms=split_ms)
+
+
 SOURCES = "vision_instance_seg_tpu_torch/kernels/csrc/"
 TPU_KERNELS = "vision_instance_seg_tpu/kernels/"
 KERNEL_ROWS = {   # kernels line name -> (source, the TPU function it replaces)
@@ -3717,6 +4099,9 @@ def main() -> int:
                      smi), {}),
         (serve_phase(dense_f, counts, build_model, make_inference_fn, k8, 1,
                      "MaskDINO dense, full-attention encoder", smi), {})]
+    # the labeling server's AI-assisted segmentation at batch 1 (M8b):
+    # 15 K1 a predict
+    served.append((labeling_phase(K, counts, smi), {}))
     fp32_parity_phase(cfg, counts, build_model, normalize_image,
                       {"deform_core_fn": K.ms_deform_attn_core_torch},
                       {"msdeform_attn_fwd": enc}, "default")

@@ -98,15 +98,17 @@ def test_converter_covers_every_port_parameter(jax_setup):
 def test_port_imports_no_jax():
     """Import every module of the port in a fresh interpreter; module names
     are compared exactly (the port's own name begins with the JAX
-    package's)."""
+    package's). Nor does the port load cv2, PIL or the JAX package's
+    labeling server."""
     code = (
         "import pkgutil, sys, importlib\n"
         "import vision_instance_seg_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [n for n in sys.modules if n in ('jax', 'flax', 'jaxlib',\n"
-        "       'vision_instance_seg_tpu') or n.startswith(('jax.',\n"
-        "       'flax.', 'jaxlib.', 'vision_instance_seg_tpu.'))]\n"
+        "top = ('jax', 'flax', 'jaxlib', 'vision_instance_seg_tpu', 'cv2',\n"
+        "       'PIL', 'labeling_server')\n"
+        "bad = [n for n in sys.modules if n in top\n"
+        "       or n.startswith(tuple(t + '.' for t in top))]\n"
         "assert not bad, bad\n"
         "print(len([n for n in sys.modules\n"
         "           if n.startswith('vision_instance_seg_tpu_torch')]))\n")
@@ -120,6 +122,32 @@ def test_default_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_model(tiny_cfg(get_cfg()))
+
+
+def test_labeling_needs_cuda_unless_asked(monkeypatch, tmp_path):
+    """The labeling backend with a checkpoint and the labeling server's
+    ``main`` raise without CUDA; ``--device cpu`` starts the server."""
+    from vision_instance_seg_tpu_torch.labeling import app
+    from vision_instance_seg_tpu_torch.labeling.ai_segmentation import (
+        AISegmentationModel)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        AISegmentationModel(str(tmp_path / "ckpt_final"))
+    argv = ["--category", "Cable", "--data-root", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        app.main(argv)
+    served = []
+
+    class Server:
+        def serve_forever(self):
+            served.append(True)
+
+    import wsgiref.simple_server
+    monkeypatch.setattr(wsgiref.simple_server, "make_server",
+                        lambda host, port, wsgi_app: Server())
+    app.main(argv + ["--device", "cpu"])
+    assert served == [True]
 
 
 @pytest.mark.parametrize("opts", [

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -66,6 +66,29 @@ def unsupported_mode(data: bytes) -> Optional[str]:
     """The kind of JPEG ``decode_jpeg`` does not take ("progressive",
     "arithmetic-coded", ...), or None when it takes the file."""
     return _MODES.get(int(_info(data)[3]))
+
+
+def size(data: bytes) -> Tuple[int, int]:
+    """(width, height) from a JPEG file's frame header (SOFn), whatever
+    its mode: the markers before it are skipped by their lengths."""
+    pos = 2
+    while pos + 4 <= len(data):
+        if data[pos] != 0xFF:
+            raise ValueError(f"not a readable JPEG (no marker at {pos})")
+        m = data[pos + 1]
+        if m == 0xFF:                                  # fill byte
+            pos += 1
+            continue
+        if m == 0x01 or 0xD0 <= m <= 0xD8:             # no length
+            pos += 2
+            continue
+        if 0xC0 <= m <= 0xCF and m not in (0xC4, 0xC8, 0xCC):
+            if pos + 9 > len(data):
+                break
+            return (int.from_bytes(data[pos + 7:pos + 9], "big"),
+                    int.from_bytes(data[pos + 5:pos + 7], "big"))
+        pos += 2 + int.from_bytes(data[pos + 2:pos + 4], "big")
+    raise ValueError("not a readable JPEG (no frame header)")
 
 
 def decode_jpeg(data: bytes) -> Optional[np.ndarray]:

@@ -14,6 +14,9 @@ custom mapper):
 
 Images are read without PIL when they are 8-bit PNG (``data/png.py``) or
 baseline JPEG (``data/jpeg.py``); other files go through PIL.
+``decode_image`` and ``image_size`` take file bytes (the labeling app's
+uploads and crops) and raise ``UnsupportedImage`` where PIL would be
+needed.
 
 Batch layout (dict of arrays, NHWC):
   image      (B, H, W, 3) uint8 RGB 0-255
@@ -31,7 +34,7 @@ import itertools
 import queue
 import threading
 from collections import OrderedDict
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +44,43 @@ from vision_instance_seg_tpu_torch.data import jpeg, png
 from vision_instance_seg_tpu_torch.data.transforms import EvalTransform, SampleRecord, TrainTransform
 
 
+class UnsupportedImage(ValueError):
+    """An image the port decodes without PIL only in part: ``kind`` names
+    it (a progressive JPEG, an interlaced PNG, another format, ...)."""
+
+    def __init__(self, kind: str):
+        super().__init__(f"cannot decode a {kind} image without PIL (8-bit "
+                         "non-interlaced PNG and baseline JPEG only)")
+        self.kind = kind
+
+
+def decode_image(data: bytes) -> np.ndarray:
+    """Image file bytes -> (H, W, 3) uint8 RGB, as PIL's
+    ``Image.open(...).convert("RGB")`` gives them, for 8-bit non-interlaced
+    PNG and baseline JPEG; any other image raises ``UnsupportedImage``."""
+    if data.startswith(png.SIGNATURE):
+        img = png.decode_png(data)
+        if img is not None:
+            return img
+        raise UnsupportedImage("16-bit, low bit-depth or interlaced PNG")
+    if data.startswith(jpeg.SOI):
+        img = jpeg.decode_jpeg(data)
+        if img is not None:
+            return img
+        raise UnsupportedImage(f"{jpeg.unsupported_mode(data)} JPEG")
+    raise UnsupportedImage("non-PNG, non-JPEG")
+
+
+def image_size(data: bytes) -> Tuple[int, int]:
+    """(width, height) of a PNG or JPEG file from its header, as PIL's
+    ``Image.open(...).size``; any other file raises ``UnsupportedImage``."""
+    if data.startswith(png.SIGNATURE):
+        return png.size(data)
+    if data.startswith(jpeg.SOI):
+        return jpeg.size(data)
+    raise UnsupportedImage("non-PNG, non-JPEG")
+
+
 def _read_image(path: str) -> np.ndarray:
     """Read an image file to RGB uint8 (reference uses detectron2
     utils.read_image, train_original.py:74). 8-bit non-interlaced PNG and
@@ -48,18 +88,10 @@ def _read_image(path: str) -> np.ndarray:
     (progressive or arithmetic-coded JPEG, CMYK, ...) goes through PIL."""
     with open(path, "rb") as f:
         data = f.read()
-    if data.startswith(png.SIGNATURE):
-        img = png.decode_png(data)
-        if img is not None:
-            return img
-        kind = "16-bit, low bit-depth or interlaced PNG"
-    elif data.startswith(jpeg.SOI):
-        img = jpeg.decode_jpeg(data)
-        if img is not None:
-            return img
-        kind = f"{jpeg.unsupported_mode(data)} JPEG"
-    else:
-        kind = "non-PNG, non-JPEG"
+    try:
+        return decode_image(data)
+    except UnsupportedImage as e:
+        kind = e.kind
     try:
         from PIL import Image
     except ImportError as e:

@@ -1,11 +1,11 @@
 """Build the port's native host libraries: ``gcc -O3 -shared -fPIC <name>.c``.
 
 One library per C source in this directory: ``maskapi`` (the RLE codec),
-``jpeg`` (baseline JPEG decoder and encoder) and ``contours`` (border
-following). Each goes to ``build/kernels/`` at the root of the checkout
-(beside the CUDA kernels), under a name keyed by a hash of the source and
-flags, so an edited source is rebuilt and concurrent processes never load a
-half written file. A build happens at first use; a failed build raises with
+``jpeg`` (baseline JPEG decoder and encoder), ``contours`` (border
+following) and ``imgproc`` (flood fills). Each goes to ``build/kernels/``
+at the root of the checkout (beside the CUDA kernels), under a name keyed
+by a hash of the source and flags, so an edited source is rebuilt and
+concurrent processes never load a half written file. A build happens at first use; a failed build raises with
 the compiler's output.
 
 Usage: ``python -m vision_instance_seg_tpu_torch.data.native.build``.
@@ -22,7 +22,7 @@ SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # no fused multiply-adds: contours.c rounds each float product as cv2 does
 CC_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
-LIBRARIES = ("maskapi", "jpeg", "contours")
+LIBRARIES = ("maskapi", "jpeg", "contours", "imgproc")
 
 
 def library_path(name: str = "maskapi") -> Path:

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import struct
 import zlib
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -76,6 +76,16 @@ def _unfilter(raw: np.ndarray, height: int, stride: int,
         out[y] = cur
         prev = out[y]
     return out
+
+
+def size(data: bytes) -> Tuple[int, int]:
+    """(width, height) from a PNG file's IHDR."""
+    if not data.startswith(SIGNATURE):
+        raise ValueError("not a PNG file")
+    for kind, body in _chunks(data):
+        if kind == b"IHDR":
+            return struct.unpack(">II", body[:8])
+    raise ValueError("PNG without IHDR")
 
 
 def decode_png(data: bytes) -> Optional[np.ndarray]:

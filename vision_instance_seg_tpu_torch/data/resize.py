@@ -18,7 +18,13 @@ same numbers itself, vectorised over rows and columns:
   ``min(floor(d * (1 / (dst / src))), src - 1)`` in float64.
 - ``resize_linear_f32``: ``INTER_LINEAR`` on float32 maps: float64
   coordinates with scale ``src / dst``, float32 fractions, each pass
-  ``a + (b - a) * f`` with one rounding (a fused multiply-add).
+  ``a + (b - a) * f`` with one rounding (a fused multiply-add). A map of
+  one row or one column takes cv2's generic rule instead (the labeling
+  backend meets it when a crop one or two pixels thick fits the canvas in
+  one row): float32 source coordinates ``(float)((d + 0.5) * (src / dst)
+  - 0.5)``, weights ``1 - f`` and ``f`` in float32 (the columns clamped
+  in the weights, the rows in the index), and each pass ``a * w0 + b *
+  w1`` with each product and the sum rounded.
 - ``warp_scale_f32``: ``warpAffine(..., INTER_LINEAR | WARP_INVERSE_MAP,
   BORDER_REPLICATE)`` of a float32 map by a scale-and-translate matrix:
   the matrix in float32, source x ``fma(m00, x, m02)`` (unfused past the
@@ -26,11 +32,9 @@ same numbers itself, vectorised over rows and columns:
   ``m11 * y + m12`` unfused, clamped neighbours, and the same fused lerps,
   along x first.
 
-``tests/test_torch_port_data.py`` and ``tests/test_torch_port_eval.py``
-hold each against cv2. One case is outside ``resize_linear_f32``: cv2
-upscales a float map of one row or one column by another rule (its
-output rows differ although the source has one); the evaluator never
-resizes such a map.
+Like cv2, the two linear resizes refuse an empty output size.
+``tests/test_torch_port_data.py``, ``tests/test_torch_port_eval.py`` and
+``tests/test_torch_port_imgproc.py`` hold each against cv2.
 """
 
 from __future__ import annotations
@@ -75,6 +79,7 @@ def _clamp_columns(base: np.ndarray, frac: np.ndarray, size: int):
 
 def resize_linear_u8(img: np.ndarray, nh: int, nw: int) -> np.ndarray:
     """(H, W) or (H, W, C) uint8 -> (nh, nw[, C]) as cv2's INTER_LINEAR."""
+    _check_size(nh, nw)
     sh, sw = img.shape[:2]
     if (sh, sw) == (nh, nw):
         return img.copy()
@@ -115,11 +120,42 @@ def _lerp(a: np.ndarray, b: np.ndarray, t: np.ndarray) -> np.ndarray:
     return (a.astype(_F64) + d.astype(_F64) * t).astype(_F32)
 
 
+def _check_size(nh: int, nw: int) -> None:
+    if nh <= 0 or nw <= 0:
+        raise ValueError(f"resize to {nh} x {nw}: cv2.resize refuses an "
+                         f"empty size")
+
+
+def _resize_f32_one_line(src: np.ndarray, nh: int, nw: int) -> np.ndarray:
+    """cv2's generic INTER_LINEAR of a float32 map of one row or column:
+    float32 coordinates, unfused ``a * w0 + b * w1`` in each pass."""
+    def coords(dst: int, size: int):
+        c = _source_coords(dst, size, size / dst).astype(_F32)
+        base = np.floor(c)
+        frac = (c - base).astype(_F32)
+        return base.astype(np.int64), (_F32(1) - frac).astype(_F32), frac
+
+    sh, sw = src.shape
+    x0, a0, a1 = coords(nw, sw)
+    edge = (x0 < 0) | (x0 >= sw - 1)
+    x0 = np.clip(x0, 0, sw - 1)
+    a0[edge], a1[edge] = 1, 0
+    x1 = np.minimum(x0 + 1, sw - 1)
+    h = ((src[:, x0] * a0).astype(_F32) + (src[:, x1] * a1).astype(_F32))
+    y0, b0, b1 = coords(nh, sh)
+    r0, r1 = np.clip(y0, 0, sh - 1), np.clip(y0 + 1, 0, sh - 1)
+    return ((h[r0] * b0[:, None]).astype(_F32)
+            + (h[r1] * b1[:, None]).astype(_F32)).astype(_F32)
+
+
 def resize_linear_f32(arr: np.ndarray, nh: int, nw: int) -> np.ndarray:
     """(H, W) float32 -> (nh, nw) as cv2's INTER_LINEAR."""
+    _check_size(nh, nw)
     sh, sw = arr.shape
     if (sh, sw) == (nh, nw):
         return arr.astype(_F32, copy=True)
+    if sh == 1 or sw == 1:
+        return _resize_f32_one_line(arr.astype(_F32), nh, nw)
     x0, fx = _clamp_columns(*_split64(_source_coords(nw, sw, sw / nw)), sw)
     x1 = np.minimum(x0 + 1, sw - 1)
     y0, fy = _split64(_source_coords(nh, sh, sh / nh))
