@@ -151,6 +151,19 @@ paths with weights drawn from a fixed seed, through ``build_model`` ->
   and the ``/segment`` + ``/refine`` blueprint; ``predict``'s host-clock
   latency (median and p90 of 30) and split, the round trip and the
   device's busy share; neither cv2 nor PIL imported.
+- the traditional-augmentation arm (``augmentation/``, M8b): the port's
+  augmenter held to the SHA-256 digests of the JAX package's (cv2's)
+  outputs in ``tests/data/augment_golden.json`` (each op alone and the
+  default pipeline, 600 x 800 and odd sizes), the corpus's progressive
+  and CMYK JPEGs to PIL's; then the arm end to end: the seeded Cable set
+  (26 JPEGs at 600 x 800), ``traditional_augment --n_augment 16`` (its
+  17 files held to the JAX CLI's digests), ``build_dataset
+  --merge-genai`` into ``experiments/exp_2_original26_traditional50``,
+  ``train_experiments --exp exp_2_original26_traditional50`` for a few
+  steps of MaskDINO R-50 4-scale at its config (21 K1 + 15 backward a
+  step, 15 K1 an eval image) and its final test (``results.json``); ms an
+  augmented image split into read, augment, polygons and write, ms/step;
+  neither cv2 nor PIL imported.
 
 Each main path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path was launched as many
@@ -2830,6 +2843,179 @@ def cli_phase(counts: "Counts", smi: str) -> dict:
     return dict(launches=total, ms_per_step=ms, decode_ms=decode_ms)
 
 
+# ------------------------------------ traditional augmentation (M8b)
+
+AUG_EXP = "exp_2_original26_traditional50"
+AUG_VAL_IMAGES = 4
+AUG_STEPS = 8
+
+
+def _augment_golden():
+    """``scripts/make_augment_golden.py`` as a module, and its table."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_augment_golden",
+        os.path.join(ROOT, "scripts", "make_augment_golden.py"))
+    golden = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(golden)
+    with open(golden.OUT) as f:
+        return golden, json.load(f)
+
+
+def augment_phase(counts: "Counts", smi: str) -> dict:
+    """The reference's traditional-augmentation arm as a user runs it, in
+    this process: the augmenter against the JAX package's digests, then
+    ``traditional_augment`` over the seeded Cable set in the reference's
+    layout (26 JPEGs at 600 x 800, the golden script's), ``build_dataset``
+    merging its output into the experiment, and ``train_experiments`` on
+    it: MaskDINO R-50 4-scale at full width and depth at the CLI's config,
+    AUG_STEPS steps (every step's and eval image's launches checked) and
+    the final test on AUG_VAL_IMAGES val images."""
+    from vision_instance_seg_tpu_torch.augmentation import traditional_augment
+    from vision_instance_seg_tpu_torch.data.augment import TraditionalAugmenter
+    from vision_instance_seg_tpu_torch.data.jpeg import decode_jpeg
+    from vision_instance_seg_tpu_torch.training import build_dataset
+    from vision_instance_seg_tpu_torch.training.maskdino import (
+        common, train_experiments)
+
+    t_phase = time.perf_counter()
+    golden, table = _augment_golden()
+    t0 = time.perf_counter()
+    got = golden.run(TraditionalAugmenter)
+    bad = sorted(k for k in table["augmenter"] if got.get(k) !=
+                 table["augmenter"][k])
+    if bad or sorted(got) != sorted(table["augmenter"]):
+        raise AssertionError(f"augment: {bad} differ from the JAX "
+                             "augmenter's digests")
+    print(f"augment: {len(got)} augmenter cases (each op alone and the "
+          "default pipeline, 600x800 and odd sizes) equal the JAX "
+          f"augmenter's SHA-256 in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    n_corpus = jpeg_corpus_check()
+    print(f"augment: {n_corpus} corpus JPEGs (progressive and CMYK among "
+          "them) decode to PIL's SHA-256", flush=True)
+
+    tmp = tempfile.TemporaryDirectory()
+    root = tmp.name
+    data = os.path.join(root, "data")
+    base = os.path.join(root, "AA_CV_R")
+    t0 = time.perf_counter()
+    split = golden.write_cable_set(data)
+    write_coco(os.path.join(base, "val"), AUG_VAL_IMAGES, SEED + 71,
+               fmt="jpg")
+    write_s = time.perf_counter() - t0
+
+    aug = os.path.join(root, "traditional_aug")
+    timing: dict = {}
+    run_aug = traditional_augment.run_augmentation
+
+    def timed(*a, **k):
+        return run_aug(*a, timing=timing, **k)
+
+    traditional_augment.run_augmentation = timed
+    t0 = time.perf_counter()
+    try:
+        n_aug = traditional_augment.main(golden.cli_argv(data, aug))
+    finally:
+        traditional_augment.run_augmentation = run_aug
+    aug_s = time.perf_counter() - t0
+    digests = golden.tree_digests(aug)
+    if n_aug != golden.CLI_N_AUGMENT or digests != table["cli"]:
+        bad = sorted(k for k in set(digests) | set(table["cli"])
+                     if digests.get(k) != table["cli"].get(k))
+        raise AssertionError(f"augment: traditional_augment wrote {n_aug} "
+                             f"images; {bad} differ from the JAX CLI's")
+    per = {k: v * 1e3 / n_aug for k, v in timing.items()}
+    print(f"augment: traditional_augment --n_augment {n_aug} over "
+          f"{golden.CLI_TRAIN_IMAGES} JPEGs at {TRAINER_HW[0]}x{TRAINER_HW[1]}"
+          f" in {aug_s:.2f} s (set written in {write_s:.2f} s): all "
+          f"{len(digests)} files equal the JAX CLI's SHA-256; "
+          f"{aug_s * 1e3 / n_aug:.3f} ms an augmented image: read "
+          f"{per['read']:.3f}, augment {per['augment']:.3f}, polygons "
+          f"{per['polygons']:.3f}, write {per['write']:.3f} ms (host clock, "
+          f"one thread, warm file cache), on {smi}", flush=True)
+
+    exp = os.path.join(base, "experiments", AUG_EXP)
+    t0 = time.perf_counter()
+    ok = build_dataset.main([
+        "--raw-annotations", os.path.join(split, "annotations.json"),
+        "--raw-images", os.path.join(split, "images"), "--out-dir", exp,
+        "--category", "thunderbolt",
+        "--merge-genai", os.path.join(aug, "annotations.json"),
+        "--merge-genai-images", os.path.join(aug, "images")])
+    with open(os.path.join(exp, "annotations.json")) as f:
+        merged = json.load(f)
+    n_images = golden.CLI_TRAIN_IMAGES + golden.CLI_N_AUGMENT
+    if not ok or len(merged["images"]) != n_images or [
+            im["id"] for im in merged["images"]] != list(
+                range(1, n_images + 1)):
+        raise AssertionError(f"augment: build_dataset verify {ok}, "
+                             f"{len(merged['images'])} images")
+    for name in sorted(os.listdir(os.path.join(exp, "images")))[-2:]:
+        with open(os.path.join(exp, "images", name), "rb") as f:
+            img = decode_jpeg(f.read())
+        if img is None or img.shape != TRAINER_HW + (3,):
+            raise AssertionError(f"augment: {name} is not a {TRAINER_HW} "
+                                 "JPEG")
+    print(f"augment: build_dataset --merge-genai into {AUG_EXP}: "
+          f"{len(merged['images'])} images, {len(merged['annotations'])} "
+          f"annotations, verify OK in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    cfg = common.setup_cfg()
+    enc = int(cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS)
+    dec = int(cfg.MODEL.MASK_FORMER.DEC_LAYERS) - 1
+    remat = enc if cfg.TPU.REMAT_ENCODER else 0
+    per_step = {"msdeform_attn_fwd": enc + dec + remat,
+                "msdeform_attn_bwd": enc + dec}
+    per_batch = {"msdeform_attn_fwd": enc + dec}
+    total: dict = {}
+    trainers: list = []
+    out = os.path.join(root, "out")
+    cls = train_experiments.Trainer
+    train_experiments.Trainer = _recording_trainer(
+        cls, trainers, counts, per_step, per_batch, total, "augment")
+    t0 = time.perf_counter()
+    try:
+        result = train_experiments.main([
+            "--exp", AUG_EXP, "--base-dir", base, "--max-iter",
+            str(AUG_STEPS), "--output-dir", out])
+    finally:
+        train_experiments.Trainer = cls
+    wall = time.perf_counter() - t0
+    trainer = trainers[0]
+    ms = statistics.median(trainer.step_times) * 1e3
+    with open(os.path.join(out, AUG_EXP, "results.json")) as f:
+        results = json.load(f)
+    if (trainer.state.step != AUG_STEPS or results["status"] != "completed"
+            or result["experiment"] != AUG_EXP or any(sorted(results[t]) != sorted(["AP", "AP50", "AP75", "APs",
+                                                 "APm", "APl"])
+                   for t in ("bbox", "segm"))):
+        raise AssertionError(f"augment: {trainer.state.step} steps, "
+                             f"results.json {results}")
+    print(f"augment: train_experiments --exp {AUG_EXP} {AUG_STEPS} steps of "
+          f"batch {trainer.cfg.SOLVER.IMS_PER_BATCH} "
+          f"({trainer.cfg.TPU.COMPUTE_DTYPE}, remat of the encoder) and its "
+          f"final test on {AUG_VAL_IMAGES} val images in {wall:.2f} s; "
+          f"launches per step {per_step} and per eval image {per_batch}, "
+          f"checked each call; results.json segm {results['segm']}",
+          flush=True)
+    print(f"augment: median {ms:.3f} ms/step over all {AUG_STEPS} steps "
+          f"(host clock); step seconds "
+          f"{['%.4f' % t for t in trainer.step_times]}, on {smi}", flush=True)
+    loaded = sorted(m for m in ("cv2", "PIL") if m in sys.modules)
+    phase_s = time.perf_counter() - t_phase
+    print(f"augment: phase {phase_s:.2f} s, on {smi}; cv2 / PIL imported: "
+          f"{loaded or 'neither'}", flush=True)
+    if loaded:
+        raise AssertionError(f"the augmentation arm imported {loaded}")
+    del trainer, trainers
+    torch.cuda.empty_cache()
+    tmp.cleanup()
+    return dict(launches=total, ms_per_step=ms, aug_ms=aug_s * 1e3 / n_aug)
+
+
 # ---------------------------------------------- data parallelism (M6)
 
 NCCL_STEPS = 5
@@ -4215,6 +4401,9 @@ def main() -> int:
     # the port's training, eval and visualization CLIs over JPEG files
     # (21 K1 and 15 backward launches a step, 15 K1 an eval image)
     trained.append((cli_phase(counts, smi), {}))
+    # the traditional-augmentation arm: augment, merge, then
+    # train_experiments (21 K1 and 15 backward launches a step) (M8b)
+    trained.append((augment_phase(counts, smi), {}))
     # data parallelism: a one-process NCCL group through train_original,
     # and two gloo processes on the card against one process (M6)
     trained.append((parallel_phase(counts, smi), {}))

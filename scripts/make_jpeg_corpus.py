@@ -6,6 +6,10 @@ port's decoder (``vision_instance_seg_tpu_torch/data/jpeg.py``) takes, and
     python3 scripts/make_jpeg_corpus.py
 
 Needs PIL and cv2 (4:4:0 and restart intervals are written by cv2). The
+progressive files come from PIL (``progressive=True``) and cv2
+(``IMWRITE_JPEG_PROGRESSIVE``), the 4-component ones from PIL's CMYK
+(Adobe transform 0), one with its Adobe transform byte set to 2, which
+libjpeg then reads as YCCK. The
 images are drawn from a fixed seed: gradients, noise and a few blobs, so
 every file carries AC energy in all components. ``chip_smoke.py`` decodes
 the corpus on a machine without PIL and compares the digests;
@@ -47,14 +51,15 @@ def pil_jpeg(img: np.ndarray, **kw) -> bytes:
 
 
 def cv2_jpeg(img: np.ndarray, quality: int, sampling: str,
-             restart: int = 0) -> bytes:
+             restart: int = 0, progressive: bool = False) -> bytes:
     import cv2
 
     factor = getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{sampling}")
     ok, enc = cv2.imencode(".jpg", img[..., ::-1],
                            [cv2.IMWRITE_JPEG_QUALITY, quality,
                             cv2.IMWRITE_JPEG_SAMPLING_FACTOR, factor,
-                            cv2.IMWRITE_JPEG_RST_INTERVAL, restart])
+                            cv2.IMWRITE_JPEG_RST_INTERVAL, restart,
+                            cv2.IMWRITE_JPEG_PROGRESSIVE, int(progressive)])
     assert ok
     return enc.tobytes()
 
@@ -67,6 +72,22 @@ def exif_rotated(img: np.ndarray) -> bytes:
     exif = Image.Exif()
     exif[0x0112] = 6
     return pil_jpeg(img, quality=85, exif=exif.tobytes())
+
+
+def cmyk_jpeg(img: np.ndarray, **kw) -> bytes:
+    """PIL's CMYK JPEG of an RGB image (an Adobe marker, transform 0)."""
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img).convert("CMYK").save(buf, format="JPEG", **kw)
+    return buf.getvalue()
+
+
+def adobe_transform(data: bytes, transform: int) -> bytes:
+    """The same file with its Adobe marker's transform byte replaced: a
+    4-component file under transform 2 is YCCK to libjpeg."""
+    i = data.index(b"Adobe") + 11
+    return data[:i] + bytes([transform]) + data[i + 1:]
 
 
 def extended_sequential(data: bytes) -> bytes:
@@ -97,6 +118,19 @@ def corpus() -> dict:
             pil_jpeg(image(30, 30, 11), quality=75)),
         "q95_444_120x160.jpg": pil_jpeg(image(120, 160, 12), quality=95,
                                         subsampling=0),
+        "prog_q85_420_37x53.jpg": pil_jpeg(image(37, 53, 13), quality=85,
+                                           progressive=True),
+        "prog_q80_422_restart2_41x29.jpg": cv2_jpeg(
+            image(41, 29, 14), 80, "422", restart=2, progressive=True),
+        "prog_q90_440_23x31.jpg": cv2_jpeg(image(23, 31, 15), 90, "440",
+                                           progressive=True),
+        "prog_grey_q90_29x35.jpg": pil_jpeg(image(29, 35, 16)[..., 0],
+                                            quality=90, progressive=True),
+        "cmyk_q90_30x40.jpg": cmyk_jpeg(image(30, 40, 17), quality=90),
+        "ycck_q90_30x40.jpg": adobe_transform(
+            cmyk_jpeg(image(30, 40, 18), quality=90), 2),
+        "cmyk_prog_q85_21x27.jpg": cmyk_jpeg(image(21, 27, 19), quality=85,
+                                             progressive=True),
     }
 
 

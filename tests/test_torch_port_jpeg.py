@@ -5,8 +5,9 @@
   sampling 4:4:4, 4:2:2 and 4:2:0 (PIL) and 4:4:0 (cv2), odd sizes, grey,
   restart intervals, an SOF1 header, EXIF orientation (not applied), the
   committed corpus ``tests/data/jpeg_corpus/`` (its PIL digests recomputed
-  here) and ``tests/fixtures.py``'s images. Progressive, CMYK and the
-  other modes it does not take are named and left to PIL.
+  here) and ``tests/fixtures.py``'s images. RGB-coded, 4:1:1 and the
+  other modes it does not take are named and left to PIL (progressive and
+  CMYK: ``tests/test_torch_port_jpeg_kinds.py``).
 - ``encode_jpeg`` writes files that PIL and the port decode to the same
   pixels, within 0.05 dB of ``cv2.imencode``'s PSNR at the same quality
   and sampling (found: the same pixels).
@@ -165,10 +166,17 @@ def test_corpus_decodes_to_pil_digest(name):
     assert hashlib.sha256(img.tobytes()).hexdigest() == entry["sha256"]
 
 
+def _cv2_411(im, buf):
+    ok, enc = cv2.imencode(".jpg", np.asarray(im)[..., ::-1], [
+        cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+        cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411])
+    assert ok
+    buf.write(enc.tobytes())
+
+
 @pytest.mark.parametrize("mode,save", [
-    ("progressive", lambda im, b: im.save(b, "JPEG", progressive=True)),
-    ("CMYK or other non-1/3-component",
-     lambda im, b: im.convert("CMYK").save(b, "JPEG"))])
+    ("RGB-coded", lambda im, b: im.save(b, "JPEG", keep_rgb=True)),
+    ("unusual-sampling", _cv2_411)])
 def test_unsupported_modes_are_named(tmp_path, monkeypatch, mode, save):
     buf = io.BytesIO()
     save(Image.fromarray(_image(20, 24, seed=8)), buf)

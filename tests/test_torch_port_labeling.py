@@ -153,12 +153,8 @@ def test_refiner_history_and_undo_match_jax():
 def _data_url(img, fmt="jpeg", **kw):
     if fmt == "jpeg":
         data = encode_jpeg(img, quality=kw.get("quality", 90))
-    elif fmt == "png":
+    else:
         data = encode_png(img)
-    else:                                    # what PIL writes: progressive
-        buf = io.BytesIO()
-        Image.fromarray(img).save(buf, format="JPEG", progressive=True)
-        data = buf.getvalue()
     mime = "png" if fmt == "png" else "jpeg"
     return f"data:image/{mime};base64," + base64.b64encode(data).decode()
 
@@ -377,6 +373,12 @@ def test_app_matches_jax(tmp_path, split):
     ja = japp.LabelingApp("Cable", split, str(jroot))
     pa = papp.LabelingApp("Cable", split, str(proot))
     existing, reqs = _requests(np.random.default_rng(21))
+    _same_answers(ja, pa, jroot, proot, split, existing, reqs)
+
+
+def _same_answers(ja, pa, jroot, proot, split, existing, reqs):
+    """The port's app answers every request as the JAX app does, and
+    leaves the same annotations and image files."""
     for name, data in existing.items():
         (ja.image_dir / name).write_bytes(data)
         (pa.image_dir / name).write_bytes(data)
@@ -407,29 +409,74 @@ def test_app_matches_jax(tmp_path, split):
         p.name for p in ja.image_dir.iterdir())
 
 
+def _cv2_411(img):
+    import cv2
+
+    ok, enc = cv2.imencode(".jpg", img[..., ::-1], [
+        cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+        cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411])
+    assert ok
+    return enc.tobytes()
+
+
 def test_app_refuses_what_it_cannot_decode(tmp_path):
-    """A progressive JPEG upload or crop, or a GIF, is answered 415 naming
-    its kind and M8b (the JAX app hands it to PIL)."""
+    """An RGB-coded JPEG upload or a 4:1:1 crop, or a GIF, is answered 415
+    naming its kind and M8b (the JAX app hands it to PIL)."""
     app = papp.LabelingApp("Screw", "train", str(tmp_path))
     img = _scene(np.random.default_rng(3), 30, 40, "bright")
-    prog = _pil_bytes(img, format="JPEG", progressive=True)
+    rgb = _pil_bytes(img, format="JPEG", keep_rgb=True)
     r = call(app, "POST", "/save", *multipart({
-        "image": ("p.jpg", prog), "annotations": (None, b"[]")}))
+        "image": ("p.jpg", rgb), "annotations": (None, b"[]")}))
     assert r["status"].startswith("415")
-    assert "progressive JPEG" in r["json"]["error"]
+    assert "RGB-coded JPEG" in r["json"]["error"]
     assert "M8b" in r["json"]["error"]
-    assert r["json"]["kind"] == "progressive JPEG"
+    assert r["json"]["kind"] == "RGB-coded JPEG"
+    url = "data:image/jpeg;base64," + base64.b64encode(
+        _cv2_411(img)).decode()
     r = call(app, "POST", "/ai/segment",
-             json.dumps({"image_data": _data_url(img, "progressive")}
-                        ).encode())
+             json.dumps({"image_data": url}).encode())
     assert r["status"].startswith("415") and r["json"]["kind"] == \
-        "progressive JPEG"
+        "unusual-sampling JPEG"
     r = call(app, "POST", "/save", *multipart({
         "image": ("g.gif", _pil_bytes(img, format="GIF")),
         "annotations": (None, b"[]")}))
     assert r["status"].startswith("415")
     assert r["json"]["kind"] == "non-PNG, non-JPEG"
     assert list(app.image_dir.iterdir()) == []
+
+
+@pytest.mark.parametrize("kind", ["progressive", "CMYK"])
+def test_app_takes_progressive_and_cmyk(tmp_path, kind):
+    """Progressive and CMYK JPEG uploads, crops and placed files, which
+    the port refused before it decoded them: the JAX app's bytes and
+    JSON."""
+    rng = np.random.default_rng(22)
+    img_a, img_b = _scene(rng, 48, 64, "bright"), _scene(rng, 33, 41, "noise")
+
+    def enc(img):
+        if kind == "progressive":
+            return _pil_bytes(img, format="JPEG", progressive=True)
+        buf = io.BytesIO()
+        Image.fromarray(img).convert("CMYK").save(buf, "JPEG", quality=90)
+        return buf.getvalue()
+
+    url = "data:image/jpeg;base64," + base64.b64encode(enc(img_b)).decode()
+    existing = {"placed.jpg": enc(_scene(rng, 40, 25, "regions"))}
+    anns = json.dumps([{"category_id": 1, "bbox": [1, 2, 10, 8],
+                        "segmentation": [[1, 2, 11, 2, 11, 10, 1, 10]],
+                        "area": 80}]).encode()
+    reqs = [("POST", "/save", {"image": ("a.jpg", enc(img_a)),
+                               "annotations": (None, anns)}),
+            ("POST", "/save/existing", {"filename": "placed.jpg",
+                                        "annotations": json.loads(anns)}),
+            ("POST", "/ai/segment", {"image_data": url}),
+            ("GET", "/images/list", None),
+            ("GET", "/annotations/for/Cable_000000.jpg", None),
+            ("GET", "/images/serve/Cable_000000.jpg", None)]
+    jroot, proot = tmp_path / "jax", tmp_path / "port"
+    ja = japp.LabelingApp("Cable", "train", str(jroot))
+    pa = papp.LabelingApp("Cable", "train", str(proot))
+    _same_answers(ja, pa, jroot, proot, "train", existing, reqs)
 
 
 def test_ai_segment_lets_model_errors_through(tmp_path):

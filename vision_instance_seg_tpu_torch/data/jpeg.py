@@ -1,12 +1,15 @@
-"""Baseline JPEG decoding and encoding without PIL or cv2.
+"""JPEG decoding and encoding without PIL or cv2.
 
 ``decode_jpeg`` gives what the JAX package's loader gets from PIL
 (``Image.open(path).convert("RGB")``, libjpeg-turbo underneath) byte for
 byte: the accurate integer IDCT, fancy upsampling, libjpeg's fixed-point
 YCbCr -> RGB, grey replicated to RGB, no EXIF rotation. It takes
-sequential Huffman files (baseline and extended 8-bit) with 1 or 3
-components, 4:4:4, 4:2:2, 4:4:0 or 4:2:0 sampling and restart intervals,
-and returns None for any other JPEG (``unsupported_mode`` names it).
+sequential (baseline and extended 8-bit) and progressive Huffman files
+with 1, 3 or 4 components (CMYK, or YCCK under an Adobe transform, as PIL
+inverts and converts them), 4:4:4, 4:2:2, 4:4:0 or 4:2:0 sampling and
+restart intervals, and returns None for any other JPEG (arithmetic-coded,
+12-bit, lossless, RGB-coded, unusual sampling such as 4:1:1, ...;
+``unsupported_mode`` names it).
 
 ``encode_jpeg`` writes a baseline file as ``cv2.imwrite`` does by default
 (libjpeg's quality rule over the Annex K tables, quality 95, 4:2:0).
@@ -27,9 +30,9 @@ from vision_instance_seg_tpu_torch.data.native.build import build
 SOI = b"\xff\xd8\xff"
 SUBSAMPLING = ("4:4:4", "4:2:0")
 # jpeg.c's status codes for the files the decoder does not take
-_MODES = {1: "progressive", 2: "arithmetic-coded",
+_MODES = {2: "arithmetic-coded",
           3: "lossless or hierarchical", 4: "12-bit",
-          5: "CMYK or other non-1/3-component",
+          5: "2-component or over 4-component",
           6: "Adobe-transform", 7: "unusual-sampling", 8: "RGB-coded"}
 _ERRORS = {-1: "truncated", -3: "corrupt Huffman data",
            -4: "bad or missing table", -5: "no frame", -6: "out of memory",
@@ -45,7 +48,7 @@ def _lib() -> ctypes.CDLL:
                               ctypes.POINTER(ctypes.c_int32)]
     lib.jpeg_decode.restype = ctypes.c_int
     lib.jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, _U8P,
-                                ctypes.c_int64]
+                                ctypes.c_int64, ctypes.c_int32]
     lib.jpeg_encode.restype = ctypes.c_int64
     lib.jpeg_encode.argtypes = [_U8P, ctypes.c_int32, ctypes.c_int32,
                                 ctypes.c_int32, ctypes.c_int32, _U8P,
@@ -91,15 +94,20 @@ def size(data: bytes) -> Tuple[int, int]:
     raise ValueError("not a readable JPEG (no frame header)")
 
 
-def decode_jpeg(data: bytes) -> Optional[np.ndarray]:
+def decode_jpeg(data: bytes, cmyk: str = "pil") -> Optional[np.ndarray]:
     """JPEG file bytes -> (H, W, 3) uint8 RGB, or None for a JPEG this
-    decoder does not take. Raises ValueError on a corrupt file."""
+    decoder does not take. A 4-component file goes to RGB as PIL's
+    ``convert("RGB")`` takes it (``cmyk="pil"``) or as ``cv2.imread``
+    does (``cmyk="cv2"``); the two differ by up to a few levels. Raises
+    ValueError on a corrupt file."""
+    if cmyk not in ("pil", "cv2"):
+        raise ValueError(f"cmyk {cmyk!r}: 'pil' or 'cv2'")
     h, w, _, status = (int(v) for v in _info(data))
     if status:
         return None
     out = np.empty((h, w, 3), np.uint8)
     r = _lib().jpeg_decode(data, len(data), out.ctypes.data_as(_U8P),
-                           out.size)
+                           out.size, int(cmyk == "cv2"))
     if r > 0:
         return None
     if r < 0:

@@ -13,10 +13,12 @@ custom mapper):
   draws, so the port's batches equal the JAX loader's.
 
 Images are read without PIL when they are 8-bit PNG (``data/png.py``) or
-baseline JPEG (``data/jpeg.py``); other files go through PIL.
-``decode_image`` and ``image_size`` take file bytes (the labeling app's
-uploads and crops) and raise ``UnsupportedImage`` where PIL would be
-needed.
+sequential or progressive Huffman JPEG with 1, 3 or 4 components
+(``data/jpeg.py``); other files go through PIL. ``decode_image`` and
+``image_size`` take file bytes (the labeling app's uploads and crops) and
+raise ``UnsupportedImage`` where PIL would be needed. ``imread_rgb`` reads
+a file as ``cv2.imread`` + ``COLOR_BGR2RGB`` does (EXIF orientation
+applied), for the augmentation CLI.
 
 Batch layout (dict of arrays, NHWC):
   image      (B, H, W, 3) uint8 RGB 0-255
@@ -46,25 +48,28 @@ from vision_instance_seg_tpu_torch.data.transforms import EvalTransform, SampleR
 
 class UnsupportedImage(ValueError):
     """An image the port decodes without PIL only in part: ``kind`` names
-    it (a progressive JPEG, an interlaced PNG, another format, ...)."""
+    it (an arithmetic-coded JPEG, an interlaced PNG, another format, ...)."""
 
     def __init__(self, kind: str):
         super().__init__(f"cannot decode a {kind} image without PIL (8-bit "
-                         "non-interlaced PNG and baseline JPEG only)")
+                         "non-interlaced PNG and sequential or progressive "
+                         "Huffman JPEG only)")
         self.kind = kind
 
 
-def decode_image(data: bytes) -> np.ndarray:
+def decode_image(data: bytes, cmyk: str = "pil") -> np.ndarray:
     """Image file bytes -> (H, W, 3) uint8 RGB, as PIL's
     ``Image.open(...).convert("RGB")`` gives them, for 8-bit non-interlaced
-    PNG and baseline JPEG; any other image raises ``UnsupportedImage``."""
+    PNG and sequential or progressive Huffman JPEG (``cmyk="cv2"`` takes
+    cv2's CMYK -> RGB instead of PIL's); any other image raises
+    ``UnsupportedImage``."""
     if data.startswith(png.SIGNATURE):
         img = png.decode_png(data)
         if img is not None:
             return img
         raise UnsupportedImage("16-bit, low bit-depth or interlaced PNG")
     if data.startswith(jpeg.SOI):
-        img = jpeg.decode_jpeg(data)
+        img = jpeg.decode_jpeg(data, cmyk=cmyk)
         if img is not None:
             return img
         raise UnsupportedImage(f"{jpeg.unsupported_mode(data)} JPEG")
@@ -81,11 +86,107 @@ def image_size(data: bytes) -> Tuple[int, int]:
     raise UnsupportedImage("non-PNG, non-JPEG")
 
 
+# the signatures of the other formats cv2.imread reads: BMP, TIFF, WebP,
+# PNM / PAM / PFM, Sun raster, Radiance HDR, OpenEXR, JPEG 2000, GIF
+_CV2_OTHER_FORMATS = (b"BM", b"II*\x00", b"MM\x00*", b"RIFF", b"P1", b"P2",
+                      b"P3", b"P4", b"P5", b"P6", b"P7", b"PF", b"Pf",
+                      b"\x59\xa6\x6a\x95", b"#?RADIANCE", b"#?RGBE",
+                      b"\x76\x2f\x31\x01", b"\x00\x00\x00\x0cjP  ",
+                      b"\xff\x4f\xff\x51", b"GIF87a", b"GIF89a")
+
+
+def _tiff_orientation(t: bytes) -> int:
+    """Tag 0x0112 of the first IFD of a TIFF-structured EXIF block, or 1."""
+    order = {b"II": "little", b"MM": "big"}.get(t[:2])
+    if order is None or len(t) < 8:
+        return 1
+    u = lambda p, n: int.from_bytes(t[p:p + n], order)  # noqa: E731
+    ifd = u(4, 4)
+    if ifd + 2 > len(t):
+        return 1
+    for i in range(u(ifd, 2)):
+        p = ifd + 2 + 12 * i
+        if p + 12 > len(t):
+            break
+        if u(p, 2) == 0x0112:
+            return u(p + 8, 2)
+    return 1
+
+
+def exif_orientation(data: bytes) -> int:
+    """The EXIF orientation (1-8) of a JPEG (APP1 "Exif") or PNG (eXIf
+    chunk before the image data) file, 1 when it carries none."""
+    if data.startswith(png.SIGNATURE):
+        pos = len(png.SIGNATURE)
+        while pos + 8 <= len(data):
+            n = int.from_bytes(data[pos:pos + 4], "big")
+            kind = data[pos + 4:pos + 8]
+            if kind == b"eXIf":
+                return _tiff_orientation(data[pos + 8:pos + 8 + n])
+            if kind in (b"IDAT", b"IEND"):
+                break
+            pos += 12 + n
+        return 1
+    pos = 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF:
+        m = data[pos + 1]
+        if m == 0xFF:
+            pos += 1
+            continue
+        if m in (0xDA, 0xD9):                      # SOS, EOI
+            break
+        if m == 0x01 or 0xD0 <= m <= 0xD8:
+            pos += 2
+            continue
+        n = int.from_bytes(data[pos + 2:pos + 4], "big")
+        seg = data[pos + 4:pos + 2 + n]
+        if m == 0xE1 and seg.startswith(b"Exif\x00\x00"):
+            return _tiff_orientation(seg[6:])
+        pos += 2 + n
+    return 1
+
+
+def orient(img: np.ndarray, orientation: int) -> np.ndarray:
+    """cv2's ExifTransform: EXIF orientation 2-8 applied to an (H, W, ...)
+    image (5-8 transpose first, then flip); any other value leaves it."""
+    if orientation in (5, 6, 7, 8):
+        img = img.swapaxes(0, 1)
+    flip = {2: (1,), 3: (0, 1), 4: (0,), 6: (1,), 7: (0, 1), 8: (0,)}
+    axes = flip.get(orientation, ())
+    if axes:
+        img = np.flip(img, axes)
+    return np.ascontiguousarray(img)
+
+
+def imread_rgb(path: str) -> Optional[np.ndarray]:
+    """``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`` without cv2:
+    ``decode_image`` with cv2's CMYK -> RGB and the EXIF orientation
+    applied. None where cv2.imread gives None: a file that cannot be read,
+    is corrupt or is in no format cv2 reads. A PNG or JPEG the port does
+    not decode, or another format cv2 reads (BMP, TIFF, ...), raises
+    ``UnsupportedImage``."""
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return None
+    try:
+        img = decode_image(data, cmyk="cv2")
+    except UnsupportedImage:
+        if data.startswith((png.SIGNATURE, jpeg.SOI) + _CV2_OTHER_FORMATS):
+            raise
+        return None
+    except ValueError:                                  # corrupt
+        return None
+    return orient(img, exif_orientation(data))
+
+
 def _read_image(path: str) -> np.ndarray:
     """Read an image file to RGB uint8 (reference uses detectron2
     utils.read_image, train_original.py:74). 8-bit non-interlaced PNG and
-    baseline JPEG are decoded here, as PIL decodes them; anything else
-    (progressive or arithmetic-coded JPEG, CMYK, ...) goes through PIL."""
+    sequential or progressive Huffman JPEG (CMYK included) are decoded
+    here, as PIL decodes them; anything else (arithmetic-coded, 12-bit or
+    lossless JPEG, 16-bit PNG, ...) goes through PIL."""
     with open(path, "rb") as f:
         data = f.read()
     try:
@@ -97,7 +198,7 @@ def _read_image(path: str) -> np.ndarray:
     except ImportError as e:
         raise ImportError(f"{path}: decoding a {kind} image needs PIL, which "
                           "is not installed (8-bit non-interlaced PNG and "
-                          "baseline JPEG need nothing)") from e
+                          "Huffman JPEG need nothing)") from e
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
 

@@ -1,8 +1,9 @@
 """Build the port's native host libraries: ``gcc -O3 -shared -fPIC <name>.c``.
 
 One library per C source in this directory: ``maskapi`` (the RLE codec),
-``jpeg`` (baseline JPEG decoder and encoder), ``contours`` (border
-following) and ``imgproc`` (flood fills). Each goes to ``build/kernels/``
+``jpeg`` (JPEG decoder and encoder), ``contours`` (border following),
+``imgproc`` (flood fills) and ``augment`` (the augmenter's warps, colour
+conversions and blur), each linked with libm. Each goes to ``build/kernels/``
 at the root of the checkout (beside the CUDA kernels), under a name keyed
 by a hash of the source and flags, so an edited source is rebuilt and
 concurrent processes never load a half written file. A build happens at first use; a failed build raises with
@@ -22,12 +23,14 @@ SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # no fused multiply-adds: contours.c rounds each float product as cv2 does
 CC_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
-LIBRARIES = ("maskapi", "jpeg", "contours", "imgproc")
+LINK_FLAGS = ("-lm",)
+LIBRARIES = ("maskapi", "jpeg", "contours", "imgproc", "augment")
 
 
 def library_path(name: str = "maskapi") -> Path:
     src = SRC_DIR / f"{name}.c"
-    digest = hashlib.sha256(" ".join(CC_FLAGS).encode() + src.read_bytes())
+    digest = hashlib.sha256(" ".join(CC_FLAGS + LINK_FLAGS).encode()
+                            + src.read_bytes())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -39,7 +42,8 @@ def build(name: str = "maskapi") -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     proc = subprocess.run(["gcc", *CC_FLAGS, str(SRC_DIR / f"{name}.c"),
-                           "-o", str(tmp)], capture_output=True, text=True)
+                           "-o", str(tmp), *LINK_FLAGS],
+                          capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"native {name} build failed (gcc exit "
                            f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")

@@ -1,20 +1,30 @@
-/* Baseline JPEG decoder and encoder, the port's replacement for PIL's
+/* JPEG decoder and baseline encoder, the port's replacement for PIL's
  * (libjpeg-turbo's) decode and cv2.imwrite's encode.
  *
- * Decoder: sequential Huffman JPEG (SOF0 / SOF1, 8-bit samples), one or
- * more scans, restart intervals, 1 or 3 components, luma sampling 1x1,
- * 2x1, 1x2 or 2x2 over 1x1 chroma. It computes what libjpeg's default
- * decompression computes, byte for byte:
+ * Decoder: sequential (SOF0 / SOF1) and progressive (SOF2) Huffman JPEG
+ * with 8-bit samples, one or more scans, restart intervals, 1, 3 or 4
+ * components, each sampled at 1 or 1/2 of the largest factor both ways.
+ * Progressive scans (DC first and refine, AC first and refine with
+ * spectral selection, successive approximation and EOB runs) add into a
+ * coefficient buffer that the IDCT reads once every scan is in; libjpeg
+ * smooths blocks only where coefficients are still incomplete, which no
+ * whole file leaves. It computes what libjpeg's default decompression
+ * computes, byte for byte:
  *   - the accurate integer IDCT (jidctint.c, jpeg_idct_islow) with its
  *     10-bit range-limit table;
  *   - "fancy" triangular upsampling (jdsample.c h2v1 / h1v2 / h2v2, and the
  *     box replication it falls back to below 3 chroma columns), edges
  *     replicated from the last real sample row and column;
  *   - the fixed-point YCbCr -> RGB tables (jdcolor.c);
- *   - grey replicated to RGB; no EXIF orientation applied.
- * Progressive, arithmetic-coded, lossless, 12-bit, 4-component and
- * Adobe- or RGB-coded files are reported by jpeg_info's status and not
- * decoded.
+ *   - grey replicated to RGB; no EXIF orientation applied;
+ *   - 4 components: CMYK, or YCCK under an Adobe transform other than 0
+ *     (jdcolor.c ycck_cmyk_convert), to RGB as PIL reads them (inverted,
+ *     "CMYK;I", then cmyk2rgb: nk - nk * C / 255 with nk = 255 - K) or,
+ *     under cmyk_cv2, as cv2.imread does (K - ((255 - C) * K >> 8) on
+ *     libjpeg's CMYK).
+ * Arithmetic-coded, lossless or hierarchical, 12-bit, 2-component,
+ * Adobe- or RGB-coded 3-component and other sampling (4:1:1, ...) files
+ * are reported by jpeg_info's status and not decoded.
  *
  * Encoder: baseline RGB at 4:2:0 or 4:4:4 with libjpeg's defaults: the
  * Annex K quantization tables scaled by its quality rule, the Annex K
@@ -34,8 +44,8 @@
 
 #define EXPORT __attribute__((visibility("default")))
 
-/* jpeg_info status (>= 0) */
-enum { JS_OK = 0, JS_PROGRESSIVE, JS_ARITHMETIC, JS_LOSSLESS, JS_PRECISION,
+/* jpeg_info status (>= 0; jpeg.py names them) */
+enum { JS_OK = 0, JS_ARITHMETIC = 2, JS_LOSSLESS, JS_PRECISION,
        JS_COMPONENTS, JS_ADOBE, JS_SAMPLING, JS_RGB };
 /* errors (< 0) */
 enum { JE_TRUNCATED = -1, JE_HUFFMAN = -3, JE_TABLE = -4, JE_NOFRAME = -5,
@@ -91,8 +101,9 @@ typedef struct {
 } bits_t;
 
 typedef struct {
-    int width, height, ncomp, frame;
-    int saw_jfif, saw_adobe, restart_interval, max_h, max_v;
+    int width, height, ncomp, frame, progressive;
+    int saw_jfif, saw_adobe, adobe_transform, restart_interval, max_h, max_v;
+    int eobrun;                  /* progressive AC scans' end-of-band run */
     int mcux, mcuy;
     int qt[4][64];
     int qt_defined[4];
@@ -218,13 +229,98 @@ static int decode_block(dec_t *d, bits_t *b, comp_t *c, int16_t *blk) {
     return 0;
 }
 
+/* One block of a progressive scan over coefficients ss..se at bit al
+ * (jdphuff.c decode_mcu_DC_first / DC_refine / AC_first / AC_refine);
+ * natural_order's 16 padding entries catch runs past 63, as libjpeg's. */
+static int decode_block_prog(dec_t *d, bits_t *b, comp_t *c, int16_t *blk,
+                             int ss, int se, int ah, int al) {
+    if (ss == 0) {
+        if (ah) {
+            if (br_get(b, 1)) blk[0] |= (int16_t)(1 << al);
+            return 0;
+        }
+        int s = huff_decode(b, d->dc[c->td]);
+        if (s < 0 || s > 16) return JE_HUFFMAN;
+        c->pred += extend(br_get(b, s), s);
+        blk[0] = (int16_t)((unsigned)c->pred << al);
+        return 0;
+    }
+    const huff_t *ac = d->ac[c->ta];
+    int k = ss;
+    if (!ah) {
+        if (d->eobrun > 0) {
+            d->eobrun--;
+            return 0;
+        }
+        for (; k <= se; k++) {
+            int rs = huff_decode(b, ac);
+            if (rs < 0) return JE_HUFFMAN;
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+                k += r;
+                blk[natural_order[k]] =
+                    (int16_t)((unsigned)extend(br_get(b, s), s) << al);
+            } else if (r == 15) {
+                k += 15;
+            } else {
+                d->eobrun = 1 << r;
+                if (r) d->eobrun += br_get(b, r);
+                d->eobrun--;
+                break;
+            }
+        }
+        return 0;
+    }
+    int p1 = 1 << al, m1 = -1 * (1 << al);
+    if (d->eobrun == 0) {
+        for (; k <= se; k++) {
+            int rs = huff_decode(b, ac);
+            if (rs < 0) return JE_HUFFMAN;
+            int r = rs >> 4, s = rs & 15;
+            if (s) {
+                s = br_get(b, 1) ? p1 : m1;
+            } else if (r != 15) {
+                d->eobrun = 1 << r;
+                if (r) d->eobrun += br_get(b, r);
+                break;
+            }
+            do {
+                int16_t *coef = blk + natural_order[k];
+                if (*coef != 0) {
+                    if (br_get(b, 1) && (*coef & p1) == 0)
+                        *coef = (int16_t)(*coef + (*coef >= 0 ? p1 : m1));
+                } else if (--r < 0) {
+                    break;
+                }
+                k++;
+            } while (k <= se);
+            if (s) blk[natural_order[k]] = (int16_t)s;
+        }
+    }
+    if (d->eobrun > 0) {
+        for (; k <= se; k++) {
+            int16_t *coef = blk + natural_order[k];
+            if (*coef != 0 && br_get(b, 1) && (*coef & p1) == 0)
+                *coef = (int16_t)(*coef + (*coef >= 0 ? p1 : m1));
+        }
+        d->eobrun--;
+    }
+    return 0;
+}
+
 static int decode_scan(dec_t *d, const uint8_t *data, int64_t n,
-                       int64_t pos, int ns, comp_t **sc, int64_t *end) {
+                       int64_t pos, int ns, comp_t **sc, int ss, int se,
+                       int ah, int al, int64_t *end) {
     bits_t b = {data, n, pos, 0, 0, 0, 0};
+    /* a progressive scan needs the DC tables (DC first), the AC table
+     * (AC scans) or none (DC refine) */
+    int need_dc = !d->progressive || (ss == 0 && ah == 0);
+    int need_ac = !d->progressive || ss > 0;
+    d->eobrun = 0;
     for (int i = 0; i < ns; i++) {
         comp_t *c = sc[i];
-        if (!d->dc[c->td] || !d->dc[c->td]->defined || !d->ac[c->ta]
-            || !d->ac[c->ta]->defined)
+        if ((need_dc && (!d->dc[c->td] || !d->dc[c->td]->defined))
+            || (need_ac && (!d->ac[c->ta] || !d->ac[c->ta]->defined)))
             return JE_TABLE;
         if (!c->latched) {
             if (!d->qt_defined[c->tq]) return JE_TABLE;
@@ -248,6 +344,7 @@ static int decode_scan(dec_t *d, const uint8_t *data, int64_t n,
                 && done % d->restart_interval == 0) {
                 br_restart(&b);
                 for (int i = 0; i < ns; i++) sc[i]->pred = 0;
+                d->eobrun = 0;
             }
             for (int i = 0; i < ns; i++) {
                 comp_t *c = sc[i];
@@ -258,8 +355,14 @@ static int decode_scan(dec_t *d, const uint8_t *data, int64_t n,
                         int col = ns == 1 ? mx : mx * c->h + x;
                         int16_t *blk = c->coef
                             + ((int64_t)row * c->bw + col) * 64;
-                        memset(blk, 0, 64 * sizeof(int16_t));
-                        int r = decode_block(d, &b, c, blk);
+                        int r;
+                        if (d->progressive) {
+                            r = decode_block_prog(d, &b, c, blk, ss, se, ah,
+                                                  al);
+                        } else {
+                            memset(blk, 0, 64 * sizeof(int16_t));
+                            r = decode_block(d, &b, c, blk);
+                        }
                         if (r) return r;
                     }
                 }
@@ -407,6 +510,7 @@ static int parse(dec_t *d, const uint8_t *data, int64_t n, int decode) {
             d->saw_jfif = 1;
         } else if (m == 0xEE && sl >= 12 && !memcmp(s, "Adobe", 5)) {
             d->saw_adobe = 1;
+            d->adobe_transform = s[11];
         } else if (m == 0xDB) {                               /* DQT */
             int i = 0;
             while (i < sl) {
@@ -450,16 +554,17 @@ static int parse(dec_t *d, const uint8_t *data, int64_t n, int decode) {
             d->restart_interval = (s[0] << 8) | s[1];
         } else if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8
                    && m != 0xCC) {                            /* SOFn */
-            if (m == 0xC2 || m == 0xC6) return JS_PROGRESSIVE;
             if (m >= 0xC9) return JS_ARITHMETIC;
-            if (m != 0xC0 && m != 0xC1) return JS_LOSSLESS;
+            if (m != 0xC0 && m != 0xC1 && m != 0xC2) return JS_LOSSLESS;
+            d->progressive = m == 0xC2;
             if (sl < 6) return JE_TRUNCATED;
             if (s[0] != 8) return JS_PRECISION;
             d->height = (s[1] << 8) | s[2];
             d->width = (s[3] << 8) | s[4];
             d->ncomp = s[5];
             if (d->width == 0 || d->height == 0) return JE_FORMAT;
-            if (d->ncomp != 1 && d->ncomp != 3) return JS_COMPONENTS;
+            if (d->ncomp != 1 && d->ncomp != 3 && d->ncomp != 4)
+                return JS_COMPONENTS;
             if (sl < 6 + 3 * d->ncomp) return JE_TRUNCATED;
             d->max_h = d->max_v = 1;
             for (int c = 0; c < d->ncomp; c++) {
@@ -476,11 +581,15 @@ static int parse(dec_t *d, const uint8_t *data, int64_t n, int decode) {
             }
             d->frame = 1;
             if (d->ncomp == 3) {
-                if (d->saw_adobe && !d->saw_jfif) return JS_ADOBE;
+                /* libjpeg reads Adobe transform 0 as RGB */
+                if (d->saw_adobe && !d->saw_jfif)
+                    return d->adobe_transform ? JS_ADOBE : JS_RGB;
                 if (!d->saw_jfif && d->comp[0].id == 82
                     && d->comp[1].id == 71 && d->comp[2].id == 66)
                     return JS_RGB;
-                for (int c = 0; c < 3; c++) {
+            }
+            if (d->ncomp > 1) {
+                for (int c = 0; c < d->ncomp; c++) {
                     int rx = d->max_h / d->comp[c].h;
                     int ry = d->max_v / d->comp[c].v;
                     if (d->max_h % d->comp[c].h || d->max_v % d->comp[c].v
@@ -526,8 +635,15 @@ static int parse(dec_t *d, const uint8_t *data, int64_t n, int decode) {
                 sc[i]->ta = t & 15;
                 if (sc[i]->td > 3 || sc[i]->ta > 3) return JE_TABLE;
             }
+            int ss = s[1 + 2 * ns], se = s[2 + 2 * ns];
+            int ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
+            if (d->progressive
+                && (se > 63 || ss > se || al > 13 || (ss == 0 && se != 0)
+                    || (ss > 0 && ns != 1)))
+                return JE_FORMAT;
             int64_t end;
-            int r = decode_scan(d, data, n, p + len, ns, sc, &end);
+            int r = decode_scan(d, data, n, p + len, ns, sc, ss, se, ah, al,
+                                &end);
             if (r) return r;
             p = end;
             continue;
@@ -639,10 +755,11 @@ EXPORT int jpeg_info(const uint8_t *data, int64_t n, int32_t *info) {
     return r < 0 ? r : 0;
 }
 
-/* Decode to out (height * width * 3 RGB). Returns 0, a status > 0 for a
- * file this decoder does not take, or an error < 0. */
+/* Decode to out (height * width * 3 RGB), 4 components by PIL's rule or,
+ * when cmyk_cv2 is set, by cv2's. Returns 0, a status > 0 for a file this
+ * decoder does not take, or an error < 0. */
 EXPORT int jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out,
-                       int64_t out_size) {
+                       int64_t out_size, int32_t cmyk_cv2) {
     dec_t d;
     memset(&d, 0, sizeof(d));
     int r = parse(&d, data, n, 1);
@@ -657,7 +774,7 @@ EXPORT int jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out,
     }
     uint8_t range_limit[1024];
     idct_range_limit(range_limit);
-    uint8_t *full[3] = {NULL, NULL, NULL};
+    uint8_t *full[4] = {NULL, NULL, NULL, NULL};
     for (int ci = 0; ci < d.ncomp; ci++) {
         comp_t *c = &d.comp[ci];
         int pw = c->bw * 8;
@@ -679,20 +796,46 @@ EXPORT int jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out,
     }
     if (!r) {
         int64_t np = (int64_t)W * H;
+        /* jdcolor.c build_ycc_rgb_table */
+        int cr_r[256], cb_b[256];
+        int64_t cr_g[256], cb_g[256];
+        const int64_t one_half = (int64_t)1 << 15;
+        for (int i = 0, x = -128; i < 256; i++, x++) {
+            cr_r[i] = (int)((91881 * (int64_t)x + one_half) >> 16);
+            cb_b[i] = (int)((116130 * (int64_t)x + one_half) >> 16);
+            cr_g[i] = -46802 * (int64_t)x;
+            cb_g[i] = -22554 * (int64_t)x + one_half;
+        }
         if (d.ncomp == 1) {
             for (int64_t i = 0; i < np; i++)
                 out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = full[0][i];
-        } else {
-            /* jdcolor.c build_ycc_rgb_table + ycc_rgb_convert */
-            int cr_r[256], cb_b[256];
-            int64_t cr_g[256], cb_g[256];
-            const int64_t one_half = (int64_t)1 << 15;
-            for (int i = 0, x = -128; i < 256; i++, x++) {
-                cr_r[i] = (int)((91881 * (int64_t)x + one_half) >> 16);
-                cb_b[i] = (int)((116130 * (int64_t)x + one_half) >> 16);
-                cr_g[i] = -46802 * (int64_t)x;
-                cb_g[i] = -22554 * (int64_t)x + one_half;
+        } else if (d.ncomp == 4) {
+            /* libjpeg reads YCCK under an Adobe transform other than 0 */
+            int ycck = d.saw_adobe && d.adobe_transform != 0;
+            for (int64_t i = 0; i < np; i++) {
+                int cmy[3] = {full[0][i], full[1][i], full[2][i]};
+                if (ycck) {      /* jdcolor.c ycck_cmyk_convert */
+                    int y = cmy[0], cb = cmy[1], cr = cmy[2];
+                    cmy[0] = 255 - (y + cr_r[cr]);
+                    cmy[1] = 255 - (y + (int)((cb_g[cb] + cr_g[cr]) >> 16));
+                    cmy[2] = 255 - (y + cb_b[cb]);
+                    for (int c = 0; c < 3; c++)
+                        cmy[c] = cmy[c] < 0 ? 0 : cmy[c] > 255 ? 255 : cmy[c];
+                }
+                int k = full[3][i];
+                for (int c = 0; c < 3; c++) {
+                    int v;
+                    if (cmyk_cv2) {
+                        v = k - (((255 - cmy[c]) * k) >> 8);
+                    } else {  /* PIL: "CMYK;I" inverts all four */
+                        int t = (255 - cmy[c]) * k + 128;
+                        v = k - (((t >> 8) + t) >> 8);
+                    }
+                    out[3 * i + c] = (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
+                }
             }
+        } else {
+            /* jdcolor.c ycc_rgb_convert */
             for (int64_t i = 0; i < np; i++) {
                 int y = full[0][i], cb = full[1][i], cr = full[2][i];
                 int rv = y + cr_r[cr];
@@ -704,7 +847,7 @@ EXPORT int jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out,
             }
         }
     }
-    for (int ci = 0; ci < 3; ci++) free(full[ci]);
+    for (int ci = 0; ci < 4; ci++) free(full[ci]);
     free_dec(&d);
     return r;
 }
