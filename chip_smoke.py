@@ -150,7 +150,14 @@ paths with weights drawn from a fixed seed, through ``build_model`` ->
   ``/save`` of a PNG and a JPEG, ``/save/existing``, ``/delete``, ...)
   and the ``/segment`` + ``/refine`` blueprint; ``predict``'s host-clock
   latency (median and p90 of 30) and split, the round trip and the
-  device's busy share; neither cv2 nor PIL imported.
+  device's busy share; neither cv2 nor PIL imported. Its ``image_kinds``
+  check: every file of the JPEG and PNG corpora and of
+  ``tests/data/image_kinds/`` through ``decode_image`` to PIL's digest and
+  ``imread_rgb`` to cv2's, the decode ms of each 600 x 800 file of the
+  last kinds the decoders took on (Adobe transform 1, RGB-coded, 4:1:1,
+  arithmetic sequential and progressive, 16-bit grey and RGB, 2-bit
+  palette, Adam7 RGB), and each of them posted to ``/ai/segment`` (200, a
+  mask of the crop's size, 15 K1 a post).
 - the traditional-augmentation arm (``augmentation/``, M8b): the port's
   augmenter held to the SHA-256 digests of the JAX package's (cv2's)
   outputs in ``tests/data/augment_golden.json`` (each op alone and the
@@ -3879,6 +3886,117 @@ def labeling_app_check(seg, root: str, crop: np.ndarray) -> tuple:
     return predicts, trips
 
 
+IMAGE_DATA = os.path.join(ROOT, "tests", "data")
+IMAGE_TABLES = ("jpeg_corpus/jpeg_corpus.json", "png_corpus/png_corpus.json",
+                "image_kinds/image_kinds.json")
+IMAGE_KIND_DECODES = 20     # decodes timed per 600 x 800 file
+
+
+def image_kinds_check(seg, root: str, counts: "Counts", per_post: dict,
+                      smi: str) -> int:
+    """The image kinds the port decodes without PIL or cv2 (M8b), where
+    this runs: each corpus file (``IMAGE_TABLES``) through ``decode_image``
+    to PIL's SHA-256 and ``imread_rgb`` to cv2's; the decode ms of each
+    600 x 800 file of ``tests/data/image_kinds/`` (host clock, one thread,
+    warm file cache); each of those posted to the app's ``/ai/segment``
+    with ``seg`` as its model: 200, ``seg``'s mask of the crop's size, and
+    ``per_post`` launches a post. Returns the posts (predicts) made."""
+    import base64
+    import hashlib
+
+    from vision_instance_seg_tpu_torch.data.loader import (
+        decode_image, imread_rgb)
+    from vision_instance_seg_tpu_torch.labeling.ai_segmentation import (
+        mask_to_polygon)
+    from vision_instance_seg_tpu_torch.labeling.app import LabelingApp
+
+    t_check = time.perf_counter()
+    held = {}
+    for table in IMAGE_TABLES:
+        folder = os.path.join(IMAGE_DATA, os.path.dirname(table))
+        with open(os.path.join(IMAGE_DATA, table)) as f:
+            entries = json.load(f)
+        for name, entry in sorted(entries.items()):
+            path = os.path.join(folder, name)
+            with open(path, "rb") as f:
+                pil = decode_image(f.read())
+            cv = imread_rgb(path)
+            if list(pil.shape) != entry["shape"] or hashlib.sha256(
+                    pil.tobytes()).hexdigest() != entry["sha256"]:
+                raise AssertionError(f"image kinds: {name} does not decode "
+                                     "to PIL's bytes")
+            if cv is None or list(cv.shape) != entry["cv2_shape"] or \
+                    hashlib.sha256(cv.tobytes()).hexdigest() != \
+                    entry["cv2_sha256"]:
+                raise AssertionError(f"image kinds: {name} does not read "
+                                     "as cv2.imread's bytes")
+        held[os.path.dirname(table)] = len(entries)
+    print(f"image kinds: {held} files decode to PIL's SHA-256 "
+          "(decode_image) and read as cv2's (imread_rgb)", flush=True)
+
+    kinds = sorted(n for n in os.listdir(os.path.join(IMAGE_DATA,
+                                                      "image_kinds"))
+                   if n.endswith((".jpg", ".png")))
+    files = {}
+    for name in kinds:
+        with open(os.path.join(IMAGE_DATA, "image_kinds", name), "rb") as f:
+            files[name] = f.read()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    ms = {}
+    for name, data in files.items():
+        decode_image(data)
+        ts = []
+        for _ in range(IMAGE_KIND_DECODES):
+            t0 = time.perf_counter()
+            decode_image(data)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        ms[name] = statistics.median(ts)
+    torch.set_num_threads(threads)
+    print("image kinds: decode_image ms an image at 600 x 800 (median of "
+          f"{IMAGE_KIND_DECODES}, host clock, one thread, warm file cache): "
+          + ", ".join(f"{n} {v:.3f}" for n, v in ms.items())
+          + f", on {smi}", flush=True)
+
+    masks = []
+
+    class Recorded:                  # seg's predict_polygon, mask kept
+        def predict_polygon(self, img):
+            mask, _ = seg.predict(img)
+            masks.append((img.shape[:2], mask))
+            if mask is None or mask.sum() == 0:
+                return None
+            return mask_to_polygon(mask)
+
+    app = LabelingApp("Cable", "train", root, ai_model=Recorded())
+    trips = {}
+    for name, data in files.items():
+        mime = "png" if name.endswith(".png") else "jpeg"
+        body = json.dumps({"image_data": f"data:image/{mime};base64,"
+                           + base64.b64encode(data).decode()}).encode()
+        before = counts.read()
+        t0 = time.perf_counter()
+        status, _, out = wsgi_call(app, "POST", "/ai/segment", body)
+        trips[name] = (time.perf_counter() - t0) * 1e3
+        _route_ok("/ai/segment", status, out)
+        after = counts.read()
+        got = {k: after[k] - before[k] for k in after
+               if after[k] != before[k]}
+        if got != per_post:
+            raise AssertionError(f"image kinds /ai/segment {name}: launches "
+                                 f"{got}, want {per_post}")
+        hw, mask = masks[-1]
+        if mask is None or mask.shape != hw or mask.dtype != np.uint8:
+            raise AssertionError(f"image kinds /ai/segment {name}: no mask "
+                                 f"of the crop's size {hw}")
+    print(f"image kinds: /ai/segment of each ({len(files)} posts, 200, a "
+          f"mask of the crop's size, {per_post} launches a post), round "
+          "trip ms: " + ", ".join(f"{n} {v:.3f}" for n, v in trips.items())
+          + f"; check {time.perf_counter() - t_check:.1f} s, on {smi}",
+          flush=True)
+    return len(files)
+
+
 def labeling_parity(K, cfg, ckpt: str, crops: dict) -> None:
     """``predict`` through K1 against the same backend on the plain
     sampling core (``deform_core_fn``), on the same card. In fp32 (TF32
@@ -4028,6 +4146,8 @@ def labeling_phase(K, counts: Counts, smi: str) -> dict:
                                  "classical path's mask")
     n_app, trips = labeling_app_check(seg, os.path.join(tmp, "data"), crop)
     predicts += n_app
+    predicts += image_kinds_check(seg, os.path.join(tmp, "kinds"), counts,
+                                  per_predict, smi)
     launches = counts.read()                  # ... and ends here
     counts.check(launches, {k: v * predicts for k, v in per_predict.items()},
                  f"labeling ({predicts} predicts)")

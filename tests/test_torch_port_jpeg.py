@@ -5,9 +5,10 @@
   sampling 4:4:4, 4:2:2 and 4:2:0 (PIL) and 4:4:0 (cv2), odd sizes, grey,
   restart intervals, an SOF1 header, EXIF orientation (not applied), the
   committed corpus ``tests/data/jpeg_corpus/`` (its PIL digests recomputed
-  here) and ``tests/fixtures.py``'s images. RGB-coded, 4:1:1 and the
-  other modes it does not take are named and left to PIL (progressive and
-  CMYK: ``tests/test_torch_port_jpeg_kinds.py``).
+  here with PIL and cv2) and ``tests/fixtures.py``'s images. Fractional
+  sampling, 12-bit and the other modes it does not take are named and
+  left to PIL (progressive, CMYK, Adobe-transform, RGB-coded, 4:1:1 and
+  arithmetic-coded: ``tests/test_torch_port_jpeg_kinds.py``).
 - ``encode_jpeg`` writes files that PIL and the port decode to the same
   pixels, within 0.05 dB of ``cv2.imencode``'s PSNR at the same quality
   and sampling (found: the same pixels).
@@ -157,6 +158,18 @@ def test_corpus_digests_are_pils():
     assert total <= 100_000
 
 
+def test_corpus_digests_are_cv2s():
+    """The committed cv2 digests are cv2.imread's (+ BGR2RGB, EXIF
+    orientation applied) of the committed files: the card's check holds
+    ``imread_rgb`` to them."""
+    for name, entry in _corpus().items():
+        bgr = cv2.imread(os.path.join(CORPUS, name))
+        rgb = np.ascontiguousarray(cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB))
+        assert hashlib.sha256(rgb.tobytes()).hexdigest() == \
+            entry["cv2_sha256"], name
+        assert list(rgb.shape) == entry["cv2_shape"]
+
+
 @pytest.mark.parametrize("name", sorted(_corpus()))
 def test_corpus_decodes_to_pil_digest(name):
     with open(os.path.join(CORPUS, name), "rb") as f:
@@ -166,27 +179,46 @@ def test_corpus_decodes_to_pil_digest(name):
     assert hashlib.sha256(img.tobytes()).hexdigest() == entry["sha256"]
 
 
-def _cv2_411(im, buf):
-    ok, enc = cv2.imencode(".jpg", np.asarray(im)[..., ::-1], [
+def _frame_patched(data, **kw):
+    """The file with its SOF0 header patched: ``marker`` (another SOFn),
+    ``precision`` or component ``sampling`` bytes (one per component)."""
+    i = data.index(b"\xff\xc0")
+    b = bytearray(data)
+    if "marker" in kw:
+        b[i + 1] = kw["marker"]
+    if "precision" in kw:
+        b[i + 4] = kw["precision"]
+    for c, hv in enumerate(kw.get("sampling", ())):
+        b[i + 11 + 3 * c] = hv
+    return bytes(b)
+
+
+def _cv2_420(img):
+    ok, enc = cv2.imencode(".jpg", img[..., ::-1], [
         cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-        cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411])
+        cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420])
     assert ok
-    buf.write(enc.tobytes())
+    return enc.tobytes()
 
 
-@pytest.mark.parametrize("mode,save", [
-    ("RGB-coded", lambda im, b: im.save(b, "JPEG", keep_rgb=True)),
-    ("unusual-sampling", _cv2_411)])
-def test_unsupported_modes_are_named(tmp_path, monkeypatch, mode, save):
-    buf = io.BytesIO()
-    save(Image.fromarray(_image(20, 24, seed=8)), buf)
-    data = buf.getvalue()
+# Y at 3 x 2 beside chroma at 2 x 2: 2 does not divide 3, which libjpeg
+# refuses (JERR_FRACT_SAMPLE_NOTIMPL); a 12-bit header over 8-bit data
+REFUSED = {"fractional-sampling": {"sampling": (0x32, 0x22, 0x22)},
+           "12-bit": {"precision": 12}}
+
+
+@pytest.mark.parametrize("mode", sorted(REFUSED))
+def test_unsupported_modes_are_named(tmp_path, monkeypatch, mode):
+    data = _frame_patched(_cv2_420(_image(20, 24, seed=8)), **REFUSED[mode])
     assert jpeg.decode_jpeg(data) is None
     assert jpeg.unsupported_mode(data) == mode
     path = _write(tmp_path, "u.jpg", data)
-    # with PIL present the loader hands the file to it, as JAX reads it
-    np.testing.assert_array_equal(ploader._read_image(path),
-                                  jloader._read_image(path))
+    # with PIL present the loader hands the file to it, as JAX reads it:
+    # PIL refuses these too, so both raise PIL's error
+    with pytest.raises(OSError) as want:
+        jloader._read_image(path)
+    with pytest.raises(type(want.value)):
+        ploader._read_image(path)
     monkeypatch.setitem(sys.modules, "PIL", None)
     with pytest.raises(ImportError, match=f"{mode} JPEG"):
         ploader._read_image(path)

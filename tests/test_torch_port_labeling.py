@@ -31,6 +31,7 @@ CPU.
 import base64
 import io
 import json
+import os
 
 import numpy as np
 import pytest
@@ -409,34 +410,39 @@ def _same_answers(ja, pa, jroot, proot, split, existing, reqs):
         p.name for p in ja.image_dir.iterdir())
 
 
-def _cv2_411(img):
-    import cv2
-
-    ok, enc = cv2.imencode(".jpg", img[..., ::-1], [
-        cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
-        cv2.IMWRITE_JPEG_SAMPLING_FACTOR_411])
-    assert ok
-    return enc.tobytes()
+def _frame_patched(img, **kw):
+    """A JPEG of ``img`` with its SOF0 header patched: ``marker`` (another
+    SOFn) or component ``sampling`` bytes."""
+    data = encode_jpeg(img, quality=90)
+    i = data.index(b"\xff\xc0")
+    b = bytearray(data)
+    if "marker" in kw:
+        b[i + 1] = kw["marker"]
+    for c, hv in enumerate(kw.get("sampling", ())):
+        b[i + 11 + 3 * c] = hv
+    return bytes(b)
 
 
 def test_app_refuses_what_it_cannot_decode(tmp_path):
-    """An RGB-coded JPEG upload or a 4:1:1 crop, or a GIF, is answered 415
-    naming its kind and M8b (the JAX app hands it to PIL)."""
+    """A fractional-sampling JPEG upload (Y at 3 x 2 beside chroma at
+    2 x 2, which libjpeg refuses too) or a lossless (SOF3) crop, or a GIF,
+    is answered 415 naming its kind and M8b (the JAX app hands it to
+    PIL)."""
     app = papp.LabelingApp("Screw", "train", str(tmp_path))
     img = _scene(np.random.default_rng(3), 30, 40, "bright")
-    rgb = _pil_bytes(img, format="JPEG", keep_rgb=True)
+    frac = _frame_patched(img, sampling=(0x32, 0x22, 0x22))
     r = call(app, "POST", "/save", *multipart({
-        "image": ("p.jpg", rgb), "annotations": (None, b"[]")}))
+        "image": ("p.jpg", frac), "annotations": (None, b"[]")}))
     assert r["status"].startswith("415")
-    assert "RGB-coded JPEG" in r["json"]["error"]
+    assert "fractional-sampling JPEG" in r["json"]["error"]
     assert "M8b" in r["json"]["error"]
-    assert r["json"]["kind"] == "RGB-coded JPEG"
+    assert r["json"]["kind"] == "fractional-sampling JPEG"
     url = "data:image/jpeg;base64," + base64.b64encode(
-        _cv2_411(img)).decode()
+        _frame_patched(img, marker=0xC3)).decode()
     r = call(app, "POST", "/ai/segment",
              json.dumps({"image_data": url}).encode())
     assert r["status"].startswith("415") and r["json"]["kind"] == \
-        "unusual-sampling JPEG"
+        "lossless or hierarchical JPEG"
     r = call(app, "POST", "/save", *multipart({
         "image": ("g.gif", _pil_bytes(img, format="GIF")),
         "annotations": (None, b"[]")}))
@@ -477,6 +483,58 @@ def test_app_takes_progressive_and_cmyk(tmp_path, kind):
     ja = japp.LabelingApp("Cable", "train", str(jroot))
     pa = papp.LabelingApp("Cable", "train", str(proot))
     _same_answers(ja, pa, jroot, proot, "train", existing, reqs)
+
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+# one committed file of each kind the decoders took on last
+NEW_KINDS = {
+    "adobe1": "jpeg_corpus/adobe1_q90_37x53.jpg",
+    "adobe2-jfif": "jpeg_corpus/adobe2_jfif_q80_31x23.jpg",
+    "rgb-adobe0": "jpeg_corpus/rgb_adobe0_q90_37x53.jpg",
+    "rgb-ids": "jpeg_corpus/rgb_ids_q85_29x35.jpg",
+    "411": "jpeg_corpus/411_q90_37x53.jpg",
+    "411-progressive": "jpeg_corpus/411_prog_q85_29x35.jpg",
+    "y4x2": "jpeg_corpus/y4x2_q90_35x37.jpg",
+    "arith": "jpeg_corpus/arith_420_q90_37x53.jpg",
+    "arith-progressive": "jpeg_corpus/arith_prog_420_q85_37x53.jpg",
+    "arith-dac-restart": "jpeg_corpus/arith_dac_q90_37x45.jpg",
+    "arith-cmyk": "jpeg_corpus/arith_cmyk_q90_30x40.jpg",
+    "grey16": "png_corpus/grey16_24x23.png",
+    "rgb16": "png_corpus/rgb16_19x27.png",
+    "pal2": "png_corpus/pal2_21x31.png",
+    "grey1": "png_corpus/grey1_20x25.png",
+    "greya16-adam7": "png_corpus/greya16_25x29_adam7.png",
+    "rgba16": "png_corpus/rgba16_20x23.png",
+    "rgb8-adam7": "png_corpus/rgb8_25x25_adam7.png",
+    "pal4-trns-adam7": "png_corpus/pal4_trns_23x19_adam7.png",
+}
+
+
+@pytest.mark.parametrize("kind", sorted(NEW_KINDS))
+def test_app_takes_every_new_kind(tmp_path, kind):
+    """An upload, a crop and a placed file of each kind the port refused
+    before this slice decoded it: the JAX app's bytes and JSON."""
+    with open(os.path.join(DATA, NEW_KINDS[kind]), "rb") as f:
+        data = f.read()
+    ext = os.path.splitext(NEW_KINDS[kind])[1]
+    mime = "png" if ext == ".png" else "jpeg"
+    url = f"data:image/{mime};base64," + base64.b64encode(data).decode()
+    anns = json.dumps([{"category_id": 1, "bbox": [1, 2, 10, 8],
+                        "segmentation": [[1, 2, 11, 2, 11, 10, 1, 10]],
+                        "area": 80}]).encode()
+    reqs = [("POST", "/save", {"image": ("a" + ext, data),
+                               "annotations": (None, anns)}),
+            ("POST", "/save/existing", {"filename": "placed" + ext,
+                                        "annotations": json.loads(anns)}),
+            ("POST", "/ai/segment", {"image_data": url}),
+            ("GET", "/images/list", None),
+            ("GET", "/annotations/for/Cable_000000.jpg", None),
+            ("GET", "/images/serve/Cable_000000.jpg", None)]
+    jroot, proot = tmp_path / "jax", tmp_path / "port"
+    ja = japp.LabelingApp("Cable", "train", str(jroot))
+    pa = papp.LabelingApp("Cable", "train", str(proot))
+    _same_answers(ja, pa, jroot, proot, "train", {"placed" + ext: data},
+                  reqs)
 
 
 def test_ai_segment_lets_model_errors_through(tmp_path):

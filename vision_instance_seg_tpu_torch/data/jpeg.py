@@ -2,14 +2,19 @@
 
 ``decode_jpeg`` gives what the JAX package's loader gets from PIL
 (``Image.open(path).convert("RGB")``, libjpeg-turbo underneath) byte for
-byte: the accurate integer IDCT, fancy upsampling, libjpeg's fixed-point
-YCbCr -> RGB, grey replicated to RGB, no EXIF rotation. It takes
-sequential (baseline and extended 8-bit) and progressive Huffman files
-with 1, 3 or 4 components (CMYK, or YCCK under an Adobe transform, as PIL
-inverts and converts them), 4:4:4, 4:2:2, 4:4:0 or 4:2:0 sampling and
-restart intervals, and returns None for any other JPEG (arithmetic-coded,
-12-bit, lossless, RGB-coded, unusual sampling such as 4:1:1, ...;
-``unsupported_mode`` names it).
+byte: the accurate integer IDCT, libjpeg's choice of upsampling (fancy
+h2v1, h1v2 and h2v2, replication at other ratios), its fixed-point YCbCr
+-> RGB, grey replicated to RGB, no EXIF rotation. It takes 8-bit
+sequential (baseline and extended) and progressive files, Huffman- or
+arithmetic-coded (with or without a DAC marker), with restart intervals;
+1, 3 or 4 components: YCbCr, or RGB where libjpeg reads RGB (an Adobe
+marker of transform 0, or component ids "R", "G", "B", and no JFIF
+marker); CMYK, or YCCK under an Adobe transform, as PIL inverts and
+converts them; and any integral sampling (4:4:4, 4:2:2, 4:2:0, 4:4:0,
+4:1:1, ...). It returns None for the JPEG that libjpeg-turbo's default
+build or this decoder does not take: 12-bit, lossless or hierarchical,
+2-component, and fractional sampling (a factor that does not divide the
+largest, which libjpeg refuses too); ``unsupported_mode`` names it.
 
 ``encode_jpeg`` writes a baseline file as ``cv2.imwrite`` does by default
 (libjpeg's quality rule over the Annex K tables, quality 95, 4:2:0).
@@ -30,10 +35,8 @@ from vision_instance_seg_tpu_torch.data.native.build import build
 SOI = b"\xff\xd8\xff"
 SUBSAMPLING = ("4:4:4", "4:2:0")
 # jpeg.c's status codes for the files the decoder does not take
-_MODES = {2: "arithmetic-coded",
-          3: "lossless or hierarchical", 4: "12-bit",
-          5: "2-component or over 4-component",
-          6: "Adobe-transform", 7: "unusual-sampling", 8: "RGB-coded"}
+_MODES = {3: "lossless or hierarchical", 4: "12-bit",
+          5: "2-component or over 4-component", 7: "fractional-sampling"}
 _ERRORS = {-1: "truncated", -3: "corrupt Huffman data",
            -4: "bad or missing table", -5: "no frame", -6: "out of memory",
            -7: "malformed", -8: "buffer too small"}
@@ -66,8 +69,8 @@ def _info(data: bytes) -> np.ndarray:
 
 
 def unsupported_mode(data: bytes) -> Optional[str]:
-    """The kind of JPEG ``decode_jpeg`` does not take ("progressive",
-    "arithmetic-coded", ...), or None when it takes the file."""
+    """The kind of JPEG ``decode_jpeg`` does not take ("12-bit",
+    "fractional-sampling", ...), or None when it takes the file."""
     return _MODES.get(int(_info(data)[3]))
 
 

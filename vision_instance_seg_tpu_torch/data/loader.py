@@ -12,12 +12,15 @@ custom mapper):
 - deterministic per-step RNG derived from (seed, step), the JAX package's
   draws, so the port's batches equal the JAX loader's.
 
-Images are read without PIL when they are 8-bit PNG (``data/png.py``) or
-sequential or progressive Huffman JPEG with 1, 3 or 4 components
-(``data/jpeg.py``); other files go through PIL. ``decode_image`` and
-``image_size`` take file bytes (the labeling app's uploads and crops) and
-raise ``UnsupportedImage`` where PIL would be needed. ``imread_rgb`` reads
-a file as ``cv2.imread`` + ``COLOR_BGR2RGB`` does (EXIF orientation
+Images are read without PIL or cv2: PNG of every bit depth and colour
+type, plain or Adam7 (``data/png.py``), and 8-bit sequential or
+progressive JPEG, Huffman- or arithmetic-coded, with 1, 3 or 4 components
+and any integral sampling (``data/jpeg.py``). What is left (12-bit,
+lossless or hierarchical, 2-component and fractional-sampling JPEG, other
+formats) goes through PIL. ``decode_image`` and ``image_size`` take file
+bytes (the labeling app's uploads and crops) and raise
+``UnsupportedImage`` where PIL would be needed. ``imread_rgb`` reads a
+file as ``cv2.imread`` + ``COLOR_BGR2RGB`` does (EXIF orientation
 applied), for the augmentation CLI.
 
 Batch layout (dict of arrays, NHWC):
@@ -47,29 +50,33 @@ from vision_instance_seg_tpu_torch.data.transforms import EvalTransform, SampleR
 
 
 class UnsupportedImage(ValueError):
-    """An image the port decodes without PIL only in part: ``kind`` names
-    it (an arithmetic-coded JPEG, an interlaced PNG, another format, ...)."""
+    """An image the port does not decode without PIL: ``kind`` names it (a
+    12-bit, lossless, 2-component or fractional-sampling JPEG, or another
+    format than PNG and JPEG)."""
 
     def __init__(self, kind: str):
-        super().__init__(f"cannot decode a {kind} image without PIL (8-bit "
-                         "non-interlaced PNG and sequential or progressive "
-                         "Huffman JPEG only)")
+        super().__init__(f"cannot decode a {kind} image without PIL (PNG of "
+                         "any bit depth, and 8-bit sequential or progressive "
+                         "JPEG, Huffman or arithmetic, with 1, 3 or 4 "
+                         "components and integral sampling only)")
         self.kind = kind
 
 
-def decode_image(data: bytes, cmyk: str = "pil") -> np.ndarray:
+def decode_image(data: bytes, like: str = "pil") -> np.ndarray:
     """Image file bytes -> (H, W, 3) uint8 RGB, as PIL's
-    ``Image.open(...).convert("RGB")`` gives them, for 8-bit non-interlaced
-    PNG and sequential or progressive Huffman JPEG (``cmyk="cv2"`` takes
-    cv2's CMYK -> RGB instead of PIL's); any other image raises
-    ``UnsupportedImage``."""
+    ``Image.open(...).convert("RGB")`` gives them (``like="pil"``) or as
+    ``cv2.imread`` + ``COLOR_BGR2RGB`` does before its EXIF rotation
+    (``like="cv2"``: cv2's CMYK -> RGB, and 16-bit grey PNG by its high
+    byte where PIL clips it at 255). Takes PNG of every bit depth and
+    colour type, plain or Adam7, and 8-bit sequential or progressive JPEG,
+    Huffman- or arithmetic-coded, YCbCr, RGB, grey, CMYK or YCCK at any
+    integral sampling; a 12-bit, lossless or hierarchical, 2-component or
+    fractional-sampling JPEG, or another format, raises
+    ``UnsupportedImage``. A corrupt PNG or JPEG raises ValueError."""
     if data.startswith(png.SIGNATURE):
-        img = png.decode_png(data)
-        if img is not None:
-            return img
-        raise UnsupportedImage("16-bit, low bit-depth or interlaced PNG")
+        return png.decode_png(data, like=like)
     if data.startswith(jpeg.SOI):
-        img = jpeg.decode_jpeg(data, cmyk=cmyk)
+        img = jpeg.decode_jpeg(data, cmyk=like)
         if img is not None:
             return img
         raise UnsupportedImage(f"{jpeg.unsupported_mode(data)} JPEG")
@@ -160,20 +167,21 @@ def orient(img: np.ndarray, orientation: int) -> np.ndarray:
 
 def imread_rgb(path: str) -> Optional[np.ndarray]:
     """``cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)`` without cv2:
-    ``decode_image`` with cv2's CMYK -> RGB and the EXIF orientation
-    applied. None where cv2.imread gives None: a file that cannot be read,
-    is corrupt or is in no format cv2 reads. A PNG or JPEG the port does
-    not decode, or another format cv2 reads (BMP, TIFF, ...), raises
-    ``UnsupportedImage``."""
+    ``decode_image(like="cv2")`` with the EXIF orientation applied. None
+    where cv2.imread gives None: a file that cannot be read, is corrupt,
+    is a fractional-sampling JPEG (libjpeg refuses it) or is in no format
+    cv2 reads. A 12-bit, lossless or 2-component JPEG, or another format
+    cv2 reads (BMP, TIFF, ...), raises ``UnsupportedImage``."""
     try:
         with open(path, "rb") as f:
             data = f.read()
     except OSError:
         return None
     try:
-        img = decode_image(data, cmyk="cv2")
-    except UnsupportedImage:
-        if data.startswith((png.SIGNATURE, jpeg.SOI) + _CV2_OTHER_FORMATS):
+        img = decode_image(data, like="cv2")
+    except UnsupportedImage as e:
+        if e.kind != "fractional-sampling JPEG" and data.startswith(
+                (png.SIGNATURE, jpeg.SOI) + _CV2_OTHER_FORMATS):
             raise
         return None
     except ValueError:                                  # corrupt
@@ -183,10 +191,11 @@ def imread_rgb(path: str) -> Optional[np.ndarray]:
 
 def _read_image(path: str) -> np.ndarray:
     """Read an image file to RGB uint8 (reference uses detectron2
-    utils.read_image, train_original.py:74). 8-bit non-interlaced PNG and
-    sequential or progressive Huffman JPEG (CMYK included) are decoded
-    here, as PIL decodes them; anything else (arithmetic-coded, 12-bit or
-    lossless JPEG, 16-bit PNG, ...) goes through PIL."""
+    utils.read_image, train_original.py:74). What ``decode_image`` takes
+    (every PNG; 8-bit sequential or progressive JPEG, Huffman or
+    arithmetic, at any integral sampling, CMYK and RGB-coded included) is
+    decoded here, as PIL decodes it; the rest (12-bit, lossless, 2-component
+    or fractional-sampling JPEG, other formats) goes through PIL."""
     with open(path, "rb") as f:
         data = f.read()
     try:
@@ -197,8 +206,8 @@ def _read_image(path: str) -> np.ndarray:
         from PIL import Image
     except ImportError as e:
         raise ImportError(f"{path}: decoding a {kind} image needs PIL, which "
-                          "is not installed (8-bit non-interlaced PNG and "
-                          "Huffman JPEG need nothing)") from e
+                          "is not installed (PNG and 8-bit JPEG at integral "
+                          "sampling need nothing)") from e
     with Image.open(path) as im:
         return np.asarray(im.convert("RGB"))
 

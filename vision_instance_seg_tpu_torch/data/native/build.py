@@ -1,7 +1,8 @@
 """Build the port's native host libraries: ``gcc -O3 -shared -fPIC <name>.c``.
 
 One library per C source in this directory: ``maskapi`` (the RLE codec),
-``jpeg`` (JPEG decoder and encoder), ``contours`` (border following),
+``jpeg`` (JPEG decoder and encoder), ``png`` (PNG unfiltering,
+de-interlacing and unpacking), ``contours`` (border following),
 ``imgproc`` (flood fills) and ``augment`` (the augmenter's warps, colour
 conversions and blur), each linked with libm. Each goes to ``build/kernels/``
 at the root of the checkout (beside the CUDA kernels), under a name keyed
@@ -24,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 # no fused multiply-adds: contours.c rounds each float product as cv2 does
 CC_FLAGS = ("-O3", "-shared", "-fPIC", "-ffp-contract=off")
 LINK_FLAGS = ("-lm",)
-LIBRARIES = ("maskapi", "jpeg", "contours", "imgproc", "augment")
+LIBRARIES = ("maskapi", "jpeg", "png", "contours", "imgproc", "augment")
 
 
 def library_path(name: str = "maskapi") -> Path:

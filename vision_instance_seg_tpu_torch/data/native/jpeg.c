@@ -2,29 +2,41 @@
  * (libjpeg-turbo's) decode and cv2.imwrite's encode.
  *
  * Decoder: sequential (SOF0 / SOF1) and progressive (SOF2) Huffman JPEG
+ * and sequential (SOF9) and progressive (SOF10) arithmetic-coded JPEG,
  * with 8-bit samples, one or more scans, restart intervals, 1, 3 or 4
- * components, each sampled at 1 or 1/2 of the largest factor both ways.
- * Progressive scans (DC first and refine, AC first and refine with
- * spectral selection, successive approximation and EOB runs) add into a
- * coefficient buffer that the IDCT reads once every scan is in; libjpeg
- * smooths blocks only where coefficients are still incomplete, which no
- * whole file leaves. It computes what libjpeg's default decompression
- * computes, byte for byte:
+ * components, each sampled at any integral fraction of the largest
+ * factor (4:4:4, 4:2:2, 4:2:0, 4:4:0, 4:1:1, 3 x 1, ...). Progressive
+ * scans (DC first and refine, AC first and refine with spectral
+ * selection, successive approximation and, in Huffman files, EOB runs)
+ * add into a coefficient buffer that the IDCT reads once every scan is
+ * in; libjpeg smooths blocks only where coefficients are still
+ * incomplete, which no whole file leaves. The arithmetic decoder is
+ * jdarith.c's QM coder: the statistics bins of each DC and AC table, the
+ * DAC marker's conditioning (L, U and Kx; by default 0, 1 and 5) and
+ * restart intervals, which reset the coder and its statistics. It
+ * computes what libjpeg's default decompression computes, byte for byte:
  *   - the accurate integer IDCT (jidctint.c, jpeg_idct_islow) with its
  *     10-bit range-limit table;
- *   - "fancy" triangular upsampling (jdsample.c h2v1 / h1v2 / h2v2, and the
- *     box replication it falls back to below 3 chroma columns), edges
- *     replicated from the last real sample row and column;
- *   - the fixed-point YCbCr -> RGB tables (jdcolor.c);
+ *   - upsampling as jdsample.c's jinit_upsampler picks it per component:
+ *     full size; "fancy" triangular h2v1, h1v2 and h2v2 (box replication
+ *     below 3 chroma columns for h2v1 and h2v2), edges replicated from the
+ *     last real sample row and column; any other integral ratio replicated
+ *     (int_upsample);
+ *   - 3 components: YCbCr through the fixed-point YCbCr -> RGB tables
+ *     (jdcolor.c), or RGB copied (rgb_rgb_convert) where libjpeg's
+ *     default_decompress_parms reads RGB: no JFIF marker, and an Adobe
+ *     marker of transform 0, or no Adobe marker and component ids 'R',
+ *     'G', 'B' (an Adobe transform other than 0 is YCbCr);
  *   - grey replicated to RGB; no EXIF orientation applied;
  *   - 4 components: CMYK, or YCCK under an Adobe transform other than 0
  *     (jdcolor.c ycck_cmyk_convert), to RGB as PIL reads them (inverted,
  *     "CMYK;I", then cmyk2rgb: nk - nk * C / 255 with nk = 255 - K) or,
  *     under cmyk_cv2, as cv2.imread does (K - ((255 - C) * K >> 8) on
  *     libjpeg's CMYK).
- * Arithmetic-coded, lossless or hierarchical, 12-bit, 2-component,
- * Adobe- or RGB-coded 3-component and other sampling (4:1:1, ...) files
- * are reported by jpeg_info's status and not decoded.
+ * Lossless or hierarchical, 12-bit and 2-component files, and sampling
+ * factors that do not divide the largest (which libjpeg refuses too,
+ * JERR_FRACT_SAMPLE_NOTIMPL), are reported by jpeg_info's status and not
+ * decoded.
  *
  * Encoder: baseline RGB at 4:2:0 or 4:4:4 with libjpeg's defaults: the
  * Annex K quantization tables scaled by its quality rule, the Annex K
@@ -45,8 +57,8 @@
 #define EXPORT __attribute__((visibility("default")))
 
 /* jpeg_info status (>= 0; jpeg.py names them) */
-enum { JS_OK = 0, JS_ARITHMETIC = 2, JS_LOSSLESS, JS_PRECISION,
-       JS_COMPONENTS, JS_ADOBE, JS_SAMPLING, JS_RGB };
+enum { JS_OK = 0, JS_LOSSLESS = 3, JS_PRECISION, JS_COMPONENTS,
+       JS_SAMPLING = 7 };
 /* errors (< 0) */
 enum { JE_TRUNCATED = -1, JE_HUFFMAN = -3, JE_TABLE = -4, JE_NOFRAME = -5,
        JE_MEMORY = -6, JE_FORMAT = -7, JE_BUFFER = -8 };
@@ -87,6 +99,7 @@ typedef struct {
     int wib, hib;            /* blocks the component's own size needs */
     int dw, dh;              /* downsampled width and height */
     int pred, latched;
+    int dc_context;          /* arithmetic DC conditioning category */
     int q[64];               /* latched quantization table, natural order */
     int16_t *coef;           /* bh * bw * 64, natural order */
 } comp_t;
@@ -100,15 +113,35 @@ typedef struct {
     int64_t marker_pos;
 } bits_t;
 
+/* The QM coder's state (jdarith.c arith_entropy_decoder). */
 typedef struct {
-    int width, height, ncomp, frame, progressive;
+    const uint8_t *data;
+    int64_t n, pos;
+    int marker_hit;
+    int64_t marker_pos;
+    int64_t c, a;
+    int ct;                      /* -16 at a (re)start, -1 after an error */
+} arith_t;
+
+#define NUM_ARITH_TBLS 16
+#define DC_STAT_BINS 64
+#define AC_STAT_BINS 256
+
+typedef struct {
+    int width, height, ncomp, frame, progressive, arith;
     int saw_jfif, saw_adobe, adobe_transform, restart_interval, max_h, max_v;
+    int scans;                   /* SOS markers read */
+    int rgb, ycck;               /* the colour space, fixed at the first SOS */
     int eobrun;                  /* progressive AC scans' end-of-band run */
     int mcux, mcuy;
     int qt[4][64];
     int qt_defined[4];
     huff_t *dc[4], *ac[4];
     comp_t comp[4];
+    uint8_t dc_L[NUM_ARITH_TBLS], dc_U[NUM_ARITH_TBLS], ac_K[NUM_ARITH_TBLS];
+    uint8_t dc_stats[NUM_ARITH_TBLS][DC_STAT_BINS];
+    uint8_t ac_stats[NUM_ARITH_TBLS][AC_STAT_BINS];
+    uint8_t fixed_bin;
 } dec_t;
 
 static void br_fill(bits_t *b) {
@@ -170,20 +203,27 @@ static int64_t next_marker(const uint8_t *d, int64_t n, int64_t p) {
     return n;
 }
 
+/* Move the bits or bytes of a scan past the restart marker where the
+ * last interval ended; a marker that is not RSTn (or the end of the data)
+ * is left in place and the rest of the scan reads zeros. */
+static int64_t skip_restart(const uint8_t *data, int64_t n, int marker_hit,
+                            int64_t marker_pos, int64_t pos, int *hit) {
+    int64_t m = marker_hit ? marker_pos : next_marker(data, n, pos);
+    if (m + 1 < n && data[m + 1] >= 0xD0 && data[m + 1] <= 0xD7) {
+        *hit = 0;
+        return m + 2;
+    }
+    *hit = 1;
+    return m;
+}
+
 /* Drop the bits left before a restart marker and resume after it. */
 static void br_restart(bits_t *b) {
-    int64_t m = b->marker_hit ? b->marker_pos
-                              : next_marker(b->data, b->n, b->pos);
     b->acc = 0;
     b->nbits = 0;
-    b->marker_hit = 0;
-    if (m + 1 < b->n && b->data[m + 1] >= 0xD0 && b->data[m + 1] <= 0xD7) {
-        b->pos = m + 2;
-    } else {           /* not a restart marker: read zeros from here on */
-        b->pos = m;
-        b->marker_hit = 1;
-        b->marker_pos = m;
-    }
+    b->pos = skip_restart(b->data, b->n, b->marker_hit, b->marker_pos,
+                          b->pos, &b->marker_hit);
+    b->marker_pos = b->pos;
 }
 
 static int build_huff(huff_t *h, const uint8_t *counts, const uint8_t *vals,
@@ -308,10 +348,286 @@ static int decode_block_prog(dec_t *d, bits_t *b, comp_t *c, int16_t *blk,
     return 0;
 }
 
+/* ------------------------------------------------ arithmetic decoding */
+
+/* jaricom.c jpeg_aritab (ITU-T T.81 Table D.2): Qe_Value << 16 |
+ * Next_Index_MPS << 8 | Switch_MPS << 7 | Next_Index_LPS; the last entry
+ * is the fixed probability 0.5 (T.851) that signs and DC refinements use. */
+#define V(i, qe, nl, nm, sw) \
+    (((int64_t)(qe) << 16) | ((int64_t)(nm) << 8) | ((sw) << 7) | (nl))
+static const int64_t aritab[114] = {
+    V(0, 0x5a1d, 1, 1, 1),      V(1, 0x2586, 14, 2, 0),
+    V(2, 0x1114, 16, 3, 0),     V(3, 0x080b, 18, 4, 0),
+    V(4, 0x03d8, 20, 5, 0),     V(5, 0x01da, 23, 6, 0),
+    V(6, 0x00e5, 25, 7, 0),     V(7, 0x006f, 28, 8, 0),
+    V(8, 0x0036, 30, 9, 0),     V(9, 0x001a, 33, 10, 0),
+    V(10, 0x000d, 35, 11, 0),   V(11, 0x0006, 9, 12, 0),
+    V(12, 0x0003, 10, 13, 0),   V(13, 0x0001, 12, 13, 0),
+    V(14, 0x5a7f, 15, 15, 1),   V(15, 0x3f25, 36, 16, 0),
+    V(16, 0x2cf2, 38, 17, 0),   V(17, 0x207c, 39, 18, 0),
+    V(18, 0x17b9, 40, 19, 0),   V(19, 0x1182, 42, 20, 0),
+    V(20, 0x0cef, 43, 21, 0),   V(21, 0x09a1, 45, 22, 0),
+    V(22, 0x072f, 46, 23, 0),   V(23, 0x055c, 48, 24, 0),
+    V(24, 0x0406, 49, 25, 0),   V(25, 0x0303, 51, 26, 0),
+    V(26, 0x0240, 52, 27, 0),   V(27, 0x01b1, 54, 28, 0),
+    V(28, 0x0144, 56, 29, 0),   V(29, 0x00f5, 57, 30, 0),
+    V(30, 0x00b7, 59, 31, 0),   V(31, 0x008a, 60, 32, 0),
+    V(32, 0x0068, 62, 33, 0),   V(33, 0x004e, 63, 34, 0),
+    V(34, 0x003b, 32, 35, 0),   V(35, 0x002c, 33, 9, 0),
+    V(36, 0x5ae1, 37, 37, 1),   V(37, 0x484c, 64, 38, 0),
+    V(38, 0x3a0d, 65, 39, 0),   V(39, 0x2ef1, 67, 40, 0),
+    V(40, 0x261f, 68, 41, 0),   V(41, 0x1f33, 69, 42, 0),
+    V(42, 0x19a8, 70, 43, 0),   V(43, 0x1518, 72, 44, 0),
+    V(44, 0x1177, 73, 45, 0),   V(45, 0x0e74, 74, 46, 0),
+    V(46, 0x0bfb, 75, 47, 0),   V(47, 0x09f8, 77, 48, 0),
+    V(48, 0x0861, 78, 49, 0),   V(49, 0x0706, 79, 50, 0),
+    V(50, 0x05cd, 48, 51, 0),   V(51, 0x04de, 50, 52, 0),
+    V(52, 0x040f, 50, 53, 0),   V(53, 0x0363, 51, 54, 0),
+    V(54, 0x02d4, 52, 55, 0),   V(55, 0x025c, 53, 56, 0),
+    V(56, 0x01f8, 54, 57, 0),   V(57, 0x01a4, 55, 58, 0),
+    V(58, 0x0160, 56, 59, 0),   V(59, 0x0125, 57, 60, 0),
+    V(60, 0x00f6, 58, 61, 0),   V(61, 0x00cb, 59, 62, 0),
+    V(62, 0x00ab, 61, 63, 0),   V(63, 0x008f, 61, 32, 0),
+    V(64, 0x5b12, 65, 65, 1),   V(65, 0x4d04, 80, 66, 0),
+    V(66, 0x412c, 81, 67, 0),   V(67, 0x37d8, 82, 68, 0),
+    V(68, 0x2fe8, 83, 69, 0),   V(69, 0x293c, 84, 70, 0),
+    V(70, 0x2379, 86, 71, 0),   V(71, 0x1edf, 87, 72, 0),
+    V(72, 0x1aa9, 87, 73, 0),   V(73, 0x174e, 72, 74, 0),
+    V(74, 0x1424, 72, 75, 0),   V(75, 0x119c, 74, 76, 0),
+    V(76, 0x0f6b, 74, 77, 0),   V(77, 0x0d51, 75, 78, 0),
+    V(78, 0x0bb6, 77, 79, 0),   V(79, 0x0a40, 77, 48, 0),
+    V(80, 0x5832, 80, 81, 1),   V(81, 0x4d1c, 88, 82, 0),
+    V(82, 0x438e, 89, 83, 0),   V(83, 0x3bdd, 90, 84, 0),
+    V(84, 0x34ee, 91, 85, 0),   V(85, 0x2eae, 92, 86, 0),
+    V(86, 0x299a, 93, 87, 0),   V(87, 0x2516, 86, 71, 0),
+    V(88, 0x5570, 88, 89, 1),   V(89, 0x4ca9, 95, 90, 0),
+    V(90, 0x44d9, 96, 91, 0),   V(91, 0x3e22, 97, 92, 0),
+    V(92, 0x3824, 99, 93, 0),   V(93, 0x32b4, 99, 94, 0),
+    V(94, 0x2e17, 93, 86, 0),   V(95, 0x56a8, 95, 96, 1),
+    V(96, 0x4f46, 101, 97, 0),  V(97, 0x47e5, 102, 98, 0),
+    V(98, 0x41cf, 103, 99, 0),  V(99, 0x3c3d, 104, 100, 0),
+    V(100, 0x375e, 99, 93, 0),  V(101, 0x5231, 105, 102, 0),
+    V(102, 0x4c0f, 106, 103, 0), V(103, 0x4639, 107, 104, 0),
+    V(104, 0x415e, 103, 99, 0), V(105, 0x5627, 105, 106, 1),
+    V(106, 0x50e7, 108, 107, 0), V(107, 0x4b85, 109, 103, 0),
+    V(108, 0x5597, 110, 109, 0), V(109, 0x504f, 111, 107, 0),
+    V(110, 0x5a10, 110, 111, 1), V(111, 0x5522, 112, 109, 0),
+    V(112, 0x59eb, 112, 111, 1), V(113, 0x5a1d, 113, 113, 0)};
+#undef V
+
+/* The next byte of entropy-coded data (jdarith.c get_byte and its
+ * marker rule): a stuffed 0xFF 0x00 reads 0xFF; at a marker (or the end
+ * of the data) the coder is fed zeros until the scan is done. */
+static int ar_byte(arith_t *e) {
+    if (e->marker_hit) return 0;
+    if (e->pos >= e->n) {
+        e->marker_hit = 1;
+        e->marker_pos = e->n;
+        return 0;
+    }
+    int v = e->data[e->pos++];
+    if (v != 0xFF) return v;
+    int64_t p = e->pos;
+    while (p < e->n && e->data[p] == 0xFF) p++;
+    if (p < e->n && e->data[p] == 0x00) {
+        e->pos = p + 1;
+        return 0xFF;
+    }
+    e->marker_hit = 1;
+    e->marker_pos = p - 1;
+    return 0;
+}
+
+/* jdarith.c arith_decode: one binary decision from statistics bin st. */
+static int ar_decode(arith_t *e, uint8_t *st) {
+    while (e->a < 0x8000) {            /* renormalization, D.2.6 */
+        if (--e->ct < 0) {
+            e->c = (e->c << 8) | ar_byte(e);
+            if ((e->ct += 8) < 0)        /* the two initial bytes */
+                if (++e->ct == 0) e->a = 0x8000;
+        }
+        e->a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = aritab[sv & 0x7F];
+    int nl = (int)(qe & 0xFF);
+    qe >>= 8;
+    int nm = (int)(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = e->a - qe;          /* D.2.4 and D.2.5 */
+    e->a = temp;
+    temp <<= e->ct;
+    if (e->c >= temp) {
+        e->c -= temp;
+        if (e->a < qe) {                 /* conditional LPS exchange */
+            e->a = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        } else {
+            e->a = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        }
+    } else if (e->a < 0x8000) {
+        if (e->a < qe) {                 /* conditional MPS exchange */
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        } else {
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        }
+    }
+    return sv >> 7;
+}
+
+/* A DC difference (F.19, F.21-F.24); updates the component's
+ * conditioning category. Returns 0, or -1 on a magnitude overflow. */
+static int ar_dc_diff(dec_t *d, arith_t *e, comp_t *c, int *diff) {
+    uint8_t *base = d->dc_stats[c->td];
+    uint8_t *st = base + c->dc_context;
+    if (ar_decode(e, st) == 0) {
+        c->dc_context = 0;
+        *diff = 0;
+        return 0;
+    }
+    int sign = ar_decode(e, st + 1);
+    st += 2 + sign;
+    int m = ar_decode(e, st);
+    if (m) {
+        st = base + 20;                    /* X1 */
+        while (ar_decode(e, st)) {
+            if ((m <<= 1) == 0x8000) return -1;
+            st++;
+        }
+    }
+    if (m < (int)((1L << d->dc_L[c->td]) >> 1))
+        c->dc_context = 0;
+    else if (m > (int)((1L << d->dc_U[c->td]) >> 1))
+        c->dc_context = 12 + sign * 4;
+    else
+        c->dc_context = 4 + sign * 4;
+    int v = m;
+    st += 14;
+    while (m >>= 1)
+        if (ar_decode(e, st)) v |= m;
+    v += 1;
+    *diff = sign ? -v : v;
+    return 0;
+}
+
+/* AC coefficients ss..se of one block, first pass (F.20-F.24), each
+ * shifted up by al. Returns 0, or -1 on a spectral or magnitude
+ * overflow. */
+static int ar_ac_first(dec_t *d, arith_t *e, comp_t *c, int16_t *blk,
+                       int ss, int se, int al) {
+    uint8_t *base = d->ac_stats[c->ta];
+    for (int k = ss; k <= se; k++) {
+        uint8_t *st = base + 3 * (k - 1);
+        if (ar_decode(e, st)) break;        /* EOB */
+        while (ar_decode(e, st + 1) == 0) {
+            st += 3;
+            if (++k > se) return -1;
+        }
+        int sign = ar_decode(e, &d->fixed_bin);
+        st += 2;
+        int m = ar_decode(e, st);
+        if (m && ar_decode(e, st)) {
+            m <<= 1;
+            st = base + (k <= d->ac_K[c->ta] ? 189 : 217);
+            while (ar_decode(e, st)) {
+                if ((m <<= 1) == 0x8000) return -1;
+                st++;
+            }
+        }
+        int v = m;
+        st += 14;
+        while (m >>= 1)
+            if (ar_decode(e, st)) v |= m;
+        v += 1;
+        if (sign) v = -v;
+        blk[natural_order[k]] = (int16_t)((unsigned)v << al);
+    }
+    return 0;
+}
+
+/* AC refinement of one block (jdarith.c decode_mcu_AC_refine). */
+static int ar_ac_refine(dec_t *d, arith_t *e, comp_t *c, int16_t *blk,
+                        int ss, int se, int al) {
+    uint8_t *base = d->ac_stats[c->ta];
+    int p1 = 1 << al, m1 = -1 * (1 << al);
+    int kex;
+    for (kex = se; kex > 0; kex--)        /* the previous stage's EOB */
+        if (blk[natural_order[kex]]) break;
+    for (int k = ss; k <= se; k++) {
+        uint8_t *st = base + 3 * (k - 1);
+        if (k > kex && ar_decode(e, st)) break;
+        for (;;) {
+            int16_t *coef = blk + natural_order[k];
+            if (*coef) {
+                if (ar_decode(e, st + 2))
+                    *coef = (int16_t)(*coef + (*coef < 0 ? m1 : p1));
+                break;
+            }
+            if (ar_decode(e, st + 1)) {
+                *coef = (int16_t)(ar_decode(e, &d->fixed_bin) ? m1 : p1);
+                break;
+            }
+            st += 3;
+            if (++k > se) return -1;
+        }
+    }
+    return 0;
+}
+
+/* One block of an arithmetic-coded scan: sequential (DC and AC 1-63) or
+ * one progressive pass. An error sets ct to -1, after which libjpeg
+ * leaves the scan's remaining blocks as they are; so does this. */
+static void ar_block(dec_t *d, arith_t *e, comp_t *c, int16_t *blk, int ss,
+                     int se, int ah, int al) {
+    if (d->progressive && ss == 0 && ah) {  /* DC refine: no error check */
+        if (ar_decode(e, &d->fixed_bin)) blk[0] |= (int16_t)(1 << al);
+        return;
+    }
+    if (e->ct == -1) return;
+    int r = 0;
+    if (!d->progressive || ss == 0) {
+        int diff;
+        r = ar_dc_diff(d, e, c, &diff);
+        if (!r) {
+            c->pred = (c->pred + diff) & 0xFFFF;
+            blk[0] = (int16_t)(d->progressive ? (unsigned)c->pred << al
+                                              : (unsigned)c->pred);
+        }
+        if (!r && !d->progressive) r = ar_ac_first(d, e, c, blk, 1, 63, 0);
+    } else if (!ah) {
+        r = ar_ac_first(d, e, c, blk, ss, se, al);
+    } else {
+        r = ar_ac_refine(d, e, c, blk, ss, se, al);
+    }
+    if (r) e->ct = -1;
+}
+
+/* Zero the statistics a scan uses and restart the coder (jdarith.c
+ * start_pass and process_restart). */
+static void ar_reset(dec_t *d, arith_t *e, int ns, comp_t **sc, int ss,
+                     int ah) {
+    for (int i = 0; i < ns; i++) {
+        if (!d->progressive || (ss == 0 && ah == 0)) {
+            memset(d->dc_stats[sc[i]->td], 0, DC_STAT_BINS);
+            sc[i]->pred = 0;
+            sc[i]->dc_context = 0;
+        }
+        if (!d->progressive || ss)
+            memset(d->ac_stats[sc[i]->ta], 0, AC_STAT_BINS);
+    }
+    e->c = 0;
+    e->a = 0;
+    e->ct = -16;
+}
+
 static int decode_scan(dec_t *d, const uint8_t *data, int64_t n,
                        int64_t pos, int ns, comp_t **sc, int ss, int se,
                        int ah, int al, int64_t *end) {
     bits_t b = {data, n, pos, 0, 0, 0, 0};
+    arith_t e = {data, n, pos, 0, 0, 0, 0, 0};
     /* a progressive scan needs the DC tables (DC first), the AC table
      * (AC scans) or none (DC refine) */
     int need_dc = !d->progressive || (ss == 0 && ah == 0);
@@ -319,8 +635,9 @@ static int decode_scan(dec_t *d, const uint8_t *data, int64_t n,
     d->eobrun = 0;
     for (int i = 0; i < ns; i++) {
         comp_t *c = sc[i];
-        if ((need_dc && (!d->dc[c->td] || !d->dc[c->td]->defined))
-            || (need_ac && (!d->ac[c->ta] || !d->ac[c->ta]->defined)))
+        if (!d->arith
+            && ((need_dc && (!d->dc[c->td] || !d->dc[c->td]->defined))
+                || (need_ac && (!d->ac[c->ta] || !d->ac[c->ta]->defined))))
             return JE_TABLE;
         if (!c->latched) {
             if (!d->qt_defined[c->tq]) return JE_TABLE;
@@ -329,6 +646,7 @@ static int decode_scan(dec_t *d, const uint8_t *data, int64_t n,
         }
         c->pred = 0;
     }
+    if (d->arith) ar_reset(d, &e, ns, sc, ss, ah);
     int mcux, mcuy;
     if (ns == 1) {
         mcux = sc[0]->wib;
@@ -342,9 +660,16 @@ static int decode_scan(dec_t *d, const uint8_t *data, int64_t n,
         for (int mx = 0; mx < mcux; mx++, done++) {
             if (d->restart_interval && done
                 && done % d->restart_interval == 0) {
-                br_restart(&b);
-                for (int i = 0; i < ns; i++) sc[i]->pred = 0;
-                d->eobrun = 0;
+                if (d->arith) {
+                    e.pos = skip_restart(data, n, e.marker_hit, e.marker_pos,
+                                         e.pos, &e.marker_hit);
+                    e.marker_pos = e.pos;
+                    ar_reset(d, &e, ns, sc, ss, ah);
+                } else {
+                    br_restart(&b);
+                    for (int i = 0; i < ns; i++) sc[i]->pred = 0;
+                    d->eobrun = 0;
+                }
             }
             for (int i = 0; i < ns; i++) {
                 comp_t *c = sc[i];
@@ -355,21 +680,26 @@ static int decode_scan(dec_t *d, const uint8_t *data, int64_t n,
                         int col = ns == 1 ? mx : mx * c->h + x;
                         int16_t *blk = c->coef
                             + ((int64_t)row * c->bw + col) * 64;
-                        int r;
-                        if (d->progressive) {
+                        int r = 0;
+                        if (!d->progressive)
+                            memset(blk, 0, 64 * sizeof(int16_t));
+                        if (d->arith)
+                            ar_block(d, &e, c, blk, ss, se, ah, al);
+                        else if (d->progressive)
                             r = decode_block_prog(d, &b, c, blk, ss, se, ah,
                                                   al);
-                        } else {
-                            memset(blk, 0, 64 * sizeof(int16_t));
+                        else
                             r = decode_block(d, &b, c, blk);
-                        }
                         if (r) return r;
                     }
                 }
             }
         }
     }
-    *end = b.marker_hit ? b.marker_pos : next_marker(data, n, b.pos);
+    if (d->arith)
+        *end = e.marker_hit ? e.marker_pos : next_marker(data, n, e.pos);
+    else
+        *end = b.marker_hit ? b.marker_pos : next_marker(data, n, b.pos);
     return 0;
 }
 
@@ -493,6 +823,12 @@ static void idct_islow(const int16_t *in, const int *q, uint8_t *out,
 
 static int parse(dec_t *d, const uint8_t *data, int64_t n, int decode) {
     if (n < 4 || data[0] != 0xFF || data[1] != 0xD8) return JE_FORMAT;
+    for (int t = 0; t < NUM_ARITH_TBLS; t++) {    /* jdmarker.c get_soi */
+        d->dc_L[t] = 0;
+        d->dc_U[t] = 1;
+        d->ac_K[t] = 5;
+    }
+    d->fixed_bin = 113;
     int64_t p = 2;
     for (;;) {
         p = next_marker(data, n, p);
@@ -506,7 +842,7 @@ static int parse(dec_t *d, const uint8_t *data, int64_t n, int decode) {
         if (len < 2 || p + len > n) return JE_TRUNCATED;
         const uint8_t *s = data + p + 2;
         int sl = len - 2;
-        if (m == 0xE0 && sl >= 5 && !memcmp(s, "JFIF\0", 5)) {
+        if (m == 0xE0 && sl >= 14 && !memcmp(s, "JFIF\0", 5)) {
             d->saw_jfif = 1;
         } else if (m == 0xEE && sl >= 12 && !memcmp(s, "Adobe", 5)) {
             d->saw_adobe = 1;
@@ -549,14 +885,30 @@ static int parse(dec_t *d, const uint8_t *data, int64_t n, int decode) {
                 }
                 i += 17 + nv;
             }
+        } else if (m == 0xCC) {                               /* DAC */
+            for (int i = 0; i + 1 < sl; i += 2) {
+                int t = s[i], v = s[i + 1];
+                if (t >= 2 * NUM_ARITH_TBLS) return JE_TABLE;
+                if (t >= NUM_ARITH_TBLS) {
+                    d->ac_K[t - NUM_ARITH_TBLS] = (uint8_t)v;
+                } else {
+                    d->dc_L[t] = (uint8_t)(v & 15);
+                    d->dc_U[t] = (uint8_t)(v >> 4);
+                    if (d->dc_L[t] > d->dc_U[t]) return JE_TABLE;
+                }
+            }
         } else if (m == 0xDD) {                               /* DRI */
             if (sl < 2) return JE_TRUNCATED;
             d->restart_interval = (s[0] << 8) | s[1];
         } else if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8
                    && m != 0xCC) {                            /* SOFn */
-            if (m >= 0xC9) return JS_ARITHMETIC;
-            if (m != 0xC0 && m != 0xC1 && m != 0xC2) return JS_LOSSLESS;
-            d->progressive = m == 0xC2;
+            /* SOF0, 1, 2 (Huffman), SOF9, 10 (arithmetic); the rest are
+             * lossless or hierarchical */
+            if (m != 0xC0 && m != 0xC1 && m != 0xC2 && m != 0xC9
+                && m != 0xCA)
+                return JS_LOSSLESS;
+            d->progressive = m == 0xC2 || m == 0xCA;
+            d->arith = m >= 0xC9;
             if (sl < 6) return JE_TRUNCATED;
             if (s[0] != 8) return JS_PRECISION;
             d->height = (s[1] << 8) | s[2];
@@ -580,23 +932,11 @@ static int parse(dec_t *d, const uint8_t *data, int64_t n, int decode) {
                 if (cp->v > d->max_v) d->max_v = cp->v;
             }
             d->frame = 1;
-            if (d->ncomp == 3) {
-                /* libjpeg reads Adobe transform 0 as RGB */
-                if (d->saw_adobe && !d->saw_jfif)
-                    return d->adobe_transform ? JS_ADOBE : JS_RGB;
-                if (!d->saw_jfif && d->comp[0].id == 82
-                    && d->comp[1].id == 71 && d->comp[2].id == 66)
-                    return JS_RGB;
-            }
-            if (d->ncomp > 1) {
-                for (int c = 0; c < d->ncomp; c++) {
-                    int rx = d->max_h / d->comp[c].h;
-                    int ry = d->max_v / d->comp[c].v;
-                    if (d->max_h % d->comp[c].h || d->max_v % d->comp[c].v
-                        || rx > 2 || ry > 2)
-                        return JS_SAMPLING;
-                }
-            }
+            /* jdsample.c: a factor that does not divide the largest is
+             * JERR_FRACT_SAMPLE_NOTIMPL */
+            for (int c = 0; c < d->ncomp; c++)
+                if (d->max_h % d->comp[c].h || d->max_v % d->comp[c].v)
+                    return JS_SAMPLING;
             d->mcux = (d->width + 8 * d->max_h - 1) / (8 * d->max_h);
             d->mcuy = (d->height + 8 * d->max_v - 1) / (8 * d->max_v);
             for (int c = 0; c < d->ncomp; c++) {
@@ -621,6 +961,18 @@ static int parse(dec_t *d, const uint8_t *data, int64_t n, int decode) {
         } else if (m == 0xDA) {                               /* SOS */
             if (!d->frame) return JE_NOFRAME;
             if (sl < 1) return JE_TRUNCATED;
+            if (d->scans++ == 0) {
+                /* jdapimin.c default_decompress_parms, from the markers
+                 * read so far */
+                if (d->ncomp == 3)
+                    d->rgb = !d->saw_jfif
+                             && (d->saw_adobe ? d->adobe_transform == 0
+                                              : d->comp[0].id == 82
+                                                && d->comp[1].id == 71
+                                                && d->comp[2].id == 66);
+                d->ycck = d->ncomp == 4 && d->saw_adobe
+                          && d->adobe_transform != 0;
+            }
             int ns = s[0];
             if (ns < 1 || ns > d->ncomp || sl < 1 + 2 * ns + 3)
                 return JE_FORMAT;
@@ -633,7 +985,8 @@ static int parse(dec_t *d, const uint8_t *data, int64_t n, int decode) {
                 if (!sc[i]) return JE_FORMAT;
                 sc[i]->td = t >> 4;
                 sc[i]->ta = t & 15;
-                if (sc[i]->td > 3 || sc[i]->ta > 3) return JE_TABLE;
+                if (!d->arith && (sc[i]->td > 3 || sc[i]->ta > 3))
+                    return JE_TABLE;
             }
             int ss = s[1 + 2 * ns], se = s[2 + 2 * ns];
             int ah = s[3 + 2 * ns] >> 4, al = s[3 + 2 * ns] & 15;
@@ -670,8 +1023,10 @@ static void idct_range_limit(uint8_t *t) {
     }
 }
 
-/* Upsample component c into out (height x width) as libjpeg's default
- * (fancy) upsampling does. */
+/* Upsample component c into out (height x width) by the method libjpeg's
+ * jinit_upsampler picks for its ratio to the largest factors (rx, ry):
+ * full size, fancy h2v1, fancy h1v2, fancy h2v2 (h2v1 and h2v2 box below
+ * 3 columns), else int_upsample's replication. */
 static void upsample(const dec_t *d, const comp_t *c, const uint8_t *plane,
                      uint8_t *out) {
     int W = d->width, H = d->height, pw = c->bw * 8;
@@ -682,25 +1037,22 @@ static void upsample(const dec_t *d, const comp_t *c, const uint8_t *plane,
             memcpy(out + (int64_t)y * W, plane + (int64_t)y * pw, W);
         return;
     }
-    if (ry == 1 || (rx == 1 && ry == 2)) {
+    int fancy_h = (rx == 2 && (ry == 1 || ry == 2) && dw > 2);
+    if ((rx == 2 && ry == 1 && fancy_h) || (rx == 1 && ry == 2)) {
         for (int y = 0; y < H; y++) {
             uint8_t *o = out + (int64_t)y * W;
             if (ry == 1) {                            /* h2v1 */
                 const uint8_t *in = plane + (int64_t)y * pw;
-                if (dw > 2) {
-                    for (int x = 0; x < W; x++) {
-                        int j = x >> 1;
-                        int n3 = in[j] * 3;
-                        if (x & 1) {
-                            int nb = in[j + 1 < dw ? j + 1 : dw - 1];
-                            o[x] = (uint8_t)((n3 + nb + 2) >> 2);
-                        } else {
-                            int nb = in[j > 0 ? j - 1 : 0];
-                            o[x] = (uint8_t)((n3 + nb + 1) >> 2);
-                        }
+                for (int x = 0; x < W; x++) {
+                    int j = x >> 1;
+                    int n3 = in[j] * 3;
+                    if (x & 1) {
+                        int nb = in[j + 1 < dw ? j + 1 : dw - 1];
+                        o[x] = (uint8_t)((n3 + nb + 2) >> 2);
+                    } else {
+                        int nb = in[j > 0 ? j - 1 : 0];
+                        o[x] = (uint8_t)((n3 + nb + 1) >> 2);
                     }
-                } else {
-                    for (int x = 0; x < W; x++) o[x] = in[x >> 1];
                 }
             } else {                                  /* h1v2, fancy */
                 int i = y >> 1;
@@ -715,31 +1067,35 @@ static void upsample(const dec_t *d, const comp_t *c, const uint8_t *plane,
         }
         return;
     }
-    /* h2v2 */
-    int *cs = (int *)malloc(sizeof(int) * (dw + 2));
-    for (int y = 0; y < H; y++) {
-        uint8_t *o = out + (int64_t)y * W;
-        int i = y >> 1;
-        if (dw <= 2) {
-            const uint8_t *in = plane + (int64_t)i * pw;
-            for (int x = 0; x < W; x++) o[x] = in[x >> 1];
-            continue;
+    if (rx == 2 && ry == 2 && fancy_h) {              /* h2v2, fancy */
+        int *cs = (int *)malloc(sizeof(int) * (dw + 2));
+        for (int y = 0; y < H; y++) {
+            uint8_t *o = out + (int64_t)y * W;
+            int i = y >> 1;
+            int nb = (y & 1) ? (i + 1 < dh ? i + 1 : dh - 1)
+                             : (i > 0 ? i - 1 : 0);
+            const uint8_t *in0 = plane + (int64_t)i * pw;
+            const uint8_t *in1 = plane + (int64_t)nb * pw;
+            for (int j = 0; j < dw; j++) cs[j + 1] = in0[j] * 3 + in1[j];
+            cs[0] = cs[1];
+            cs[dw + 1] = cs[dw];
+            for (int x = 0; x < W; x++) {
+                int j = (x >> 1) + 1;
+                if (x & 1)
+                    o[x] = (uint8_t)((cs[j] * 3 + cs[j + 1] + 7) >> 4);
+                else
+                    o[x] = (uint8_t)((cs[j] * 3 + cs[j - 1] + 8) >> 4);
+            }
         }
-        int nb = (y & 1) ? (i + 1 < dh ? i + 1 : dh - 1) : (i > 0 ? i - 1 : 0);
-        const uint8_t *in0 = plane + (int64_t)i * pw;
-        const uint8_t *in1 = plane + (int64_t)nb * pw;
-        for (int j = 0; j < dw; j++) cs[j + 1] = in0[j] * 3 + in1[j];
-        cs[0] = cs[1];
-        cs[dw + 1] = cs[dw];
-        for (int x = 0; x < W; x++) {
-            int j = (x >> 1) + 1;
-            if (x & 1)
-                o[x] = (uint8_t)((cs[j] * 3 + cs[j + 1] + 7) >> 4);
-            else
-                o[x] = (uint8_t)((cs[j] * 3 + cs[j - 1] + 8) >> 4);
-        }
+        free(cs);
+        return;
     }
-    free(cs);
+    /* h2v1 / h2v2 box and int_upsample: each sample repeated rx x ry */
+    for (int y = 0; y < H; y++) {
+        const uint8_t *in = plane + (int64_t)(y / ry) * pw;
+        uint8_t *o = out + (int64_t)y * W;
+        for (int x = 0; x < W; x++) o[x] = in[x / rx];
+    }
 }
 
 /* info: [height, width, components, status]. Returns 0, or an error
@@ -810,11 +1166,9 @@ EXPORT int jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out,
             for (int64_t i = 0; i < np; i++)
                 out[3 * i] = out[3 * i + 1] = out[3 * i + 2] = full[0][i];
         } else if (d.ncomp == 4) {
-            /* libjpeg reads YCCK under an Adobe transform other than 0 */
-            int ycck = d.saw_adobe && d.adobe_transform != 0;
             for (int64_t i = 0; i < np; i++) {
                 int cmy[3] = {full[0][i], full[1][i], full[2][i]};
-                if (ycck) {      /* jdcolor.c ycck_cmyk_convert */
+                if (d.ycck) {      /* jdcolor.c ycck_cmyk_convert */
                     int y = cmy[0], cb = cmy[1], cr = cmy[2];
                     cmy[0] = 255 - (y + cr_r[cr]);
                     cmy[1] = 255 - (y + (int)((cb_g[cb] + cr_g[cr]) >> 16));
@@ -834,6 +1188,9 @@ EXPORT int jpeg_decode(const uint8_t *data, int64_t n, uint8_t *out,
                     out[3 * i + c] = (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v);
                 }
             }
+        } else if (d.rgb) {    /* jdcolor.c rgb_rgb_convert */
+            for (int64_t i = 0; i < np; i++)
+                for (int c = 0; c < 3; c++) out[3 * i + c] = full[c][i];
         } else {
             /* jdcolor.c ycc_rgb_convert */
             for (int64_t i = 0; i < np; i++) {

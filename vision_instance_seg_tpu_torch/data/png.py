@@ -1,28 +1,61 @@
-"""PNG decoding and encoding without PIL: zlib and numpy.
+"""PNG decoding and encoding without PIL or cv2: zlib, ``native/png.c`` and
+numpy.
 
-Takes 8-bit, non-interlaced PNG files of colour type gray (0), RGB (2),
-palette (3), gray + alpha (4) and RGBA (6), with any of the five row
-filters, and returns the image as PIL's ``convert("RGB")`` does (alpha
-dropped, palette looked up). ``decode_png`` returns None for any other PNG
-(16-bit or low bit-depth samples, Adam7 interlacing), which the loader
-then hands to PIL.
+``decode_png`` takes every bit depth and colour type the PNG standard
+allows (grey 1/2/4/8/16, RGB 8/16, palette 1/2/4/8, grey + alpha 8/16,
+RGBA 8/16), plain or Adam7-interlaced, with any of the five row filters.
+``native/png.c`` undoes the filters, puts Adam7's passes in place and
+unpacks sub-byte samples; the rest is numpy, by the rules of the library
+named by ``like``:
 
-Rows filtered None, Sub or Up are undone with numpy; Average and Paeth
-depend on the pixel to their left and run as a byte loop, a few ms a row.
+- grey samples below 8 bits are scaled to 8 (x255 at 1 bit, x85 at 2, x17
+  at 4); palette indices are looked up, not scaled (an index past the
+  palette reads black);
+- 16-bit samples keep their high byte, except 16-bit grey under
+  ``like="pil"``: PIL's ``convert("RGB")`` of its "I;16" image clips each
+  sample at 255, where ``cv2.imread`` keeps ``v >> 8``;
+- alpha is dropped and grey replicated to RGB; ``tRNS``, ``gAMA`` and
+  ``sBIT`` change nothing, in PIL's ``convert("RGB")`` as in
+  ``cv2.imread``.
+
+So ``like="pil"`` gives ``Image.open(...).convert("RGB")`` and
+``like="cv2"`` gives ``cv2.cvtColor(cv2.imread(...), cv2.COLOR_BGR2RGB)``
+byte for byte (``tests/test_torch_port_png_kinds.py``).
 
 ``encode_png`` writes 8-bit grey or RGB, every row filtered Up.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import struct
 import zlib
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 
+from vision_instance_seg_tpu_torch.data.native.build import build
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
+LIKE = ("pil", "cv2")
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+_ERRORS = {-1: "truncated image data", -2: "unknown row filter type",
+           -3: "buffer too small", -4: "bad header", -5: "out of memory"}
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build("png")))
+    lib.png_reconstruct.restype = ctypes.c_int
+    lib.png_reconstruct.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                    ctypes.c_int32, ctypes.c_int32,
+                                    ctypes.c_int32, ctypes.c_int32,
+                                    ctypes.c_int32, _U8P, ctypes.c_int64]
+    return lib
 
 
 def _chunks(data: bytes):
@@ -35,49 +68,6 @@ def _chunks(data: bytes):
             return
 
 
-def _unfilter_byte_loop(kind: int, line: bytes, prev: np.ndarray,
-                        bpp: int) -> np.ndarray:
-    """Average (3) and Paeth (4): each byte adds a prediction from the
-    reconstructed byte ``bpp`` to its left."""
-    out = bytearray(line)
-    up = prev.tobytes()
-    for i in range(len(out)):
-        a = out[i - bpp] if i >= bpp else 0
-        b = up[i]
-        if kind == 3:
-            pred = (a + b) >> 1
-        else:
-            c = up[i - bpp] if i >= bpp else 0
-            p = a + b - c
-            pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-        out[i] = (out[i] + pred) & 0xFF
-    return np.frombuffer(bytes(out), np.uint8)
-
-
-def _unfilter(raw: np.ndarray, height: int, stride: int,
-              bpp: int) -> np.ndarray:
-    rows = raw.reshape(height, stride + 1)
-    out = np.empty((height, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    for y in range(height):
-        kind, line = int(rows[y, 0]), rows[y, 1:]
-        if kind == 0:
-            cur = line
-        elif kind == 1:
-            cur = (np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint64)
-                   .astype(np.uint8).reshape(-1))
-        elif kind == 2:
-            cur = line + prev
-        elif kind in (3, 4):
-            cur = _unfilter_byte_loop(kind, line.tobytes(), prev, bpp)
-        else:
-            raise ValueError(f"PNG row {y}: unknown filter type {kind}")
-        out[y] = cur
-        prev = out[y]
-    return out
-
-
 def size(data: bytes) -> Tuple[int, int]:
     """(width, height) from a PNG file's IHDR."""
     if not data.startswith(SIGNATURE):
@@ -88,9 +78,12 @@ def size(data: bytes) -> Tuple[int, int]:
     raise ValueError("PNG without IHDR")
 
 
-def decode_png(data: bytes) -> Optional[np.ndarray]:
-    """PNG file bytes -> (H, W, 3) uint8 RGB, or None for a PNG this
-    decoder does not take. Raises ValueError on a file that is not PNG."""
+def decode_png(data: bytes, like: str = "pil") -> np.ndarray:
+    """PNG file bytes -> (H, W, 3) uint8 RGB as PIL (``like="pil"``) or
+    cv2 (``like="cv2"``) reads them. Raises ValueError on a file that is
+    not PNG or is corrupt."""
+    if like not in LIKE:
+        raise ValueError(f"like {like!r}: one of {LIKE}")
     if not data.startswith(SIGNATURE):
         raise ValueError("not a PNG file")
     header, palette, idat = None, None, []
@@ -98,23 +91,42 @@ def decode_png(data: bytes) -> Optional[np.ndarray]:
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body[:13])
         elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            palette = np.frombuffer(body[:len(body) // 3 * 3],
+                                    np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
         raise ValueError("PNG without IHDR")
     width, height, depth, color, _, _, interlace = header
-    if depth != 8 or interlace != 0 or color not in _CHANNELS:
-        return None
+    if depth not in _DEPTHS.get(color, ()) or interlace > 1:
+        raise ValueError(f"PNG with bit depth {depth}, colour type {color}, "
+                         f"interlace {interlace}: not in the standard")
     ch = _CHANNELS[color]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    img = _unfilter(raw, height, width * ch, ch).reshape(height, width, ch)
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"PNG image data: {e}") from e
+    img = np.empty((height, width, ch), np.uint16 if depth == 16
+                   else np.uint8)
+    r = _lib().png_reconstruct(raw, len(raw), width, height, depth, ch,
+                               interlace, img.ctypes.data_as(_U8P),
+                               img.nbytes)
+    if r:
+        raise ValueError(f"PNG decode failed ({_ERRORS.get(r, r)})")
     if color == 3:
         if palette is None:
             raise ValueError("palette PNG without PLTE")
         lut = np.zeros((256, 3), np.uint8)
         lut[:len(palette)] = palette[:256]
         return lut[img[..., 0]]
+    if depth == 16:
+        if like == "pil" and color == 0:
+            img = np.minimum(img, 255)
+        else:
+            img = img >> 8
+        img = img.astype(np.uint8)
+    elif depth < 8:
+        img = img * np.uint8(255 // ((1 << depth) - 1))
     if ch <= 2:
         return np.repeat(img[..., :1], 3, axis=2)
     return np.ascontiguousarray(img[..., :3])

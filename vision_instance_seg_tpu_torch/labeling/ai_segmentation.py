@@ -221,7 +221,8 @@ class SegmentationRefiner:
 
 def decode_data_url(b64: str) -> np.ndarray:
     """A base64 image, bare or as a ``data:`` URL -> (H, W, 3) uint8 RGB
-    (``decode_image``: PNG and baseline JPEG, else ``UnsupportedImage``)."""
+    (``decode_image``: every PNG and 8-bit JPEG at integral sampling, else
+    ``UnsupportedImage``)."""
     if "," in b64:
         b64 = b64.split(",", 1)[1]
     return decode_image(base64.b64decode(b64))

@@ -17,11 +17,13 @@ it; the port keeps no copy of it.
 
 Where it differs from the JAX app:
 
-- Images are decoded by ``data/loader.decode_image`` (8-bit
-  non-interlaced PNG and baseline JPEG, as PIL decodes them). An upload or
-  crop it does not take (progressive, arithmetic-coded or CMYK JPEG,
-  16-bit or interlaced PNG, another format) is answered 415 with an error
-  that names its kind; reading those without PIL is ROADMAP item M8b.
+- Images are decoded by ``data/loader.decode_image``, as PIL decodes
+  them: PNG of every bit depth and colour type, plain or Adam7, and 8-bit
+  sequential or progressive JPEG, Huffman- or arithmetic-coded, YCbCr,
+  RGB, grey, CMYK or YCCK, at any integral sampling. An upload or crop it
+  does not take (12-bit, lossless or hierarchical, 2-component or
+  fractional-sampling JPEG, another format) is answered 415 with an error
+  that names its kind; ROADMAP item M8b says why each stays refused.
 - ``/save`` writes the upload with ``data/jpeg.encode_jpeg(quality=95)``,
   where the JAX app calls PIL's ``save(..., quality=95)``: the same
   libjpeg rules (quality scaling of the Annex K tables, 4:2:0, the
