@@ -1612,20 +1612,31 @@ def fp32_parity_phase(cfg, counts: Counts, build_model, normalize_image,
         torch.cuda.synchronize()
         counts.check(counts.read(), want, f"fp32 forward {label} {tag}")
         del model
-    (a_cls, a_mask), (b_cls, b_mask) = outs["kernel"], outs["plain"]
+    _m2f_compare(outs["kernel"], outs["plain"], f"fp32 forward {label}",
+                 "kernel - plain", "the kernels' sums run in another order, "
+                 "through the backbone, 6 encoder layers and the FPN")
+
+
+def _m2f_compare(a, b, label: str, diff: str, why: str) -> None:
+    """Two Mask2Former forwards (cls, masks of every layer), gate-aware:
+    layer 0 is gate-free and must agree within 1e-4 of its largest value;
+    gated layers compare only queries whose incoming gates agree bitwise,
+    since a logit within float noise of 0 legitimately flips one gate
+    (cls within 2e-3, masks within 4e-3, at least half the query-layers
+    compared)."""
+    (a_cls, a_mask), (b_cls, b_mask) = a, b
     for name, x, y in (("cls", a_cls[0], b_cls[0]),
                        ("mask", a_mask[0], b_mask[0])):
         err = (x - y).abs().max().item()
         tol = 1e-4 * max(1.0, y.abs().max().item())
-        print(f"fp32 forward {label}, layer 0 {name} (gate-free): max "
-              f"|kernel - plain| = {err:.3e} (tolerance {tol:.3e}: the "
-              f"kernels' sums run in another order, through the backbone, 6 "
-              f"encoder layers and the FPN)", flush=True)
+        print(f"{label}, layer 0 {name} (gate-free): max |{diff}| = "
+              f"{err:.3e} (tolerance {tol:.3e}: {why})", flush=True)
         if not err <= tol:
-            raise AssertionError(f"gate-free layer 0 {name} diverges")
+            raise AssertionError(f"{label}: gate-free layer 0 {name} "
+                                 "diverges")
     hm, wm = a_mask.shape[-2:]
     level_hw = [(hm // 8, wm // 8), (hm // 4, wm // 4), (hm // 2, wm // 2)]
-    ok = torch.ones(a_cls.shape[1:3], dtype=torch.bool, device="cuda")
+    ok = torch.ones(a_cls.shape[1:3], dtype=torch.bool, device=a_cls.device)
     n_ok, worst_c, worst_m = 0, 0.0, 0.0
     for s in range(1, a_cls.shape[0]):
         hw = level_hw[(s - 1) % len(level_hw)]
@@ -1638,12 +1649,11 @@ def fp32_parity_phase(cfg, counts: Counts, build_model, normalize_image,
             worst_m = max(worst_m, (a_mask[s] - b_mask[s]).abs()[ok].max()
                           .item())
     total = (a_cls.shape[0] - 1) * ok.numel()
-    print(f"fp32 forward {label}, gated layers: {n_ok}/{total} "
-          f"query-layers with "
+    print(f"{label}, gated layers: {n_ok}/{total} query-layers with "
           f"agreeing gates; max diff there cls {worst_c:.3e} (tolerance "
           f"2e-3), mask {worst_m:.3e} (tolerance 4e-3)", flush=True)
     if not (worst_c < 2e-3 and worst_m < 4e-3 and n_ok >= total // 2):
-        raise AssertionError("gated decoder layers diverge")
+        raise AssertionError(f"{label}: gated decoder layers diverge")
 
 
 def _proposal_order(logits: torch.Tensor, num_queries: int,
@@ -3388,6 +3398,388 @@ def parallel_phase(counts: "Counts", smi: str) -> dict:
     return dict(launches=launches, nccl_ms=nccl_ms, ms_1=ms1, ms_2=ms2)
 
 
+# --------------------------------------------------- tensor parallelism
+TP = 2            # the 'model' axis of the tensor_parallel phase
+TP_BF16_STEPS = 3
+
+
+def _heads_seen(K, seen: set):
+    """build_model's ``deform_core_fn``: K1 (``ms_deform_attn``, counted
+    there) after noting the heads of the value it is given."""
+    def core(value, shapes, loc, aw):
+        seen.add(int(value.shape[2]))
+        return K.ms_deform_attn(value, shapes, loc, aw)
+    return core
+
+
+def _whole_grads(model) -> dict:
+    """Every parameter's gradient whole, in the one-process layout (a split
+    one gathered over the model axis)."""
+    from vision_instance_seg_tpu_torch.parallel import mesh as pmesh
+    from vision_instance_seg_tpu_torch.parallel import tensor
+
+    split = tensor.split_parameters(model)
+    mesh = pmesh.current()
+    out = {}
+    for n, p in model.named_parameters():
+        g = p.grad.detach()
+        if n in split:
+            g = tensor.whole(g.contiguous(), split[n][1], mesh)
+        out[n] = g.clone()
+    return out
+
+
+def tp_run(spec: dict) -> dict:
+    """One process of the tensor_parallel phase (``TP`` processes started by
+    ``parallel.launch``: gloo, all on cuda:0, ``TPU.MESH_SHAPE`` [1, TP]) or
+    the one-process run it is held to (no process group: the same config
+    runs unsharded). fp32, TF32 off, the full rate (no warm-up):
+
+    - the default ``get_cfg()`` model at full width: ``make_inference_fn``
+      on a batch of 2 at 640 px (its scores) and the serving forward's
+      every layer; one train step (drop path and random points, the
+      defaults) on a global batch of 2: its logs, its gradients and the
+      parameters after it, whole;
+    - MaskDINO R-50 4-scale at the training CLI's settings: one train step
+      with the same outputs, and its two-stage selection;
+    - the flagship (Swin window 8, the 6-layer window encoder, NHWC: K5)
+      and the full-attention encoder (K8): ``make_inference_fn`` and the
+      serving forward on one 640 px image, their K5 / K8 launches and
+      the attention layers' head counts;
+    - bf16: TP_BF16_STEPS steps of the default model, timed.
+
+    Every K1 launch goes through ``_heads_seen``; the K1 and backward
+    launches of each part are counted here. Rank 0 (or the one-process
+    run) saves its tensors to ``spec["save"]``."""
+    from vision_instance_seg_tpu_torch import engine
+    from vision_instance_seg_tpu_torch.config import get_cfg
+    from vision_instance_seg_tpu_torch.kernels import msdeform_attn as K
+    from vision_instance_seg_tpu_torch.models import (
+        build_model, make_inference_fn, normalize_image)
+    from vision_instance_seg_tpu_torch.parallel import comm, tensor
+    from vision_instance_seg_tpu_torch.parallel import mesh as pmesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, world = comm.process_index(), comm.process_count()
+    device = comm.device() or torch.device("cuda", 0)
+    seen: set = set()
+    core = _heads_seen(K, seen)
+    out = dict(rank=rank, launches={}, heads={}, step_s=[])
+    save = {}
+
+    def cfg_for(make):
+        c = make(get_cfg())
+        c.TPU.COMPUTE_DTYPE = "float32"
+        c.TPU.MESH_SHAPE = [1, TP]
+        c.SOLVER.WARMUP_ITERS = 0
+        return c
+
+    def reset():
+        K.ms_deform_attn.launches = K.ms_deform_attn_bwd.launches = 0
+        seen.clear()
+
+    def read(what: str, fwd: int, bwd: int) -> None:
+        n = (K.ms_deform_attn.launches, K.ms_deform_attn_bwd.launches)
+        if n != (fwd, bwd):
+            raise AssertionError(f"tensor_parallel rank {rank} {what}: K1 "
+                                 f"and backward launches {n}, not "
+                                 f"{(fwd, bwd)}")
+        for k, v in (("msdeform_attn_fwd", fwd), ("msdeform_attn_bwd", bwd)):
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        out["heads"][what] = sorted(seen)
+
+    def step_once(cfg, model, batch, what, fwd, bwd, hook=None):
+        picks = []
+        if hook is not None:
+            hook.register_forward_hook(
+                lambda mod, args, o: picks.append(o.detach()))
+        state = engine.create_train_state(cfg, model)
+        init = _whole_params(model)            # collectives: every rank
+        step = engine.make_train_step(cfg, model, state.optimizer)
+        reset()
+        state, logs = step(state, batch, SEED)
+        torch.cuda.synchronize(device)
+        read(what, fwd, bwd)
+        if not all(np.isfinite(v) for v in logs.values()):
+            raise AssertionError(f"tensor_parallel {what}: logs {logs}")
+        out[f"{what} logs"] = logs
+        kept = dict(init=init, grads=[_whole_grads(model)],
+                    params=_whole_params(model))
+        if rank == 0:
+            save[what] = kept
+        return picks
+
+    def _whole_params(model):
+        with tensor.gathered(model):
+            return {n: p.detach().clone()
+                    for n, p in model.named_parameters()}
+
+    # the default model: serving and one step
+    cfg = cfg_for(lambda c: c)
+    enc = int(cfg.MODEL.SEM_SEG_HEAD.TRANSFORMER_ENC_LAYERS)
+    model = build_model(cfg, device=device, seed=SEED, deform_core_fn=core)
+    infer = make_inference_fn(model, cfg)      # shards on TP processes
+    images = torch.from_numpy(np.random.default_rng(SEED + 120).integers(
+        0, 256, (TRAIN_BATCH, TRAIN_CANVAS, TRAIN_CANVAS, 3),
+        dtype=np.uint8)).to(device)
+    reset()
+    res = infer(images)
+    with torch.inference_mode():
+        fwd = model(normalize_image(images, cfg), aux_masks=True)
+    torch.cuda.synchronize(device)
+    read("default serving", 2 * enc, 0)
+    if rank == 0:
+        save["default serving"] = dict(
+            scores=res["scores"].cpu(), mask_probs=res["mask_probs"].cpu(),
+            forward=tuple(t.cpu() for t in fwd))
+    out["mesh"] = tuple(pmesh.current()[:4])
+    out["sharded"] = len(tensor.split_parameters(model))
+    batch = train_batch(cfg, SEED + 121, cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
+    step_once(cfg, model.train(), batch, "default step", enc, enc)
+    del model, infer
+    torch.cuda.empty_cache()
+
+    # MaskDINO R-50 4-scale at the training CLI's settings
+    dcfg = maskdino_train_cfg(cfg_for(lambda c: c))
+    dcfg.TPU.COMPUTE_DTYPE = "float32"
+    dcfg.SOLVER.WARMUP_ITERS = 0
+    dk1 = enc + int(dcfg.MODEL.MASK_FORMER.DEC_LAYERS) - 1
+    model = build_model(dcfg, device=device, seed=SEED, deform_core_fn=core)
+    pred = model.sem_seg_head.predictor
+    dbatch = train_batch(dcfg, SEED + 122,
+                         dcfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES)
+    picks = step_once(dcfg, model, dbatch, "MaskDINO step", dk1, dk1,
+                      hook=pred.enc_class_embed)
+    out["picks"] = _proposal_order(picks[0], pred.num_queries,
+                                   pred.num_classes,
+                                   DINO_TRAIN_LEVELS)[0].cpu().numpy()
+    del model, pred
+    torch.cuda.empty_cache()
+
+    # the flagship and the full-attention encoder: K5 / K8 on this
+    # process's heads
+    from vision_instance_seg_tpu_torch.kernels import flash_attention as FA
+    from vision_instance_seg_tpu_torch.kernels import window_attention as WA
+    counts = Counts(K, WA, FA)
+    image = torch.from_numpy(np.random.default_rng(SEED + 123).integers(
+        0, 256, (1, TRAIN_CANVAS, TRAIN_CANVAS, 3), dtype=np.uint8)).to(
+            device)
+
+    def full_encoder(c):
+        c.MODEL.SEM_SEG_HEAD.ENCODER_ATTENTION = "full"
+        return c
+
+    for what, make in (("flagship serving", lambda c: flagship_cfg(c,
+                                                                  "nhwc")),
+                       ("full encoder serving", full_encoder)):
+        c = cfg_for(make)
+        model = build_model(c, device=device, seed=SEED)
+        infer = make_inference_fn(model, c)    # shards on TP processes
+        counts.reset()
+        res = infer(image)
+        with torch.inference_mode():
+            fwd = model(normalize_image(image, c), aux_masks=True)
+        torch.cuda.synchronize(device)
+        n = {k: v for k, v in counts.read().items() if v}
+        out[f"{what} launches"] = n
+        out["launches"] = _add(out["launches"], n)
+        out[f"{what} heads"] = {
+            name: m.num_heads for name, m in model.named_modules()
+            if type(m).__name__ in ("WindowAttention", "WindowEncoderLayer",
+                                    "FullAttentionEncoderLayer")}
+        if rank == 0:
+            save[what] = dict(scores=res["scores"].cpu(),
+                              mask_probs=res["mask_probs"].cpu(),
+                              forward=tuple(t.cpu() for t in fwd))
+        del model, infer
+        torch.cuda.empty_cache()
+
+    # bf16 steps of the default model, timed
+    cfg16 = cfg.clone()
+    cfg16.TPU.COMPUTE_DTYPE = "bfloat16"
+    model = build_model(cfg16, device=device, seed=SEED, deform_core_fn=core)
+    state = engine.create_train_state(cfg16, model)
+    step = engine.make_train_step(cfg16, model, state.optimizer)
+    reset()
+    for i in range(TP_BF16_STEPS):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        state, logs = step(state, train_batch(cfg16, SEED + 130 + i,
+                                              cfg16.MODEL.SEM_SEG_HEAD
+                                              .NUM_CLASSES), SEED)
+        torch.cuda.synchronize(device)
+        out["step_s"].append(time.perf_counter() - t0)
+        if not all(np.isfinite(v) for v in logs.values()):
+            raise AssertionError(f"tensor_parallel bf16 step: logs {logs}")
+    read("default bf16 steps", enc * TP_BF16_STEPS, enc * TP_BF16_STEPS)
+    if rank == 0:
+        torch.save(save, spec["save"])
+    return out
+
+
+def _ape_check(cfg, build_model, normalize_image) -> None:
+    """One forward of a Swin-T ``MODEL.SWIN.APE`` model (M5b; the embedding
+    at PRETRAIN_IMG_SIZE 224's 56 x 56 grid, resized to the 640 px input's
+    160 x 160 by JAX's cubic) on the card, fp32 (TF32 off), against the
+    same weights on the CPU (the plain sampling core), gate-aware."""
+    c = cfg.clone()
+    c.MODEL.SWIN.APE = True
+    c.TPU.COMPUTE_DTYPE = "float32"
+    model = build_model(c, seed=SEED)
+    gen = torch.Generator().manual_seed(SEED + 140)
+    with torch.no_grad():      # an embedding that matters, not 0.02-scale
+        pos = model.backbone.absolute_pos_embed
+        pos.copy_(torch.randn(pos.shape, generator=gen))
+    images = torch.from_numpy(np.random.default_rng(SEED + 141).integers(
+        0, 256, (1, TRAIN_CANVAS, TRAIN_CANVAS, 3), dtype=np.uint8))
+    with torch.inference_mode():
+        card = model(normalize_image(images.cuda(), c), aux_masks=True)
+        cpu = model.cpu()(normalize_image(images, c), aux_masks=True)
+    _m2f_compare(tuple(t.cpu() for t in card), cpu,
+                 f"Swin-T APE forward ({tuple(pos.shape)} embedding, "
+                 f"{TRAIN_CANVAS} px)", "card - CPU",
+                 "K1 and cuBLAS against the CPU's sums")
+    del model
+
+
+def tensor_parallel_phase(cfg, build_model, normalize_image,
+                          smi: str) -> dict:
+    """Tensor parallelism over the mesh's 'model' axis (ROADMAP M6b): TP
+    gloo processes on cuda:0 (NCCL cannot put two ranks on one card) run
+    ``tp_run`` with ``TPU.MESH_SHAPE`` [1, TP], held to the same run in
+    this process: the default model's serving scores within 1e-3 (sorted)
+    and its forward gate-aware (``_m2f_compare``), each step's logs within
+    rtol 1e-3, its gradients and the parameters after it by
+    ``_params_held`` (the parallel phase's bounds); MaskDINO's two-stage
+    selection equal first. The flagship's and the full-attention encoder's
+    serving held the same way, their K5 / K8 launches equal to one
+    process's and each attention layer on heads / TP heads where TP
+    divides them. Every rank's K1 saw nh / TP heads, and its K1 and
+    backward launches are counted per part. bf16 ms/step of the default
+    model on 1 and TP processes. Then one Swin-T APE forward on
+    the card against the CPU (``_ape_check``)."""
+    from vision_instance_seg_tpu_torch.parallel.launch import launch
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    one_save = os.path.join(tmp.name, "one.pt")
+    rank0_save = os.path.join(tmp.name, "rank0.pt")
+    t0 = time.perf_counter()
+    one = tp_run({"save": one_save})
+    one_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch(tp_run, TP, args=({"save": rank0_save},), backend="gloo",
+                   devices=["cuda:0"] * TP, timeout=900)
+    tp_s = time.perf_counter() - t0
+    a = torch.load(one_save, weights_only=True)
+    b = torch.load(rank0_save, weights_only=True)
+    nh = int(cfg.MODEL.SEM_SEG_HEAD.DEFORM_NUM_HEADS)
+    dino_nh = int(maskdino_train_cfg(cfg).MODEL.MASK_FORMER.NHEADS)
+    for r in ranks:
+        if r["mesh"][:2] != (1, TP):
+            raise AssertionError(f"tensor_parallel: mesh {r['mesh']}")
+        for what, heads in r["heads"].items():
+            want = ([nh // TP] if what.startswith("default")
+                    else sorted({nh // TP, dino_nh // TP}))
+            if heads != want:
+                raise AssertionError(f"tensor_parallel rank {r['rank']} "
+                                     f"{what}: K1 saw heads {heads}, not "
+                                     f"{want}")
+        for what in ("default step", "MaskDINO step"):
+            for k, v in one[f"{what} logs"].items():
+                g = r[f"{what} logs"][k]
+                if not abs(g - v) <= 1e-3 * abs(v):
+                    raise AssertionError(f"tensor_parallel rank "
+                                         f"{r['rank']} {what} {k} {g} "
+                                         f"against one process's {v}")
+        if not np.array_equal(r["picks"], one["picks"]):
+            raise AssertionError("tensor_parallel: MaskDINO's two-stage "
+                                 "selection differs from one process's")
+    def served(what: str, label: str) -> tuple:
+        """Rank 0's serving against one process's: sorted scores within
+        1e-3, mask_probs within 1 uint8 level, the forward gate-aware."""
+        sa, sb = a[what], b[what]
+        score_err = (sa["scores"] - sb["scores"]).abs().max().item()
+        if not score_err <= 1e-3:
+            raise AssertionError(f"tensor_parallel {what}: scores differ "
+                                 f"by {score_err:.3e}")
+        level_err = int((sa["mask_probs"].int()
+                         - sb["mask_probs"].int()).abs().max())
+        if not level_err <= 1:
+            raise AssertionError(f"tensor_parallel {what}: mask_probs "
+                                 f"differ by {level_err} uint8 levels "
+                                 f"(tolerance 1)")
+        _m2f_compare(sb["forward"], sa["forward"],
+                     f"tensor_parallel {what} forward (tp {TP}, {label})",
+                     "tp - one", "row layers' partial products summed over "
+                     "the model axis")
+        return score_err, level_err
+
+    score_err, level_err = served(
+        "default serving", f"default model, batch {TRAIN_BATCH}, "
+        f"{TRAIN_CANVAS} px")
+    for what, kernel in (("flagship serving", "window_attn_k5"),
+                         ("full encoder serving", "flash_attn_fwd")):
+        s_err, l_err = served(what, f"batch 1, {TRAIN_CANVAS} px")
+        for r in ranks:
+            got, want = r[f"{what} launches"], one[f"{what} launches"]
+            if got != want or not any(k.startswith(kernel) for k in got):
+                raise AssertionError(f"tensor_parallel rank {r['rank']} "
+                                     f"{what}: launches {got}, one "
+                                     f"process's {want}")
+            whole = one[f"{what} heads"]
+            local = {m: h // TP if h % TP == 0 else h
+                     for m, h in whole.items()}
+            if r[f"{what} heads"] != local:
+                raise AssertionError(f"tensor_parallel rank {r['rank']} "
+                                     f"{what}: heads {r[f'{what} heads']}")
+        shown = sorted({f"{h} -> {local[m]}" for m, h in whole.items()})
+        print(f"tensor_parallel {what} (fp32, tp {TP} against one process, "
+              f"batch 1, {TRAIN_CANVAS} px): scores within {s_err:.3e}, "
+              f"mask_probs within {l_err} uint8 levels, forward gate-aware; "
+              f"launches a rank {ranks[0][f'{what} launches']} (as one "
+              f"process's); attention heads a rank {shown}", flush=True)
+    held = {what: _params_held(a[what], b[what])
+            for what in ("default step", "MaskDINO step")}
+    ms1 = statistics.median(one["step_s"][1:]) * 1e3
+    ms_tp = statistics.median(ranks[0]["step_s"][1:]) * 1e3
+    for what, h in held.items():
+        first = {k: float("%.6g" % v)
+                 for k, v in ranks[0][f"{what} logs"].items()}
+        print(f"tensor_parallel {what} (fp32, TF32 off, tp {TP} against one "
+              f"process): logs within rtol 1e-3 ({first}); gradients within "
+              f"{h['worst_grad']:.3e} of the largest; parameters within an "
+              f"fp32 ulp plus {h['worst']:.3e} of the largest update "
+              f"{h['update']:.4e} but at {h['amplified']} of {h['n_all']} "
+              f"elements near AdamW's eps (there up to "
+              f"{h['worst_amplified']:.3e} of it)", flush=True)
+    print(f"tensor_parallel serving (default model, tp {TP}): sorted scores "
+          f"within {score_err:.3e} of one process's (tolerance 1e-3), "
+          f"mask_probs within {level_err} uint8 levels (tolerance 1); "
+          f"MaskDINO's two-stage selection equal; split parameters per "
+          f"rank {ranks[0]['sharded']}", flush=True)
+    for r in ranks:
+        print(f"tensor_parallel rank {r['rank']}: K1 heads seen {r['heads']} "
+              f"(DEFORM_NUM_HEADS {nh}, MaskDINO NHEADS {dino_nh}); K1 and "
+              f"backward launches {r['launches']}", flush=True)
+    print(f"tensor_parallel: bf16 default model, batch {TRAIN_BATCH}, "
+          f"{TRAIN_CANVAS} px: {ms1:.3f} ms/step on 1 process, {ms_tp:.3f} "
+          f"ms/step at tp {TP} (processes sharing cuda:0 over gloo; step "
+          f"seconds {['%.4f' % t for t in ranks[0]['step_s']]}); the "
+          f"one-process run {one_s:.2f} s, the tp run {tp_s:.2f} s with its "
+          f"start; on {smi}", flush=True)
+    _ape_check(cfg, build_model, normalize_image)
+    launches = one["launches"]
+    for r in ranks:
+        launches = _add(launches, r["launches"])
+    tmp.cleanup()
+    print(f"tensor_parallel: {time.perf_counter() - t_phase:.1f} s in all",
+          flush=True)
+    return dict(launches=launches, ms_1=ms1, ms_tp=ms_tp)
+
+
 # ------------------------------- MaskDINO with the dense cross-attention
 
 DENSE_KNOBS = ("MASK_ATTN_BIAS", "DENSE_LEVEL_CYCLE", "GEO_READOUT")
@@ -4527,6 +4919,11 @@ def main() -> int:
     # data parallelism: a one-process NCCL group through train_original,
     # and two gloo processes on the card against one process (M6)
     trained.append((parallel_phase(counts, smi), {}))
+    # tensor parallelism: two gloo processes on the card, the default model
+    # and MaskDINO at nh / 2 heads, against one process (M6b); Swin APE
+    # (M5b)
+    trained.append((tensor_parallel_phase(cfg, build_model, normalize_image,
+                                          smi), {}))
 
     launches = {}
     for run, rename in served + trained:

@@ -8,8 +8,8 @@
   ``state_dict()`` -> the JAX package's ``import_full_model_weights`` gives
   back the JAX tree leaf for leaf.
 - The port imports neither JAX nor the JAX package; its entry points refuse
-  to run without CUDA unless asked for the CPU; what the slice does not carry
-  raises NotImplementedError.
+  to run without CUDA unless asked for the CPU; what the port does not carry
+  raises NotImplementedError; Swin's APE builds, serves and trains.
 """
 
 import subprocess
@@ -152,18 +152,46 @@ def test_labeling_needs_cuda_unless_asked(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("opts", [
     ["MODEL.BACKBONE.NAME", "resnet", "MODEL.RESNETS.NORM", "BN"],
-    ["MODEL.SWIN.APE", "True"],
-], ids=["resnet-batch-norm", "swin-ape"])
+], ids=["resnet-batch-norm"])
 def test_unported_options_raise(opts):
     """A ResNet norm other than FrozenBN (the JAX ResNet builds FrozenBN
-    whatever ``RESNETS.NORM`` says) and Swin's absolute position embedding
-    are not ported (``build_model`` raises)."""
+    whatever ``RESNETS.NORM`` says) is not ported (``build_model``
+    raises)."""
     cfg = tiny_cfg(get_cfg())
     cfg.merge_from_list(opts)
     with pytest.raises(NotImplementedError):
         model = build_model(cfg, device="cpu")
         state = create_train_state(cfg, model)
         make_train_step(cfg, model, state.optimizer)
+
+
+def test_swin_ape_builds_serves_and_trains():
+    """``MODEL.SWIN.APE True`` builds, serves through ``make_inference_fn``
+    and takes a step of ``make_train_step`` from ``create_train_state``:
+    finite outputs and logs, the embedding (at PRETRAIN_IMG_SIZE 224's 56 x
+    56 grid, resized to the 96 px input's 24 x 24) labelled
+    ``backbone_nodecay`` and moved by the step. (Its parity with the JAX
+    module: tests/test_torch_port_swin_ape.py.)"""
+    from test_torch_port_train import make_batch, train_cfg
+    from vision_instance_seg_tpu_torch.engine.solver import param_labels
+
+    cfg = train_cfg(get_cfg())
+    cfg.merge_from_list(["MODEL.SWIN.APE", "True"])
+    model = build_model(cfg, device="cpu")
+    pos = model.backbone.absolute_pos_embed
+    assert pos.shape == (1, 32, 56, 56)
+    assert param_labels(model)["backbone.absolute_pos_embed"] == \
+        "backbone_nodecay"
+    res = make_inference_fn(model, cfg)(images(3))
+    assert np.isfinite(res["scores"].numpy()).all()
+    before = pos.detach().clone()
+    state = create_train_state(cfg, model)
+    step = make_train_step(cfg, model, state.optimizer)
+    state, logs = step(state, make_batch(5), 0)
+    assert state.step == 1
+    assert all(np.isfinite(v) for v in logs.values())
+    assert pos.grad is not None and bool((pos.grad != 0).any())
+    assert not torch.equal(pos.detach(), before)
 
 
 def test_config_tree_matches_jax():

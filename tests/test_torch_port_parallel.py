@@ -3,7 +3,7 @@ against the JAX package's ``parallel/`` and against one process, on the CPU.
 
 - ``data_parallel_size`` equals the data axis of JAX's ``make_mesh`` on the
   conftest's 8 virtual CPU devices, for a table of (devices, batch,
-  ``MESH_SHAPE``); a model axis above 1 raises naming M6b.
+  ``MESH_SHAPE``) (with a model axis: tests/test_torch_port_tensor_parallel.py).
 - ``TrainLoader`` / ``EvalLoader`` at 2 processes give JAX's loaders'
   batches, process by process.
 - ``comm.initialize``'s no-op and error rules equal JAX's ``comm.initialize``
@@ -103,14 +103,6 @@ def test_data_axis_too_large_raises_as_make_mesh():
         make_mesh(jcfg, devices=jax.devices()[:2])
     with pytest.raises(ValueError, match="devices"):
         data_parallel_size(pcfg, 2)
-
-
-@pytest.mark.parametrize("shape", [[-1, 2], [2, 2], [1, -1]])
-def test_model_axis_raises_m6b(shape):
-    cfg = port_get_cfg()
-    cfg.TPU.MESH_SHAPE = shape
-    with pytest.raises(NotImplementedError, match="M6b"):
-        data_parallel_size(cfg, 8, 8)
 
 
 # ----------------------------------------------------------------- loaders

@@ -258,19 +258,36 @@ def _maskdino_params_and_model(freeze_at: int):
     return jcfg, shapes["params"], build_model(port_cfg(jcfg), device="cpu")
 
 
+def _ape_params_and_model():
+    """The JAX parameter shapes and the port model of the tiny config with
+    Swin's absolute position embedding (``MODEL.SWIN.APE``)."""
+    from vision_instance_seg_tpu.config import get_cfg as jax_get_cfg
+
+    jcfg = tiny_cfg(jax_get_cfg())
+    jcfg.MODEL.SWIN.APE = True
+    shapes = jax.eval_shape(jax_build_model(jcfg).init, jax.random.key(0),
+                            jnp.zeros((1, 64, 64, 3), jnp.float32))
+    pcfg = tiny_cfg(port_get_cfg())
+    pcfg.MODEL.SWIN.APE = True
+    return shapes["params"], build_model(pcfg, device="cpu")
+
+
 @pytest.mark.parametrize("model_name,freeze_at", [
-    ("default", 0), ("maskdino", 0), ("maskdino", 2)])
+    ("default", 0), ("maskdino", 0), ("maskdino", 2), ("ape", 0)])
 def test_param_labels_match_jax(setup, model_name, freeze_at):
     """Fill each JAX leaf with its own index, map the tree through
     state_dict_from_jax: each torch parameter then names its JAX leaves,
     whose JAX label must be the port's. MaskDINO R-50 4-scale at
     FREEZE_AT 0 and 2: the denoising label table takes no decay (JAX's
     ``dn_label_enc``) and the frozen stages (stem, res2) the ``frozen``
-    label. (The FrozenBN statistics are buffers of the port and not
+    label. With Swin's APE, ``absolute_pos_embed`` takes no decay (JAX's
+    ``"_embed"`` rule). (The FrozenBN statistics are buffers of the port and not
     labelled; see tests/test_torch_port_maskdino_train.py.)"""
     if model_name == "default":
         _, _, params, _ = setup
         _, model = port_train_model(params)
+    elif model_name == "ape":
+        params, model = _ape_params_and_model()
     else:
         _, params, model = _maskdino_params_and_model(freeze_at)
     tree = {"params": params}
@@ -286,6 +303,9 @@ def test_param_labels_match_jax(setup, model_name, freeze_at):
     for name, t in mapped.items():
         want = {jlabels[int(i) - 1] for i in torch.unique(t).tolist()}
         assert want == {plabels[name]}, name
+    if model_name == "ape":
+        assert plabels["backbone.absolute_pos_embed"] == "backbone_nodecay"
+        return
     if model_name == "default":
         assert plabels["backbone.patch_embed.proj.weight"] == \
             "backbone_nodecay"

@@ -47,6 +47,7 @@ import torch.distributed as dist
 
 from vision_instance_seg_tpu_torch.data import jpeg, png
 from vision_instance_seg_tpu_torch.data.transforms import EvalTransform, SampleRecord, TrainTransform
+from vision_instance_seg_tpu_torch.parallel import mesh as pmesh
 
 
 class UnsupportedImage(ValueError):
@@ -237,12 +238,14 @@ def collate(samples: List[SampleRecord]) -> Dict[str, np.ndarray]:
 def _process_info(process_index: Optional[int],
                   process_count: Optional[int]) -> tuple:
     """Resolve (index, count) for multi-process striding: the given values,
-    else ``torch.distributed``'s rank and world size once it is
-    initialised, else (0, 1)."""
+    else this process's data index and the data axis of the running mesh
+    (``parallel.mesh.current``: the processes of one data index, which
+    hold one tensor-parallel replica, read the same rows), else (0, 1)."""
     if process_count is not None:
         return int(process_index or 0), int(process_count)
     if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
+        mesh = pmesh.current()
+        return mesh.data_index, mesh.dp
     return 0, 1
 
 

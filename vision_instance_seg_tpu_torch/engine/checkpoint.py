@@ -8,7 +8,10 @@ far. It is written under a temporary name and moved into place with
 rule is the JAX module's: ``latest_checkpoint`` takes ``ckpt_final``, else
 the highest ``ckpt_<n>``, and never ``ckpt_best``. In a data-parallel run
 every process calls ``save_checkpoint``: rank 0 writes (the replicas are
-equal) and no process returns before the file is in place.
+equal) and no process returns before the file is in place. A
+tensor-parallel model is saved and loaded whole, in the one-process layout
+(``parallel.tensor.gathered``): its file loads strictly into a one-process
+model, and a one-process file resumes under tensor parallelism.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from vision_instance_seg_tpu_torch.parallel import comm
+from vision_instance_seg_tpu_torch.parallel import comm, tensor
 from vision_instance_seg_tpu_torch.utils import weights
 
 
@@ -28,14 +31,15 @@ def save_checkpoint(ckpt_dir: str, model: nn.Module,
                     optimizer: torch.optim.Optimizer, step: int,
                     best_metric: float, tag) -> str:
     path = os.path.join(os.path.abspath(ckpt_dir), f"ckpt_{tag}")
-    if comm.is_main_process():
-        os.makedirs(ckpt_dir, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save({"model": model.state_dict(),
-                    "optimizer": optimizer.state_dict(),
-                    "step": int(step), "best_metric": float(best_metric)},
-                   tmp)
-        os.replace(tmp, path)
+    with tensor.gathered(model, optimizer):
+        if comm.is_main_process():
+            os.makedirs(ckpt_dir, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            torch.save({"model": model.state_dict(),
+                        "optimizer": optimizer.state_dict(),
+                        "step": int(step),
+                        "best_metric": float(best_metric)}, tmp)
+            os.replace(tmp, path)
     comm.barrier()
     return path
 
@@ -62,8 +66,9 @@ def load_checkpoint(path: str, model: nn.Module,
     run keeps it (the moments beside their parameters on this process's
     device, AdamW's step counts on the host)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    model.load_state_dict(ckpt["model"])
-    optimizer.load_state_dict(ckpt["optimizer"])
+    with tensor.gathered(model, optimizer):
+        model.load_state_dict(ckpt["model"])
+        optimizer.load_state_dict(ckpt["optimizer"])
     return {"step": int(ckpt["step"]),
             "best_metric": float(ckpt["best_metric"])}
 
@@ -100,7 +105,13 @@ def load_pretrained_backbone(weights_path: str, model: nn.Module) -> None:
     (``_written_by_port``): that loads strictly, so a file of another
     configuration raises; any other file is an ImageNet backbone (a
     detectron2 R-50 ``.pkl``, a timm or microsoft Swin ``.pth``) for
-    ``import_backbone_weights``."""
+    ``import_backbone_weights``. A tensor-parallel model takes the whole
+    tensors, then keeps its parts."""
+    with tensor.gathered(model):
+        _load_pretrained(weights_path, model)
+
+
+def _load_pretrained(weights_path: str, model: nn.Module) -> None:
     state = weights.load_torch_state(weights_path)
     if not any(k.startswith("sem_seg_head.") for k in state):
         weights.import_backbone_weights(weights_path, model)

@@ -41,6 +41,7 @@ from vision_instance_seg_tpu_torch.data.resize import (resize_linear_f32,
                                                        warp_scale_f32)
 from vision_instance_seg_tpu_torch.evaluation.cocoeval import COCOeval
 from vision_instance_seg_tpu_torch.parallel import comm
+from vision_instance_seg_tpu_torch.parallel import mesh as pmesh
 
 logger = logging.getLogger(__name__)
 
@@ -437,8 +438,12 @@ class COCOEvaluator:
                     timing["images"] / max(timing["loop_s"], 1e-9))
         t0 = time.perf_counter()
         if comm.process_count() > 1:
-            results = [r for part in comm.all_gather_objects(results)
-                       for r in part]
+            # the processes of one data index ran the same images: take
+            # each data index's detections once (from model index 0)
+            parts = comm.all_gather_objects(
+                (pmesh.current().model_index, results))
+            results = [r for model_index, part in parts
+                       if model_index == 0 for r in part]
         metrics = self.evaluate_predictions(results)
         timing["cocoeval_s"] = time.perf_counter() - t0
         self.last_timing = timing

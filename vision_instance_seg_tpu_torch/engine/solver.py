@@ -9,17 +9,19 @@ decay folded into the gradient; the parameter groups of the JAX labels
 ``SOLVER.BACKBONE_MULTIPLIER`` on the backbone's learning rate, and the
 ResNet stages that ``MODEL.BACKBONE.FREEZE_AT`` freezes in a ``frozen``
 group that takes no update (optax's ``set_to_zero``); the gradient clipped
-by its global L2 norm with optax's formula. The learning rate of update
-``n`` (counted from 0) is ``schedule(n)``, as optax's
-``scale_by_schedule`` count gives it.
+by its global L2 norm with optax's formula (under tensor parallelism, the
+norm of the whole parameters'). The learning rate of update ``n`` (counted
+from 0) is ``schedule(n)``, as optax's ``scale_by_schedule`` count gives
+it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from vision_instance_seg_tpu_torch.models.layers import GroupNorm, LayerNorm
@@ -148,10 +150,21 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr * group["lr_scale"]
 
 
-def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """L2 norm over every gradient, a 0-d fp32 tensor on their device."""
-    return torch.linalg.vector_norm(torch.stack(
-        [n.float() for n in torch._foreach_norm(grads)]))
+def global_norm(grads: List[torch.Tensor],
+                split: Optional[Sequence[bool]] = None,
+                group=None) -> torch.Tensor:
+    """L2 norm over every gradient, a 0-d fp32 tensor on their device.
+    Under tensor parallelism ``split`` marks the gradients of this
+    process's parts of split parameters: their squares are summed over
+    ``group`` (the 'model' axis), the others' counted once."""
+    norms = torch.stack([n.float() for n in torch._foreach_norm(grads)])
+    if split is None or not any(split):
+        return torch.linalg.vector_norm(norms)
+    mask = torch.tensor(list(split), device=norms.device)
+    sq = norms * norms
+    parts = sq[mask].sum().reshape(1)
+    dist.all_reduce(parts, group=group)
+    return torch.sqrt(sq[~mask].sum() + parts[0])
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], norm: torch.Tensor,

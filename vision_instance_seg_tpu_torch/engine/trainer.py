@@ -31,6 +31,15 @@ divides by the global batch's loss normalizers, and sums the gradients
 and the logged losses over the processes in one all-reduce of a flat
 buffer, before the norm and the clip: every process then makes the same
 update, the one JAX's SPMD step makes on the global batch.
+
+Tensor parallelism (``TPU.MESH_SHAPE`` [dp, tp], tp > 1;
+``parallel/tensor.py``): ``create_train_state`` lays the processes out as
+the mesh and keeps each process's part of the split parameters (the
+optimizer's moments follow). The processes of one data index take the same
+rows and the same random draws; the gradients of whole parameters used in
+part per process are summed over the 'model' axis, every gradient over the
+data axis, and the global norm sums the split parts' squares over the
+'model' axis.
 """
 
 from __future__ import annotations
@@ -64,7 +73,10 @@ from vision_instance_seg_tpu_torch.models.criterion_dino import (
 from vision_instance_seg_tpu_torch.models.meta_arch import (
     MaskDINO, build_model, make_inference_fn, normalize_image)
 from vision_instance_seg_tpu_torch.parallel import comm
-from vision_instance_seg_tpu_torch.parallel.mesh import sharded_step
+from vision_instance_seg_tpu_torch.parallel import mesh as pmesh
+from vision_instance_seg_tpu_torch.parallel import tensor
+from vision_instance_seg_tpu_torch.parallel.mesh import (mesh_shape,
+                                                         sharded_step)
 
 logger = logging.getLogger(__name__)
 
@@ -80,8 +92,15 @@ class TrainState:
 
 def create_train_state(cfg, model: nn.Module) -> TrainState:
     """Put ``model`` (from ``build_model``) in train mode and give it the
-    optimizer of ``SOLVER``."""
+    optimizer of ``SOLVER``. With a process group running, the processes
+    are laid out as ``TPU.MESH_SHAPE``'s mesh at ``SOLVER.IMS_PER_BATCH``
+    and, on a model axis above 1, each keeps its part of the split
+    parameters (``parallel.tensor.shard_model``) before the optimizer is
+    made."""
     model.train()
+    if comm.process_count() > 1:
+        pmesh.setup(cfg, int(cfg.SOLVER.IMS_PER_BATCH))
+        tensor.shard_model(model, cfg)
     return TrainState(step=0, model=model,
                       optimizer=make_optimizer(cfg, model))
 
@@ -92,13 +111,17 @@ def step_seed(seed: int, step: int) -> int:
         1, np.uint64)[0])
 
 
-def reduce_gradients(grads: List[torch.Tensor], values: torch.Tensor
+def reduce_gradients(grads: List[torch.Tensor],
+                     values: Optional[torch.Tensor] = None, group=None
                      ) -> Tuple[List[torch.Tensor], torch.Tensor]:
-    """Sum ``grads`` and the log ``values`` (1-D) over the processes in one
-    all-reduce of a flat buffer; returns views of the summed buffer."""
-    flat = torch.cat([g.reshape(-1) for g in grads]
-                     + [values.to(grads[0].dtype)])
-    comm.all_reduce_sum(flat)
+    """Sum ``grads`` and the log ``values`` (1-D) over ``group`` (default:
+    every process) in one all-reduce of a flat buffer; returns views of
+    the summed buffer."""
+    if values is None:
+        values = grads[0].new_zeros(0)
+    flat = comm.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]
+                                         + [values.to(grads[0].dtype)]),
+                               group)
     out, offset = [], 0
     for g in grads:
         out.append(flat[offset:offset + g.numel()].view_as(g))
@@ -128,6 +151,11 @@ def make_train_step(cfg, model: nn.Module, optimizer: torch.optim.Optimizer
     max_norm = float(clip.CLIP_VALUE) if clip.ENABLED else None
     device = next(model.parameters()).device
     params = [p for g in optimizer.param_groups for p in g["params"]]
+    mesh = pmesh.current()
+    split_ids = {id(p) for p, _ in tensor.split_parameters(model).values()}
+    split = [id(p) in split_ids for p in params]
+    partial_ids = {id(p) for p in tensor.partial_parameters(model)}
+    partial = [i for i, p in enumerate(params) if id(p) in partial_ids]
 
     def to_device(x):
         return torch.as_tensor(x).to(device, non_blocking=True)
@@ -169,7 +197,7 @@ def make_train_step(cfg, model: nn.Module, optimizer: torch.optim.Optimizer
         gt_valid = torch.arange(m, device=device)[None, :] < num[:, None]
 
         group = dist.is_available() and dist.is_initialized()
-        with sharded_step(comm.process_index(), comm.process_count()):
+        with sharded_step(mesh.data_index, mesh.dp, mesh.dp_group):
             if dino:
                 total, logs = dino_loss(state.step, images, gt_classes,
                                         gt_masks, gt_valid, batch, gen)
@@ -193,11 +221,17 @@ def make_train_step(cfg, model: nn.Module, optimizer: torch.optim.Optimizer
                  for p in params]
         if group:
             with record_function("train_step.all_reduce"):
-                grads, values = reduce_gradients(grads, values)
+                if partial:      # whole parameters used per head
+                    summed, _ = reduce_gradients(
+                        [grads[i] for i in partial], group=mesh.tp_group)
+                    for i, g in zip(partial, summed):
+                        grads[i] = g
+                grads, values = reduce_gradients(grads, values,
+                                                 mesh.dp_group)
         with record_function("train_step.optimizer"):
             for p, g in zip(params, grads):
                 p.grad = g
-            norm = global_norm(grads)
+            norm = global_norm(grads, split, mesh.tp_group)
             if max_norm is not None:
                 clip_by_global_norm_(grads, norm, max_norm)
             lr = schedule(state.step)
@@ -223,19 +257,26 @@ class Trainer:
 
     With a process group running (``parallel.comm``) every process builds
     a Trainer: its model on the device ``comm.initialize`` gave it unless
-    ``device`` names one, rank 0's parameters and buffers broadcast to the
+    ``device`` names one, laid out as ``TPU.MESH_SHAPE``'s (data, model)
+    mesh (on a model axis above 1 each process keeps its part of the split
+    parameters), rank 0's whole parameters and buffers broadcast to the
     others (after building, a resume and ``MODEL.WEIGHTS``: JAX's
     ``_commit_state_to_mesh``), its loader's slice of each global batch of
-    ``SOLVER.IMS_PER_BATCH``, checkpoints written by rank 0, the eval
-    merged over the processes (so every process takes the same "best" and
-    early-stop decisions), ``metrics.json`` written by rank 0."""
+    ``SOLVER.IMS_PER_BATCH`` for its data index, checkpoints gathered
+    whole and written by rank 0, the eval merged over the data indices (so
+    every process takes the same "best" and early-stop decisions),
+    ``metrics.json`` written by rank 0."""
 
     def __init__(self, cfg, model: Optional[nn.Module] = None, device=None):
         self.cfg = cfg
         n_proc = comm.process_count()
-        if int(cfg.SOLVER.IMS_PER_BATCH) % n_proc:
-            raise ValueError(f"SOLVER.IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH}"
-                             f" does not split over {n_proc} processes")
+        if n_proc > 1:
+            dp = mesh_shape(cfg, n_proc)[0]
+            if int(cfg.SOLVER.IMS_PER_BATCH) % dp:
+                raise ValueError(
+                    f"SOLVER.IMS_PER_BATCH {cfg.SOLVER.IMS_PER_BATCH} does "
+                    f"not split over {dp} data-parallel processes")
+            pmesh.setup(cfg, int(cfg.SOLVER.IMS_PER_BATCH))
         self.model = model if model is not None else build_model(
             cfg, device=device if device is not None else comm.device(),
             seed=int(cfg.SEED))
@@ -259,10 +300,12 @@ class Trainer:
         self.last_eval_timing: Dict[str, float] = {}
 
     def _commit_state_to_ranks(self) -> None:
-        """Every process takes rank 0's parameters and buffers (the
-        optimizer state is equal already: fresh, or read from one file)."""
-        comm.broadcast_tensors(list(self.model.parameters())
-                               + list(self.model.buffers()))
+        """Every process takes rank 0's whole parameters and buffers, and
+        keeps its part of the split ones (the optimizer state is equal
+        already: fresh, or read from one file)."""
+        with tensor.gathered(self.model):
+            comm.broadcast_tensors(list(self.model.parameters())
+                                   + list(self.model.buffers()))
 
     # -------------------------------------------------- checkpoint/resume
     def checkpoint_dir(self) -> str:

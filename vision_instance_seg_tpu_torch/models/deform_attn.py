@@ -18,12 +18,18 @@ from torch import nn
 
 from vision_instance_seg_tpu_torch.kernels.msdeform_attn import (
     ms_deform_attn)
+from vision_instance_seg_tpu_torch.parallel.tensor import Unit
 
 # (value, spatial_shapes, locations, weights) -> (B, Q, nH * hd) fp32
 DeformCoreFn = Callable[..., torch.Tensor]
 
 
 class MSDeformAttn(nn.Module):
+    """Under tensor parallelism ``value_proj``, ``sampling_offsets`` and
+    ``attention_weights`` (head-major outputs) are the column layers and
+    ``output_proj`` the row layer: the sampling core runs on this
+    process's ``num_heads``."""
+
     def __init__(self, dim: int = 256, num_heads: int = 8,
                  num_levels: int = 4, num_points: int = 4,
                  core_fn: Optional[DeformCoreFn] = None,
@@ -60,24 +66,24 @@ class MSDeformAttn(nn.Module):
         nn.init.zeros_(self.attention_weights.weight)
         nn.init.zeros_(self.attention_weights.bias)
 
+    def tp_units(self):
+        return (Unit(("value_proj", "sampling_offsets", "attention_weights"),
+                     "output_proj", "num_heads"),)
+
     def forward(self, query: torch.Tensor, reference_points: torch.Tensor,
                 value: torch.Tensor,
                 spatial_shapes: Sequence[Tuple[int, int]]) -> torch.Tensor:
         """query (B, Q, C); reference_points (B, Q, L, 2) or (B, Q, L, 4)
         normalized; value (B, sum HW, C). Returns (B, Q, C)."""
-        b, q, c = query.shape
+        b, q, _ = query.shape
         nh, nl, npts = self.num_heads, self.num_levels, self.num_points
-        v = self.value_proj(value).view(b, -1, nh, c // nh)
+        v = self.value_proj(value).view(b, value.shape[1], nh, -1)
 
         # offsets and weights in fp32 whatever the compute dtype
         with torch.autocast(query.device.type, enabled=False):
             qf = query.float()
-            off = nn.functional.linear(
-                qf, self.sampling_offsets.weight, self.sampling_offsets.bias
-            ).view(b, q, nh, nl, npts, 2)
-            aw = nn.functional.linear(
-                qf, self.attention_weights.weight,
-                self.attention_weights.bias).view(b, q, nh, nl * npts)
+            off = self.sampling_offsets(qf).view(b, q, nh, nl, npts, 2)
+            aw = self.attention_weights(qf).view(b, q, nh, nl * npts)
             aw = aw.softmax(-1).view(b, q, nh, nl, npts)
             ref = reference_points.float()
             if ref.shape[-1] == 2:

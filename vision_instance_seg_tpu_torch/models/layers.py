@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vision_instance_seg_tpu_torch.parallel.mesh import draw_rows
+from vision_instance_seg_tpu_torch.parallel.tensor import Unit
 
 
 class LayerNorm(nn.LayerNorm):
@@ -116,12 +117,16 @@ class DropPath(nn.Module):
 
 
 class Mlp(nn.Module):
-    """Transformer MLP: Linear -> exact GELU -> Linear (keys fc1, fc2)."""
+    """Transformer MLP: Linear -> exact GELU -> Linear (keys fc1, fc2): a
+    Megatron pair under tensor parallelism."""
 
     def __init__(self, dim: int, hidden_dim: int, out_dim: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, out_dim)
+
+    def tp_units(self):
+        return (Unit(("fc1",), "fc2"),)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x)))

@@ -70,6 +70,7 @@ from vision_instance_seg_tpu_torch.models.layers import (
 from vision_instance_seg_tpu_torch.models.transformer_decoder import (
     MLPHead, MultiheadAttention, fp32_call, mask_from_embed)
 from vision_instance_seg_tpu_torch.parallel.mesh import draw_rows
+from vision_instance_seg_tpu_torch.parallel.tensor import Unit
 
 PRIOR_BIAS = -math.log((1 - 0.01) / 0.01)   # sigmoid prior 0.01
 
@@ -123,6 +124,9 @@ class DecoderLayer(nn.Module):
         self.linear1 = nn.Linear(dim, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, dim)
         self.norm3 = LayerNorm(dim)
+
+    def tp_units(self):
+        return (Unit(("linear1",), "linear2"),)
 
     def forward(self, x, qpos, refs, value, spatial_shapes,
                 attn_bias: Optional[torch.Tensor] = None,

@@ -33,6 +33,8 @@ from vision_instance_seg_tpu_torch.models.pixel_decoder import (
 from vision_instance_seg_tpu_torch.models.resnet import (
     build_resnet, resnet_output_channels)
 from vision_instance_seg_tpu_torch.models.swin import build_swin
+from vision_instance_seg_tpu_torch.parallel import comm, tensor
+from vision_instance_seg_tpu_torch.parallel import mesh as pmesh
 from vision_instance_seg_tpu_torch.models.transformer_decoder import (
     build_transformer_decoder)
 
@@ -309,7 +311,13 @@ def make_inference_fn(model: MaskFormer, cfg):
     MaskDINO boxes (B, K, 4) xyxy fp32 in fractions of the canvas (a corner
     may pass the edge by up to half the box) and, when
     TEST.PATCH_POSTPROCESS, patch_origin (B, K, 2) / mask_patches
-    (B, K, P, P) uint8."""
+    (B, K, P, P) uint8. With a process group running, the processes are
+    laid out as ``TPU.MESH_SHAPE``'s mesh and, on a model axis above 1,
+    the model runs tensor-parallel (``parallel.tensor.shard_model``): the
+    processes of one data index serve the same images."""
+    if comm.process_count() > 1:
+        pmesh.setup(cfg)
+        tensor.shard_model(model, cfg)
     num_classes = cfg.MODEL.SEM_SEG_HEAD.NUM_CLASSES
     topk = cfg.TEST.DETECTIONS_PER_IMAGE
     patch_size = (int(cfg.TEST.PATCH_SIZE)

@@ -41,11 +41,14 @@ from vision_instance_seg_tpu_torch.models.layers import (
 from vision_instance_seg_tpu_torch.models.swin import (
     _relative_position_index, gather_rel_bias, wants_nhwc,
     window_attention_default, window_partition, window_unpartition)
+from vision_instance_seg_tpu_torch.parallel import tensor as tp
 
 
 def conv1x1(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """A 1x1 ``nn.Conv2d`` applied to an NHWC map as the Linear it is."""
-    return F.linear(x, conv.weight[:, :, 0, 0], conv.bias)
+    """A 1x1 ``nn.Conv2d`` applied to an NHWC map as the Linear it is (a
+    weight split over the model axis gathered first)."""
+    return F.linear(x, tp.param(conv, "weight")[:, :, 0, 0],
+                    tp.param(conv, "bias"))
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
@@ -71,6 +74,9 @@ class DeformableEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(ffn_dim, dim)
         self.norm2 = LayerNorm(dim)
 
+    def tp_units(self):
+        return (tp.Unit(("linear1",), "linear2"),)
+
     def forward(self, src, pos, reference_points, spatial_shapes):
         attn = self.self_attn(src + pos, reference_points, src,
                               spatial_shapes)
@@ -84,12 +90,15 @@ class FullAttentionEncoderLayer(nn.Module):
     ``FullAttentionEncoderLayer``): q and k projected from src + pos, v
     from src, heads split to (B, nH, S, hd) and attended by ``attn_fn``
     (default ``full_attention``: K8 on CUDA, its plain version on the CPU),
-    merged, ``out_proj`` and ``norm1``; the FFN and ``norm2``."""
+    merged, ``out_proj`` and ``norm1``; the FFN and ``norm2``. Under
+    tensor parallelism q/k/v and ``out_proj`` are a Megatron pair on this
+    process's ``num_heads``, and so is the FFN."""
 
     def __init__(self, dim: int, num_heads: int, ffn_dim: int,
                  attn_fn=None):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.attn_fn = attn_fn or full_attention
         self.q_proj = nn.Linear(dim, dim)
         self.k_proj = nn.Linear(dim, dim)
@@ -100,11 +109,15 @@ class FullAttentionEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(ffn_dim, dim)
         self.norm2 = LayerNorm(dim)
 
+    def tp_units(self):
+        return (tp.Unit(("q_proj", "k_proj", "v_proj"), "out_proj",
+                        "num_heads"),
+                tp.Unit(("linear1",), "linear2"))
+
     def forward(self, src, pos, reference_points, spatial_shapes):
         del reference_points, spatial_shapes
-        b, s, c = src.shape
-        nh = self.num_heads
-        hd = c // nh
+        b, s, _ = src.shape
+        nh, hd = self.num_heads, self.head_dim
 
         def heads(t):                                 # (B, nH, S, hd) view
             return t.view(b, s, nh, hd).transpose(1, 2)
@@ -112,7 +125,7 @@ class FullAttentionEncoderLayer(nn.Module):
         qk = src + pos
         out = self.attn_fn(heads(self.q_proj(qk)), heads(self.k_proj(qk)),
                            heads(self.v_proj(src)), hd ** -0.5)
-        attn = self.out_proj(out.transpose(1, 2).reshape(b, s, c))
+        attn = self.out_proj(out.transpose(1, 2).reshape(b, s, nh * hd))
         src = self.norm1(src + attn)
         y = self.linear2(F.relu(self.linear1(src)))
         return self.norm2(src + y)
@@ -137,7 +150,9 @@ class WindowEncoderLayer(nn.Module):
     ``attn_fn`` picks the attention as in the JAX layer: None runs the plain
     path; a ``wants_nhwc`` function (K5 split, ws % 8 == 0) gets the q, k, v
     maps with ``pad_hw``; any other gets token-major (nWt, nH, N, hd) q/k/v
-    and the pad + shift mask tensor (K4a).
+    and the pad + shift mask tensor (K4a). Under tensor parallelism q/k/v
+    and ``out_proj`` are a Megatron pair on this process's ``num_heads``
+    (and its columns of the relative-position table), and so is the FFN.
     """
 
     def __init__(self, dim: int, num_heads: int, ffn_dim: int,
@@ -145,6 +160,7 @@ class WindowEncoderLayer(nn.Module):
                  attn_fn=None):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.window_size = window_size
         self.shift = window_size // 2 if shift else 0
         self.attn_fn = attn_fn
@@ -165,13 +181,19 @@ class WindowEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(ffn_dim, dim)
         self.norm3 = LayerNorm(dim)
 
+    def tp_units(self):
+        return (tp.Unit(("q_proj", "k_proj", "v_proj"), "out_proj",
+                        "num_heads", (("relative_position_bias_table", 1),)),
+                tp.Unit(("linear1",), "linear2"))
+
     def _attend_level(self, xq, xv, h: int, w: int,
                       rel_bias: torch.Tensor) -> torch.Tensor:
-        """Padded, rolled (B, Hp, Wp, C) maps of one level -> (B, Hp, Wp, C)
-        attention output."""
-        b, hp, wp, c = xq.shape
+        """Padded, rolled (B, Hp, Wp, C) maps of one level -> (B, Hp, Wp, C')
+        attention output (C' = this process's heads' channels)."""
+        b, hp, wp, _ = xq.shape
         ws, shift, nh = self.window_size, self.shift, self.num_heads
-        hd, n = c // nh, ws * ws
+        hd, n = self.head_dim, ws * ws
+        c = nh * hd
         fn = self.attn_fn
         if wants_nhwc(fn, ws):
             return fn(self.q_proj(xq), self.k_proj(xq), self.v_proj(xv),
@@ -197,8 +219,9 @@ class WindowEncoderLayer(nn.Module):
         del reference_points
         b, _, c = src.shape
         ws, shift = self.window_size, self.shift
-        rel_bias = gather_rel_bias(self.relative_position_bias_table,
-                                   self.relative_position_index)
+        rel_bias = gather_rel_bias(
+            tp.param(self, "relative_position_bias_table"),
+            self.relative_position_index)
         qk_src = src + pos
         outs, offset = [], 0
         for h, w in spatial_shapes:
@@ -214,7 +237,7 @@ class WindowEncoderLayer(nn.Module):
             o = self._attend_level(xq, xv, h, w, rel_bias)
             if shift:
                 o = torch.roll(o, (shift, shift), (1, 2))
-            outs.append(o[:, :h, :w].reshape(b, h * w, c))
+            outs.append(o[:, :h, :w].reshape(b, h * w, -1))
         src = self.norm1(src + self.out_proj(torch.cat(outs, 1)))
 
         maps, offset = [], 0

@@ -26,6 +26,15 @@ Parameter names are the same on every path. ``use_checkpoint``
 block in the backward (``torch.utils.checkpoint``), as ``jax.checkpoint``
 does in the JAX package; drop-path masks are drawn before the checkpointed
 region from the train step's generator, so the recompute sees the same ones.
+
+``ape`` (``MODEL.SWIN.APE``) adds the absolute position embedding after
+``patch_norm``: the parameter ``absolute_pos_embed``, (1, C, P, P) with P =
+``pretrain_img_size // patch_size`` (the detection fork's NCHW layout, so an
+upstream checkpoint loads as it is), resized to the patch grid as the JAX
+package resizes it: ``jax.image.resize(..., "bicubic")``, Keys' cubic with a
+= -0.5, half-pixel centres, the kernel widened by the shrink factor when the
+grid shrinks (``cubic_resize_weights``). ``F.interpolate``'s bicubic (a =
+-0.75, no antialias) would give other positions.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from vision_instance_seg_tpu_torch.kernels.window_attention import (
     window_mask)
 from vision_instance_seg_tpu_torch.models.layers import (
     DropPath, LayerNorm, Mlp)
+from vision_instance_seg_tpu_torch.parallel import tensor as tp
 
 
 def _relative_position_index(ws: int) -> torch.Tensor:
@@ -100,7 +110,8 @@ def wants_nhwc(attn_fn, window_size: int) -> bool:
 
 class WindowAttention(nn.Module):
     """W-MSA / SW-MSA with relative position bias (keys qkv, proj,
-    relative_position_bias_table)."""
+    relative_position_bias_table). Under tensor parallelism ``num_heads``
+    counts this process's heads."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  qkv_bias: bool = True, qk_scale: float = 0.0,
@@ -118,19 +129,23 @@ class WindowAttention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
+    def tp_units(self):
+        return (tp.Unit(("qkv",), "proj", "num_heads",
+                        (("relative_position_bias_table", 1),)),)
+
     def rel_bias(self) -> torch.Tensor:
-        return gather_rel_bias(self.relative_position_bias_table,
+        return gather_rel_bias(tp.param(self, "relative_position_bias_table"),
                                self.relative_position_index)
 
     def forward(self, x: torch.Tensor, mask, num_windows: int,
                 geometry=None) -> torch.Tensor:
         """x: (nW_total, N, C) windows; mask: (nW, N, N) additive or None;
         ``geometry`` (Hp, Wp, ws, shift) for a ``wants_geometry`` fn."""
-        nwt, n, c = x.shape
+        nwt, n, _ = x.shape
         nh = self.num_heads
         fn = None if getattr(self.attn_fn, "wants_nhwc", False) \
             else self.attn_fn
-        qkv = self.qkv(x).view(nwt, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
+        qkv = self.qkv(x).view(nwt, n, 3, nh, -1).permute(2, 0, 3, 1, 4)
         if fn is None:
             q, k, v = qkv                                # (nWt, nH, N, hd)
             out = window_attention_default(q, k, v, self.rel_bias(), mask,
@@ -143,7 +158,7 @@ class WindowAttention(nn.Module):
             else:
                 out = fn(q, k, v, self.rel_bias(), mask, self.scale,
                          num_windows)
-        return self.proj(out.transpose(1, 2).reshape(nwt, n, c))
+        return self.proj(out.transpose(1, 2).reshape(nwt, n, -1))
 
     def forward_nhwc(self, x: torch.Tensor, geometry) -> torch.Tensor:
         """x: the padded, rolled (B, Hp, Wp, C) map -> the same map after
@@ -151,6 +166,50 @@ class WindowAttention(nn.Module):
         out = self.attn_fn(self.qkv(x), self.rel_bias(), self.scale,
                            geometry)
         return self.proj(out)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic kernel, a = -0.5, of |distance| ``x``."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
+def cubic_resize_weights(in_size: int, out_size: int,
+                         device=None) -> torch.Tensor:
+    """(in_size, out_size) fp32 weights of ``jax.image.resize``'s bicubic
+    along one axis (``scale_and_translate``'s ``compute_weight_mat`` with
+    antialias): sample centres (j + 0.5) * in / out - 0.5, the kernel
+    widened by in / out when shrinking, each column normalized by its sum
+    and zeroed where its sample falls outside the input."""
+    inv_scale = 1.0 / (out_size / in_size)
+    kernel_scale = max(inv_scale, 1.0)
+    sample = ((torch.arange(out_size, dtype=torch.float32, device=device)
+               + 0.5) * inv_scale - 0.5)
+    src = torch.arange(in_size, dtype=torch.float32, device=device)
+    w = _keys_cubic((sample[None, :] - src[:, None]).abs() / kernel_scale)
+    total = w.sum(0, keepdim=True)
+    eps = float(np.finfo(np.float32).eps)
+    w = torch.where(total.abs() > 1000.0 * eps,
+                    w / torch.where(total != 0, total, torch.ones_like(total)),
+                    torch.zeros_like(w))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], w, torch.zeros_like(w))
+
+
+def resize_pos_embed(pos: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(1, C, P, P') NCHW embedding -> (1, h, w, C) NHWC on the patch grid,
+    by ``cubic_resize_weights`` along each axis that changes size (an axis
+    of the same size is left as it is, as ``jax.image.resize`` leaves it)."""
+    _, _, p, q = pos.shape
+    x = pos.float()
+    if p != h:
+        x = torch.einsum("bcpq,ph->bchq", x,
+                         cubic_resize_weights(p, h, pos.device))
+    if q != w:
+        x = torch.einsum("bchq,qw->bchw", x,
+                         cubic_resize_weights(q, w, pos.device))
+    return x.permute(0, 2, 3, 1)
 
 
 class SwinBlock(nn.Module):
@@ -249,7 +308,8 @@ class SwinTransformer(nn.Module):
                  window_size: int = 7, patch_size: int = 4,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: float = 0.0, drop_path_rate: float = 0.3,
-                 patch_norm: bool = True,
+                 patch_norm: bool = True, ape: bool = False,
+                 pretrain_img_size: int = 224,
                  out_features: Sequence[str] = ("res2", "res3", "res4",
                                                 "res5"),
                  use_checkpoint: bool = False, attn_fn=None):
@@ -258,6 +318,14 @@ class SwinTransformer(nn.Module):
         self.use_checkpoint = use_checkpoint
         self.out_features = tuple(out_features)
         self.patch_embed = _PatchEmbed(patch_size, embed_dim, patch_norm)
+        if ape:
+            grid = pretrain_img_size // patch_size
+            self.absolute_pos_embed = nn.Parameter(
+                torch.zeros(1, embed_dim, grid, grid))
+            nn.init.trunc_normal_(self.absolute_pos_embed, std=0.02,
+                                  a=-0.04, b=0.04)
+        else:
+            self.absolute_pos_embed = None
         dpr = np.linspace(0, drop_path_rate, sum(depths)).tolist()
         stages, blk_i = [], 0
         for s, depth in enumerate(depths):
@@ -289,6 +357,10 @@ class SwinTransformer(nn.Module):
         x = self.patch_embed.proj(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
         if self.patch_embed.norm is not None:
             x = self.patch_embed.norm(x)
+        if self.absolute_pos_embed is not None:
+            pos = resize_pos_embed(self.absolute_pos_embed, x.shape[1],
+                                   x.shape[2])
+            x = x + pos.to(x.dtype)
         outs = {}
         for s, stage in enumerate(self.layers):
             for blk in stage.blocks:
@@ -303,15 +375,12 @@ class SwinTransformer(nn.Module):
 
 def build_swin(cfg, attn_fn=None) -> SwinTransformer:
     s = cfg.MODEL.SWIN
-    if s.APE:
-        raise NotImplementedError(
-            "MODEL.SWIN.APE: the absolute position embedding is not ported "
-            "yet (no published Swin detection config uses it)")
     return SwinTransformer(
         embed_dim=s.EMBED_DIM, depths=tuple(s.DEPTHS),
         num_heads=tuple(s.NUM_HEADS), window_size=s.WINDOW_SIZE,
         patch_size=s.PATCH_SIZE, mlp_ratio=s.MLP_RATIO, qkv_bias=s.QKV_BIAS,
         qk_scale=s.QK_SCALE, drop_path_rate=s.DROP_PATH_RATE,
-        patch_norm=s.PATCH_NORM, out_features=tuple(s.OUT_FEATURES),
+        patch_norm=s.PATCH_NORM, ape=bool(s.APE),
+        pretrain_img_size=int(s.PRETRAIN_IMG_SIZE), out_features=tuple(s.OUT_FEATURES),
         use_checkpoint=bool(s.USE_CHECKPOINT or cfg.TPU.REMAT_BACKBONE),
         attn_fn=attn_fn)

@@ -25,6 +25,7 @@ from torch import nn
 from vision_instance_seg_tpu_torch.models.layers import (
     LayerNorm, position_embedding_sine, resize_bilinear_2tap)
 from vision_instance_seg_tpu_torch.models.pixel_decoder import conv1x1
+from vision_instance_seg_tpu_torch.parallel import tensor as tp
 
 
 class MultiheadAttention(nn.Module):
@@ -35,16 +36,27 @@ class MultiheadAttention(nn.Module):
     in fp32, as the JAX module's ``preferred_element_type=float32`` does;
     otherwise the product is rounded to the compute dtype before the bias
     is added. MaskDINO's dense cross-attention sets it: its Gaussian box
-    bias spans ~13k keys, where bf16 logits would round it away."""
+    bias spans ~13k keys, where bf16 logits would round it away.
+
+    Under tensor parallelism the q/k/v thirds of ``in_proj_*`` and
+    ``out_proj`` are a Megatron pair on this process's ``num_heads``; the
+    dense cross-attention, whose geometry readout feeds every head to one
+    box head, gathers its weights instead."""
 
     def __init__(self, dim: int, num_heads: int, fp32_logits: bool = False):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.fp32_logits = fp32_logits
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
         nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def tp_units(self):
+        if self.fp32_logits:
+            return ()
+        return (tp.Unit(("in_proj_weight",), "out_proj", "num_heads"),)
 
     def forward(self, q, k, v, attn_bias: Optional[torch.Tensor] = None,
                 key_xy: Optional[torch.Tensor] = None):
@@ -53,10 +65,13 @@ class MultiheadAttention(nn.Module):
         coordinates, also returns ``geo`` (B, Q, nH, 4) fp32: each head's
         attention centroid E[xy] and spread sqrt(max(Var[xy], 0) + 1e-6),
         from the attention as the value product sees it."""
-        b, nq, c = q.shape
-        nh = self.num_heads
-        hd = c // nh
-        w, bias = self.in_proj_weight, self.in_proj_bias
+        b, nq, _ = q.shape
+        nh, hd = self.num_heads, self.head_dim
+        c = nh * hd                             # this process's channels
+        w = tp.param(self, "in_proj_weight")
+        bias = tp.param(self, "in_proj_bias")
+        if getattr(self, "tp_mode", None) == "heads":
+            q, k, v = (tp.copy_to_model(t) for t in (q, k, v))
         qp = F.linear(q, w[:c], bias[:c]).view(b, nq, nh, hd).transpose(1, 2)
         kp = F.linear(k, w[c:2 * c], bias[c:2 * c]).view(
             b, -1, nh, hd).transpose(1, 2)
@@ -83,7 +98,8 @@ class MultiheadAttention(nn.Module):
 
 
 class MLPHead(nn.Module):
-    """N-layer MLP, ReLU between layers (keys ``layers.{j}``)."""
+    """N-layer MLP, ReLU between layers (keys ``layers.{j}``); its first
+    two layers are a Megatron pair under tensor parallelism."""
 
     def __init__(self, dim: int, hidden_dim: int, out_dim: int,
                  num_layers: int = 3):
@@ -91,6 +107,10 @@ class MLPHead(nn.Module):
         dims = [dim] + [hidden_dim] * (num_layers - 1) + [out_dim]
         self.layers = nn.ModuleList(nn.Linear(a, b_)
                                     for a, b_ in zip(dims[:-1], dims[1:]))
+
+    def tp_units(self):
+        return (tp.Unit(("layers.0",), "layers.1"),) \
+            if len(self.layers) > 1 else ()
 
     def forward(self, x):
         for i, layer in enumerate(self.layers):
@@ -119,6 +139,9 @@ class _FFNLayer(nn.Module):
         self.linear1 = nn.Linear(dim, ffn_dim)
         self.linear2 = nn.Linear(ffn_dim, dim)
         self.norm = LayerNorm(dim)
+
+    def tp_units(self):
+        return (tp.Unit(("linear1",), "linear2"),)
 
     def forward(self, x):
         return self.norm(x + self.linear2(F.relu(self.linear1(x))))

@@ -28,9 +28,10 @@ import torch
 import torch.distributed as dist
 
 _LAUNCHER_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE")
-# the device that ``initialize`` gave this process (its process group is
-# torch.distributed's, per process too)
-_STATE = {"device": None}
+# the device that ``initialize`` gave this process and the (data, model)
+# mesh ``parallel.mesh.setup`` laid its group out as (the process group
+# is torch.distributed's, per process too)
+_STATE = {"device": None, "mesh": None}
 
 
 def launched_by_env() -> bool:
@@ -100,6 +101,12 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _STATE["device"] = None
+    _STATE["mesh"] = None
+
+
+def state() -> dict:
+    """This process's communication state (``device``, ``mesh``)."""
+    return _STATE
 
 
 def process_count() -> int:
@@ -137,11 +144,11 @@ def all_gather_objects(obj: Any) -> List[Any]:
     return out
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the processes, in place (a collective whenever a
-    group runs, of one process too)."""
+def all_reduce_sum(t: torch.Tensor, group: Any = None) -> torch.Tensor:
+    """``t`` summed over the processes of ``group`` (default: all), in
+    place (a collective whenever a group runs, of one process too)."""
     if dist.is_initialized():
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
     return t
 
 

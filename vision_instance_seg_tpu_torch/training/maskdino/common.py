@@ -7,11 +7,14 @@ as the JAX CLIs build, key for key), applies free-form ``opts``, and picks
 the device. Every CLI runs on CUDA unless it is given ``--device cpu``.
 
 Data parallelism: the training CLIs take the reference's
-``--num-gpus/--num-machines/--machine-rank/--dist-url`` and run on
-``parallel.mesh.data_parallel_size`` processes a machine, one per card
+``--num-gpus/--num-machines/--machine-rank/--dist-url`` and run on the
+processes of ``parallel.mesh.mesh_shape`` a machine, one per card
 (``run_cli``), started here by ``parallel.launch`` or by a launcher such as
 torchrun (its environment); every CLI joins a process group that a
-launcher set up (``bootstrap_distributed``).
+launcher set up (``bootstrap_distributed``). A model axis in
+``TPU.MESH_SHAPE`` (trailing opts or a config file, e.g. ``TPU.MESH_SHAPE
+"[1, 2]"``) runs the model tensor-parallel over that many processes of
+each data index, where the JAX CLI's mesh would.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ from vision_instance_seg_tpu_torch.data.catalog import (DatasetCatalog,
 from vision_instance_seg_tpu_torch.data.coco import load_coco_json
 from vision_instance_seg_tpu_torch.parallel import comm
 from vision_instance_seg_tpu_torch.parallel.launch import launch
-from vision_instance_seg_tpu_torch.parallel.mesh import data_parallel_size
+from vision_instance_seg_tpu_torch.parallel.mesh import mesh_shape
 
 DEFAULT_DATA_ROOT = os.environ.get("VIST_DATA_ROOT", "./data")
 
@@ -87,17 +90,20 @@ def bootstrap_distributed(dist_url: str | None = None,
 
 
 def local_processes(cfg, device) -> int:
-    """Processes this machine runs: ``data_parallel_size`` of the cards
-    present (``TPU.MESH_SHAPE``'s data axis, -1 = all, set from
-    ``--num-gpus``) at ``SOLVER.IMS_PER_BATCH``. The CPU has as many
-    devices as the data axis asks for (one for -1)."""
+    """Processes this machine runs: the (data, model) mesh of
+    ``mesh_shape`` on the cards present (``TPU.MESH_SHAPE``'s data axis, -1
+    = all, set from ``--num-gpus``) at ``SOLVER.IMS_PER_BATCH``, data x
+    model. The CPU has as many devices as the mesh asks for (a data axis of
+    -1 counting one)."""
     device = torch.device(device)
     if device.type == "cuda":
         present = torch.cuda.device_count()
     else:
-        data = int(cfg.TPU.MESH_SHAPE[list(cfg.TPU.MESH_AXES).index("data")])
-        present = max(data, 1)
-    return data_parallel_size(cfg, present, int(cfg.SOLVER.IMS_PER_BATCH))
+        present = 1
+        for size in cfg.TPU.MESH_SHAPE:
+            present *= max(int(size), 1)
+    dp, tp = mesh_shape(cfg, present, int(cfg.SOLVER.IMS_PER_BATCH))
+    return dp * tp
 
 
 def rank_device(name: str) -> torch.device:

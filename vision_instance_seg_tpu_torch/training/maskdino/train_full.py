@@ -43,7 +43,8 @@ def build_cfg(args, train_name: str, test_name: str):
                     lr=args.lr, max_iter=args.max_iter,
                     amp=not args.no_amp, weights=args.weights,
                     opts=args.opts)
-    cfg.TPU.MESH_SHAPE = [int(args.num_chips), 1]
+    cfg.TPU.MESH_SHAPE = [int(args.num_chips),
+                          int(cfg.TPU.MESH_SHAPE[1])]
     return cfg
 
 

@@ -71,8 +71,11 @@ def build_cfg(args):
                     lr=args.lr, max_iter=args.max_iter,
                     amp=not args.no_amp, weights=args.weights,
                     opts=args.opts)
-    # --num-gpus: the data axis, as JAX's train_experiments records it
-    cfg.TPU.MESH_SHAPE = [int(args.num_chips), 1]
+    # --num-gpus: the data axis, as JAX's train_experiments records it;
+    # the model axis stays as the opts or a config file set it (JAX's
+    # train_original and train_full leave the mesh to them)
+    cfg.TPU.MESH_SHAPE = [int(args.num_chips),
+                          int(cfg.TPU.MESH_SHAPE[1])]
     return cfg
 
 

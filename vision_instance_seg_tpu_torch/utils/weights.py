@@ -28,7 +28,9 @@ restacking), so one set of weights runs in both packages:
   self-attention's do, and its ``kpos_level_embed``,
   ``layer{i}_xattn_log_sigma`` and ``geo_box_head`` become
   ``kpos_level_embed``, ``decoder.layers.{i}.xattn_log_sigma`` and
-  ``decoder.geo_box_head``.
+  ``decoder.geo_box_head``;
+- Swin's ``absolute_pos_embed`` (1, P, P, C) becomes the detection fork's
+  (1, C, P, P).
 
 The JAX tree comes as nested dicts of numpy arrays: ``params``, or the full
 variables ``{"params": ..., "frozen": ...}`` (a ResNet needs the second).
@@ -171,6 +173,7 @@ def _maskdino_name(mod: str) -> str:
 
 
 _ROOT_LEAVES = {
+    ("backbone", "absolute_pos_embed"): "absolute_pos_embed",
     ("pixel_decoder", "level_embed"): "transformer.level_embed",
     ("predictor", "query_feat"): "query_feat.weight",
     ("predictor", "query_embed"): "query_embed.weight",
@@ -231,6 +234,8 @@ def state_dict_from_jax(variables: Any) -> Dict[str, torch.Tensor]:
         qkv: Dict[Tuple[str, str], Dict[str, np.ndarray]] = {}
         for path, v in flat.items():
             if len(path) == 1:
+                if path[0] == "absolute_pos_embed":     # NHWC -> NCHW
+                    v = v.transpose(0, 3, 1, 2)
                 sd[prefix + _root_leaf(sub, path[0])] = v
                 continue
             mod, leaf = "/".join(path[:-1]), path[-1]
